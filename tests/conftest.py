@@ -11,6 +11,10 @@ def pytest_configure(config):
         "requires_accelerator: compiled-mode (non-interpret) kernel tests; "
         "auto-skipped when no TPU/GPU is present so the CPU CI lane stays "
         "green while the suite runs unchanged on real hardware")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's CUDA kernels have no CPU "
+        "mode); the test skips itself when torch sees no card")
 
 
 def pytest_collection_modifyitems(config, items):

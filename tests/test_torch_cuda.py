@@ -1,0 +1,67 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Needs torch built with CUDA and a card; it needs no JAX, so it runs on the
+GPU machine too (``PYTHONPATH=src python -m pytest -q -m cuda
+tests/test_torch_cuda.py``). Elsewhere the test skips itself. Every
+comparison is exact: all results are integers."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import launch_counts, ref  # noqa: E402
+from repro_torch.kernels.join_probe import (probe_sorted,  # noqa: E402
+                                            scan_probe)
+from repro_torch.kernels.triple_scan import (triple_scan,  # noqa: E402
+                                             triple_scan_many)
+
+PATTERNS = [(-1, 3, -1), (7, -1, -1), (-1, -1, -1), (1, 2, 3), (-1, 4, 9)]
+# -1 padding and probes outside the key range
+EDGE_PROBES = np.asarray([-1, -1, -10, 0, 59, 60, 10 ** 6, 2 ** 31 - 1],
+                         np.int32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+
+def _eq(got, want):
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    """Each CUDA kernel equals its plain version on the card, edge cases
+    included, and counts its launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import reset_launch_counts
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    reset_launch_counts()
+    for T in (1, 257, 5000):
+        tri = _t(rng.integers(0, 40, (T, 3))).to(dev)
+        for K in (0, 1, 300, 1000):
+            keys = _t(np.sort(rng.integers(0, 40, K)) if K != 1000
+                      else np.full(K, 7)).to(dev)     # one long run
+            for pat in PATTERNS:
+                _eq(triple_scan(tri, pat).cpu(),
+                    ref.triple_scan_reference(tri, *pat).cpu())
+                for col in (0, 2):
+                    for g, w in zip(scan_probe(tri, pat, keys, col),
+                                    ref.scan_probe_reference(tri, *pat, keys,
+                                                             col)):
+                        _eq(g.cpu(), w.cpu())
+            probes = _t(np.concatenate([rng.integers(-5, 50, 200),
+                                        EDGE_PROBES])).to(dev)
+            for g, w in zip(probe_sorted(keys, probes),
+                            ref.probe_sorted_reference(keys, probes)):
+                _eq(g.cpu(), w.cpu())
+        pats = _t(rng.integers(-1, 40, (1100, 3))).to(dev)
+        _eq(triple_scan_many(tri, pats).cpu(),
+            ref.triple_scan_many_reference(tri, pats).cpu())
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in ("triple_scan", "triple_scan_many",
+                                       "probe_sorted_many", "scan_probe"))
