@@ -1,19 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's SPARQL serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --lm-only --prefill-seq 4096 --decode-cache 4096
+                                     # LM phase alone, short (kernel edits)
 
-1. Builds the CUDA kernels of ``src/repro_torch/csrc`` with ``nvcc``.
-2. Serving, full size: a WatDiv-like graph of about 10M triples
+1. Builds the CUDA kernels of ``src/repro_torch/csrc`` with ``nvcc``, one
+   process per source, all started together.
+2. SPARQL serving, full size: a WatDiv-like graph of about 10M triples
    (``generate_watdiv_like(scale=1000)``) behind ``repro_torch.SparqlEndpoint``
    on ``cuda``; one cold and one warm ``query_many`` over a query mix, every
    answer held against the port's ``NumpyBackend`` as multisets, the host
    transfer contract (2 cold, 0 warm), every kernel launched at least once,
    and ``MatchCapacityError`` on both backends for a star2 query.
 3. The same on a 4-shard store at scale 100.
-4. Each kernel held against its plain torch version on the card at the
-   serving shapes and on edge cases (exact equality: all results are
+4. Each query kernel held against its plain torch version on the card at
+   the serving shapes and on edge cases (exact equality: all results are
    integers), and timed beside its bound.
+5. LM serving, qwen3-0.6b at full width (random weights from ``--seed``):
+   full-width float32 prefill and decode on the card against the same
+   weights on the CPU; a bf16 prefill of 32,768 tokens; 64 greedy bf16
+   decode steps of 8 sequences against a 32,768-position KV cache; decode
+   logits against prefill logits on a short prompt; ``flash_attention``
+   and ``decode_attention`` held against their plain versions (qwen3 and
+   gemma2 head shapes, ragged lengths, GQA groups) and timed beside their
+   bounds at the serving shapes.
 
 Fails (non-zero exit, no result line) on any mismatch or exception, and
 when CUDA is not available. The last line is
@@ -51,6 +62,32 @@ REPLACES = {
     "probe_sorted_many": "src/repro/kernels/join_probe.py:96",
     "scan_probe": "src/repro/kernels/join_probe.py:184",
 }
+LM_ARCH = "qwen3-0.6b"
+# batch cuts of the registry's prefill_32k (32 -> 1: 32 sequences' logits
+# alone are 319 GB) and decode_32k (128 -> 8: 128 caches are 481 GB)
+PREFILL_BATCH = 1
+DECODE_BATCH = 8
+PREFILL_WARM = 4096          # tokens of the untimed first prefill
+CONSISTENCY_PROMPT = 64      # tokens of the decode-vs-prefill check
+ATTN_SOURCE = "src/repro_torch/csrc/attention_kernels.cu"
+LM_REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:112",
+    "decode_attention": "src/repro/kernels/decode_attention.py:111",
+}
+# dense bf16 tensor-core peak of the H100 SXM (NVIDIA data sheet), FLOP/s
+BF16_OPS_PER_S = 989e12
+# kernel against plain version, per element and by dtype: |kernel - plain|
+# <= atol + rtol * |plain|. Both sum in float32 (in another order) and
+# round once to the output's dtype, so bfloat16 adds at most one unit in
+# the last place, 2^-7 of |plain|; atol covers the float32 sums (about
+# 1e-6 apart on an H100).
+ATTN_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
+# f32 card-vs-CPU logits and bf16 decode-vs-prefill logits, relative to
+# max(1, max |logit|); each run also reads a control (TF32 matmuls; the
+# current token left out of decode attention) that must exceed its limit
+MODEL_TOL = 2e-5
+CONSISTENCY_TOL = 0.05
+PLANTED_DROP = 64            # keys a planted attention fault leaves out
 
 
 def log(msg: str) -> None:
@@ -127,8 +164,8 @@ def serve(store, dictionary, texts: list[str], capacity_text: str,
     ep.query_many(texts)
     _sync(device)
     recold_s = time.perf_counter() - t0
-    profile = (device_profile(ep, texts) if backend.device.type == "cuda"
-               else None)
+    profile = (device_profile(lambda: _steady_cold(ep, texts))
+               if backend.device.type == "cuda" else None)
 
     t0 = time.perf_counter()
     want = ref.query_many(texts)
@@ -170,18 +207,17 @@ def serve(store, dictionary, texts: list[str], capacity_text: str,
     }
 
 
-def device_profile(ep, texts: list[str]) -> dict:
-    """Device time of one steady cold batch under ``torch.profiler``: the
-    sum over kernels and copies, its share of the batch's wall time (which
-    the profiler itself inflates), and the largest items."""
+def device_profile(fn) -> dict:
+    """Device time of one ``fn()`` under ``torch.profiler``: the sum over
+    kernels and copies, its share of the call's wall time (which the
+    profiler itself inflates), and the largest items."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    ep.clear_cache()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ep.query_many(texts)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     items = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
@@ -191,6 +227,11 @@ def device_profile(ep, texts: list[str]) -> dict:
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms,
             "top": [[key[:60], ms, n] for ms, key, n in items[:8]]}
+
+
+def _steady_cold(ep, texts: list[str]) -> None:
+    ep.clear_cache()
+    ep.query_many(texts)
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +403,491 @@ def kernel_phase(store, dictionary, backend, serving: dict,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# LM serving phase
+# ---------------------------------------------------------------------------
+
+
+def _tokens(seed: int, shape: tuple[int, ...], vocab: int, device):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, vocab, shape, generator=g).to(device)
+
+
+def _params_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _params_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _peak_gb(device) -> float | None:
+    import torch
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _reset_peak(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def lm_model_check(cfg, seed: int, device, prompt: int = 128,
+                   steps: int = 16, ref_device="cpu") -> dict:
+    """Float32 weights from ``seed``: a prefill of ``prompt`` tokens and
+    ``steps`` decode steps from an empty cache on ``device`` (through the
+    kernels on a card), then the same weights and tokens on ``ref_device``
+    (the plain versions on the CPU). ok when every logit is finite and
+    max |diff| <= MODEL_TOL * max(1, max |logit|). On a card the control
+    runs the card side again with TF32 matmuls; ok also needs its diff
+    above the limit, or the check could not see such a fault."""
+    import torch
+    from repro_torch.models.transformer import (init_kv_cache, init_lm_params,
+                                                lm_decode_step, lm_prefill)
+    dev = torch.device(device)
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), torch.float32, dev)
+    tokens = _tokens(seed, (1, prompt), cfg.vocab, "cpu")
+
+    def run(p, d):
+        pre = lm_prefill(cfg, p, tokens.to(d))
+        cache = init_kv_cache(cfg, 1, steps, torch.float32, d)
+        dec = [lm_decode_step(cfg, p, cache, tokens[:, t:t + 1].to(d), t)[0]
+               for t in range(steps)]
+        return pre.cpu(), torch.cat(dec, dim=1).cpu()
+
+    def diff(got):
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    got = run(params, dev)
+    ref_dev = torch.device(ref_device)
+    want = run(_params_to(params, ref_dev), ref_dev)
+    scale = max(float(w.abs().max()) for w in want)
+    limit = MODEL_TOL * max(1.0, scale)
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    control = None
+    if dev.type == "cuda":
+        matmul = torch.backends.cuda.matmul
+        tf32, matmul.allow_tf32 = matmul.allow_tf32, True
+        try:
+            control = diff(run(params, dev))
+        finally:
+            matmul.allow_tf32 = tf32
+    return {"prompt": prompt, "steps": steps, "max_abs_diff": diff(got),
+            "max_abs_logit": scale, "limit": limit,
+            "tf32_control_diff": control,
+            "ok": finite and diff(got) <= limit
+            and (control is None or control > limit)}
+
+
+def lm_prefill_phase(cfg, params, seq: int, batch: int, warm_seq: int,
+                     seed: int, device, profile: bool = False) -> dict:
+    """One untimed prefill of ``warm_seq`` tokens, then one timed prefill
+    of [batch, seq] tokens; the launch counts are set to 0 just before the
+    timed pass and read just after. ``profile`` adds a profiled pass."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import lm_prefill
+    tokens = _tokens(seed + 1, (batch, seq), cfg.vocab, device)
+    lm_prefill(cfg, params, tokens[:, :warm_seq])
+    _reset_peak(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = lm_prefill(cfg, params, tokens)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    out = {"batch": batch, "seq": seq, "tokens": batch * seq,
+           "dtype": str(logits.dtype).removeprefix("torch."),
+           "seconds": dt, "tokens_per_s": batch * seq / dt,
+           "launches": launches, "peak_gb": _peak_gb(device)}
+    if logits.shape != (batch, seq, cfg.padded_vocab):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    if not all(bool(torch.isfinite(c).all())
+               for c in logits.split(1024, dim=1)):
+        raise AssertionError("prefill logits are not all finite")
+    del logits
+    if profile:                          # a second pass, under the profiler
+        out["profile"] = device_profile(lambda: lm_prefill(cfg, params,
+                                                           tokens))
+    return out
+
+
+def lm_decode_phase(cfg, params, batch: int, cache_len: int, steps: int,
+                    seed: int, device, profile: int = 0) -> dict:
+    """A KV cache of ``cache_len`` positions whose first ``cache_len -
+    steps`` are filled from ``seed``, then ``steps`` greedy decode steps
+    that fill the rest; the launch counts are set to 0 just before the
+    steps and read just after. ``profile`` > 0 repeats that many of the
+    last steps (rewriting their positions) under the profiler."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_kv_cache, lm_decode_step
+    dev = torch.device(device)
+    cache = init_kv_cache(cfg, batch, cache_len, params["embed"].dtype, dev)
+    fill = cache_len - steps
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    for name in ("k", "v"):
+        for layer in range(cfg.n_layers):
+            cache[name][layer, :, :fill].normal_(generator=gen)
+    tok = _tokens(seed + 3, (batch, 1), cfg.vocab, dev)
+    _reset_peak(dev)
+    cuda = dev.type == "cuda"
+    marks = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if cuda:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        logits, cache = lm_decode_step(cfg, params, cache, tok, fill + i)
+        tok = logits[:, -1, :cfg.vocab].argmax(dim=-1, keepdim=True)
+    if cuda:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("decode logits are not all finite")
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    out = {"batch": batch, "cache_len": cache_len, "filled": fill,
+           "steps": steps, "final_length": fill + steps,
+           "seconds": dt, "ms_per_step": dt * 1e3 / steps,
+           "median_step_ms": statistics.median(step_ms) if step_ms
+           else None, "tokens_per_s": batch * steps / dt,
+           "launches": launches, "peak_gb": _peak_gb(dev)}
+
+    def again():
+        for pos in range(cache_len - profile, cache_len):
+            lm_decode_step(cfg, params, cache, tok, pos)
+
+    if profile:
+        out["profile"] = device_profile(again)
+        out["profile"]["steps"] = profile
+    return out
+
+
+def lm_consistency(cfg, params, prompt: int, seed: int, device) -> dict:
+    """Decode against prefill on one prompt: prefill its first half into a
+    cache, decode the second half token by token, and compare those
+    logits with a prefill of the whole prompt. The control decodes again
+    with a planted off-by-one: each step's attention leaves out the
+    current token (valid lengths ``pos`` instead of ``pos + 1``)."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import (init_kv_cache,
+                                                lm_decode_step, lm_prefill)
+    tokens = _tokens(seed + 4, (1, prompt), cfg.vocab, device)
+    want = lm_prefill(cfg, params, tokens)[:, prompt // 2:].float()
+    half = prompt // 2
+
+    def decode():
+        cache = init_kv_cache(cfg, 1, prompt, params["embed"].dtype, device)
+        lm_prefill(cfg, params, tokens[:, :half], cache)
+        return torch.cat([lm_decode_step(cfg, params, cache,
+                                         tokens[:, t:t + 1], t)[0]
+                          for t in range(half, prompt)], dim=1).float()
+
+    got = decode()
+    kernel = transformer.decode_attention
+    transformer.decode_attention = (
+        lambda q, k, v, lengths, **kw: kernel(q, k, v, lengths - 1, **kw))
+    try:
+        planted = decode()
+    finally:
+        transformer.decode_attention = kernel
+    return {"prompt": prompt, "decoded": prompt - half,
+            "max_abs_diff": float((got - want).abs().max()),
+            "max_abs_logit": float(want.abs().max()),
+            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean()),
+            "off_by_one_control_diff": float((planted - want).abs().max())}
+
+
+def _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev, layout="bshd"):
+    """q [B,H,S,d] and k/v [B,Hkv,S,d]; with layout "bshd" they are
+    transposed views of [B,S,heads,d] tensors, as the model passes them."""
+    import torch
+
+    def one(heads):
+        if layout == "bshd":
+            return torch.randn((B, S, heads, d), generator=gen, device=dev,
+                               dtype=dtype).transpose(1, 2)
+        return torch.randn((B, heads, S, d), generator=gen, device=dev,
+                           dtype=dtype)
+
+    return one(H), one(Hkv), one(Hkv)
+
+
+def attn_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, max |got - want| / (atol + rtol * |want|)) with
+    the tolerance of want's dtype: within tolerance when the second is
+    at most 1."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} "
+                             f"vs {tuple(want.shape)} {want.dtype}")
+    if not got.numel():
+        return 0.0, 0.0
+    atol, rtol = ATTN_TOL[str(want.dtype).removeprefix("torch.")]
+    w = want.float()
+    delta = (got.float() - w).abs()
+    return (float(delta.max()),
+            float((delta / (atol + rtol * w.abs())).max()))
+
+
+def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
+    """Both attention kernels against their plain versions on the card:
+    ragged S, GQA groups of 1, 2 and 8, every compiled head dim, windows,
+    softcaps, lengths at tile and chunk edges and 0 (exact zeros),
+    strided and contiguous inputs. Returns the number of cases and, by
+    dtype, the largest ``attn_err`` readings; raises after every case
+    has run if any was out of tolerance."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import CHUNK, decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flash_cases = [  # B, H, Hkv, S, d, window, softcap
+        (1, 2, 2, 1, 64, 0, 0.0), (2, 4, 2, 37, 128, 0, 0.0),
+        (1, 8, 1, 1000, 32, 0, 30.0), (2, 8, 8, 1000, 16, 100, 0.0),
+        (1, 4, 2, 300, 256, 64, 50.0), (1, 16, 2, 130, 128, 0, 0.0),
+        (1, 16, 8, 4096, 128, 0, 0.0),          # qwen3 heads
+        (1, 8, 4, 8192, 256, 4096, 50.0),       # gemma2 heads, local layer
+    ]
+    lengths_edge = [1, 31, 32, 33, CHUNK - 1, CHUNK, CHUNK + 1, 0]
+    decode_cases = [  # B, H, Hkv, S, d, window, softcap
+        (9, 2, 2, 1100, 64, 0, 0.0), (9, 4, 2, 1100, 128, 300, 50.0),
+        (9, 16, 2, 1100, 32, 0, 0.0), (9, 8, 1, 1100, 16, 0, 30.0),
+        (9, 8, 4, 1100, 256, 0, 0.0),
+        (4, 16, 8, 4096, 128, 0, 0.0),          # qwen3 heads
+        (4, 8, 4, 8192, 256, 4096, 50.0),       # gemma2 heads, local layer
+    ]
+    worst, bad = {}, []
+
+    def record(label, dtype, got, want):
+        err, ratio = attn_err(got, want)
+        w = worst.setdefault(dtype, {"max_abs_err": 0.0, "max_ratio": 0.0})
+        w["max_abs_err"] = max(w["max_abs_err"], err)
+        w["max_ratio"] = max(w["max_ratio"], ratio)
+        if not ratio <= 1.0:
+            bad.append(f"{label}: max |kernel - plain| {err}, {ratio}x the "
+                       f"tolerance")
+
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        for i, (B, H, Hkv, S, d, win, cap) in enumerate(flash_cases):
+            layout = "bshd" if i % 2 == 0 else "bhsd"
+            q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev, layout)
+            record(f"flash_attention {name} {flash_cases[i]}", name,
+                   flash_attention(q, k, v, window=win, softcap=cap),
+                   ref.mha_reference(q, k, v, True, win, cap))
+        for i, (B, H, Hkv, S, d, win, cap) in enumerate(decode_cases):
+            layout = "bshd" if i % 2 == 0 else "bhsd"
+            _, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev, layout)
+            q = torch.randn((B, H, d), generator=gen, device=dev,
+                            dtype=dtype)
+            lens = (lengths_edge + [S] if B == len(lengths_edge) + 1
+                    else [1, S // 2 + 1, S - 1, S])
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            out = decode_attention(q, k, v, lengths, window=win, softcap=cap)
+            label = f"decode_attention {name} {decode_cases[i]} {lens}"
+            record(label, name, out,
+                   ref.decode_reference(q, k, v, lengths, win, cap))
+            if 0 in lens and out[lens.index(0)].any():
+                bad.append(f"{label}: length 0 gives non-zeros")
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"cases": len(dtypes) * (len(flash_cases) + len(decode_cases)),
+            **worst}
+
+
+def _sdpa(q, k, v, causal: bool):
+    """One ``scaled_dot_product_attention`` call computing the same
+    function (the yardstick, never used by the port), restricted to the
+    fused backends; ``None`` where none of them takes these inputs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+
+    def call(kk, vv, **kw):
+        with sdpa_kernel(fused):
+            return F.scaled_dot_product_attention(q, kk, vv,
+                                                  is_causal=causal, **kw)
+
+    G = q.shape[1] // k.shape[1]
+    try:
+        call(k, v, enable_gqa=True)
+        torch.cuda.synchronize()
+        return lambda: call(k, v, enable_gqa=True), "enable_gqa"
+    except (RuntimeError, TypeError) as exc:
+        log(f"sdpa with enable_gqa refused ({str(exc)[:120]}); timing it "
+            f"on k/v expanded to {q.shape[1]} heads beforehand")
+    ke = k.repeat_interleave(G, dim=1).contiguous()
+    ve = v.repeat_interleave(G, dim=1).contiguous()
+    try:
+        call(ke, ve)
+        torch.cuda.synchronize()
+        return lambda: call(ke, ve), "expanded heads"
+    except RuntimeError as exc:
+        log(f"sdpa refused ({str(exc)[:120]}): library_ms null")
+        return None, None
+
+
+def attention_kernel_rows(cfg, prefill: dict, decode: dict,
+                          hbm: float) -> list[dict]:
+    """Both attention kernels at the serving shapes of the prefill and
+    decode phases (bf16, the model's strided layouts), against their plain
+    versions on the same card inputs, timed beside their bounds and one
+    PyTorch call of the same function."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dt = torch.bfloat16
+    H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    rows = []
+
+    B, S = prefill["batch"], prefill["seq"]
+    q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dt, dev)
+    pairs = B * H * S * (S + 1) // 2                  # causal (q, k) pairs
+    flops = 4 * d * pairs
+    nbytes = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
+    lib, how = _sdpa(q.contiguous(), k.contiguous(), v.contiguous(), True)
+    rows.append(_attn_row(
+        "flash_attention", lambda: flash_attention(q, k, v),
+        lambda: ref.mha_reference(q, k, v),
+        lambda: ref.mha_reference(q, k, v, True, max(1, S - PLANTED_DROP)),
+        lib, how, flops, nbytes, hbm, prefill["launches"],
+        f"B={B} H={H} Hkv={Hkv} S={S} d={d} bf16", calls=1, reps=3))
+    del q, k, v
+
+    B, S = decode["batch"], decode["cache_len"]
+    _, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dt, dev)
+    q = torch.randn((B, H, d), generator=gen, device=dev, dtype=dt)
+    n = decode["final_length"]
+    lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
+    nbytes = 2 * (2 * B * Hkv * n * d + 2 * B * H * d)
+    flops = 4 * B * H * d * n
+    lib, how = _sdpa(q[:, :, None], k[:, :, :n], v[:, :, :n], False)
+    rows.append(_attn_row(
+        "decode_attention",
+        lambda: decode_attention(q, k, v, lengths),
+        lambda: ref.decode_reference(q, k, v, lengths),
+        lambda: ref.decode_reference(q, k, v, lengths,
+                                     max(1, n - PLANTED_DROP)),
+        (lambda: lib()[:, :, 0]) if lib else None, how, flops, nbytes, hbm,
+        decode["launches"], f"B={B} H={H} Hkv={Hkv} S={S} length={n} d={d} "
+        f"bf16", calls=5, reps=7))
+    return rows
+
+
+def _attn_row(name, kern, plain, planted, lib, how, flops, nbytes, hbm,
+              launches, shape, calls, reps) -> dict:
+    """``planted``: the plain version with a fault planted (the first
+    PLANTED_DROP keys of the longest rows left out); the check must find
+    it out of tolerance, or it could not see such a kernel fault."""
+    import torch
+    want = plain()
+    err, ratio = attn_err(kern(), want)
+    control_err, control = attn_err(planted(), want)
+    torch.cuda.synchronize()
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name} [{shape}]: max |kernel - plain| = "
+                             f"{err}, {ratio}x the tolerance")
+    if not control > 1.0:
+        raise AssertionError(f"{name} [{shape}]: a planted fault is within "
+                             f"tolerance ({control}x)")
+    lib_err = attn_err(lib(), want)[0] if lib is not None else None
+    del want
+    t_bytes, t_ops = nbytes / hbm * 1e3, flops / BF16_OPS_PER_S * 1e3
+    row = {
+        "name": name, "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": LM_REPLACES[name],
+        "launches": int(launches.get(name, 0)), "max_abs_err": err,
+        "ms": time_ms(kern, calls=calls, reps=reps),
+        "plain_ms": time_ms(plain, calls=1, reps=1),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": time_ms(lib, calls=calls, reps=reps) if lib else None,
+    }
+    log(f"kernel {name} [{shape}]: kernel_ms={row['ms']} "
+        f"bound_ms={row['bound_ms']} ({row['bound_by']}) "
+        f"plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
+        f"({how}, max |library - plain| {lib_err}) "
+        f"launches={row['launches']} max_abs_err={err} ({ratio}x the "
+        f"tolerance; planted fault {control_err}, {control}x)")
+    return row
+
+
+def lm_phase(args, hbm: float | None, device) -> list[dict]:
+    """The LM serving phase at full width; returns the attention kernels'
+    rows (none off the card)."""
+    import torch
+    from repro_torch.configs.registry import LM_SHAPES, get_spec
+    from repro_torch.models.transformer import init_lm_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 checks
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_spec(LM_ARCH).config
+    L = cfg.n_layers
+    log(f"lm: {cfg.name} {L} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, d_head {cfg.d_head}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.padded_vocab}), "
+        f"{cfg.param_count()} parameters; shapes {LM_SHAPES['prefill_32k']} "
+        f"and {LM_SHAPES['decode_32k']} cut as the flags say")
+
+    t0 = time.perf_counter()
+    check = lm_model_check(cfg, args.seed, device)
+    log(f"lm model check (f32, card vs CPU): {json.dumps(check)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not check["ok"]:
+        raise AssertionError(f"f32 logits differ: {check}")
+
+    params = init_lm_params(cfg, torch.Generator(device=device).manual_seed(
+        args.seed), torch.bfloat16, device)
+    pre = lm_prefill_phase(cfg, params, args.prefill_seq, PREFILL_BATCH,
+                           min(PREFILL_WARM, args.prefill_seq), args.seed,
+                           device, profile=True)
+    log(f"lm prefill: {json.dumps(pre)}")
+    torch.cuda.empty_cache()
+    dec = lm_decode_phase(cfg, params, DECODE_BATCH, args.decode_cache,
+                          args.decode_steps, args.seed, device, profile=4)
+    log(f"lm decode: {json.dumps(dec)}")
+    torch.cuda.empty_cache()
+    want = {"flash_attention": L, "decode_attention": L * args.decode_steps}
+    got = {"flash_attention": pre["launches"].get("flash_attention", 0),
+           "decode_attention": dec["launches"].get("decode_attention", 0)}
+    if got != want:
+        raise AssertionError(f"attention launches {got}, want {want}")
+    cons = lm_consistency(cfg, params, CONSISTENCY_PROMPT, args.seed, device)
+    cons["limit"] = CONSISTENCY_TOL * max(1.0, cons["max_abs_logit"])
+    log(f"lm decode vs prefill (bf16): {json.dumps(cons)}")
+    if not cons["max_abs_diff"] <= cons["limit"]:
+        raise AssertionError(f"bf16 decode logits drift from prefill: "
+                             f"{cons}")
+    if not cons["off_by_one_control_diff"] > cons["limit"]:
+        raise AssertionError(f"a planted off-by-one is within the decode "
+                             f"limit: {cons}")
+    del params
+    torch.cuda.empty_cache()
+
+    cases = check_attention_cases(device)
+    log(f"attention edge cases within (atol, rtol) {ATTN_TOL}: "
+        f"{json.dumps(cases)}")
+    return attention_kernel_rows(cfg, pre, dec, hbm)
+
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -403,6 +929,14 @@ def main(argv: list[str] | None = None) -> int:
                     help="engine row cap of the full-size phase")
     ap.add_argument("--sharded-max-rows", type=int, default=500_000,
                     help="engine row cap of the sharded phase")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="skip the SPARQL phases (a short run after an "
+                         "attention kernel edit)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the LM phase's weights, tokens and cache")
+    ap.add_argument("--prefill-seq", type=int, default=32768)
+    ap.add_argument("--decode-cache", type=int, default=32768)
+    ap.add_argument("--decode-steps", type=int, default=64)
     args = ap.parse_args(argv)
 
     import torch
@@ -416,9 +950,11 @@ def main(argv: list[str] | None = None) -> int:
 
     t_all = time.perf_counter()
     t0 = time.perf_counter()
-    lib = _build.build()
-    _build.library()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    libs = _build.build()
+    for lib in libs:
+        _build.library(lib)
+    log(f"build: {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.2f} s")
     if _build.build_log():
         log(_build.build_log().strip())
     gpu = gpu_line()
@@ -426,28 +962,36 @@ def main(argv: list[str] | None = None) -> int:
     dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {gpu}")
 
-    n_edge = check_edge_cases(dev)
-    log(f"edge cases: {n_edge} exact")
+    rows = []
+    if not args.lm_only:
+        n_edge = check_edge_cases(dev)
+        log(f"edge cases: {n_edge} exact")
+
+        t0 = time.perf_counter()
+        gen = generate_watdiv_like(scale=args.scale, seed=0)
+        log(f"data: scale {args.scale}, {gen.store.num_triples} triples, "
+            f"{gen.dictionary.num_entities} entities in "
+            f"{time.perf_counter() - t0:.1f} s")
+        full = run_phase("full", gen, gen.store, args.queries,
+                         args.max_rows, dev)
+
+        rows += kernel_phase(gen.store, gen.dictionary, full["backend"],
+                             full, hbm)
+
+        t0 = time.perf_counter()
+        small = generate_watdiv_like(scale=args.sharded_scale, seed=0)
+        sharded = ShardedTripleStore.from_store(small.store, 4)
+        log(f"data: scale {args.sharded_scale}, 4 shards "
+            f"{[sh.num_triples for sh in sharded.shards]} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        run_phase("sharded", small, sharded, args.queries,
+                  args.sharded_max_rows, dev)
+        del gen, small, sharded, full
+        torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    gen = generate_watdiv_like(scale=args.scale, seed=0)
-    log(f"data: scale {args.scale}, {gen.store.num_triples} triples, "
-        f"{gen.dictionary.num_entities} entities in "
-        f"{time.perf_counter() - t0:.1f} s")
-    full = run_phase("full", gen, gen.store, args.queries, args.max_rows,
-                     dev)
-
-    rows = kernel_phase(gen.store, gen.dictionary, full["backend"], full,
-                        hbm)
-
-    t0 = time.perf_counter()
-    small = generate_watdiv_like(scale=args.sharded_scale, seed=0)
-    sharded = ShardedTripleStore.from_store(small.store, 4)
-    log(f"data: scale {args.sharded_scale}, 4 shards "
-        f"{[sh.num_triples for sh in sharded.shards]} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    run_phase("sharded", small, sharded, args.queries, args.sharded_max_rows,
-              dev)
+    rows += lm_phase(args, hbm, dev)
+    log(f"lm phase {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -5,14 +5,17 @@ The port of :mod:`repro` (the JAX package, kept as the reference). It
 imports nothing of ``repro`` and nothing of JAX: the framework-neutral
 modules it needs are its own copies, and the device layer is torch.
 
-Layers (this slice: the SPARQL read path)
------------------------------------------
+Layers (ported so far: the SPARQL read path, the dense LM serving path)
+-----------------------------------------------------------------------
 - ``repro_torch.rdf``     : dictionary-encoded triple store + generators
 - ``repro_torch.sparql``  : parser, algebra, matcher, batched engine with
   the ``torch`` backend and the device-resident join, ``SparqlEndpoint``
-- ``repro_torch.kernels`` : CUDA kernels (``csrc/rdf_kernels.cu``) and
-  their plain torch versions
-- ``repro_torch.convert`` : carries a reference store + dictionary over
+- ``repro_torch.models``  : dense decoder LM (prefill, KV-cache decode)
+- ``repro_torch.configs`` : qwen3-0.6b, qwen3-1.7b, gemma2-2b; LM shapes
+- ``repro_torch.kernels`` : CUDA kernels (``csrc/rdf_kernels.cu``,
+  ``csrc/attention_kernels.cu``) and their plain torch versions
+- ``repro_torch.convert`` : carries a reference store + dictionary, or a
+  reference LM parameter tree, over
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -28,6 +31,19 @@ _LAZY = {
     "parse_query": ("repro_torch.sparql.query", "parse_query"),
     "parse_sparql": ("repro_torch.sparql.query", "parse_sparql"),
     "from_reference": ("repro_torch.convert", "from_reference"),
+    "lm_params_from_reference": ("repro_torch.convert",
+                                 "lm_params_from_reference"),
+    "LMConfig": ("repro_torch.models.transformer", "LMConfig"),
+    "init_lm_params": ("repro_torch.models.transformer", "init_lm_params"),
+    "init_kv_cache": ("repro_torch.models.transformer", "init_kv_cache"),
+    "lm_forward": ("repro_torch.models.transformer", "lm_forward"),
+    "lm_prefill": ("repro_torch.models.transformer", "lm_prefill"),
+    "lm_decode_step": ("repro_torch.models.transformer", "lm_decode_step"),
+    "get_spec": ("repro_torch.configs.registry", "get_spec"),
+    "flash_attention": ("repro_torch.kernels.flash_attention",
+                        "flash_attention"),
+    "decode_attention": ("repro_torch.kernels.decode_attention",
+                         "decode_attention"),
 }
 
 

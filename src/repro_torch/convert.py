@@ -1,16 +1,20 @@
 """Carry the reference system's state over to the port.
 
-The system has no weights: its state is the triple store and the term
-dictionary. :func:`from_reference` takes the numpy dicts the JAX package's
-``TripleStore.to_arrays()`` / ``ShardedTripleStore.to_arrays()`` and
-``Dictionary.to_arrays()`` produce and rebuilds them as the port's store
-and dictionary. It reads plain arrays only, so it imports nothing of the
-JAX package.
+The SPARQL system has no weights: its state is the triple store and the
+term dictionary. :func:`from_reference` takes the numpy dicts the JAX
+package's ``TripleStore.to_arrays()`` / ``ShardedTripleStore.to_arrays()``
+and ``Dictionary.to_arrays()`` produce and rebuilds them as the port's
+store and dictionary. :func:`lm_params_from_reference` turns the model
+zoo's LM parameter tree, given as numpy arrays, into the port's params.
+Both read plain arrays only, so they import nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .device import resolve_device
 
 from .rdf.dictionary import Dictionary
 from .rdf.graph import TripleStore
@@ -38,3 +42,28 @@ def from_reference(store_arrays: dict[str, np.ndarray],
         store = ShardedTripleStore(s, p, o, meta[0], meta[1],
                                    num_shards=int(num_shards))
     return store, Dictionary.from_arrays(dict_arrays)
+
+
+# LM leaves the reference keeps in float32 whatever the weights' dtype
+_F32_LEAVES = {"final_norm", "ln_attn", "ln_mlp", "ln_attn_post",
+               "ln_mlp_post", "q_norm", "k_norm"}
+
+
+def lm_params_from_reference(tree: dict, device=None,
+                             dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The port's LM params from the JAX ``init_lm_params`` tree, with its
+    leaves as numpy arrays (float32 or bfloat16): same keys and layouts,
+    norm scales in float32 and every other leaf in ``dtype``, on ``device``
+    (``cuda`` by default). The dense path only: an MoE tree raises."""
+    if "router" in tree.get("layers", {}):
+        raise NotImplementedError("MoE layers are not ported yet")
+    dev = resolve_device(device)
+
+    def leaf(name, a):
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        return t.to(device=dev, dtype=torch.float32 if name in _F32_LEAVES
+                    else dtype)
+
+    return {k: ({kk: leaf(kk, vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else leaf(k, v))
+            for k, v in tree.items()}

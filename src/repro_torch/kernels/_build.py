@@ -1,10 +1,12 @@
-"""Build, load and launch the CUDA kernels of ``csrc/rdf_kernels.cu``.
+"""Build, load and launch the CUDA kernels of ``csrc/*.cu``.
 
-The source is compiled on first use by ``nvcc`` into a shared library with
-a plain C interface under ``<repo>/build/`` and loaded with ``ctypes``.
-The file name carries a hash of the source and flags, so an edited source
-is rebuilt and a stale library is never loaded. Nothing here runs when the
-module is imported: the CPU tests import every module of the package.
+Each source is compiled on first use by ``nvcc`` into its own shared
+library with a plain C interface under ``<repo>/build/`` and loaded with
+``ctypes``: ``rdf_kernels.cu`` (the SPARQL query kernels) and
+``attention_kernels.cu`` (the LM attention kernels). A file name carries a
+hash of its source and flags, so an edited source is rebuilt and a stale
+library is never loaded. Nothing here runs when the module is imported:
+the CPU tests import every module of the package.
 
 Each launch goes through :func:`launch`, which raises on a non-zero CUDA
 status and adds one to that kernel's launch count — the count a run reads
@@ -24,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "rdf_kernels.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -32,17 +34,32 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
-_SIGNATURES = {
-    # name: argtypes (pointers, sizes, pattern ints, ..., stream)
-    "rdf_triple_scan": [_P, _L, _I, _I, _I, _P, _P],
-    "rdf_triple_scan_many": [_P, _L, _P, _I, _P, _P],
-    "rdf_probe_sorted_many": [_P, _I, _P, _L, _P, _P, _P],
-    "rdf_scan_probe": [_P, _L, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+_F = ctypes.c_float
+# library: (source, {kernel: argtypes without the trailing stream})
+LIBRARIES = {
+    "rdf": ("rdf_kernels.cu", {
+        # pointers, sizes, pattern ints, ...
+        "triple_scan": [_P, _L, _I, _I, _I, _P],
+        "triple_scan_many": [_P, _L, _P, _I, _P],
+        "probe_sorted_many": [_P, _I, _P, _L, _P, _P],
+        "scan_probe": [_P, _L, _I, _I, _I, _P, _I, _I, _P, _P, _P],
+    }),
+    "attn": ("attention_kernels.cu", {
+        # q, k, v, o, strides, dtype, B, H, Hkv, S, D, window, softcap, scale
+        "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _F, _F],
+        # q, k, v, lengths, o, part_o, part_ml, strides, dtype, B, H, Hkv,
+        # S, D, chunk, window, softcap, scale
+        "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _F, _F],
+    }),
 }
+_LIBRARY_OF = {kernel: lib for lib, (_src, sigs) in LIBRARIES.items()
+               for kernel in sigs}
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_build_log = ""
+_libs: dict[str, ctypes.CDLL] = {}
+_build_logs: dict[str, str] = {}
 _launches: Counter = Counter()
 
 
@@ -59,66 +76,83 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def library_path(lib: str) -> Path:
+    source = CSRC / LIBRARIES[lib][0]
+    digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"librdf_kernels_{digest[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the source unless a library of this exact source exists.
+def build(*libs: str) -> dict[str, Path]:
+    """Compile each named library (all by default) unless a library of
+    that exact source exists; the ``nvcc`` runs start together.
 
-    Writes to a temporary name and renames, so a concurrent or interrupted
-    build never leaves a half-written library under the final name.
+    Each writes to a temporary name and renames, so a concurrent or
+    interrupted build never leaves a half-written library under the final
+    name. Raises if any build fails.
     """
-    global _build_log
-    out = library_path()
-    if out.exists():
-        return out
+    paths = {lib: library_path(lib) for lib in (libs or LIBRARIES)}
+    todo = {lib: out for lib, out in paths.items() if not out.exists()}
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    _build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{_build_log}")
-    os.replace(tmp, out)
-    return out
+    nvcc = _nvcc()
+    procs = {}
+    for lib, out in todo.items():
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / LIBRARIES[lib][0])]
+        procs[lib] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for lib, (cmd, tmp, proc) in procs.items():
+        _build_logs[lib] = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed with code {proc.returncode}:\n"
+                          f"{' '.join(cmd)}\n{_build_logs[lib]}")
+        else:
+            os.replace(tmp, todo[lib])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 def build_log() -> str:
-    """nvcc's output from the last build in this process (``-Xptxas=-v``
-    register and shared-memory report), empty when the library was found."""
-    return _build_log
+    """nvcc's output from the builds in this process (``-Xptxas=-v``
+    register and shared-memory report), empty when the libraries were
+    found."""
+    return "\n".join(_build_logs.values())
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    global _lib
+def library(lib: str) -> ctypes.CDLL:
+    """The loaded library ``lib`` ("rdf" or "attn"), built first if
+    needed."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
+        if lib not in _libs:
+            handle = ctypes.CDLL(str(build(lib)[lib]))
+            for kernel, argtypes in LIBRARIES[lib][1].items():
+                fn = getattr(handle, f"{lib}_{kernel}")
+                fn.argtypes = [*argtypes, _P]
                 fn.restype = ctypes.c_int
-            lib.rdf_error_string.argtypes = [ctypes.c_int]
-            lib.rdf_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+            err = getattr(handle, f"{lib}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _libs[lib] = handle
+        return _libs[lib]
 
 
 def launch(kernel: str, device: torch.device, *args) -> None:
-    """Launch ``rdf_<kernel>`` on ``device``'s current stream; raise on a
+    """Launch ``kernel`` on ``device``'s current stream; raise on a
     non-zero CUDA status, else count the launch."""
-    lib = library()
+    lib = _LIBRARY_OF[kernel]
+    handle = library(lib)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"rdf_{kernel}")(*args, stream)
+        rc = getattr(handle, f"{lib}_{kernel}")(*args, stream)
     if rc != 0:
-        msg = lib.rdf_error_string(rc).decode()
+        msg = getattr(handle, f"{lib}_error_string")(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed ({rc}: {msg})")
     with _lock:
         _launches[kernel] += 1

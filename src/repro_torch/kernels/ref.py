@@ -1,9 +1,10 @@
-"""Plain torch versions of the query kernels (the ``ref.py`` contract).
+"""Plain torch versions of the CUDA kernels (the ``ref.py`` contract).
 
 Each function is the definition with no blocking: the wrappers use them
 for tensors on the CPU, the tests hold them against the JAX package's
 kernels, and ``chip_smoke.py`` holds every CUDA kernel against them on the
-card. All results are int32, like the kernels'.
+card. The query kernels' results are int32, like the kernels'; the
+attention results take the query's dtype, computed in float32.
 """
 
 from __future__ import annotations
@@ -56,3 +57,72 @@ def scan_probe_reference(triples: torch.Tensor, s: int, p: int, o: int,
     mask = triple_scan_reference(triples, s, p, o)
     lo, hi = probe_sorted_reference(keys, triples[:, col])
     return mask, lo, hi
+
+
+# ---------------------------------------------------------------------------
+# attention (the LM serving path)
+# ---------------------------------------------------------------------------
+
+# Score elements one query chunk of mha_reference may hold (1 GiB in f32):
+# the definition is dense, but a 32k prefill's [H, S, S] scores are not.
+_SCORE_ELEMS = 1 << 28
+NEG_INF = -1e30
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: int = 0,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """q [B,H,S,d]; k/v [B,Hkv,S,d] (query head h reads kv head h // G).
+
+    Dense softmax attention in float32: scale ``d ** -0.5``, softcap
+    ``tanh(s / c) * c``, masked scores -1e30, key k visible to query q when
+    ``k <= q`` (causal) and ``k > q - window`` (window > 0). Computed over
+    chunks of query rows so the scores stay under 1 GiB; the result is
+    the same. Returns q's dtype."""
+    B, H, S, d = q.shape
+    G = H // k.shape[1]
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    step = max(1, _SCORE_ELEMS // max(1, B * H * S))
+    for q0 in range(0, S, step):
+        qc = q[:, :, q0:q0 + step].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * (d ** -0.5)
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        qpos = torch.arange(q0, q0 + qc.shape[2], device=q.device)[:, None]
+        mask = torch.ones((qc.shape[2], S), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
+        out[:, :, q0:q0 + step] = torch.einsum("bhqk,bhkd->bhqd", p,
+                                               vf).to(q.dtype)
+    return out
+
+
+def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor,
+                     window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """q [B,H,d]; caches [B,Hkv,S,d]; lengths [B] (valid prefix, including
+    the current position). Keys ``k < length`` are visible, and with
+    window > 0 only ``k >= length - window``. A sequence with no visible
+    key gives zeros, as the kernels' 1e-30 denominator does."""
+    B, H, d = q.shape
+    G = H // k_cache.shape[1]
+    kf = k_cache.float().repeat_interleave(G, dim=1)
+    vf = v_cache.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), kf) * (d ** -0.5)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    kpos = torch.arange(k_cache.shape[2], device=q.device)[None, None, :]
+    n = lengths.to(device=q.device, dtype=torch.int64)[:, None, None]
+    valid = kpos < n
+    if window > 0:
+        valid &= kpos >= n - window
+    p = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1)
+    p = p * valid.any(dim=-1, keepdim=True)
+    return torch.einsum("bhk,bhkd->bhd", p, vf).to(q.dtype)

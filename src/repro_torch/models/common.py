@@ -1,0 +1,99 @@
+"""Shared model building blocks (port of ``repro/models/common.py``).
+
+Parameters are plain dicts of tensors. The JAX module's ``AxisRules`` and
+``constrain`` express sharding over a TPU mesh; the port runs on one card
+and leaves them out. Random initialisation takes an explicit
+``torch.Generator``: the same seed gives other numbers than ``jax.random``,
+so tests carry weights over with :mod:`repro_torch.convert` instead.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# numerics
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             offset: float = 0.0) -> torch.Tensor:
+    """RMSNorm in float32, cast back to the input dtype. Gemma uses
+    (1 + scale)."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    scale = scale.float()
+    return (y * (scale + offset if offset else scale)).to(dtype)
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def rope_tables(positions: torch.Tensor, d: int, theta: float = 10000.0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin [..., S, 1, d/2] of the rotary angles at ``positions``
+    [..., S]; every layer of one pass shares them."""
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    angles = positions[..., :, None].float() * freqs      # [..., S, half]
+    return (torch.cos(angles)[..., :, None, :],
+            torch.sin(angles)[..., :, None, :])
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: [..., S, H, D_head] rotated by the tables of :func:`rope_tables`."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embeddings. x: [..., S, H, D_head], positions: [..., S]."""
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+# ---------------------------------------------------------------------------
+# initialization
+# ---------------------------------------------------------------------------
+
+def _trunc_normal(shape: tuple[int, ...], std: float,
+                  generator: torch.Generator, dtype: torch.dtype,
+                  device) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * std).to(dtype)
+
+
+def dense_init(generator: torch.Generator, shape: tuple[int, ...],
+               in_axis: int = -2, dtype: torch.dtype = torch.bfloat16,
+               device=None) -> torch.Tensor:
+    """Truncated-normal fan-in init (LeCun-ish), bf16 storage."""
+    return _trunc_normal(shape, math.sqrt(1.0 / shape[in_axis]), generator,
+                         dtype, device)
+
+
+def embed_init(generator: torch.Generator, shape: tuple[int, ...],
+               dtype: torch.dtype = torch.bfloat16,
+               device=None) -> torch.Tensor:
+    """1/sqrt(d) embeddings: tied-logit variance O(1); pairs with the
+    sqrt(d) embedding rescale Gemma-style models apply in forward."""
+    return _trunc_normal(shape, shape[-1] ** -0.5, generator, dtype, device)

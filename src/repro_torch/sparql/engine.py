@@ -126,6 +126,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..rdf.graph import RDFStore
 from .device_join import DeviceBatch, device_eligible
 from .matcher import (CandidateParts, JoinStats, MatchResult, _candidates,
@@ -249,19 +250,6 @@ class NumpyBackend(MatcherBackend):
 
     def candidates(self, store: RDFStore, tp: TriplePattern) -> np.ndarray:
         return self.candidate_parts(store, tp).concat()
-
-
-def resolve_device(device: str | torch.device | None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless the caller names
-    another. Raises rather than run on the CPU when CUDA is missing."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the plain "
-            "torch versions of the kernels on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _tree_leaves(tree, out: list) -> None:

@@ -2,8 +2,14 @@
 
 Needs torch built with CUDA and a card; it needs no JAX, so it runs on the
 GPU machine too (``PYTHONPATH=src python -m pytest -q -m cuda
-tests/test_torch_cuda.py``). Elsewhere the test skips itself. Every
-comparison is exact: all results are integers."""
+tests/test_torch_cuda.py``). Elsewhere the tests skip themselves. The
+query kernels' comparisons are exact (all results are integers); the
+attention kernels' are within the per-element tolerance that
+``chip_smoke.py`` states per dtype."""
+
+import importlib
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,6 +22,7 @@ from repro_torch.kernels.join_probe import (probe_sorted,  # noqa: E402
 from repro_torch.kernels.triple_scan import (triple_scan,  # noqa: E402
                                              triple_scan_many)
 
+ROOT = Path(__file__).resolve().parents[1]
 PATTERNS = [(-1, 3, -1), (7, -1, -1), (-1, -1, -1), (1, 2, 3), (-1, 4, 9)]
 # -1 padding and probes outside the key range
 EDGE_PROBES = np.asarray([-1, -1, -10, 0, 59, 60, 10 ** 6, 2 ** 31 - 1],
@@ -65,3 +72,29 @@ def test_cuda_kernels_match_plain_versions():
     counts = launch_counts()
     assert all(counts[k] > 0 for k in ("triple_scan", "triple_scan_many",
                                        "probe_sorted_many", "scan_probe"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_attention_kernels_match_plain_versions(dtype):
+    """``flash_attention`` and ``decode_attention`` equal their plain
+    versions on the card within the dtype's per-element tolerance, on the
+    cases of ``chip_smoke.check_attention_cases``: ragged S, GQA groups of
+    1, 2 and 8, every compiled head dim, windows and softcaps, lengths at
+    the kernels' tile and chunk edges and 0, strided views."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import reset_launch_counts
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launch_counts()
+    cases = smoke.check_attention_cases(torch.device("cuda"), (dtype,))
+    assert cases[dtype]["max_ratio"] <= 1.0
+    counts = launch_counts()
+    assert counts["flash_attention"] + counts["decode_attention"] == \
+        cases["cases"]
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0

@@ -125,7 +125,12 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.triple_scan",
             "repro_torch.kernels.join_probe", "repro_torch.rdf.generator",
             "repro_torch.sparql.engine", "repro_torch.sparql.device_join",
-            "repro_torch.sparql.endpoint", "repro_torch.sparql.algebra"}
+            "repro_torch.sparql.endpoint", "repro_torch.sparql.algebra",
+            "repro_torch.device", "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.decode_attention",
+            "repro_torch.models.common", "repro_torch.models.transformer",
+            "repro_torch.configs.registry", "repro_torch.configs.qwen3_0_6b",
+            "repro_torch.configs.qwen3_1_7b", "repro_torch.configs.gemma2_2b"}
     assert want <= set(got["modules"])
 
 
