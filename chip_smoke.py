@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --lm-only --prefill-seq 4096 --decode-cache 4096
                                      # LM phase alone, short (kernel edits)
+    python3 chip_smoke.py --sparse-only
+                                     # recsys and GNN phases alone
 
 1. Builds the CUDA kernels of ``src/repro_torch/csrc`` with ``nvcc``, one
    process per source, all started together.
@@ -25,6 +27,19 @@
    and ``decode_attention`` held against their plain versions (qwen3 and
    gemma2 head shapes, ragged lengths, GQA groups) and timed beside their
    bounds at the serving shapes.
+6. ``segment_sum_sorted`` and ``embedding_bag`` held against their plain
+   versions on edge cases (integer-valued inputs exactly, normal ones
+   within a summation bound), then Wide&Deep at full width (weights from
+   ``--seed``): float32 logits, scores and top-100 on the card against the
+   CPU at B = 512; ``serve_p99`` (B = 512), ``serve_bulk`` (B = 262,144)
+   and ``retrieval_cand`` (1M candidates) timed; ``embedding_bag`` at the
+   bulk shape against its plain version and timed beside its bound.
+7. GCN (gcn-cora): float32 logits on the card against the CPU at
+   full_graph_sm (``cora_like``, 2,708 nodes); a graph of ogb_products'
+   size (2,449,029 nodes, ~61.8M edges, d_feat 100) drawn and sorted on
+   the card, its forward timed; ``segment_sum_sorted`` at layer 1's shape
+   against its plain version and timed beside its bound. Every model and
+   kernel check also reads a planted fault that must fail it.
 
 Fails (non-zero exit, no result line) on any mismatch or exception, and
 when CUDA is not available. The last line is
@@ -88,6 +103,30 @@ ATTN_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
 MODEL_TOL = 2e-5
 CONSISTENCY_TOL = 0.05
 PLANTED_DROP = 64            # keys a planted attention fault leaves out
+SPARSE_SOURCE = "src/repro_torch/csrc/sparse_kernels.cu"
+SPARSE_REPLACES = {
+    "segment_sum_sorted": "src/repro/kernels/segment_mp.py:107",
+    "embedding_bag": "src/repro/kernels/embedding_bag.py:70",
+}
+RECSYS_ARCH = "wide-deep"
+GNN_ARCH = "gcn-cora"
+# The sparse kernels' sums against their plain versions, per element:
+# |kernel - plain| <= SUM_GROWTH * n * A + rtol * |plain|, with n the number
+# of terms and A the sum of their magnitudes (over the bag's count for
+# mean). Two float32 sums of the same n terms in any order differ by at most
+# 2 (n - 1) 2^-24 A; mean's division rounds once on each side (2^-23 of the
+# result, rtol 2^-22 leaves a factor 2); bfloat16 adds one unit in the last
+# place of the rounded sum (2^-7). On integer-valued inputs whose sums stay
+# under 2^24 every order is exact, and the check is equality.
+SUM_GROWTH = 2.0 ** -23
+SUM_RTOL = {"float32": 2.0 ** -22, "bfloat16": 2.0 ** -7}
+SEGMENT_CUT = 256            # a planted segment fault's edge boundary
+# f32 card-vs-CPU Wide&Deep logits and GCN logits, relative to max(1, max
+# |logit|): their sums are short (MLP rows of 1,293, GCN rows of 1,433 with
+# ~17 non-zeros), so both sides agree to about 1e-7, and TF32 matmuls (a
+# control each run must exceed) move them by about 4e-5 (a CPU emulation
+# of TF32 rounding at full width)
+SPARSE_MODEL_TOL = 2e-6
 
 
 def log(msg: str) -> None:
@@ -417,6 +456,8 @@ def _tokens(seed: int, shape: tuple[int, ...], vocab: int, device):
 def _params_to(tree, device):
     if isinstance(tree, dict):
         return {k: _params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_params_to(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -887,6 +928,698 @@ def lm_phase(args, hbm: float | None, device) -> list[dict]:
     return attention_kernel_rows(cfg, pre, dec, hbm)
 
 
+# ---------------------------------------------------------------------------
+# recsys and GNN serving phases
+# ---------------------------------------------------------------------------
+
+
+def sum_err(got, want, bound) -> tuple[float, float]:
+    """(max |got - want|, max |got - want| / (bound + rtol * |want|)) with
+    SUM_RTOL of want's dtype and ``bound`` = SUM_GROWTH * n * A per
+    element: within tolerance when the second is at most 1."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} "
+                             f"vs {tuple(want.shape)} {want.dtype}")
+    if not got.numel():
+        return 0.0, 0.0
+    rtol = SUM_RTOL[str(want.dtype).removeprefix("torch.")]
+    w = want.float()
+    delta = (got.float() - w).abs()
+    return (float(delta.max()),
+            float((delta / (bound + rtol * w.abs() + 1e-30)).max()))
+
+
+def segment_bound(msg, dst, n_nodes):
+    """SUM_GROWTH * in-degree * sum of |msg| per node and column."""
+    import torch
+    from repro_torch.kernels import ref
+    absum = ref.segment_sum_sorted_reference(msg.abs().float(), dst,
+                                             n_nodes)
+    deg = ref.segment_sum_sorted_reference(
+        torch.ones((msg.shape[0], 1), device=msg.device), dst, n_nodes)
+    return SUM_GROWTH * deg * absum
+
+
+def bag_bound(table, ids, mask, combiner):
+    """SUM_GROWTH * NNZ * sum of |row * m| (over the count for mean)."""
+    from repro_torch.kernels import ref
+    return SUM_GROWTH * ids.shape[2] * ref.embedding_bag_reference(
+        table.abs().float(), ids, mask.abs(), combiner)
+
+
+def planted_segment(msg, dst):
+    """msg with the first edge after every SEGMENT_CUT-edge boundary that
+    cuts a run of equal dst zeroed: the plain version fed it leaves those
+    edges out."""
+    import torch
+    at = torch.arange(SEGMENT_CUT, dst.shape[0], SEGMENT_CUT,
+                      device=dst.device)
+    at = at[dst[at] == dst[at - 1]]
+    out = msg.clone()
+    out[at] = 0
+    return out
+
+
+def planted_bag(mask):
+    """mask with each bag's last entry zeroed: the plain version fed it
+    leaves that entry out of the sum and the count."""
+    out = mask.clone()
+    out[..., -1] = 0
+    return out
+
+
+def check_sparse_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
+    """Both sparse kernels against their plain versions on the contract's
+    edges: an empty graph and E = 0, nodes with no edges, one hot node,
+    destinations outside [0, n_nodes), E off every span, D of 1, 7, 16,
+    33 and past one column tile (300); empty batches, NNZ of 0, 1 and past
+    one warp (37), D past one warp, weighted and all-masked bags. Random
+    normal inputs within ``sum_err``'s tolerance, integer-valued ones
+    exactly. Returns the number of cases and, by dtype, the largest
+    readings; raises after every case has run if any was out of
+    tolerance."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.segment_mp import segment_sum_sorted
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst, bad = {}, []
+    cases = 0
+
+    def record(label, dtype, got, want, bound):
+        nonlocal cases
+        cases += 1
+        err, ratio = sum_err(got, want, bound)
+        w = worst.setdefault(dtype, {"max_abs_err": 0.0, "max_ratio": 0.0})
+        w["max_abs_err"] = max(w["max_abs_err"], err)
+        w["max_ratio"] = max(w["max_ratio"], ratio)
+        if not ratio <= 1.0:
+            bad.append(f"{label}: max |kernel - plain| {err}, {ratio}x the "
+                       f"tolerance")
+
+    def exact(label, got, want):
+        nonlocal cases
+        cases += 1
+        if not torch.equal(got, want):
+            bad.append(f"{label}: integer-valued sums differ")
+
+    def sorted_dst(E, N, lo=0, hi=None, hot=None):
+        d = torch.randint(lo, N if hi is None else hi, (E,), generator=gen,
+                          device=dev)
+        if hot is not None:
+            d[torch.rand(E, generator=gen, device=dev) < 0.9] = hot
+        return d.sort().values.to(torch.int32)
+
+    segment_cases = [  # label, E, N, D, dst
+        ("empty graph", 0, 0, 16, None),
+        ("E=0", 0, 50, 16, None),
+        ("one edge", 1, 1, 1, None),
+        ("nodes without edges", 1000, 5000, 16, None),
+        ("hot node", 100_003, 64, 16, dict(hot=5)),
+        ("dst outside [0, n)", 20_000, 300, 7, dict(lo=-40, hi=340)),
+        ("E off the span, D=1", 8193, 700, 1, None),
+        ("E off the span, D=16", 513, 40, 16, None),
+        ("D=33", 9999, 2000, 33, None),
+        ("D=300, two column tiles", 3001, 500, 300, None),
+        ("long runs", 1_000_003, 5000, 7, None),
+    ]
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        for label, E, N, D, kw in segment_cases:
+            dst = sorted_dst(E, max(N, 1), **(kw or {}))
+            msg = torch.randn((E, D), generator=gen, device=dev).to(dtype)
+            label = f"segment_sum_sorted {name} {label} E={E} N={N} D={D}"
+            record(label, name, segment_sum_sorted(msg, dst, N),
+                   ref.segment_sum_sorted_reference(msg, dst, N),
+                   segment_bound(msg, dst, N))
+            msg = torch.randint(-2, 3, (E, D), generator=gen, device=dev,
+                                dtype=torch.float32).to(dtype)
+            exact(label + " integer", segment_sum_sorted(msg, dst, N),
+                  ref.segment_sum_sorted_reference(msg, dst, N))
+    bag_cases = [  # B, F, NNZ, V, D
+        (0, 3, 4, 10, 8), (1, 1, 1, 1, 1), (7, 3, 5, 100, 7),
+        (64, 40, 4, 10_000, 32), (5, 2, 37, 500, 33), (3, 2, 3, 50, 300),
+        (2, 3, 0, 10, 8),
+    ]
+    weights = torch.tensor([0.0, 0.5, 1.0, 2.0], device=dev)
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        for B, F, NNZ, V, D in bag_cases:
+            ids = torch.randint(0, V, (B, F, NNZ), generator=gen, device=dev,
+                                dtype=torch.int32)
+            mask = weights[torch.randint(0, 4, (B, F, NNZ), generator=gen,
+                                         device=dev)]
+            if B:
+                mask[0, 0] = 0.0                        # an all-masked bag
+            table = torch.randn((V, D), generator=gen, device=dev).to(dtype)
+            itable = torch.randint(-8, 9, (V, D), generator=gen, device=dev,
+                                   dtype=torch.float32).to(dtype)
+            for combiner in ("mean", "sum"):
+                label = (f"embedding_bag {name} {combiner} B={B} F={F} "
+                         f"NNZ={NNZ} V={V} D={D}")
+                record(label, name, embedding_bag(table, ids, mask, combiner),
+                       ref.embedding_bag_reference(table, ids, mask,
+                                                   combiner),
+                       bag_bound(table, ids, mask, combiner))
+                # sums of multiples of 0.5 are exact in any order, and
+                # both sides then divide and round the same float32 value
+                exact(label + " integer",
+                      embedding_bag(itable, ids, mask, combiner),
+                      ref.embedding_bag_reference(itable, ids, mask,
+                                                  combiner))
+    _sync(dev)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"cases": cases, **worst}
+
+
+def _recsys_inputs(cfg, batch: int, seed: int, device) -> dict:
+    """A ``recsys_batch`` of ``batch`` rows as tensors on ``device``."""
+    import torch
+    from repro_torch.data.recsys import recsys_batch
+    b = recsys_batch(batch, cfg.n_sparse, cfg.vocab_per_field,
+                     cfg.nnz_per_field, cfg.n_dense, seed=seed)
+    return {k: torch.from_numpy(b[k]).to(device)
+            for k in ("ids", "id_mask", "dense")}
+
+
+def _ambiguous(vals, limit):
+    """Positions of a descending top-k whose neighbour lies within
+    ``limit``: their order may differ between two correct runs."""
+    import torch
+    close = (vals[:-1] - vals[1:]) <= limit
+    amb = torch.zeros(vals.shape, dtype=torch.bool)
+    amb[:-1] |= close
+    amb[1:] |= close
+    return amb
+
+
+def recsys_model_check(cfg, seed: int, device, batch: int = 512,
+                       ref_device="cpu") -> dict:
+    """Float32 weights from ``seed``: Wide&Deep logits and scores of a
+    ``batch``-row batch and the top-k retrieval of its first row on
+    ``device`` (through the kernel on a card), then the same weights and
+    batch on ``ref_device`` (the plain versions on the CPU). ok when every
+    value is finite, max |diff| <= SPARSE_MODEL_TOL * max(1, max |logit|)
+    for logits, scores and top-k scores, and the top-k indices agree
+    wherever a score's neighbours lie farther apart than the limit. On a card two
+    controls must exceed the limit: TF32 matmuls, and a mean that divides
+    every bag by NNZ instead of its live count."""
+    import torch
+    from repro_torch.models import recsys
+    dev = torch.device(device)
+    params = recsys.init_recsys_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    data = _recsys_inputs(cfg, batch, seed + 1, "cpu")
+
+    def run(p, d):
+        b = {key: v.to(d) for key, v in data.items()}
+        one = {key: v[:1] for key, v in b.items()}
+        vals, idx = recsys.retrieval_topk(cfg, p, one)
+        return (recsys.wide_deep_logits(cfg, p, b).cpu(),
+                recsys.recsys_score(cfg, p, b).cpu(), vals.cpu(), idx.cpu())
+
+    got = run(params, dev)
+    ref_dev = torch.device(ref_device)
+    want = run(_params_to(params, ref_dev), ref_dev)
+    limit = SPARSE_MODEL_TOL * max(1.0, float(want[0].abs().max()))
+    diff = [float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])]
+    amb = _ambiguous(want[2][0], limit)
+    idx_ok = bool(torch.equal(got[3][0][~amb], want[3][0][~amb]))
+    finite = all(bool(torch.isfinite(g).all()) for g in got[:3])
+    controls = {}
+    if dev.type == "cuda":
+        matmul = torch.backends.cuda.matmul
+        tf32, matmul.allow_tf32 = matmul.allow_tf32, True
+        try:
+            controls["tf32"] = float((run(params, dev)[0] - want[0])
+                                     .abs().max())
+        finally:
+            matmul.allow_tf32 = tf32
+        kernel = recsys.bag_kernel
+        recsys.bag_kernel = (lambda t, i, m, combiner="mean":
+                             kernel(t, i, m, "sum") / i.shape[2])
+        try:
+            controls["mean_over_nnz"] = float((run(params, dev)[0] - want[0])
+                                              .abs().max())
+        finally:
+            recsys.bag_kernel = kernel
+    return {"batch": batch, "max_abs_diff_logits": diff[0],
+            "max_abs_diff_scores": diff[1], "max_abs_diff_topk": diff[2],
+            "max_abs_logit": float(want[0].abs().max()), "limit": limit,
+            "topk_index_agree": float((got[3] == want[3]).float().mean()),
+            "topk_ambiguous": int(amb.sum()), "controls": controls,
+            "ok": finite and max(diff) <= limit and idx_ok
+            and all(c > limit for c in controls.values())}
+
+
+def timed_calls(fn, calls: int, device) -> dict:
+    """One warm-up call of ``fn``; one call with the launch counts set to
+    0 just before and read just after (its result is returned under
+    ``out``); then ``calls`` more, each timed on the host clock to a
+    synchronise. Peak device memory is read after them all."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    fn()
+    _reset_peak(device)
+    reset_launch_counts()
+    out = fn()
+    _sync(device)
+    launches = launch_counts()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"out": out, "calls": calls,
+            "median_ms": statistics.median(times), "min_ms": min(times),
+            "launches": launches, "peak_gb": _peak_gb(device)}
+
+
+def recsys_serve(cfg, params, batch: int, seed: int, device, calls: int,
+                 profile: bool = False) -> dict:
+    """``recsys_score`` on one ``recsys_batch`` of ``batch`` rows already on
+    the device, through ``timed_calls``; ``profile`` adds a call under the
+    profiler."""
+    from repro_torch.models.recsys import recsys_score
+    data = _recsys_inputs(cfg, batch, seed, device)
+    res = timed_calls(lambda: recsys_score(cfg, params, data), calls,
+                      device)
+    scores = res.pop("out")
+    if scores.shape != (batch,) or not bool(
+            ((scores >= 0) & (scores <= 1)).all()):
+        raise AssertionError(f"scores {tuple(scores.shape)} not in [0, 1]")
+    res.update(batch=batch, samples_per_s=batch / res["median_ms"] * 1e3)
+    if profile:
+        res["profile"] = device_profile(
+            lambda: recsys_score(cfg, params, data))
+    return res
+
+
+def recsys_retrieval(cfg, params, seed: int, device, calls: int,
+                     profile: bool = False) -> dict:
+    """``retrieval_topk`` of one query against every candidate, through
+    ``timed_calls``."""
+    import torch
+    from repro_torch.models.recsys import retrieval_topk
+    data = _recsys_inputs(cfg, 1, seed, device)
+    res = timed_calls(lambda: retrieval_topk(cfg, params, data), calls,
+                      device)
+    vals, idx = res.pop("out")
+    if not bool(torch.isfinite(vals).all()) or \
+            not bool((vals[0, :-1] >= vals[0, 1:]).all()):
+        raise AssertionError("top-k scores are not finite and descending")
+    res.update(candidates=cfg.n_candidates, k=idx.shape[1])
+    if profile:
+        res["profile"] = device_profile(
+            lambda: retrieval_topk(cfg, params, data))
+    return res
+
+
+def sparse_row(name, launches, err, kern, plain, lib, nbytes, hbm) -> dict:
+    """A kernel row of a sparse kernel: its time, its plain version's and
+    one PyTorch call's (``lib``), beside the time of moving ``nbytes`` at
+    the card's memory rate (two flops per loaded element: bytes bind)."""
+    return {
+        "name": name, "route": "cuda", "source": SPARSE_SOURCE,
+        "replaces": SPARSE_REPLACES[name],
+        "launches": int(launches.get(name, 0)), "max_abs_err": err,
+        "ms": time_ms(kern), "plain_ms": time_ms(plain, calls=1, reps=3),
+        "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes",
+        "library_ms": time_ms(lib),
+    }
+
+
+def bag_kernel_row(cfg, params, data, launches, hbm) -> dict:
+    """``embedding_bag`` at a serving batch's shape (the model's unified
+    table and field-offset ids) against its plain version on the same card
+    inputs: exactly on an integer-valued table with weights in {0, 1, 2},
+    per element on the model's float32 table and a bfloat16 copy under
+    both combiners; each against a planted fault (the plain version
+    leaving out every bag's last entry) that must fail it. Timed beside
+    its bound and ``F.embedding_bag``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.models.recsys import _field_ids
+
+    table = params["embed"]
+    dev = table.device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    ids = _field_ids(data["ids"], cfg.vocab_per_field)
+    mask = data["id_mask"]
+    B, F_, NNZ = ids.shape
+    V, D = table.shape
+    shape = f"B={B} F={F_} NNZ={NNZ} V={V} D={D}"
+    checks = {}
+
+    itable = torch.randint(-8, 9, (V, D), generator=gen, device=dev,
+                           dtype=torch.float32)
+    imask = mask * torch.randint(1, 3, mask.shape, generator=gen,
+                                 device=dev, dtype=torch.float32)
+    for combiner in ("mean", "sum"):
+        want = ref.embedding_bag_reference(itable, ids, imask, combiner)
+        got = embedding_bag(itable, ids, imask, combiner)
+        planted = ref.embedding_bag_reference(itable, ids,
+                                              planted_bag(imask), combiner)
+        checks[f"exact {combiner}"] = [float((got - want).abs().max()),
+                                       float((planted - want).abs().max())]
+        del want, got, planted
+    del itable, imask
+    for name in ("float32", "bfloat16"):
+        tab = table if name == "float32" else table.to(torch.bfloat16)
+        for combiner in ("mean", "sum"):
+            want = ref.embedding_bag_reference(tab, ids, mask, combiner)
+            bound = bag_bound(tab, ids, mask, combiner)
+            err = sum_err(embedding_bag(tab, ids, mask, combiner), want,
+                          bound)
+            control = sum_err(ref.embedding_bag_reference(
+                tab, ids, planted_bag(mask), combiner), want, bound)
+            checks[f"{name} {combiner}"] = [*err, *control]
+            del want, bound
+        del tab
+    _sync(dev)
+    bad = [k for k, v in checks.items()
+           if (not (v[0] == 0 and v[1] > 0) if k.startswith("exact")
+               else not v[1] <= 1.0 < v[3])]
+    if bad:
+        raise AssertionError(f"embedding_bag [{shape}]: {bad}: {checks}")
+
+    flat, w = ids.view(-1, NNZ), mask.view(-1, NNZ)
+
+    def library():   # sum with per-sample weights, then mean's divide
+        return (F.embedding_bag(flat, table, mode="sum",
+                                per_sample_weights=w)
+                / w.sum(1, keepdim=True).clamp(min=1.0))
+
+    lib_err = float((library().view(B, F_, D) - ref.embedding_bag_reference(
+        table, ids, mask)).abs().max())
+    n = ids.numel()
+    uniq = int(torch.unique(ids).numel())
+    addressed = 8 * n + B * F_ * D * 4          # ids, mask, out
+    row = sparse_row(
+        "embedding_bag", launches, checks["float32 mean"][0],
+        lambda: embedding_bag(table, ids, mask),
+        lambda: ref.embedding_bag_reference(table, ids, mask), library,
+        addressed + uniq * D * 4, hbm)
+    log(f"kernel embedding_bag [{shape} mean f32]: kernel_ms={row['ms']} "
+        f"bound_ms={row['bound_ms']} (bytes: ids, mask, {uniq} distinct "
+        f"rows of {n} lookups, out; "
+        f"{(addressed + n * D * 4) / hbm * 1e3} ms reading every "
+        f"addressed row) plain_ms={row['plain_ms']} "
+        f"library_ms={row['library_ms']} (F.embedding_bag sum with "
+        f"per_sample_weights, then the divide by the count; max |library "
+        f"- plain| {lib_err}) launches={row['launches']} checks "
+        f"[max_abs_err, ratio, planted max_abs_err, planted ratio]: "
+        f"{json.dumps(checks)}")
+    return row
+
+
+def recsys_phase(args, hbm: float | None, device) -> list[dict]:
+    """Wide&Deep at full width: card against CPU, then ``serve_p99``,
+    ``serve_bulk`` and ``retrieval_cand``; returns the ``embedding_bag``
+    row (none off the card)."""
+    import torch
+    from repro_torch.configs.registry import get_spec
+    from repro_torch.models.recsys import init_recsys_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 checks
+    spec = get_spec(RECSYS_ARCH)
+    cfg = spec.config
+    log(f"recsys: {cfg.name} ({spec.source}) {cfg.n_sparse} fields x "
+        f"{cfg.vocab_per_field} ids, embed {cfg.embed_dim}, nnz "
+        f"{cfg.nnz_per_field}, MLP {cfg.mlp_dims}, {cfg.n_candidates} x "
+        f"{cfg.retrieval_dim} candidates, {cfg.param_count()} parameters, "
+        f"float32; shapes {spec.shapes}")
+    t0 = time.perf_counter()
+    check = recsys_model_check(cfg, args.seed, device)
+    log(f"recsys model check (f32, card vs CPU): {json.dumps(check)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not check["ok"]:
+        raise AssertionError(f"recsys outputs differ: {check}")
+    torch.cuda.empty_cache()
+
+    params = init_recsys_params(cfg, torch.Generator(device=device)
+                                .manual_seed(args.seed), device)
+    cells = {}
+    for shape, calls in (("serve_p99", 50), ("serve_bulk", 7)):
+        batch = spec.shapes[shape]["batch"]
+        cells[shape] = recsys_serve(cfg, params, batch, args.seed + 2,
+                                    device, calls, profile=True)
+        log(f"recsys {shape}: {json.dumps(cells[shape])}")
+    ret = recsys_retrieval(cfg, params, args.seed + 3, device, calls=20,
+                           profile=True)
+    log(f"recsys retrieval_cand: {json.dumps(ret)}")
+    for name, res in (*cells.items(), ("retrieval_cand", ret)):
+        if res["launches"] != {"embedding_bag": 1}:
+            raise AssertionError(f"recsys {name}: launches "
+                                 f"{res['launches']}, want one "
+                                 f"embedding_bag")
+    data = _recsys_inputs(cfg, spec.shapes["serve_bulk"]["batch"],
+                          args.seed + 2, device)
+    row = bag_kernel_row(cfg, params, data, cells["serve_bulk"]["launches"],
+                         hbm)
+    del params, data
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def _drop_run_starts(kernel):
+    """``segment_sum_sorted`` with a planted fault: the first edge of every
+    destination's run left out."""
+    import torch
+
+    def faulty(msg, dst, n_nodes, out=None):
+        first = torch.ones(dst.shape, dtype=torch.bool, device=dst.device)
+        first[1:] = dst[1:] != dst[:-1]
+        return kernel(msg * (~first)[:, None].to(msg.dtype), dst, n_nodes,
+                      out)
+    return faulty
+
+
+def gnn_model_check(cfg, seed: int, device, ref_device="cpu") -> dict:
+    """Float32 GCN weights from ``seed`` on ``cora_like`` at the config's
+    full_graph_sm size (edges as generated, unsorted): logits on
+    ``device`` (through the kernel on a card) against the same weights on
+    ``ref_device`` (the plain versions on the CPU). ok when every logit is
+    finite and max |diff| <= SPARSE_MODEL_TOL * max(1, max |logit|), and
+    on a card when two controls exceed the limit: TF32 matmuls, and a
+    planted fault that leaves every node's first edge out of the
+    aggregation."""
+    import torch
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.data.graphs import cora_like
+    from repro_torch.models import gnn
+    shape = GNN_SHAPES["full_graph_sm"]
+    data = cora_like(shape["n_nodes"], shape["n_edges"], shape["d_feat"],
+                     cfg.n_classes, seed=seed)
+    feat = torch.from_numpy(data["feat"])
+    edges = torch.from_numpy(data["edge_index"])
+    dev = torch.device(device)
+    params = gnn.gcn_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          dev)
+
+    def run(p, d):
+        return gnn.gcn_forward(cfg, p, feat.to(d), edges.to(d)).cpu()
+
+    got = run(params, dev)
+    ref_dev = torch.device(ref_device)
+    want = run(_params_to(params, ref_dev), ref_dev)
+    limit = SPARSE_MODEL_TOL * max(1.0, float(want.abs().max()))
+    diff = float((got - want).abs().max())
+    controls = {}
+    if dev.type == "cuda":
+        matmul = torch.backends.cuda.matmul
+        tf32, matmul.allow_tf32 = matmul.allow_tf32, True
+        try:
+            controls["tf32"] = float((run(params, dev) - want).abs().max())
+        finally:
+            matmul.allow_tf32 = tf32
+        kernel = gnn.segment_sum_sorted
+        gnn.segment_sum_sorted = _drop_run_starts(kernel)
+        try:
+            controls["first_edge_dropped"] = float(
+                (run(params, dev) - want).abs().max())
+        finally:
+            gnn.segment_sum_sorted = kernel
+    return {"nodes": shape["n_nodes"], "edges": int(edges.shape[0]),
+            "d_feat": shape["d_feat"], "max_abs_diff": diff,
+            "max_abs_logit": float(want.abs().max()), "limit": limit,
+            "controls": controls,
+            "ok": bool(torch.isfinite(got).all()) and diff <= limit
+            and all(c > limit for c in controls.values())}
+
+
+def gnn_graph(n_nodes: int, n_edges: int, d_feat: int, seed: int,
+              device) -> dict:
+    """``power_law_graph`` drawn on ``device`` and sorted by destination
+    there (each timed to a synchronise), with normal features."""
+    import torch
+    from repro_torch.data.graphs import power_law_graph
+    from repro_torch.models.gnn import is_sorted_by_dst, sort_by_dst
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    edges = power_law_graph(n_nodes, n_edges, gen)
+    _sync(device)
+    t1 = time.perf_counter()
+    edges = sort_by_dst(edges)
+    _sync(device)
+    t2 = time.perf_counter()
+    if not is_sorted_by_dst(edges):
+        raise AssertionError("sort_by_dst left dst unsorted")
+    feat = torch.randn((n_nodes, d_feat), generator=gen, device=device)
+    return {"edges": edges, "feat": feat, "draw_s": t1 - t0,
+            "sort_s": t2 - t1}
+
+
+def gnn_serve(cfg, params, graph: dict, device, calls: int,
+              profile: bool = False) -> dict:
+    """``gcn_forward`` on a graph sorted beforehand, through
+    ``timed_calls``; ``profile`` adds a call under the profiler."""
+    import torch
+    from repro_torch.models.gnn import degrees, gcn_forward
+    feat, edges = graph["feat"], graph["edges"]
+    n, E = feat.shape[0], edges.shape[0]
+    res = timed_calls(lambda: gcn_forward(cfg, params, feat, edges), calls,
+                      device)
+    logits = res.pop("out")
+    if logits.shape != (n, cfg.n_classes) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"logits {tuple(logits.shape)} not finite")
+    del logits
+    res.update(nodes=n, edges=E, d_feat=feat.shape[1],
+               max_in_degree=float(degrees(edges[:, 1].contiguous(),
+                                           n).max()),
+               draw_s=graph["draw_s"], sort_s=graph["sort_s"],
+               edges_per_s=E / res["median_ms"] * 1e3)
+    if profile:
+        res["profile"] = device_profile(
+            lambda: gcn_forward(cfg, params, feat, edges))
+    return res
+
+
+def segment_kernel_row(edges, n_nodes: int, d: int, launches, hbm) -> dict:
+    """``segment_sum_sorted`` at a layer's shape (the graph's sorted dst,
+    [E, d] messages) against its plain version on the same card inputs:
+    exactly on integer-valued messages in {-2, ..., 2} (every sum is under
+    2^24, so exact in any order), per element on normal messages at d and
+    at the forward's other widths (1 and the classes) and in bfloat16;
+    each against a planted fault (``planted_segment``) that must fail it.
+    Timed beside its bound and ``index_add_``."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_mp import segment_sum_sorted
+
+    dev = edges.device
+    gen = torch.Generator(device=dev).manual_seed(17)
+    dst = edges[:, 1].contiguous()
+    E = dst.shape[0]
+    shape = f"E={E} N={n_nodes} D={d}"
+    checks, widths = {}, {}
+
+    msg = torch.randint(-2, 3, (E, d), generator=gen, device=dev,
+                        dtype=torch.float32)
+    want = ref.segment_sum_sorted_reference(msg, dst, n_nodes)
+    got = segment_sum_sorted(msg, dst, n_nodes)
+    planted = ref.segment_sum_sorted_reference(planted_segment(msg, dst),
+                                               dst, n_nodes)
+    checks["exact"] = [float((got - want).abs().max()),
+                       float((planted - want).abs().max())]
+    del msg, want, got, planted
+    for name, width in (("float32", d), ("float32", 7), ("float32", 1),
+                        ("bfloat16", d)):
+        msg = torch.randn((E, width), generator=gen, device=dev).to(
+            getattr(torch, name))
+        want = ref.segment_sum_sorted_reference(msg, dst, n_nodes)
+        bound = segment_bound(msg, dst, n_nodes)
+        err = sum_err(segment_sum_sorted(msg, dst, n_nodes), want, bound)
+        control = sum_err(ref.segment_sum_sorted_reference(
+            planted_segment(msg, dst), dst, n_nodes), want, bound)
+        checks[f"{name} D={width}"] = [*err, *control]
+        if name == "float32" and width != d:
+            widths[width] = time_ms(
+                lambda: segment_sum_sorted(msg, dst, n_nodes))
+        del msg, want, bound
+    _sync(dev)
+    bad = [] if (checks["exact"][0] == 0 and checks["exact"][1] > 0) \
+        else ["exact"]
+    bad += [k for k, v in checks.items()
+            if k != "exact" and not v[1] <= 1.0 < v[3]]
+    if bad:
+        raise AssertionError(f"segment_sum_sorted [{shape}]: {bad}: "
+                             f"{checks}")
+
+    msg = torch.randn((E, d), generator=gen, device=dev)
+    lib_err = float((torch.zeros((n_nodes, d), device=dev)
+                     .index_add_(0, dst, msg)
+                     - ref.segment_sum_sorted_reference(msg, dst, n_nodes))
+                    .abs().max())
+    row = sparse_row(
+        "segment_sum_sorted", launches, checks[f"float32 D={d}"][0],
+        lambda: segment_sum_sorted(msg, dst, n_nodes),
+        lambda: ref.segment_sum_sorted_reference(msg, dst, n_nodes),
+        lambda: torch.zeros((n_nodes, d), device=dev).index_add_(0, dst,
+                                                                 msg),
+        E * d * 4 + E * 4 + n_nodes * d * 4, hbm)
+    others = {w: [ms, (E * w * 4 + E * 4 + n_nodes * w * 4) / hbm * 1e3]
+              for w, ms in widths.items()}
+    log(f"kernel segment_sum_sorted [{shape} f32]: kernel_ms={row['ms']} "
+        f"bound_ms={row['bound_ms']} (bytes) plain_ms={row['plain_ms']} "
+        f"library_ms={row['library_ms']} (zeros + index_add_; max "
+        f"|library - plain| {lib_err}) launches={row['launches']}; "
+        f"[kernel_ms, bound_ms] at the other widths {json.dumps(others)}; "
+        f"checks [max_abs_err, ratio, planted max_abs_err, planted "
+        f"ratio]: {json.dumps(checks)}")
+    return row
+
+
+def gnn_phase(args, hbm: float | None, device) -> list[dict]:
+    """GCN inference: card against CPU at full_graph_sm, then a forward
+    on ogb_products' full size drawn on the card; returns the
+    ``segment_sum_sorted`` row (none off the card)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_spec
+    from repro_torch.models.gnn import gcn_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 checks
+    spec = get_spec(GNN_ARCH)
+    cfg = spec.config
+    log(f"gnn: {cfg.name} ({spec.source}) {cfg.n_layers} layers, hidden "
+        f"{cfg.d_hidden}, {cfg.n_classes} classes; shapes full_graph_sm "
+        f"{spec.shapes['full_graph_sm']} and ogb_products "
+        f"{spec.shapes['ogb_products']}")
+    t0 = time.perf_counter()
+    check = gnn_model_check(cfg, args.seed, device)
+    log(f"gnn model check (f32, card vs CPU): {json.dumps(check)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not check["ok"]:
+        raise AssertionError(f"gcn logits differ: {check}")
+
+    shape = spec.shapes["ogb_products"]
+    pcfg = dataclasses.replace(cfg, d_feat=shape["d_feat"])
+    graph = gnn_graph(shape["n_nodes"], shape["n_edges"], shape["d_feat"],
+                      args.seed, device)
+    params = gcn_init(pcfg, torch.Generator(device=device)
+                      .manual_seed(args.seed), device)
+    res = gnn_serve(pcfg, params, graph, device, calls=5, profile=True)
+    log(f"gnn ogb_products: {json.dumps(res)}")
+    want = {"segment_sum_sorted": cfg.n_layers + 1}
+    if res["launches"] != want:
+        raise AssertionError(f"gcn forward launches {res['launches']}, "
+                             f"want {want}")
+    del params, graph["feat"]
+    torch.cuda.empty_cache()
+    row = segment_kernel_row(graph["edges"], shape["n_nodes"], cfg.d_hidden,
+                             res["launches"], hbm)
+    del graph
+    torch.cuda.empty_cache()
+    return [row]
+
+
 
 def gpu_line() -> str:
     out = subprocess.run(
@@ -930,14 +1663,20 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--sharded-max-rows", type=int, default=500_000,
                     help="engine row cap of the sharded phase")
     ap.add_argument("--lm-only", action="store_true",
-                    help="skip the SPARQL phases (a short run after an "
+                    help="the LM phase alone (a short run after an "
                          "attention kernel edit)")
+    ap.add_argument("--sparse-only", action="store_true",
+                    help="the recsys and GNN phases alone (a short run "
+                         "after a sparse kernel edit)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the LM phase's weights, tokens and cache")
+                    help="seed of the LM, recsys and GNN phases' weights "
+                         "and inputs")
     ap.add_argument("--prefill-seq", type=int, default=32768)
     ap.add_argument("--decode-cache", type=int, default=32768)
     ap.add_argument("--decode-steps", type=int, default=64)
     args = ap.parse_args(argv)
+    if args.lm_only and args.sparse_only:
+        ap.error("--lm-only and --sparse-only exclude each other")
 
     import torch
     if not torch.cuda.is_available():
@@ -963,7 +1702,7 @@ def main(argv: list[str] | None = None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {gpu}")
 
     rows = []
-    if not args.lm_only:
+    if not (args.lm_only or args.sparse_only):
         n_edge = check_edge_cases(dev)
         log(f"edge cases: {n_edge} exact")
 
@@ -989,9 +1728,21 @@ def main(argv: list[str] | None = None) -> int:
         del gen, small, sharded, full
         torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    rows += lm_phase(args, hbm, dev)
-    log(f"lm phase {time.perf_counter() - t0:.1f} s")
+    if not args.sparse_only:
+        t0 = time.perf_counter()
+        rows += lm_phase(args, hbm, dev)
+        log(f"lm phase {time.perf_counter() - t0:.1f} s")
+
+    if not args.lm_only:
+        t0 = time.perf_counter()
+        cases = check_sparse_cases(dev)
+        log(f"sparse edge cases within SUM_GROWTH {SUM_GROWTH} and rtol "
+            f"{SUM_RTOL} (integer-valued ones exact): {json.dumps(cases)}")
+        rows += recsys_phase(args, hbm, dev)
+        log(f"recsys phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rows += gnn_phase(args, hbm, dev)
+        log(f"gnn phase {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

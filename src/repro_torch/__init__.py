@@ -5,17 +5,22 @@ The port of :mod:`repro` (the JAX package, kept as the reference). It
 imports nothing of ``repro`` and nothing of JAX: the framework-neutral
 modules it needs are its own copies, and the device layer is torch.
 
-Layers (ported so far: the SPARQL read path, the dense LM serving path)
+Layers (ported so far: the SPARQL read path, the dense LM serving path,
+Wide&Deep scoring and retrieval, GCN inference)
 -----------------------------------------------------------------------
 - ``repro_torch.rdf``     : dictionary-encoded triple store + generators
 - ``repro_torch.sparql``  : parser, algebra, matcher, batched engine with
   the ``torch`` backend and the device-resident join, ``SparqlEndpoint``
-- ``repro_torch.models``  : dense decoder LM (prefill, KV-cache decode)
-- ``repro_torch.configs`` : qwen3-0.6b, qwen3-1.7b, gemma2-2b; LM shapes
+- ``repro_torch.models``  : dense decoder LM (prefill, KV-cache decode),
+  Wide&Deep (scoring, retrieval), GCN (forward over sorted edges)
+- ``repro_torch.data``    : synthetic recsys batches and graphs
+- ``repro_torch.configs`` : qwen3-0.6b, qwen3-1.7b, gemma2-2b, wide-deep,
+  gcn-cora; LM, recsys and GNN shapes
 - ``repro_torch.kernels`` : CUDA kernels (``csrc/rdf_kernels.cu``,
-  ``csrc/attention_kernels.cu``) and their plain torch versions
+  ``csrc/attention_kernels.cu``, ``csrc/sparse_kernels.cu``) and their
+  plain torch versions
 - ``repro_torch.convert`` : carries a reference store + dictionary, or a
-  reference LM parameter tree, over
+  reference LM, Wide&Deep or GCN parameter tree, over
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -44,6 +49,23 @@ _LAZY = {
                         "flash_attention"),
     "decode_attention": ("repro_torch.kernels.decode_attention",
                          "decode_attention"),
+    "recsys_params_from_reference": ("repro_torch.convert",
+                                     "recsys_params_from_reference"),
+    "gnn_params_from_reference": ("repro_torch.convert",
+                                  "gnn_params_from_reference"),
+    "RecsysConfig": ("repro_torch.models.recsys", "RecsysConfig"),
+    "init_recsys_params": ("repro_torch.models.recsys",
+                           "init_recsys_params"),
+    "wide_deep_logits": ("repro_torch.models.recsys", "wide_deep_logits"),
+    "recsys_score": ("repro_torch.models.recsys", "recsys_score"),
+    "retrieval_topk": ("repro_torch.models.recsys", "retrieval_topk"),
+    "GNNConfig": ("repro_torch.models.gnn", "GNNConfig"),
+    "gcn_init": ("repro_torch.models.gnn", "gcn_init"),
+    "gcn_forward": ("repro_torch.models.gnn", "gcn_forward"),
+    "sort_by_dst": ("repro_torch.models.gnn", "sort_by_dst"),
+    "segment_sum_sorted": ("repro_torch.kernels.segment_mp",
+                           "segment_sum_sorted"),
+    "embedding_bag": ("repro_torch.kernels.embedding_bag", "embedding_bag"),
 }
 
 

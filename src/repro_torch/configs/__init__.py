@@ -1,2 +1,2 @@
-"""LM architecture configs of the model zoo that the port serves (copies
-of ``repro/configs``'s dense LM specs)."""
+"""Architecture configs of the model zoo that the port serves (copies of
+``repro/configs``'s dense LM, Wide&Deep and GCN specs)."""

@@ -4,9 +4,11 @@ The SPARQL system has no weights: its state is the triple store and the
 term dictionary. :func:`from_reference` takes the numpy dicts the JAX
 package's ``TripleStore.to_arrays()`` / ``ShardedTripleStore.to_arrays()``
 and ``Dictionary.to_arrays()`` produce and rebuilds them as the port's
-store and dictionary. :func:`lm_params_from_reference` turns the model
-zoo's LM parameter tree, given as numpy arrays, into the port's params.
-Both read plain arrays only, so they import nothing of the JAX package.
+store and dictionary. :func:`lm_params_from_reference`,
+:func:`recsys_params_from_reference` and :func:`gnn_params_from_reference`
+turn the model zoo's LM, Wide&Deep and GCN parameter trees, given as numpy
+arrays, into the port's params. All read plain arrays only, so they import
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -67,3 +69,29 @@ def lm_params_from_reference(tree: dict, device=None,
     return {k: ({kk: leaf(kk, vv) for kk, vv in v.items()}
                 if isinstance(v, dict) else leaf(k, v))
             for k, v in tree.items()}
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def recsys_params_from_reference(tree: dict, device=None) -> dict:
+    """The port's Wide&Deep params from the JAX ``init_recsys_params``
+    tree, with its leaves as numpy arrays: same keys, dtypes and layouts
+    (``mlp`` a list of ``{w, b}``), on ``device`` (``cuda`` by default)."""
+    dev = resolve_device(device)
+    out = {k: _tensor(v, dev) for k, v in tree.items() if k != "mlp"}
+    out["mlp"] = [{"w": _tensor(layer["w"], dev),
+                   "b": _tensor(layer["b"], dev)} for layer in tree["mlp"]]
+    return out
+
+
+def gnn_params_from_reference(tree: dict, device=None) -> dict:
+    """The port's GCN params from the JAX ``gcn_init`` tree of numpy
+    arrays: ``{"w": [...]}`` as it is, on ``device`` (``cuda`` by
+    default). Other GNN models are not ported yet."""
+    if set(tree) != {"w"}:
+        raise NotImplementedError("only GCN params are ported "
+                                  f"(got keys {sorted(tree)})")
+    dev = resolve_device(device)
+    return {"w": [_tensor(w, dev) for w in tree["w"]]}

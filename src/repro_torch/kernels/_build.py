@@ -2,8 +2,9 @@
 
 Each source is compiled on first use by ``nvcc`` into its own shared
 library with a plain C interface under ``<repo>/build/`` and loaded with
-``ctypes``: ``rdf_kernels.cu`` (the SPARQL query kernels) and
-``attention_kernels.cu`` (the LM attention kernels). A file name carries a
+``ctypes``: ``rdf_kernels.cu`` (the SPARQL query kernels),
+``attention_kernels.cu`` (the LM attention kernels) and
+``sparse_kernels.cu`` (the recsys and GNN kernels). A file name carries a
 hash of its source and flags, so an edited source is rebuilt and a stale
 library is never loaded. Nothing here runs when the module is imported:
 the CPU tests import every module of the package.
@@ -52,6 +53,12 @@ LIBRARIES = {
         # S, D, chunk, window, softcap, scale
         "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _F, _F],
+    }),
+    "sparse": ("sparse_kernels.cu", {
+        # table, ids, mask, out, dtype, n_bags, nnz, D, mean
+        "embedding_bag": [_P, _P, _P, _P, _I, _L, _I, _I, _I],
+        # msg, dst, out, scratch, dtype, E, D, n_nodes
+        "segment_sum_sorted": [_P, _P, _P, _P, _I, _L, _I, _I],
     }),
 }
 _LIBRARY_OF = {kernel: lib for lib, (_src, sigs) in LIBRARIES.items()
@@ -127,8 +134,8 @@ def build_log() -> str:
 
 
 def library(lib: str) -> ctypes.CDLL:
-    """The loaded library ``lib`` ("rdf" or "attn"), built first if
-    needed."""
+    """The loaded library ``lib`` ("rdf", "attn" or "sparse"), built
+    first if needed."""
     with _lock:
         if lib not in _libs:
             handle = ctypes.CDLL(str(build(lib)[lib]))

@@ -4,7 +4,8 @@ Each function is the definition with no blocking: the wrappers use them
 for tensors on the CPU, the tests hold them against the JAX package's
 kernels, and ``chip_smoke.py`` holds every CUDA kernel against them on the
 card. The query kernels' results are int32, like the kernels'; the
-attention results take the query's dtype, computed in float32.
+attention, segment-sum and embedding-bag results take their input's dtype,
+computed in float32.
 """
 
 from __future__ import annotations
@@ -126,3 +127,39 @@ def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1)
     p = p * valid.any(dim=-1, keepdim=True)
     return torch.einsum("bhk,bhkd->bhd", p, vf).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# sparse aggregation (the GNN and recsys serving paths)
+# ---------------------------------------------------------------------------
+
+def segment_sum_sorted_reference(msg: torch.Tensor, dst: torch.Tensor,
+                                 n_nodes: int) -> torch.Tensor:
+    """msg [E, D]; dst [E] (the kernel's contract sorts it ascending; the
+    definition does not need it) -> [n_nodes, D] in msg's dtype, with
+    ``out[n] = sum of msg[e] over dst[e] == n`` taken in float32. Edges
+    whose dst lies outside [0, n_nodes) are dropped, as the Pallas
+    kernel's padding drops them."""
+    keep = (dst >= 0) & (dst < n_nodes)
+    idx = torch.where(keep, dst.long(), n_nodes)         # n_nodes: dump row
+    out = torch.zeros((n_nodes + 1, msg.shape[1]), dtype=torch.float32,
+                      device=msg.device)
+    out.index_add_(0, idx, msg.float())
+    return out[:n_nodes].to(msg.dtype)
+
+
+def embedding_bag_reference(table: torch.Tensor, ids: torch.Tensor,
+                            mask: torch.Tensor,
+                            combiner: str = "mean") -> torch.Tensor:
+    """table [V, D]; ids / mask [B, F, NNZ] -> [B, F, D] in table's dtype.
+
+    ``sum_z table[ids[z]] * mask[z]`` in float32 (mask cast to float32, as
+    the Pallas kernel casts it); ``mean`` divides by
+    ``max(sum_z mask[z], 1)``."""
+    if combiner not in ("mean", "sum"):
+        raise ValueError(f"combiner must be 'mean' or 'sum', got {combiner!r}")
+    m = mask.float()
+    s = (table[ids.long()].float() * m[..., None]).sum(dim=2)
+    if combiner == "mean":
+        s = s / m.sum(dim=2).clamp(min=1.0)[..., None]
+    return s.to(table.dtype)

@@ -1,2 +1,3 @@
-"""The LM serving path of the model zoo, in PyTorch (port of
-``repro.models``: ``common`` and the dense path of ``transformer``)."""
+"""The serving paths of the model zoo, in PyTorch (port of
+``repro.models``: ``common``, the dense path of ``transformer``, the
+scoring and retrieval path of ``recsys`` and the GCN forward of ``gnn``)."""

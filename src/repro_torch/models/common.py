@@ -97,3 +97,14 @@ def embed_init(generator: torch.Generator, shape: tuple[int, ...],
     """1/sqrt(d) embeddings: tied-logit variance O(1); pairs with the
     sqrt(d) embedding rescale Gemma-style models apply in forward."""
     return _trunc_normal(shape, shape[-1] ** -0.5, generator, dtype, device)
+
+
+def normal_init(generator: torch.Generator, shape: tuple[int, ...],
+                std: float, dtype: torch.dtype = torch.float32,
+                device=None) -> torch.Tensor:
+    """Plain normal draws times ``std`` (the recsys tables: embeddings,
+    wide weights, candidates), scaled in place so a multi-GB table is
+    allocated once."""
+    t = torch.randn(shape, dtype=torch.float32, device=device,
+                    generator=generator)
+    return t.mul_(std).to(dtype)

@@ -5,7 +5,9 @@ GPU machine too (``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``). Elsewhere the tests skip themselves. The
 query kernels' comparisons are exact (all results are integers); the
 attention kernels' are within the per-element tolerance that
-``chip_smoke.py`` states per dtype."""
+``chip_smoke.py`` states per dtype; the sparse kernels' are exact on
+integer-valued inputs and within ``chip_smoke.sum_err``'s bound on normal
+ones."""
 
 import importlib
 import sys
@@ -98,3 +100,26 @@ def test_cuda_attention_kernels_match_plain_versions(dtype):
     assert counts["flash_attention"] + counts["decode_attention"] == \
         cases["cases"]
     assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_sparse_kernels_match_plain_versions(dtype):
+    """``segment_sum_sorted`` and ``embedding_bag`` equal their plain
+    versions on the card on the cases of ``chip_smoke.check_sparse_cases``:
+    an empty graph and E = 0, nodes without edges, one hot node, dst
+    outside [0, n_nodes), ragged E, D of 1 to 300; empty batches, NNZ of 0
+    to 37, weighted and all-masked bags; integer-valued inputs exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import reset_launch_counts
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    reset_launch_counts()
+    cases = smoke.check_sparse_cases(torch.device("cuda"), (dtype,))
+    assert cases[dtype]["max_ratio"] <= 1.0
+    counts = launch_counts()
+    assert counts["segment_sum_sorted"] > 0 and counts["embedding_bag"] > 0

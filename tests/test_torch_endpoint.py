@@ -130,7 +130,12 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.decode_attention",
             "repro_torch.models.common", "repro_torch.models.transformer",
             "repro_torch.configs.registry", "repro_torch.configs.qwen3_0_6b",
-            "repro_torch.configs.qwen3_1_7b", "repro_torch.configs.gemma2_2b"}
+            "repro_torch.configs.qwen3_1_7b", "repro_torch.configs.gemma2_2b",
+            "repro_torch.kernels.segment_mp",
+            "repro_torch.kernels.embedding_bag",
+            "repro_torch.models.recsys", "repro_torch.models.gnn",
+            "repro_torch.data.recsys", "repro_torch.data.graphs",
+            "repro_torch.configs.wide_deep", "repro_torch.configs.gcn_cora"}
     assert want <= set(got["modules"])
 
 

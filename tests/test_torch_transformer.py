@@ -71,7 +71,8 @@ def test_configs_match_reference():
             dataclasses.asdict(ref.config)
         assert (mine.family, mine.source, mine.skip_shapes) == \
             (ref.family, ref.source, ref.skip_shapes)
-        assert mine.config.param_count() == ref.config.param_count()
+        if hasattr(ref.config, "param_count"):     # GNNConfig has none
+            assert mine.config.param_count() == ref.config.param_count()
         assert mine.shapes == ref.shapes
     assert get_spec("qwen3-0.6b").config.param_count() == 596_049_920
 
