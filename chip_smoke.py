@@ -24,9 +24,11 @@
    weights on the CPU; a bf16 prefill of 32,768 tokens; 64 greedy bf16
    decode steps of 8 sequences against a 32,768-position KV cache; decode
    logits against prefill logits on a short prompt; ``flash_attention``
-   and ``decode_attention`` held against their plain versions (qwen3 and
-   gemma2 head shapes, ragged lengths, GQA groups) and timed beside their
-   bounds at the serving shapes.
+   (bf16 on the tensor cores, float32 on the CUDA cores) and
+   ``decode_attention`` held against their plain versions (qwen3 and
+   gemma2 head shapes, ragged lengths, GQA groups, the tensor-core
+   kernel's tile edges, a cancellation case whose single-rounding control
+   must fail) and timed beside their bounds at the serving shapes.
 6. ``segment_sum_sorted`` and ``embedding_bag`` held against their plain
    versions on edge cases (integer-valued inputs exactly, normal ones
    within a summation bound), then Wide&Deep at full width (weights from
@@ -84,7 +86,9 @@ PREFILL_BATCH = 1
 DECODE_BATCH = 8
 PREFILL_WARM = 4096          # tokens of the untimed first prefill
 CONSISTENCY_PROMPT = 64      # tokens of the decode-vs-prefill check
-ATTN_SOURCE = "src/repro_torch/csrc/attention_kernels.cu"
+# the kernel each row times: bf16 at the serving shapes
+ATTN_SOURCE = {"flash_attention": "src/repro_torch/csrc/flash_tc.cu",
+               "decode_attention": "src/repro_torch/csrc/attention_kernels.cu"}
 LM_REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:112",
     "decode_attention": "src/repro/kernels/decode_attention.py:111",
@@ -97,6 +101,14 @@ BF16_OPS_PER_S = 989e12
 # the last place, 2^-7 of |plain|; atol covers the float32 sums (about
 # 1e-6 apart on an H100).
 ATTN_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
+# The bf16 flash_attention route alone (csrc/flash_tc.cu) runs P V on the
+# tensor cores with P split in two bf16 parts, p_hi = bf16(p) and p_lo =
+# bf16(p - p_hi): p_hi + p_lo is within 2^-16 p, so the output is within
+# 2^-16 A of a float32 product, A = sum p|v| / l (the plain version on
+# |v|); the factor 2 covers the one reordering of the two partial sums. Its
+# check adds SPLIT_GROWTH * A to ATTN_TOL's bound; one rounding of P would
+# need 2^-8 A, 2^7 times more, which the cancellation case's control shows.
+SPLIT_GROWTH = 2.0 ** -15
 # f32 card-vs-CPU logits and bf16 decode-vs-prefill logits, relative to
 # max(1, max |logit|); each run also reads a control (TF32 matmuls; the
 # current token left out of decode attention) that must exceed its limit
@@ -663,10 +675,12 @@ def _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev, layout="bshd"):
     return one(H), one(Hkv), one(Hkv)
 
 
-def attn_err(got, want) -> tuple[float, float]:
+def attn_err(got, want, split=None) -> tuple[float, float]:
     """(max |got - want|, max |got - want| / (atol + rtol * |want|)) with
     the tolerance of want's dtype: within tolerance when the second is
-    at most 1."""
+    at most 1. ``split`` (the plain version on |v|, A = sum p|v| / l per
+    element) adds SPLIT_GROWTH * A to the bound: the check of the bf16
+    flash route, whose P is split in two bf16 parts."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} "
                              f"vs {tuple(want.shape)} {want.dtype}")
@@ -675,17 +689,68 @@ def attn_err(got, want) -> tuple[float, float]:
     atol, rtol = ATTN_TOL[str(want.dtype).removeprefix("torch.")]
     w = want.float()
     delta = (got.float() - w).abs()
-    return (float(delta.max()),
-            float((delta / (atol + rtol * w.abs())).max()))
+    bound = atol + rtol * w.abs()
+    if split is not None:
+        bound = bound + SPLIT_GROWTH * split.float().abs()
+    return float(delta.max()), float((delta / bound).max())
+
+
+def split_bound(q, k, v, window: int = 0, softcap: float = 0.0):
+    """A = sum p|v| / l per output element (the plain version on |v|) for
+    the bf16 flash route's check; None for float32, whose route does not
+    split P."""
+    import torch
+    from repro_torch.kernels import ref
+    if q.dtype != torch.bfloat16:
+        return None
+    return ref.mha_reference(q, k, v.abs(), True, window, softcap)
+
+
+def p_rounded_once(q, k, v, window: int = 0, softcap: float = 0.0):
+    """The plain version with P rounded once to bf16 before P V (the sum l
+    over the unrounded p), as FA2, FA3 and SDPA compute it: the control
+    the bf16 flash check must tell from the split. Dense; small S."""
+    import torch
+    B, H, S, d = q.shape
+    G = H // k.shape[1]
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * d ** -0.5
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vf)
+    return (o / l).to(q.dtype)
+
+
+def paired_values(gen, B, Hkv, S, d, dtype, dev):
+    """[B, Hkv, S, d] with rows in pairs of opposite sign (row 2i + 1 =
+    -row 2i): outputs near 0, where the terms cancel."""
+    import torch
+    half = torch.randn((B, Hkv, (S + 1) // 2, d), generator=gen, device=dev,
+                       dtype=dtype)
+    return torch.stack([half, -half], dim=3).flatten(2, 3)[:, :, :S]
 
 
 def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     """Both attention kernels against their plain versions on the card:
     ragged S, GQA groups of 1, 2 and 8, every compiled head dim, windows,
     softcaps, lengths at tile and chunk edges and 0 (exact zeros),
-    strided and contiguous inputs. Returns the number of cases and, by
-    dtype, the largest ``attn_err`` readings; raises after every case
-    has run if any was out of tolerance."""
+    strided and contiguous inputs; for flash also S at the 128-row query
+    tile's edges, windows of 1 and narrower than a key tile, operands TMA
+    cannot read (a q at an odd element offset, a k with d stride != 1: the
+    bf16 route copies them) and, in bf16, a cancellation case (V rows in
+    pairs of opposite sign) whose control, P rounded once to bf16, must
+    fail the check. The bf16 flash route is held to ATTN_TOL plus
+    SPLIT_GROWTH * A, every other route to ATTN_TOL. Returns the number
+    of kernel calls and the largest ``attn_err`` readings by dtype and by
+    route; raises after every case has run if any was out of tolerance."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import CHUNK, decode_attention
@@ -698,7 +763,22 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
         (1, 4, 2, 300, 256, 64, 50.0), (1, 16, 2, 130, 128, 0, 0.0),
         (1, 16, 8, 4096, 128, 0, 0.0),          # qwen3 heads
         (1, 8, 4, 8192, 256, 4096, 50.0),       # gemma2 heads, local layer
+        # the tensor-core kernel's edges: S around the 128-row query tile
+        # (64 rows at d = 256)
+        (1, 2, 1, 127, 128, 0, 0.0), (1, 2, 2, 128, 64, 0, 0.0),
+        (2, 4, 2, 129, 128, 0, 0.0), (1, 4, 1, 257, 256, 0, 0.0),
+        (1, 4, 4, 1, 256, 0, 0.0), (1, 2, 1, 65, 256, 0, 0.0),
+        # windows of 1 and narrower than a key tile (128; 64 at d = 256)
+        (1, 4, 2, 300, 128, 1, 0.0), (1, 2, 1, 400, 64, 50, 0.0),
+        (1, 2, 2, 300, 256, 33, 0.0),
+        # d = 16 and 32 with GQA groups of 1, 2 and 8
+        (1, 2, 2, 200, 16, 0, 0.0), (1, 4, 2, 300, 16, 0, 0.0),
+        (1, 8, 1, 260, 16, 0, 0.0), (1, 2, 2, 260, 32, 0, 0.0),
+        (1, 4, 2, 200, 32, 0, 0.0), (1, 8, 1, 300, 32, 0, 0.0),
+        (1, 4, 2, 400, 256, 0, 50.0),           # d = 256 with softcap
     ]
+    strided_case = (1, 4, 2, 300, 128, 0, 0.0)  # operands TMA cannot read
+    cancel_case = (1, 4, 2, 256, 128, 0, 0.0)   # V rows in +/- pairs
     lengths_edge = [1, 31, 32, 33, CHUNK - 1, CHUNK, CHUNK + 1, 0]
     decode_cases = [  # B, H, Hkv, S, d, window, softcap
         (9, 2, 2, 1100, 64, 0, 0.0), (9, 4, 2, 1100, 128, 300, 50.0),
@@ -707,25 +787,67 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
         (4, 16, 8, 4096, 128, 0, 0.0),          # qwen3 heads
         (4, 8, 4, 8192, 256, 4096, 50.0),       # gemma2 heads, local layer
     ]
-    worst, bad = {}, []
+    worst, routes, bad = {}, {}, []
+    calls = 0
 
-    def record(label, dtype, got, want):
-        err, ratio = attn_err(got, want)
-        w = worst.setdefault(dtype, {"max_abs_err": 0.0, "max_ratio": 0.0})
-        w["max_abs_err"] = max(w["max_abs_err"], err)
-        w["max_ratio"] = max(w["max_ratio"], ratio)
+    def record(label, dtype, route, got, want, split=None):
+        err, ratio = attn_err(got, want, split)
+        for w in (worst.setdefault(dtype, {"max_abs_err": 0.0,
+                                           "max_ratio": 0.0}),
+                  routes.setdefault(f"{route} {dtype}",
+                                    {"max_abs_err": 0.0, "max_ratio": 0.0})):
+            w["max_abs_err"] = max(w["max_abs_err"], err)
+            w["max_ratio"] = max(w["max_ratio"], ratio)
         if not ratio <= 1.0:
             bad.append(f"{label}: max |kernel - plain| {err}, {ratio}x the "
                        f"tolerance")
+
+    def flash(label, name, q, k, v, win, cap):
+        nonlocal calls
+        calls += 1
+        want = ref.mha_reference(q, k, v, True, win, cap)
+        record(f"flash_attention {name} {label}", name, "flash_attention",
+               flash_attention(q, k, v, window=win, softcap=cap), want,
+               split_bound(q, k, v, win, cap))
+        return want
 
     for name in dtypes:
         dtype = getattr(torch, name)
         for i, (B, H, Hkv, S, d, win, cap) in enumerate(flash_cases):
             layout = "bshd" if i % 2 == 0 else "bhsd"
             q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev, layout)
-            record(f"flash_attention {name} {flash_cases[i]}", name,
-                   flash_attention(q, k, v, window=win, softcap=cap),
-                   ref.mha_reference(q, k, v, True, win, cap))
+            flash(flash_cases[i], name, q, k, v, win, cap)
+
+        B, H, Hkv, S, d, win, cap = strided_case
+        _, _, v = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev, "bhsd")
+        q = torch.randn(B * H * S * d + 1, generator=gen, device=dev,
+                        dtype=dtype)[1:].view(B, H, S, d)
+        k = torch.randn((B, Hkv, d, S), generator=gen, device=dev,
+                        dtype=dtype).transpose(2, 3)
+        copies = flash_attention.copies
+        flash(f"{strided_case} q 1 element off, k d-stride {k.stride(-1)}",
+              name, q, k, v, win, cap)
+        if name == "bfloat16" and flash_attention.copies != copies + 2:
+            bad.append(f"flash_attention {name}: an unaligned q and a k "
+                       f"with d stride {k.stride(-1)} made "
+                       f"{flash_attention.copies - copies} copies, not 2")
+
+        if name == "bfloat16":
+            B, H, Hkv, S, d, win, cap = cancel_case
+            q, k, _ = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev)
+            v = paired_values(gen, B, Hkv, S, d, dtype, dev)
+            want = flash(f"{cancel_case} cancellation", name, q, k, v, win,
+                         cap)
+            control_err, control = attn_err(
+                p_rounded_once(q, k, v, win, cap), want,
+                split_bound(q, k, v, win, cap))
+            routes["P rounded once (control)"] = {
+                "max_abs_err": control_err, "max_ratio": control}
+            if not control > 1.0:
+                bad.append(f"flash_attention {name} {cancel_case}: P "
+                           f"rounded once is within the check ({control}x)"
+                           f": the check cannot tell it from the split")
+
         for i, (B, H, Hkv, S, d, win, cap) in enumerate(decode_cases):
             layout = "bshd" if i % 2 == 0 else "bhsd"
             _, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev, layout)
@@ -735,16 +857,16 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
                     else [1, S // 2 + 1, S - 1, S])
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
             out = decode_attention(q, k, v, lengths, window=win, softcap=cap)
+            calls += 1
             label = f"decode_attention {name} {decode_cases[i]} {lens}"
-            record(label, name, out,
+            record(label, name, "decode_attention", out,
                    ref.decode_reference(q, k, v, lengths, win, cap))
             if 0 in lens and out[lens.index(0)].any():
                 bad.append(f"{label}: length 0 gives non-zeros")
     torch.cuda.synchronize()
     if bad:
         raise AssertionError("; ".join(bad))
-    return {"cases": len(dtypes) * (len(flash_cases) + len(decode_cases)),
-            **worst}
+    return {"cases": calls, **worst, "routes": routes}
 
 
 def _sdpa(q, k, v, causal: bool):
@@ -804,12 +926,21 @@ def attention_kernel_rows(cfg, prefill: dict, decode: dict,
     flops = 4 * d * pairs
     nbytes = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
     lib, how = _sdpa(q.contiguous(), k.contiguous(), v.contiguous(), True)
+    copies = flash_attention.copies
     rows.append(_attn_row(
         "flash_attention", lambda: flash_attention(q, k, v),
         lambda: ref.mha_reference(q, k, v),
         lambda: ref.mha_reference(q, k, v, True, max(1, S - PLANTED_DROP)),
         lib, how, flops, nbytes, hbm, prefill["launches"],
-        f"B={B} H={H} Hkv={Hkv} S={S} d={d} bf16", calls=1, reps=3))
+        f"B={B} H={H} Hkv={Hkv} S={S} d={d} bf16", calls=1, reps=3,
+        split=lambda: split_bound(q, k, v)))
+    copies = flash_attention.copies - copies
+    log(f"kernel flash_attention: {flops / rows[-1]['ms'] / 1e9} TFLOP/s "
+        f"achieved ({flops} operations of the function; the split P runs "
+        f"1.5x that on the tensor cores), {copies} operand copies")
+    if copies:
+        raise AssertionError(f"flash_attention copied {copies} operands of "
+                             f"the serving layout")
     del q, k, v
 
     B, S = decode["batch"], decode["cache_len"]
@@ -833,14 +964,17 @@ def attention_kernel_rows(cfg, prefill: dict, decode: dict,
 
 
 def _attn_row(name, kern, plain, planted, lib, how, flops, nbytes, hbm,
-              launches, shape, calls, reps) -> dict:
+              launches, shape, calls, reps, split=None) -> dict:
     """``planted``: the plain version with a fault planted (the first
     PLANTED_DROP keys of the longest rows left out); the check must find
-    it out of tolerance, or it could not see such a kernel fault."""
+    it out of tolerance, or it could not see such a kernel fault.
+    ``split`` gives A for the bf16 flash route's check (``attn_err``)."""
     import torch
     want = plain()
-    err, ratio = attn_err(kern(), want)
-    control_err, control = attn_err(planted(), want)
+    bound = split() if split is not None else None
+    err, ratio = attn_err(kern(), want, bound)
+    control_err, control = attn_err(planted(), want, bound)
+    del bound
     torch.cuda.synchronize()
     if not ratio <= 1.0:
         raise AssertionError(f"{name} [{shape}]: max |kernel - plain| = "
@@ -852,7 +986,7 @@ def _attn_row(name, kern, plain, planted, lib, how, flops, nbytes, hbm,
     del want
     t_bytes, t_ops = nbytes / hbm * 1e3, flops / BF16_OPS_PER_S * 1e3
     row = {
-        "name": name, "route": "cuda", "source": ATTN_SOURCE,
+        "name": name, "route": "cuda", "source": ATTN_SOURCE[name],
         "replaces": LM_REPLACES[name],
         "launches": int(launches.get(name, 0)), "max_abs_err": err,
         "ms": time_ms(kern, calls=calls, reps=reps),
@@ -875,6 +1009,7 @@ def lm_phase(args, hbm: float | None, device) -> list[dict]:
     rows (none off the card)."""
     import torch
     from repro_torch.configs.registry import LM_SHAPES, get_spec
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.transformer import init_lm_params
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 checks
@@ -896,10 +1031,15 @@ def lm_phase(args, hbm: float | None, device) -> list[dict]:
 
     params = init_lm_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed), torch.bfloat16, device)
+    copies = flash_attention.copies
     pre = lm_prefill_phase(cfg, params, args.prefill_seq, PREFILL_BATCH,
                            min(PREFILL_WARM, args.prefill_seq), args.seed,
                            device, profile=True)
     log(f"lm prefill: {json.dumps(pre)}")
+    if flash_attention.copies != copies:
+        raise AssertionError(f"the prefill copied "
+                             f"{flash_attention.copies - copies} attention "
+                             f"operands")
     torch.cuda.empty_cache()
     dec = lm_decode_phase(cfg, params, DECODE_BATCH, args.decode_cache,
                           args.decode_steps, args.seed, device, profile=4)
@@ -923,8 +1063,8 @@ def lm_phase(args, hbm: float | None, device) -> list[dict]:
     torch.cuda.empty_cache()
 
     cases = check_attention_cases(device)
-    log(f"attention edge cases within (atol, rtol) {ATTN_TOL}: "
-        f"{json.dumps(cases)}")
+    log(f"attention edge cases within (atol, rtol) {ATTN_TOL}, the bf16 "
+        f"flash route plus {SPLIT_GROWTH} * A: {json.dumps(cases)}")
     return attention_kernel_rows(cfg, pre, dec, hbm)
 
 

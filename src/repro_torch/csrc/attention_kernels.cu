@@ -12,15 +12,18 @@
 // float32 or bfloat16; scores, softmax and the output sum stay in float32.
 // Head dims 16, 32, 64, 128 and 256 are compiled.
 //
-// flash: replaces repro/kernels/flash_attention.py (flash_attention). The
-// TPU kernel walks a sequential (head, q-block, kv-block) grid and carries
-// the online-softmax state in VMEM scratch. Here one block owns one 64-row
-// query tile of one head and loops over the 64-key tiles from the window's
-// first tile to the diagonal, with the running max, sum and output in
-// registers. Causal prefill does 4*S*S/2*d*H operations on S*d*(2H+2Hkv)
-// elements, so operations bound it; this first kernel runs its products on
-// the float32 CUDA cores from shared memory (16-byte reads, a 4x4 score and
-// a 4x(d/16) output tile per thread), not on the tensor cores.
+// flash: replaces repro/kernels/flash_attention.py (flash_attention) for
+// float32 inputs; bfloat16 prefill runs on the tensor cores (flash_tc.cu).
+// The TPU kernel walks a sequential (head, q-block, kv-block) grid and
+// carries the online-softmax state in VMEM scratch. Here one block owns one
+// 64-row query tile of one head and loops over the 64-key tiles from the
+// window's first tile to the diagonal, with the running max, sum and output
+// in registers. Causal prefill does 4*S*S/2*d*H operations on
+// S*d*(2H+2Hkv) elements, so operations bound it; this kernel runs its
+// products on the float32 CUDA cores from shared memory (16-byte reads, a
+// 4x4 score and a 4x(d/16) output tile per thread). It stays off the
+// tensor cores on purpose: TF32 would round float32 inputs to 10 bits, far
+// outside the float32 checks.
 //
 // decode: replaces repro/kernels/decode_attention.py (decode_attention).
 // Bytes bound it: each step reads every valid K/V row once. One block owns
@@ -524,7 +527,8 @@ int launch_decode(const void* q, const void* kc, const void* vc,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype 0 = float32, 1 = bfloat16; D one of 16, 32, 64, 128, 256.
+// decode: dtype 0 = float32, 1 = bfloat16; D one of 16, 32, 64, 128,
+// 256.
 #define ATTN_DISPATCH(FN, ...)                                  \
   switch (dtype * 1000 + D) {                                   \
     case 16: return FN<float, 16>(__VA_ARGS__);                 \
@@ -544,16 +548,31 @@ int launch_decode(const void* q, const void* kc, const void* vc,
 
 extern "C" {
 
-// q [B,H,S,D], k/v [B,Hkv,S,D], o [B,H,S,D], any element strides:
-// strides = the four of q, then k, v and o (16 int64, host memory).
+// float32 q [B,H,S,D], k/v [B,Hkv,S,D], o [B,H,S,D], any element strides:
+// strides = the four of q, then k, v and o (16 int64, host memory). dtype
+// must be 0: bfloat16 prefill is flash_tc.cu's.
 int attn_flash_attention(const void* q, const void* k, const void* v,
                          void* o, const int64_t* strides, int dtype, int B,
                          int H, int Hkv, int S, int D, int window,
                          float softcap, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  ATTN_DISPATCH(launch_flash, q, k, v, o, strides, B, H, Hkv, S, window,
-                softcap, scale, static_cast<cudaStream_t>(stream))
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_flash<float, 16>(q, k, v, o, strides, B, H, Hkv,
+                                            S, window, softcap, scale, s);
+    case 32: return launch_flash<float, 32>(q, k, v, o, strides, B, H, Hkv,
+                                            S, window, softcap, scale, s);
+    case 64: return launch_flash<float, 64>(q, k, v, o, strides, B, H, Hkv,
+                                            S, window, softcap, scale, s);
+    case 128: return launch_flash<float, 128>(q, k, v, o, strides, B, H,
+                                              Hkv, S, window, softcap,
+                                              scale, s);
+    case 256: return launch_flash<float, 256>(q, k, v, o, strides, B, H,
+                                              Hkv, S, window, softcap,
+                                              scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // q [B,H,D], caches [B,Hkv,S,D], lengths [B] int32, o [B,H,D]; strides =

@@ -3,11 +3,12 @@
 Each source is compiled on first use by ``nvcc`` into its own shared
 library with a plain C interface under ``<repo>/build/`` and loaded with
 ``ctypes``: ``rdf_kernels.cu`` (the SPARQL query kernels),
-``attention_kernels.cu`` (the LM attention kernels) and
-``sparse_kernels.cu`` (the recsys and GNN kernels). A file name carries a
-hash of its source and flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs when the module is imported:
-the CPU tests import every module of the package.
+``attention_kernels.cu`` (the LM attention kernels: decode, and float32
+prefill), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
+cores) and ``sparse_kernels.cu`` (the recsys and GNN kernels). A file
+name carries a hash of its source and flags, so an edited source is
+rebuilt and a stale library is never loaded. Nothing here runs when the
+module is imported: the CPU tests import every module of the package.
 
 Each launch goes through :func:`launch`, which raises on a non-zero CUDA
 status and adds one to that kernel's launch count — the count a run reads
@@ -54,6 +55,11 @@ LIBRARIES = {
         "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _F, _F],
     }),
+    "flash": ("flash_tc.cu", {
+        # q, k, v, o, strides, B, H, Hkv, S, D, window, softcap, scale
+        "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                            _F],
+    }),
     "sparse": ("sparse_kernels.cu", {
         # table, ids, mask, out, dtype, n_bags, nnz, D, mean
         "embedding_bag": [_P, _P, _P, _P, _I, _L, _I, _I, _I],
@@ -61,8 +67,12 @@ LIBRARIES = {
         "segment_sum_sorted": [_P, _P, _P, _P, _I, _L, _I, _I],
     }),
 }
-_LIBRARY_OF = {kernel: lib for lib, (_src, sigs) in LIBRARIES.items()
-               for kernel in sigs}
+# a kernel's default library: the first that has it ("flash_attention"
+# has a route in "attn" and one in "flash"; the wrapper names the library)
+_LIBRARY_OF: dict[str, str] = {}
+for _lib, (_src, _sigs) in LIBRARIES.items():
+    for _kernel in _sigs:
+        _LIBRARY_OF.setdefault(_kernel, _lib)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -134,7 +144,7 @@ def build_log() -> str:
 
 
 def library(lib: str) -> ctypes.CDLL:
-    """The loaded library ``lib`` ("rdf", "attn" or "sparse"), built
+    """The loaded library ``lib`` ("rdf", "attn", "flash" or "sparse"), built
     first if needed."""
     with _lock:
         if lib not in _libs:
@@ -150,10 +160,12 @@ def library(lib: str) -> ctypes.CDLL:
         return _libs[lib]
 
 
-def launch(kernel: str, device: torch.device, *args) -> None:
-    """Launch ``kernel`` on ``device``'s current stream; raise on a
-    non-zero CUDA status, else count the launch."""
-    lib = _LIBRARY_OF[kernel]
+def launch(kernel: str, device: torch.device, *args,
+           lib: str | None = None) -> None:
+    """Launch ``kernel`` (of library ``lib``, by default the first that has
+    it) on ``device``'s current stream; raise on a non-zero CUDA status,
+    else count the launch under the kernel's name."""
+    lib = lib or _LIBRARY_OF[kernel]
     handle = library(lib)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

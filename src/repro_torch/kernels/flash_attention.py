@@ -1,13 +1,23 @@
-"""Causal prefill attention: the ``flash_attention`` CUDA kernel.
+"""Causal prefill attention: the ``flash_attention`` CUDA kernels.
 
-Wrapper of the kernel in ``csrc/attention_kernels.cu`` (port of
-``repro/kernels/flash_attention.py``), with the Pallas signature: q
-[B, H, S, d], k/v [B, Hkv, S, d] with H a multiple of Hkv, an optional
-sliding window and logit softcap. Any S (the ragged last tile is masked)
-and any element strides, so a caller holding [B, S, H, d] passes
-``x.transpose(1, 2)`` with no copy. A tensor on the CPU takes the plain
-torch version in :mod:`.ref`; a tensor on the card launches the kernel or
-raises — it never falls back.
+Wrapper of two kernels (ports of ``repro/kernels/flash_attention.py``)
+with the Pallas signature: q [B, H, S, d], k/v [B, Hkv, S, d] with H a
+multiple of Hkv, an optional sliding window and logit softcap, any S (the
+ragged last tile is masked).
+
+- bfloat16 runs on the tensor cores (``csrc/flash_tc.cu``: TMA-fed K/V
+  ring, ``wgmma`` products, P split into two bf16 parts). TMA reads q, k
+  and v through tensor maps, so each needs d stride 1, its other strides
+  multiples of 8 elements (16 bytes) and a 16-byte aligned base; a caller
+  holding [B, S, H, d] passes ``x.transpose(1, 2)`` with no copy. An
+  operand that misses one of these is copied into a new contiguous tensor
+  first, and ``flash_attention.copies`` counts those copies.
+- float32 runs on the CUDA cores (``csrc/attention_kernels.cu``), in full
+  float32, with any element strides.
+
+``out`` takes any strides on both routes. A tensor on the CPU takes the
+plain torch version in :mod:`.ref`; a tensor on the card launches a kernel
+or raises — it never falls back.
 """
 
 from __future__ import annotations
@@ -83,9 +93,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window, softcap = max(int(window), 0), float(softcap)
     if q.device.type == "cpu":
         return out.copy_(ref.mha_reference(q, k, v, True, window, softcap))
-    if out.numel():
+    if not out.numel():
+        return out
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_operand(t) for t in (q, k, v))
+        launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), out.data_ptr(), strides(q, k, v, out), B, H,
+               Hkv, S, d, window, softcap, d ** -0.5, lib="flash")
+    else:
         launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), out.data_ptr(), strides(q, k, v, out),
                DTYPES[q.dtype], B, H, Hkv, S, d, window, softcap,
                d ** -0.5)
     return out
+
+
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when a TMA tensor map can describe it (d stride 1,
+    every other stride of a dimension longer than 1 a positive multiple of
+    8 elements, a 16-byte aligned base), else a contiguous copy in a new
+    (aligned) allocation, counted in ``flash_attention.copies``."""
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st > 0 and st % 8 == 0
+                    for n, st in zip(t.shape[:-1], t.stride()[:-1])
+                    if n > 1)):
+        return t
+    flash_attention.copies += 1
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+flash_attention.copies = 0

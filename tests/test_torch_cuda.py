@@ -123,3 +123,32 @@ def test_cuda_sparse_kernels_match_plain_versions(dtype):
     assert cases[dtype]["max_ratio"] <= 1.0
     counts = launch_counts()
     assert counts["segment_sum_sorted"] > 0 and counts["embedding_bag"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_serving_layout_launches_tensor_core_kernel():
+    """A bf16 call in the model's layout ([B, S, H, d] transposed views,
+    qwen3 heads) makes no operand copy, launches ``flash_attention`` once
+    (the tensor-core kernel of ``csrc/flash_tc.cu``) and agrees with the
+    plain version within the bf16 flash route's check."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.flash_attention import flash_attention
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = smoke._attn_inputs(gen, 1, 16, 8, 1000, 128, torch.bfloat16,
+                                 dev)
+    copies = flash_attention.copies
+    reset_launch_counts()
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert launch_counts().get("flash_attention", 0) == 1
+    assert flash_attention.copies == copies
+    want = ref.mha_reference(q, k, v)
+    assert smoke.attn_err(out, want, smoke.split_bound(q, k, v))[1] <= 1.0
