@@ -25,10 +25,12 @@
    decode steps of 8 sequences against a 32,768-position KV cache; decode
    logits against prefill logits on a short prompt; ``flash_attention``
    (bf16 on the tensor cores, float32 on the CUDA cores) and
-   ``decode_attention`` held against their plain versions (qwen3 and
-   gemma2 head shapes, ragged lengths, GQA groups, the tensor-core
-   kernel's tile edges, a cancellation case whose single-rounding control
-   must fail) and timed beside their bounds at the serving shapes.
+   ``decode_attention`` (bf16 through a TMA ring, float32 on the CUDA
+   cores) held against their plain versions (qwen3 and gemma2 head shapes,
+   ragged lengths, GQA groups of 1 to 16, the bf16 kernels' tile and chunk
+   edges, strided and copied operands, a cancellation case whose
+   single-rounding control must fail) and timed beside their bounds at the
+   serving shapes, decode also at gemma2-2b's.
 6. ``segment_sum_sorted`` and ``embedding_bag`` held against their plain
    versions on edge cases (integer-valued inputs exactly, normal ones
    within a summation bound), then Wide&Deep at full width (weights from
@@ -88,7 +90,7 @@ PREFILL_WARM = 4096          # tokens of the untimed first prefill
 CONSISTENCY_PROMPT = 64      # tokens of the decode-vs-prefill check
 # the kernel each row times: bf16 at the serving shapes
 ATTN_SOURCE = {"flash_attention": "src/repro_torch/csrc/flash_tc.cu",
-               "decode_attention": "src/repro_torch/csrc/attention_kernels.cu"}
+               "decode_attention": "src/repro_torch/csrc/decode_tc.cu"}
 LM_REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:112",
     "decode_attention": "src/repro/kernels/decode_attention.py:111",
@@ -280,6 +282,42 @@ def device_profile(fn) -> dict:
             "top": [[key[:60], ms, n] for ms, key, n in items[:8]]}
 
 
+def kernel_device_ms(fn, kernel: str, calls: int = 20) -> tuple[float, int]:
+    """Device time of one launch of ``kernel`` (a substring of its name)
+    under ``torch.profiler`` over ``calls`` calls of ``fn``: the mean over
+    the launches the profiler recorded, and their number. The kernel's own
+    time, where back-to-back CUDA events read the host's time per call
+    once that exceeds the kernel's; the profiler can drop records, so the
+    mean is taken over those it kept, not over ``calls``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key
+            and str(e.device_type).endswith("CUDA")]
+    n = sum(e.count for e in hits)
+    if not n:
+        raise AssertionError(f"the profiler recorded no {kernel} launch")
+    return sum(e.self_device_time_total for e in hits) / n / 1e3, n
+
+
+def host_us_per_call(fn, calls: int = 50) -> float:
+    """Host time to enqueue one ``fn()`` (no synchronise inside the
+    timed loop), in microseconds: the wrapper's share of a host-bound
+    step."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
 def _steady_cold(ep, texts: list[str]) -> None:
     ep.clear_cache()
     ep.query_many(texts)
@@ -292,7 +330,8 @@ def _steady_cold(ep, texts: list[str]) -> None:
 
 def time_ms(fn, calls: int = 5, reps: int = 7) -> float:
     """Median over ``reps`` of the mean time of ``calls`` back-to-back
-    calls, between CUDA events, after a warm-up."""
+    calls, between CUDA events, after a warm-up. The first call's host time
+    falls inside the events, so a short kernel takes more calls."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -620,6 +659,8 @@ def lm_decode_phase(cfg, params, batch: int, cache_len: int, steps: int,
     if profile:
         out["profile"] = device_profile(again)
         out["profile"]["steps"] = profile
+        out["profile"]["device_ms_per_step"] = (out["profile"]["device_ms"]
+                                                / profile)
     return out
 
 
@@ -738,23 +779,36 @@ def paired_values(gen, B, Hkv, S, d, dtype, dev):
     return torch.stack([half, -half], dim=3).flatten(2, 3)[:, :, :S]
 
 
+def decode_edge_lengths(B, Hkv, S, d) -> list[int]:
+    """Valid lengths at the bf16 decode kernel's edges for this shape: a
+    tile (TILE[d] keys) and a chunk (``split_plan``) each minus one, exact
+    and plus one, then 0 and S."""
+    from repro_torch.kernels.decode_attention import TILE, split_plan
+    tile, chunk = TILE[d], split_plan(B, Hkv, S, d)[0]
+    return [tile - 1, tile, tile + 1, chunk - 1, chunk, chunk + 1, 0, S]
+
+
 def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     """Both attention kernels against their plain versions on the card:
-    ragged S, GQA groups of 1, 2 and 8, every compiled head dim, windows,
-    softcaps, lengths at tile and chunk edges and 0 (exact zeros),
-    strided and contiguous inputs; for flash also S at the 128-row query
-    tile's edges, windows of 1 and narrower than a key tile, operands TMA
-    cannot read (a q at an odd element offset, a k with d stride != 1: the
-    bf16 route copies them) and, in bf16, a cancellation case (V rows in
-    pairs of opposite sign) whose control, P rounded once to bf16, must
-    fail the check. The bf16 flash route is held to ATTN_TOL plus
-    SPLIT_GROWTH * A, every other route to ATTN_TOL. Returns the number
-    of kernel calls and the largest ``attn_err`` readings by dtype and by
-    route; raises after every case has run if any was out of tolerance."""
+    ragged S, GQA groups of 1, 2 and 8 (decode also 4 and 16), every
+    compiled head dim, windows, softcaps, strided and contiguous inputs;
+    for flash also S at the 128-row query tile's edges, windows of 1 and
+    narrower than a key tile, operands TMA cannot read (a q at an odd
+    element offset, a k with d stride != 1: the bf16 route copies them)
+    and, in bf16, a cancellation case (V rows in pairs of opposite sign)
+    whose control, P rounded once to bf16, must fail the check; for decode
+    ragged lengths in one batch at the bf16 kernel's tile and chunk edges
+    (``decode_edge_lengths``) and 0 (exact zeros), windows that start
+    inside a chunk and end inside a tile, q not contiguous, and caches TMA
+    cannot read (the bf16 route copies them). The bf16 flash route is held
+    to ATTN_TOL plus SPLIT_GROWTH * A, every other route to ATTN_TOL.
+    Returns the number of kernel calls and the largest ``attn_err``
+    readings by dtype and by route; raises after every case has run if any
+    was out of tolerance."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import CHUNK, decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
 
     gen = torch.Generator(device=dev).manual_seed(7)
     flash_cases = [  # B, H, Hkv, S, d, window, softcap
@@ -779,14 +833,18 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     ]
     strided_case = (1, 4, 2, 300, 128, 0, 0.0)  # operands TMA cannot read
     cancel_case = (1, 4, 2, 256, 128, 0, 0.0)   # V rows in +/- pairs
-    lengths_edge = [1, 31, 32, 33, CHUNK - 1, CHUNK, CHUNK + 1, 0]
-    decode_cases = [  # B, H, Hkv, S, d, window, softcap
-        (9, 2, 2, 1100, 64, 0, 0.0), (9, 4, 2, 1100, 128, 300, 50.0),
-        (9, 16, 2, 1100, 32, 0, 0.0), (9, 8, 1, 1100, 16, 0, 30.0),
-        (9, 8, 4, 1100, 256, 0, 0.0),
-        (4, 16, 8, 4096, 128, 0, 0.0),          # qwen3 heads
-        (4, 8, 4, 8192, 256, 4096, 50.0),       # gemma2 heads, local layer
-    ]
+    # B, H, Hkv, S, d, window, softcap: every GQA group of 1 to 16 at
+    # every head dim, B = 8 with the lengths of decode_edge_lengths, windows
+    # and softcaps in turn (a window of 300 or 100 from length 1100 starts
+    # inside a chunk of 256 keys, 128 at d = 256, and ends inside a tile)
+    decode_cases = [
+        (8, G * (2 if G <= 4 else 1), 2 if G <= 4 else 1, 1100, d,
+         (0, 300, 0, 100)[n % 4], (0.0, 0.0, 50.0, 30.0)[n % 4])
+        for n, (G, d) in enumerate((G, d) for G in (1, 2, 4, 8, 16)
+                                   for d in HEAD_DIMS)]
+    decode_cases += [(4, 16, 8, 4096, 128, 0, 0.0),    # qwen3 heads
+                     (4, 8, 4, 8192, 256, 4096, 50.0)]  # gemma2, local
+    decode_strided_case = (8, 4, 2, 600, 64, 0, 0.0)  # caches TMA cannot read
     worst, routes, bad = {}, {}, []
     calls = 0
 
@@ -848,21 +906,45 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
                            f"rounded once is within the check ({control}x)"
                            f": the check cannot tell it from the split")
 
-        for i, (B, H, Hkv, S, d, win, cap) in enumerate(decode_cases):
-            layout = "bshd" if i % 2 == 0 else "bhsd"
-            _, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev, layout)
-            q = torch.randn((B, H, d), generator=gen, device=dev,
-                            dtype=dtype)
-            lens = (lengths_edge + [S] if B == len(lengths_edge) + 1
-                    else [1, S // 2 + 1, S - 1, S])
+        def decode(label, q, k, v, lens, win, cap):
+            nonlocal calls
+            calls += 1
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
             out = decode_attention(q, k, v, lengths, window=win, softcap=cap)
-            calls += 1
-            label = f"decode_attention {name} {decode_cases[i]} {lens}"
+            label = f"decode_attention {name} {label} {lens}"
             record(label, name, "decode_attention", out,
                    ref.decode_reference(q, k, v, lengths, win, cap))
             if 0 in lens and out[lens.index(0)].any():
                 bad.append(f"{label}: length 0 gives non-zeros")
+
+        for i, (B, H, Hkv, S, d, win, cap) in enumerate(decode_cases):
+            layout = "bshd" if i % 2 == 0 else "bhsd"
+            _, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev, layout)
+            if i % 3 == 0:                      # q with d stride H
+                q = torch.randn((B, d, H), generator=gen, device=dev,
+                                dtype=dtype).transpose(1, 2)
+            else:
+                q = torch.randn((B, H, d), generator=gen, device=dev,
+                                dtype=dtype)
+            lens = (decode_edge_lengths(B, Hkv, S, d) if B == 8
+                    else [1, S // 2 + 1, S - 1, S])
+            decode(f"{decode_cases[i]} q strides {q.stride()}", q, k, v,
+                   lens, win, cap)
+
+        B, H, Hkv, S, d, win, cap = decode_strided_case
+        q = torch.randn((B, H, d), generator=gen, device=dev, dtype=dtype)
+        k = torch.randn((B, Hkv, d, S), generator=gen, device=dev,
+                        dtype=dtype).transpose(2, 3)
+        v = torch.randn(B * Hkv * S * d + 1, generator=gen, device=dev,
+                        dtype=dtype)[1:].view(B, Hkv, S, d)
+        copies = decode_attention.copies
+        decode(f"{decode_strided_case} k d-stride {k.stride(-1)}, v 1 "
+               f"element off", q, k, v, decode_edge_lengths(B, Hkv, S, d),
+               win, cap)
+        if name == "bfloat16" and decode_attention.copies != copies + 2:
+            bad.append(f"decode_attention {name}: a k with d stride "
+                       f"{k.stride(-1)} and an unaligned v made "
+                       f"{decode_attention.copies - copies} copies, not 2")
     torch.cuda.synchronize()
     if bad:
         raise AssertionError("; ".join(bad))
@@ -908,8 +990,10 @@ def attention_kernel_rows(cfg, prefill: dict, decode: dict,
     """Both attention kernels at the serving shapes of the prefill and
     decode phases (bf16, the model's strided layouts), against their plain
     versions on the same card inputs, timed beside their bounds and one
-    PyTorch call of the same function."""
+    PyTorch call of the same function; decode also at gemma2-2b's decode
+    shape (a log line, not a row)."""
     import torch
+    from repro_torch.configs.registry import get_spec
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -951,6 +1035,7 @@ def attention_kernel_rows(cfg, prefill: dict, decode: dict,
     nbytes = 2 * (2 * B * Hkv * n * d + 2 * B * H * d)
     flops = 4 * B * H * d * n
     lib, how = _sdpa(q[:, :, None], k[:, :, :n], v[:, :, :n], False)
+    copies = decode_attention.copies
     rows.append(_attn_row(
         "decode_attention",
         lambda: decode_attention(q, k, v, lengths),
@@ -959,8 +1044,88 @@ def attention_kernel_rows(cfg, prefill: dict, decode: dict,
                                      max(1, n - PLANTED_DROP)),
         (lambda: lib()[:, :, 0]) if lib else None, how, flops, nbytes, hbm,
         decode["launches"], f"B={B} H={H} Hkv={Hkv} S={S} length={n} d={d} "
-        f"bf16", calls=5, reps=7))
+        f"bf16", calls=20, reps=7))
+    copies = decode_attention.copies - copies
+    rate = {key: nbytes / rows[-1][key] / 1e9 if rows[-1][key] else None
+            for key in ("ms", "library_ms")}
+
+    def call():
+        return decode_attention(q, k, v, lengths)
+
+    log(f"kernel decode_attention: {rate['ms']} TB/s achieved, "
+        f"{rate['ms'] * 1e12 / hbm} of {hbm / 1e12} TB/s ({nbytes} bytes "
+        f"of the function; the library call {rate['library_ms']} TB/s), "
+        f"{copies} operand copies; device_ms, launches recorded of 20 = "
+        f"{kernel_device_ms(call, 'decode_tc_kernel')} under the profiler, "
+        f"{host_us_per_call(call)} us of host time a call")
+    if copies:
+        raise AssertionError(f"decode_attention copied {copies} operands of "
+                             f"the serving layout")
+    sweep = decode_split_sweep(call, B, Hkv, S, d)
+    log(f"kernel decode_attention by split plan (waves: [chunk, n_split, "
+        f"device ms]): {json.dumps(sweep)}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    log(decode_shape_line(get_spec("gemma2-2b").config, B, S, n, hbm, gen))
     return rows
+
+
+def decode_split_sweep(call, B: int, Hkv: int, S: int, d: int) -> dict:
+    """``call``'s device time under split plans for other grid sizes than
+    the wrapper's (``WAVES`` of its module set to 1 to 16 in turn, then
+    put back): {waves: [chunk, n_split, device ms]}."""
+    import importlib
+    plan = importlib.import_module("repro_torch.kernels.decode_attention")
+    waves, out = plan.WAVES, {}
+    try:
+        for w in (1, 2, 4, 8, 16):
+            plan.WAVES = w
+            out[w] = [*plan.split_plan(B, Hkv, S, d),
+                      kernel_device_ms(call, "decode_tc_kernel")[0]]
+    finally:
+        plan.WAVES = waves
+    return out
+
+
+def decode_shape_line(cfg, B: int, S: int, n: int, hbm: float, gen) -> str:
+    """``decode_attention`` at a model's decode shape (its heads, window
+    and softcap; B sequences of length n in an S-position cache in the
+    model's layout, bf16): held against the plain version and timed beside
+    its byte bound. A log line, so the kernel is read at another head dim
+    and window than the serving row's."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    dev = torch.device("cuda")
+    H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    win, cap = int(cfg.layer_windows().max()), cfg.attn_softcap or 0.0
+    _, k, v = _attn_inputs(gen, B, H, Hkv, S, d, torch.bfloat16, dev)
+    q = torch.randn((B, H, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
+    keys = min(n, win) if win else n
+    nbytes = 2 * (2 * B * Hkv * keys * d + 2 * B * H * d)
+    err, ratio = attn_err(decode_attention(q, k, v, lengths, win, cap),
+                          ref.decode_reference(q, k, v, lengths, win, cap))
+    if not ratio <= 1.0:
+        raise AssertionError(f"decode_attention at {cfg.name}'s shape: max "
+                             f"|kernel - plain| = {err}, {ratio}x the "
+                             f"tolerance")
+
+    def call():
+        return decode_attention(q, k, v, lengths, win, cap)
+
+    ms = time_ms(call, calls=5, reps=7)
+    dev_ms, recorded = kernel_device_ms(call, "decode_tc_kernel")
+    bound = nbytes / hbm * 1e3
+    return (f"kernel decode_attention at {cfg.name}'s decode shape [B={B} "
+            f"H={H} Hkv={Hkv} S={S} length={n} d={d} window={win} "
+            f"softcap={cap} bf16]: kernel_ms={ms} (events, back to back) "
+            f"device_ms={dev_ms} (profiler, {recorded} of 20 launches "
+            f"recorded) bound_ms={bound} (bytes): "
+            f"{nbytes / dev_ms / 1e9} TB/s of device time, {bound / dev_ms}"
+            f" of the bound; {host_us_per_call(call)} us of host time a "
+            f"call; max_abs_err={err} ({ratio}x the tolerance)")
 
 
 def _attn_row(name, kern, plain, planted, lib, how, flops, nbytes, hbm,
@@ -1009,6 +1174,7 @@ def lm_phase(args, hbm: float | None, device) -> list[dict]:
     rows (none off the card)."""
     import torch
     from repro_torch.configs.registry import LM_SHAPES, get_spec
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.transformer import init_lm_params
 
@@ -1041,9 +1207,17 @@ def lm_phase(args, hbm: float | None, device) -> list[dict]:
                              f"{flash_attention.copies - copies} attention "
                              f"operands")
     torch.cuda.empty_cache()
+    copies = decode_attention.copies
     dec = lm_decode_phase(cfg, params, DECODE_BATCH, args.decode_cache,
                           args.decode_steps, args.seed, device, profile=4)
     log(f"lm decode: {json.dumps(dec)}")
+    log(f"lm decode: {dec['profile']['device_ms_per_step']} ms of device "
+        f"time per step under the profiler, {dec['ms_per_step']} ms per "
+        f"step unprofiled")
+    if decode_attention.copies != copies:
+        raise AssertionError(f"the decode copied "
+                             f"{decode_attention.copies - copies} cache "
+                             f"operands")
     torch.cuda.empty_cache()
     want = {"flash_attention": L, "decode_attention": L * args.decode_steps}
     got = {"flash_attention": pre["launches"].get("flash_attention", 0),

@@ -1,42 +1,43 @@
-// Attention kernels of the LM serving path, for Hopper (sm_90a): causal
-// prefill attention (flash) and one-token attention against a KV cache
-// (decode). Built by repro_torch/kernels/_build.py with
+// Float32 attention kernels of the LM serving path, for Hopper (sm_90a):
+// causal prefill attention (flash) and one-token attention against a KV
+// cache (decode). Built by repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // into its own shared library with a plain C interface, loaded with ctypes.
+// The bfloat16 routes have kernels of their own: prefill on the tensor
+// cores (flash_tc.cu), decode through a TMA ring (decode_tc.cu).
 //
 // Every entry point takes device pointers, the element strides of each
 // tensor (a host array of int64), and the caller's CUDA stream; it launches
 // on that stream without synchronising, allocates nothing, and returns
-// cudaGetLastError() so a refused launch reaches the caller. Inputs are
-// float32 or bfloat16; scores, softmax and the output sum stay in float32.
-// Head dims 16, 32, 64, 128 and 256 are compiled.
+// cudaGetLastError() so a refused launch reaches the caller. Scores,
+// softmax and the output sum are float32 throughout. Head dims 16, 32, 64,
+// 128 and 256 are compiled.
 //
 // flash: replaces repro/kernels/flash_attention.py (flash_attention) for
-// float32 inputs; bfloat16 prefill runs on the tensor cores (flash_tc.cu).
-// The TPU kernel walks a sequential (head, q-block, kv-block) grid and
-// carries the online-softmax state in VMEM scratch. Here one block owns one
-// 64-row query tile of one head and loops over the 64-key tiles from the
-// window's first tile to the diagonal, with the running max, sum and output
-// in registers. Causal prefill does 4*S*S/2*d*H operations on
-// S*d*(2H+2Hkv) elements, so operations bound it; this kernel runs its
-// products on the float32 CUDA cores from shared memory (16-byte reads, a
-// 4x4 score and a 4x(d/16) output tile per thread). It stays off the
-// tensor cores on purpose: TF32 would round float32 inputs to 10 bits, far
-// outside the float32 checks.
+// float32 inputs. The TPU kernel walks a sequential (head, q-block,
+// kv-block) grid and carries the online-softmax state in VMEM scratch.
+// Here one block owns one 64-row query tile of one head and loops over the
+// 64-key tiles from the window's first tile to the diagonal, with the
+// running max, sum and output in registers. Causal prefill does
+// 4*S*S/2*d*H operations on S*d*(2H+2Hkv) elements, so operations bound
+// it; this kernel runs its products on the float32 CUDA cores from shared
+// memory (16-byte reads, a 4x4 score and a 4x(d/16) output tile per
+// thread). It stays off the tensor cores on purpose: TF32 would round
+// float32 inputs to 10 bits, far outside the float32 checks.
 //
-// decode: replaces repro/kernels/decode_attention.py (decode_attention).
-// Bytes bound it: each step reads every valid K/V row once. One block owns
-// one 512-key chunk of one (sequence, kv head) and serves all G query heads
-// of the group, so each row is read from memory once, not once per query
-// head; chunks past the sequence's length or before its window exit at
-// once. A second kernel merges the chunks' (max, sum, output) partials.
-// Splitting the cache keeps 132 SMs busy at a batch of 8 with 8 kv heads,
-// where one block per (sequence, kv head) would give 64 blocks.
+// decode: replaces repro/kernels/decode_attention.py (decode_attention) for
+// float32 inputs. Bytes bound it: each step reads every valid K/V row once.
+// One block owns one 512-key chunk of one (sequence, kv head) and serves
+// all G query heads of the group, so each row is read from memory once, not
+// once per query head; chunks past the sequence's length or before its
+// window exit at once. A second kernel merges the chunks' (max, sum,
+// output) partials. Splitting the cache keeps 132 SMs busy at a batch of 8
+// with 8 kv heads, where one block per (sequence, kv head) would give 64
+// blocks.
 
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -54,19 +55,12 @@ struct Strides4 {
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Elements of T in one 16-byte load.
@@ -527,23 +521,6 @@ int launch_decode(const void* q, const void* kc, const void* vc,
   return static_cast<int>(cudaGetLastError());
 }
 
-// decode: dtype 0 = float32, 1 = bfloat16; D one of 16, 32, 64, 128,
-// 256.
-#define ATTN_DISPATCH(FN, ...)                                  \
-  switch (dtype * 1000 + D) {                                   \
-    case 16: return FN<float, 16>(__VA_ARGS__);                 \
-    case 32: return FN<float, 32>(__VA_ARGS__);                 \
-    case 64: return FN<float, 64>(__VA_ARGS__);                 \
-    case 128: return FN<float, 128>(__VA_ARGS__);               \
-    case 256: return FN<float, 256>(__VA_ARGS__);               \
-    case 1016: return FN<__nv_bfloat16, 16>(__VA_ARGS__);       \
-    case 1032: return FN<__nv_bfloat16, 32>(__VA_ARGS__);       \
-    case 1064: return FN<__nv_bfloat16, 64>(__VA_ARGS__);       \
-    case 1128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);      \
-    case 1256: return FN<__nv_bfloat16, 256>(__VA_ARGS__);      \
-    default: return static_cast<int>(cudaErrorInvalidValue);    \
-  }
-
 }  // namespace
 
 extern "C" {
@@ -578,7 +555,8 @@ int attn_flash_attention(const void* q, const void* k, const void* v,
 // q [B,H,D], caches [B,Hkv,S,D], lengths [B] int32, o [B,H,D]; strides =
 // q's three, the caches' four each, o's three (14 int64, host memory).
 // part_o [B,H,ceil(S/chunk),D] and part_ml [B,H,ceil(S/chunk),2] float32
-// scratch; chunk a multiple of 32.
+// scratch; chunk a multiple of 32. dtype must be 0: bfloat16 decode is
+// decode_tc.cu's.
 int attn_decode_attention(const void* q, const void* kc, const void* vc,
                           const void* lengths, void* o, void* part_o,
                           void* part_ml, const int64_t* strides, int dtype,
@@ -586,11 +564,30 @@ int attn_decode_attention(const void* q, const void* kc, const void* vc,
                           int window, float softcap, float scale,
                           void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 ||
-      H / Hkv > kMaxGroup || chunk <= 0 || chunk % kDecBK != 0)
+      H / Hkv > kMaxGroup || chunk <= 0 || chunk % kDecBK != 0 ||
+      dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  ATTN_DISPATCH(launch_decode, q, kc, vc, lengths, o, part_o, part_ml,
-                strides, B, H, Hkv, S, chunk, window, softcap, scale,
-                static_cast<cudaStream_t>(stream))
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_decode<float, 16>(q, kc, vc, lengths, o, part_o,
+                                             part_ml, strides, B, H, Hkv, S,
+                                             chunk, window, softcap, scale, s);
+    case 32: return launch_decode<float, 32>(q, kc, vc, lengths, o, part_o,
+                                             part_ml, strides, B, H, Hkv, S,
+                                             chunk, window, softcap, scale, s);
+    case 64: return launch_decode<float, 64>(q, kc, vc, lengths, o, part_o,
+                                             part_ml, strides, B, H, Hkv, S,
+                                             chunk, window, softcap, scale, s);
+    case 128: return launch_decode<float, 128>(q, kc, vc, lengths, o, part_o,
+                                               part_ml, strides, B, H, Hkv, S,
+                                               chunk, window, softcap, scale,
+                                               s);
+    case 256: return launch_decode<float, 256>(q, kc, vc, lengths, o, part_o,
+                                               part_ml, strides, B, H, Hkv, S,
+                                               chunk, window, softcap, scale,
+                                               s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* attn_error_string(int code) {

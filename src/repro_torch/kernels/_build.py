@@ -3,12 +3,14 @@
 Each source is compiled on first use by ``nvcc`` into its own shared
 library with a plain C interface under ``<repo>/build/`` and loaded with
 ``ctypes``: ``rdf_kernels.cu`` (the SPARQL query kernels),
-``attention_kernels.cu`` (the LM attention kernels: decode, and float32
-prefill), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
-cores) and ``sparse_kernels.cu`` (the recsys and GNN kernels). A file
-name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here runs when the
-module is imported: the CPU tests import every module of the package.
+``attention_kernels.cu`` (the float32 LM attention kernels: prefill and
+decode), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
+cores), ``decode_tc.cu`` (bfloat16 decode attention: a TMA ring, scores on
+the tensor cores) and ``sparse_kernels.cu`` (the recsys and GNN kernels).
+A file name carries a hash of its source and flags, so an edited source
+is rebuilt and a stale library is never loaded. Nothing here runs when
+the module is imported: the CPU tests import every module of the
+package.
 
 Each launch goes through :func:`launch`, which raises on a non-zero CUDA
 status and adds one to that kernel's launch count — the count a run reads
@@ -60,6 +62,12 @@ LIBRARIES = {
         "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                             _F],
     }),
+    "decode": ("decode_tc.cu", {
+        # q, k, v, lengths, o, part, tickets, strides, B, H, Hkv, S, D,
+        # chunk, window, softcap, scale
+        "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _F, _F],
+    }),
     "sparse": ("sparse_kernels.cu", {
         # table, ids, mask, out, dtype, n_bags, nnz, D, mean
         "embedding_bag": [_P, _P, _P, _P, _I, _L, _I, _I, _I],
@@ -67,8 +75,9 @@ LIBRARIES = {
         "segment_sum_sorted": [_P, _P, _P, _P, _I, _L, _I, _I],
     }),
 }
-# a kernel's default library: the first that has it ("flash_attention"
-# has a route in "attn" and one in "flash"; the wrapper names the library)
+# a kernel's default library: the first that has it (the attention kernels
+# have a float32 route in "attn" and a bf16 one in "flash" or "decode"; the
+# wrapper names the library)
 _LIBRARY_OF: dict[str, str] = {}
 for _lib, (_src, _sigs) in LIBRARIES.items():
     for _kernel in _sigs:
@@ -144,8 +153,8 @@ def build_log() -> str:
 
 
 def library(lib: str) -> ctypes.CDLL:
-    """The loaded library ``lib`` ("rdf", "attn", "flash" or "sparse"), built
-    first if needed."""
+    """The loaded library ``lib`` (a key of ``LIBRARIES``), built first if
+    needed."""
     with _lock:
         if lib not in _libs:
             handle = ctypes.CDLL(str(build(lib)[lib]))

@@ -96,7 +96,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not out.numel():
         return out
     if q.dtype == torch.bfloat16:
-        q, k, v = (_tma_operand(t) for t in (q, k, v))
+        q, k, v = (tma_operand(t, flash_attention) for t in (q, k, v))
         launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), out.data_ptr(), strides(q, k, v, out), B, H,
                Hkv, S, d, window, softcap, d ** -0.5, lib="flash")
@@ -108,17 +108,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+def tma_operand(t: torch.Tensor, counted) -> torch.Tensor:
     """``t`` itself when a TMA tensor map can describe it (d stride 1,
     every other stride of a dimension longer than 1 a positive multiple of
     8 elements, a 16-byte aligned base), else a contiguous copy in a new
-    (aligned) allocation, counted in ``flash_attention.copies``."""
+    (aligned) allocation, counted in ``counted.copies`` (the wrapper)."""
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(st > 0 and st % 8 == 0
                     for n, st in zip(t.shape[:-1], t.stride()[:-1])
                     if n > 1)):
         return t
-    flash_attention.copies += 1
+    counted.copies += 1
     return t.clone(memory_format=torch.contiguous_format)
 
 

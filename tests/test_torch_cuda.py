@@ -152,3 +152,41 @@ def test_cuda_flash_bf16_serving_layout_launches_tensor_core_kernel():
     assert flash_attention.copies == copies
     want = ref.mha_reference(q, k, v)
     assert smoke.attn_err(out, want, smoke.split_bound(q, k, v))[1] <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_decode_bf16_serving_layout_launches_ring_kernel():
+    """A bf16 call in the model's layout ([B, S, Hkv, d] caches as
+    transposed views, qwen3 heads, lengths at the kernel's tile and chunk
+    edges and 0) makes no cache copy, launches ``decode_attention`` once
+    (the kernel of ``csrc/decode_tc.cu``, built into its own library) and
+    agrees with the plain version within ATTN_TOL; a second call gives the
+    same output, so the kernel left its ticket counters at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import _build, reset_launch_counts
+    from repro_torch.kernels.decode_attention import decode_attention
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B, H, Hkv, S, d = 8, 16, 8, 3000, 128
+    _, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.bfloat16, dev)
+    q = torch.randn((B, H, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    lengths = torch.tensor(smoke.decode_edge_lengths(B, Hkv, S, d),
+                           dtype=torch.int32, device=dev)
+    copies = decode_attention.copies
+    reset_launch_counts()
+    out = decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert launch_counts().get("decode_attention", 0) == 1
+    assert decode_attention.copies == copies
+    assert _build.library_path("decode").exists()
+    want = ref.decode_reference(q, k, v, lengths)
+    assert smoke.attn_err(out, want)[1] <= 1.0
+    assert not out[lengths.tolist().index(0)].any()
+    assert torch.equal(decode_attention(q, k, v, lengths), out)
