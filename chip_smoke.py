@@ -368,7 +368,8 @@ def check_edge_cases(dev) -> int:
     returns the number of cases checked."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.join_probe import probe_sorted_many, scan_probe
+    from repro_torch.kernels.join_probe import (SAMPLE_MAX, probe_sorted_many,
+                                                scan_probe)
     from repro_torch.kernels.triple_scan import triple_scan, triple_scan_many
 
     rng = np.random.default_rng(0)
@@ -408,6 +409,39 @@ def check_edge_cases(dev) -> int:
                        ref.triple_scan_many_reference(tri, pats)):
             raise AssertionError(f"triple_scan_many differs at T={T}")
         cases += 1
+    # the two-level search: K around and past the shared-memory sample,
+    # runs of 1-8 equal keys and one of 3 strides across its boundaries,
+    # all keys equal; T off the 4-row step; triples 12 bytes off 16 (a
+    # view one row in) and keys 4 bytes off (scalar loads); -1, INT32_MIN
+    # and INT32_MAX probes
+    S = SAMPLE_MAX
+    extremes = np.asarray([-1, -2 ** 31, 2 ** 31 - 1], np.int32)
+    for K in (S - 1, S, S + 1, 3 * S + 5, 10 * S + 3, 2 * S + 1):
+        if K == 2 * S + 1:
+            k_np = np.full(K, 7, np.int64)
+        else:
+            k_np = 3 * np.repeat(np.arange(K), rng.integers(1, 9, K))[:K]
+            stride = -(-K // S)
+            k_np[K // 2:K // 2 + 3 * stride] = k_np[K // 2]
+        keys = t32(np.concatenate([k_np[:1], k_np]))
+        for T in (1, 3, 5, 100_003):
+            vals = rng.integers(-2, 3 * K + 3, (T + 1, 3))
+            vals[:, [0, 2]] = np.where(rng.random((T + 1, 2)) < 0.05,
+                                       rng.choice(extremes, (T + 1, 2)),
+                                       vals[:, [0, 2]])
+            rows = t32(vals)
+            for tri, k in ((rows[:T], keys[:K]), (rows[1:], keys[1:])):
+                assert tri.is_contiguous() and k.is_contiguous()
+                for col in (0, 2):
+                    pat = (-1, int(vals[0, 1]), -1)
+                    if max_abs_err(scan_probe(tri, pat, k, col),
+                                   ref.scan_probe_reference(tri, *pat, k,
+                                                            col)):
+                        raise AssertionError(
+                            f"scan_probe differs at K={K} T={T} col={col} "
+                            f"offsets {tri.data_ptr() % 16} "
+                            f"{k.data_ptr() % 16}")
+                    cases += 1
     try:
         scan_probe(t32(np.zeros((8, 3))), (-1, -1, -1), t32(np.zeros(4)),
                    col=1)
@@ -425,7 +459,8 @@ def kernel_phase(store, dictionary, backend, serving: dict,
     version on the same card inputs, timed beside its bound."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.join_probe import probe_sorted_many, scan_probe
+    from repro_torch.kernels.join_probe import (probe_plan, probe_sorted_many,
+                                                scan_probe)
     from repro_torch.kernels.triple_scan import triple_scan, triple_scan_many
 
     triples = backend._triples(store)                 # the staged [T, 3]
@@ -466,7 +501,8 @@ def kernel_phase(store, dictionary, backend, serving: dict,
          4 * K + 12 * P, 2 * P * steps, f"K={K} P={P}"),
         ("scan_probe", lambda: scan_probe(triples, probe_pat, keys, 2),
          lambda: ref.scan_probe_reference(triples, *probe_pat, keys, 2),
-         None, 24 * T + 4 * K, 3 * T + 2 * T * steps, f"T={T} K={K}"),
+         None, 24 * T + 4 * K, 3 * T + 2 * T * steps,
+         f"T={T} K={K} {probe_plan(T, K, triples.data_ptr() % 16 == 0)}"),
     ]
     rows = []
     for name, kern, plain, lib, nbytes, ops, shape in specs:
@@ -1306,12 +1342,15 @@ def check_sparse_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     """Both sparse kernels against their plain versions on the contract's
     edges: an empty graph and E = 0, nodes with no edges, one hot node,
     destinations outside [0, n_nodes), E off every span, D of 1, 7, 16,
-    33 and past one column tile (300); empty batches, NNZ of 0, 1 and past
-    one warp (37), D past one warp, weighted and all-masked bags. Random
-    normal inputs within ``sum_err``'s tolerance, integer-valued ones
-    exactly. Returns the number of cases and, by dtype, the largest
-    readings; raises after every case has run if any was out of
-    tolerance."""
+    33 and past one column tile (300); empty batches, NNZ of 0, 1, 4, 33,
+    37 and 600 (past the shared-memory ring), D of 1 to 300 on and off the
+    16-byte width, bag counts off a chunk, a single bag, table, ids and
+    mask off 16 bytes, weighted and all-masked bags. Random normal inputs
+    within ``sum_err``'s tolerance, integer-valued ones exactly; each
+    embedding_bag case with a live last entry also reads a planted fault
+    (every bag's last entry left out) that must fail both checks. Returns
+    the number of cases and, by dtype, the largest readings; raises after
+    every case has run if any was out of tolerance."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.embedding_bag import embedding_bag
@@ -1374,9 +1413,26 @@ def check_sparse_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     bag_cases = [  # B, F, NNZ, V, D
         (0, 3, 4, 10, 8), (1, 1, 1, 1, 1), (7, 3, 5, 100, 7),
         (64, 40, 4, 10_000, 32), (5, 2, 37, 500, 33), (3, 2, 3, 50, 300),
-        (2, 3, 0, 10, 8),
+        (2, 3, 0, 10, 8), (3, 2, 600, 1000, 32),   # NNZ past the ring
     ]
+    # the kernel's plans (kernels/embedding_bag.py:bag_plan): D on and off
+    # the 16-byte width, one lane to 32 lanes a row and column loops; NNZ
+    # of 1, 4 and 33; bag counts off a chunk (chunks are 128 bags at D =
+    # 32 float32); a single bag
+    for D in (1, 7, 16, 32, 33, 64, 128, 256):
+        for NNZ in (1, 4, 33):
+            bag_cases.append((67, 3, NNZ, 3000, D))
+    bag_cases.append((1, 1, 4, 3000, 32))
     weights = torch.tensor([0.0, 0.5, 1.0, 2.0], device=dev)
+
+    def off16(t, k):
+        """A contiguous copy of ``t`` starting ``k`` elements past a
+        16-byte boundary."""
+        flat = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+        out = flat[k:].view(t.shape)
+        out.copy_(t)
+        return out
+
     for name in dtypes:
         dtype = getattr(torch, name)
         for B, F, NNZ, V, D in bag_cases:
@@ -1389,19 +1445,37 @@ def check_sparse_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
             table = torch.randn((V, D), generator=gen, device=dev).to(dtype)
             itable = torch.randint(-8, 9, (V, D), generator=gen, device=dev,
                                    dtype=torch.float32).to(dtype)
+            # the same values with table, ids and mask off 16 bytes: the
+            # one-element loads, and the ring's plain copies of chunk ends
+            layouts = [("", table, itable, ids, mask)]
+            if B and NNZ and D in (32, 33):
+                layouts.append((" off16", off16(table, 1), off16(itable, 1),
+                                off16(ids, 1), off16(mask, 1)))
+            planted = bool(B and NNZ) and bool((mask[..., -1] != 0).any())
             for combiner in ("mean", "sum"):
+                want = ref.embedding_bag_reference(table, ids, mask,
+                                                   combiner)
+                iwant = ref.embedding_bag_reference(itable, ids, mask,
+                                                    combiner)
+                bound = bag_bound(table, ids, mask, combiner)
                 label = (f"embedding_bag {name} {combiner} B={B} F={F} "
                          f"NNZ={NNZ} V={V} D={D}")
-                record(label, name, embedding_bag(table, ids, mask, combiner),
-                       ref.embedding_bag_reference(table, ids, mask,
-                                                   combiner),
-                       bag_bound(table, ids, mask, combiner))
-                # sums of multiples of 0.5 are exact in any order, and
-                # both sides then divide and round the same float32 value
-                exact(label + " integer",
-                      embedding_bag(itable, ids, mask, combiner),
-                      ref.embedding_bag_reference(itable, ids, mask,
-                                                  combiner))
+                for where, tab, itab, i, m in layouts:
+                    record(label + where, name,
+                           embedding_bag(tab, i, m, combiner), want, bound)
+                    # sums of multiples of 0.5 are exact in any order, and
+                    # both sides then divide and round the same float32
+                    # value
+                    exact(label + where + " integer",
+                          embedding_bag(itab, i, m, combiner), iwant)
+                if planted:      # each bag's last entry left out must fail
+                    pm = planted_bag(mask)
+                    if sum_err(ref.embedding_bag_reference(
+                            table, ids, pm, combiner), want, bound)[1] <= 1:
+                        bad.append(f"{label}: planted fault passes")
+                    if torch.equal(ref.embedding_bag_reference(
+                            itable, ids, pm, combiner), iwant):
+                        bad.append(f"{label} integer: planted fault passes")
     _sync(dev)
     if bad:
         raise AssertionError("; ".join(bad))
@@ -1576,7 +1650,7 @@ def bag_kernel_row(cfg, params, data, launches, hbm) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag import bag_plan, embedding_bag
     from repro_torch.models.recsys import _field_ids
 
     table = params["embed"]
@@ -1587,6 +1661,8 @@ def bag_kernel_row(cfg, params, data, launches, hbm) -> dict:
     B, F_, NNZ = ids.shape
     V, D = table.shape
     shape = f"B={B} F={F_} NNZ={NNZ} V={V} D={D}"
+    plan = bag_plan(B * F_, NNZ, D, table.element_size(),
+                    table.data_ptr() % 16 == 0)
     checks = {}
 
     itable = torch.randint(-8, 9, (V, D), generator=gen, device=dev,
@@ -1638,7 +1714,8 @@ def bag_kernel_row(cfg, params, data, launches, hbm) -> dict:
         lambda: embedding_bag(table, ids, mask),
         lambda: ref.embedding_bag_reference(table, ids, mask), library,
         addressed + uniq * D * 4, hbm)
-    log(f"kernel embedding_bag [{shape} mean f32]: kernel_ms={row['ms']} "
+    log(f"kernel embedding_bag [{shape} mean f32 {plan}]: "
+        f"kernel_ms={row['ms']} "
         f"bound_ms={row['bound_ms']} (bytes: ids, mask, {uniq} distinct "
         f"rows of {n} lookups, out; "
         f"{(addressed + n * D * 4) / hbm * 1e3} ms reading every "
@@ -2017,8 +2094,9 @@ def main(argv: list[str] | None = None) -> int:
 
     rows = []
     if not (args.lm_only or args.sparse_only):
+        t0 = time.perf_counter()
         n_edge = check_edge_cases(dev)
-        log(f"edge cases: {n_edge} exact")
+        log(f"edge cases: {n_edge} exact in {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         gen = generate_watdiv_like(scale=args.scale, seed=0)
@@ -2051,7 +2129,8 @@ def main(argv: list[str] | None = None) -> int:
         t0 = time.perf_counter()
         cases = check_sparse_cases(dev)
         log(f"sparse edge cases within SUM_GROWTH {SUM_GROWTH} and rtol "
-            f"{SUM_RTOL} (integer-valued ones exact): {json.dumps(cases)}")
+            f"{SUM_RTOL} (integer-valued ones exact): {json.dumps(cases)} "
+            f"in {time.perf_counter() - t0:.1f} s")
         rows += recsys_phase(args, hbm, dev)
         log(f"recsys phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()

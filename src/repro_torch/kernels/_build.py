@@ -46,7 +46,10 @@ LIBRARIES = {
         "triple_scan": [_P, _L, _I, _I, _I, _P],
         "triple_scan_many": [_P, _L, _P, _I, _P],
         "probe_sorted_many": [_P, _I, _P, _L, _P, _P],
-        "scan_probe": [_P, _L, _I, _I, _I, _P, _I, _I, _P, _P, _P],
+        # triples, T, s, p, o, keys, K, col, stride, n_samples, vec,
+        # blocks, sample, mask, lo, hi
+        "scan_probe": [_P, _L, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+                       _P, _P, _P],
     }),
     "attn": ("attention_kernels.cu", {
         # q, k, v, o, strides, dtype, B, H, Hkv, S, D, window, softcap, scale
@@ -69,8 +72,10 @@ LIBRARIES = {
                              _I, _I, _I, _F, _F],
     }),
     "sparse": ("sparse_kernels.cu", {
-        # table, ids, mask, out, dtype, n_bags, nnz, D, mean
-        "embedding_bag": [_P, _P, _P, _P, _I, _L, _I, _I, _I],
+        # table, ids, mask, out, dtype, n_bags, nnz, D, mean, then the
+        # plan: vec, lanes, chunk, blocks, ring
+        "embedding_bag": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I,
+                          _I, _I],
         # msg, dst, out, scratch, dtype, E, D, n_nodes
         "segment_sum_sorted": [_P, _P, _P, _P, _I, _L, _I, _I],
     }),

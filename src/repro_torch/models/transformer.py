@@ -305,8 +305,19 @@ def lm_decode_step(cfg: LMConfig, params: dict, cache: dict,
 
     Writes each layer's new K/V into ``cache`` **in place** at ``pos``,
     attends to positions <= pos (and > pos - window on local layers), and
-    returns (logits [B, 1, V_padded], the same cache dict)."""
+    returns (logits [B, 1, V_padded], the same cache dict).
+
+    An int ``pos`` outside ``[0, max_seq)`` raises ``ValueError`` before
+    anything is written. This departs from the reference, whose
+    ``dynamic_update_slice`` clamps the write to the last slot and decodes
+    on: copying that would silently overwrite the last cache row. A tensor
+    ``pos`` is not checked, since reading it would sync with the device;
+    the caller keeps it in range."""
     _dense_only(cfg)
+    max_seq = cache["k"].shape[2]
+    if not isinstance(pos, torch.Tensor) and not 0 <= int(pos) < max_seq:
+        raise ValueError(f"pos {int(pos)} is outside the cache's "
+                         f"[0, {max_seq}) positions")
     B = tokens.shape[0]
     x = _embed(cfg, params, tokens)
     if isinstance(pos, torch.Tensor):

@@ -102,15 +102,16 @@ def test_default_endpoint_needs_cuda(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of the package, and chip_smoke.py as a module, import
-    without pulling in jax or any module of the JAX package."""
+    """Every module of the package, and chip_smoke.py and chip_variants.py
+    as modules, import without pulling in jax or any module of the JAX
+    package."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, chip_variants\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(json.dumps({'modules': names, 'bad': bad}))\n")
@@ -152,6 +153,26 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert smoke.main([]) != 0
     assert capsys.readouterr().out == ""
+
+
+def test_chip_variants_refuses_without_cuda_and_matches_the_sources(
+        monkeypatch, capsys):
+    """The pricing script prints nothing and fails without a card, and
+    every variant's text substitution finds its text in the shipped
+    kernel sources exactly once."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        variants = importlib.import_module("chip_variants")
+    finally:
+        sys.path.remove(str(ROOT))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert variants.main() != 0
+    assert capsys.readouterr().out == ""
+    sources = variants.variant_sources()
+    assert set(sources) == set(variants.VARIANTS)
+    assert "st.global.cs" not in sources["bag_nohint"].split(
+        "__nv_bfloat16, 8")[0]
+    assert sources["bag_evictlast"].count("L2::evict_last") == 2
 
 
 @pytest.mark.parametrize("sharded", [False, True])

@@ -153,6 +153,50 @@ def test_decode_steps_match_jax(tiny):
     _close(filled["v"], jcache["v"])
 
 
+def test_decode_past_the_cache_end():
+    """qwen3 at ``max_seq`` 8, positions 0-9. The reference decodes all
+    ten steps: its ``dynamic_update_slice`` clamps positions 8 and 9 onto
+    the last slot and overwrites it. The port raises ``ValueError`` for an
+    int ``pos`` of 8, 9 or -1 before writing anything, and with a 0-dim
+    tensor ``pos`` below ``max_seq`` agrees with the reference."""
+    jcfg, cfg = _configs("qwen3-0.6b")
+    jparams = jtf.init_lm_params(jcfg, jax.random.PRNGKey(0),
+                                 dtype=jnp.float32)
+    params = lm_params_from_reference(
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu",
+        dtype=torch.float32)
+    max_seq = 8
+    tokens = np.random.default_rng(4).integers(
+        0, jcfg.vocab, (2, max_seq + 2)).astype(np.int32)
+    jcache = jtf.init_kv_cache(jcfg, 2, max_seq, dtype=jnp.float32)
+    cache = ttf.init_kv_cache(cfg, 2, max_seq, dtype=torch.float32,
+                              device="cpu")
+    step = jax.jit(lambda p, c, t, pos: jtf.lm_decode_step(
+        jcfg, p, c, t, pos, AxisRules()))
+    for t in range(max_seq + 2):
+        tok = tokens[:, t:t + 1]
+        last = np.asarray(jcache["k"][:, :, -1])
+        want, jcache = step(jparams, jcache, jnp.asarray(tok), jnp.int32(t))
+        assert np.isfinite(np.asarray(want)).all()
+        if t < max_seq:
+            got, _ = ttf.lm_decode_step(cfg, params, cache,
+                                        torch.from_numpy(tok),
+                                        torch.tensor(t))
+            _close(got, want)
+            continue
+        # the reference wrote this step's K/V over the last slot
+        assert not np.array_equal(np.asarray(jcache["k"][:, :, -1]), last)
+        before = {k: v.clone() for k, v in cache.items()}
+        with pytest.raises(ValueError, match="outside"):
+            ttf.lm_decode_step(cfg, params, cache, torch.from_numpy(tok), t)
+        assert all(torch.equal(cache[k], before[k]) for k in cache)
+    _close(cache["k"][:, :, :max_seq - 1],
+           np.asarray(jcache["k"])[:, :, :max_seq - 1])
+    with pytest.raises(ValueError, match="outside"):
+        ttf.lm_decode_step(cfg, params, cache,
+                           torch.from_numpy(tokens[:, :1]), -1)
+
+
 def test_moe_raises():
     jcfg = reduce_config(j_get_spec("granite-moe-1b-a400m"))
     cfg = ttf.LMConfig(**dataclasses.asdict(jcfg))
