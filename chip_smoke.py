@@ -41,8 +41,9 @@
 7. GCN (gcn-cora): float32 logits on the card against the CPU at
    full_graph_sm (``cora_like``, 2,708 nodes); a graph of ogb_products'
    size (2,449,029 nodes, ~61.8M edges, d_feat 100) drawn and sorted on
-   the card, its forward timed; ``segment_sum_sorted`` at layer 1's shape
-   against its plain version and timed beside its bound. Every model and
+   the card, its forward timed; ``segment_sum_sorted`` at each of the
+   forward's widths (16, 7 and 1) against its plain version and timed
+   beside its bound. Every model and
    kernel check also reads a planted fault that must fail it.
 
 Fails (non-zero exit, no result line) on any mismatch or exception, and
@@ -75,6 +76,11 @@ HBM_BYTES_PER_S = [("H200", 4.8e12), ("H100 NVL", 3.9e12),
 # float32 peak (NVIDIA data sheet), ops/s
 SCALAR_OPS_PER_S = 67e12
 KERNEL_SOURCE = "src/repro_torch/csrc/rdf_kernels.cu"
+# the query kernels' device kernels (the sample's gather runs before both
+# searches), whose time the steady cold batch's profile reports
+QUERY_KERNELS = ("triple_scan_kernel", "triple_scan_many_kernel",
+                 "probe_sorted_kernel", "scan_probe_kernel",
+                 "gather_sample_kernel")
 REPLACES = {
     "triple_scan": "src/repro/kernels/triple_scan.py:60",
     "triple_scan_many": "src/repro/kernels/triple_scan.py:102",
@@ -175,6 +181,33 @@ def query_mix(gen, n_queries: int, seed: int) -> list[str]:
                            templates=MIX_TEMPLATES) + [SINGLE_PATTERN]
 
 
+class ProbeLaunches:
+    """Records the (K, n) of every ``probe_sorted_many`` call while active
+    (the join kernel of the device route), and keeps the keys and probes
+    of the one with the most probes."""
+
+    def __init__(self):
+        self.shapes: list[list[int]] = []
+        self.largest = None
+
+    def __enter__(self):
+        from repro_torch.kernels import join_probe
+        self._module, self._kernel = join_probe, join_probe.probe_sorted_many
+
+        def record(keys, probes):
+            self.shapes.append([int(keys.shape[0]), int(probes.numel())])
+            if self.largest is None or \
+                    probes.numel() > self.largest[1].numel():
+                self.largest = (keys, probes)
+            return self._kernel(keys, probes)
+
+        join_probe.probe_sorted_many = record
+        return self
+
+    def __exit__(self, *exc):
+        self._module.probe_sorted_many = self._kernel
+
+
 def serve(store, dictionary, texts: list[str], capacity_text: str,
           device, max_rows: int) -> dict:
     """One cold and one warm ``query_many`` on the torch endpoint, held
@@ -197,8 +230,9 @@ def serve(store, dictionary, texts: list[str], capacity_text: str,
     x0, b0, s0 = st.host_transfers, st.host_transfer_bytes, st.scalar_syncs
     e0 = st.scans_executed
     t0 = time.perf_counter()
-    cold = ep.query_many(texts)
-    _sync(device)
+    with ProbeLaunches() as probes:
+        cold = ep.query_many(texts)
+        _sync(device)
     cold_s = time.perf_counter() - t0
     x1, b1, s1 = st.host_transfers, st.host_transfer_bytes, st.scalar_syncs
     e1 = st.scans_executed
@@ -217,7 +251,8 @@ def serve(store, dictionary, texts: list[str], capacity_text: str,
     ep.query_many(texts)
     _sync(device)
     recold_s = time.perf_counter() - t0
-    profile = (device_profile(lambda: _steady_cold(ep, texts))
+    profile = (device_profile(lambda: _steady_cold(ep, texts),
+                              track=QUERY_KERNELS)
                if backend.device.type == "cuda" else None)
 
     t0 = time.perf_counter()
@@ -256,14 +291,16 @@ def serve(store, dictionary, texts: list[str], capacity_text: str,
         "host_transfers_cold": x1 - x0, "host_transfers_warm": x2 - x1,
         "host_transfer_bytes_cold": b1 - b0, "scalar_syncs_cold": s1 - s0,
         "scans_executed_cold": e1 - e0, "cold_phases": phases,
-        "launches": launches, "backend": backend,
+        "launches": launches, "probe_launches_cold": probes.shapes,
+        "backend": backend, "probe_largest": probes.largest,
     }
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, track: tuple[str, ...] = ()) -> dict:
     """Device time of one ``fn()`` under ``torch.profiler``: the sum over
     kernels and copies, its share of the call's wall time (which the
-    profiler itself inflates), and the largest items."""
+    profiler itself inflates), the largest items, and [ms, launches] of
+    the kernels whose names contain a string of ``track``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -277,9 +314,13 @@ def device_profile(fn) -> dict:
                     for e in prof.key_averages()
                     if str(e.device_type).endswith("CUDA")), reverse=True)
     device_ms = sum(ms for ms, _, _ in items)
+    tracked = {t: [sum(ms for ms, key, _ in items if t in key),
+                   sum(n for _, key, n in items if t in key)]
+               for t in track}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms,
-            "top": [[key[:60], ms, n] for ms, key, n in items[:8]]}
+            "top": [[key[:60], ms, n] for ms, key, n in items[:8]],
+            "tracked": tracked}
 
 
 def kernel_device_ms(fn, kernel: str, calls: int = 20) -> tuple[float, int]:
@@ -368,7 +409,8 @@ def check_edge_cases(dev) -> int:
     returns the number of cases checked."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.join_probe import (SAMPLE_MAX, probe_sorted_many,
+    from repro_torch.kernels.join_probe import (SAMPLE_MAX, SAMPLE_MIN,
+                                                probe_plan, probe_sorted_many,
                                                 scan_probe)
     from repro_torch.kernels.triple_scan import triple_scan, triple_scan_many
 
@@ -442,6 +484,30 @@ def check_edge_cases(dev) -> int:
                             f"offsets {tri.data_ptr() % 16} "
                             f"{k.data_ptr() % 16}")
                     cases += 1
+    # probe_sorted_many on the two-level search: n off a multiple of 4 (a
+    # scalar last quad), probes 4 to 12 bytes off 16 (a view 1-3 elements
+    # in: scalar loads), n small enough to shrink the sample and large
+    # enough for the full one, K around SAMPLE_MIN and past SAMPLE_MAX with
+    # runs of equal keys, [Q, P] shapes, -1 padding and the int32 extremes
+    for K in (SAMPLE_MIN - 1, SAMPLE_MIN + 1, 3 * S + 5, 10 * S + 3):
+        k_np = np.sort(3 * rng.integers(0, K, K))
+        k_np[K // 3:K // 3 + 200] = k_np[K // 3]
+        keys = t32(k_np)
+        for n in (1, 2, 3, 5, 257, 4099, 200_003):
+            vals = rng.integers(-2, 3 * K + 3, n + 3)
+            vals = np.where(rng.random(n + 3) < 0.1,
+                            rng.choice(extremes, n + 3), vals)
+            flat = t32(vals)
+            for off in range(4):
+                shape = (3, n // 3) if off == 0 and n % 3 == 0 else (1, n)
+                probes = flat[off:off + n].view(shape)
+                if max_abs_err(probe_sorted_many(keys, probes),
+                               ref.probe_sorted_reference(keys, probes)):
+                    raise AssertionError(
+                        f"probe_sorted_many differs at K={K} n={n} "
+                        f"offset {probes.data_ptr() % 16} "
+                        f"{probe_plan(n, K, probes.data_ptr() % 16 == 0)}")
+                cases += 1
     try:
         scan_probe(t32(np.zeros((8, 3))), (-1, -1, -1), t32(np.zeros(4)),
                    col=1)
@@ -485,27 +551,51 @@ def kernel_phase(store, dictionary, backend, serving: dict,
     scan_pat = (-1, country, -1)
     probe_pat = (-1, follows, -1)
     steps = math.ceil(math.log2(K + 1))
+    # the cold batch's probe_sorted_many launch with the most probes
+    ckeys, cprobes = serving["probe_largest"]
+    cK, cP = ckeys.shape[0], cprobes.numel()
+    csteps = math.ceil(math.log2(cK + 1))
+
+    pplan = probe_plan(P, K, probes.data_ptr() % 16 == 0)
+    cplan = probe_plan(cP, cK, cprobes.data_ptr() % 16 == 0)
+    splan = probe_plan(T, K, triples.data_ptr() % 16 == 0)
+
+    def searches(kernel, plan):
+        """The search kernel, and the sample's gather where the plan
+        samples the keys."""
+        return (kernel,) + (("gather_sample_kernel",) if plan.stride > 1
+                            else ())
 
     specs = [
         ("triple_scan", lambda: triple_scan(triples, scan_pat),
          lambda: ref.triple_scan_reference(triples, *scan_pat), None,
-         16 * T, 3 * T, f"T={T}"),
+         16 * T, 3 * T, f"T={T}", ("triple_scan_kernel",)),
         ("triple_scan_many", lambda: triple_scan_many(triples, pats),
          lambda: ref.triple_scan_many_reference(triples, pats), None,
-         12 * T + 12 * Q + 4 * Q * T, 3 * Q * T, f"T={T} Q={Q}"),
+         12 * T + 12 * Q + 4 * Q * T, 3 * Q * T, f"T={T} Q={Q}",
+         ("triple_scan_many_kernel",)),
         ("probe_sorted_many", lambda: probe_sorted_many(keys, probes),
          lambda: ref.probe_sorted_reference(keys, probes),
          lambda: (torch.searchsorted(keys, probes, out_int32=True),
                   torch.searchsorted(keys, probes, right=True,
                                      out_int32=True)),
-         4 * K + 12 * P, 2 * P * steps, f"K={K} P={P}"),
+         4 * K + 12 * P, 2 * P * steps, f"K={K} P={P} {pplan}",
+         searches("probe_sorted_kernel", pplan)),
+        ("probe_sorted_many", lambda: probe_sorted_many(ckeys, cprobes),
+         lambda: ref.probe_sorted_reference(ckeys, cprobes),
+         lambda: (torch.searchsorted(ckeys, cprobes, out_int32=True),
+                  torch.searchsorted(ckeys, cprobes, right=True,
+                                     out_int32=True)),
+         4 * cK + 12 * cP, 2 * cP * csteps,
+         f"K={cK} P={cP}, the cold batch's largest {cplan}",
+         searches("probe_sorted_kernel", cplan)),
         ("scan_probe", lambda: scan_probe(triples, probe_pat, keys, 2),
          lambda: ref.scan_probe_reference(triples, *probe_pat, keys, 2),
          None, 24 * T + 4 * K, 3 * T + 2 * T * steps,
-         f"T={T} K={K} {probe_plan(T, K, triples.data_ptr() % 16 == 0)}"),
+         f"T={T} K={K} {splan}", searches("scan_probe_kernel", splan)),
     ]
     rows = []
-    for name, kern, plain, lib, nbytes, ops, shape in specs:
+    for name, kern, plain, lib, nbytes, ops, shape, kernels in specs:
         err = max_abs_err(kern(), plain())
         torch.cuda.synchronize()
         if err:
@@ -520,9 +610,14 @@ def kernel_phase(store, dictionary, backend, serving: dict,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(lib) if lib is not None else None,
+            # the profiler's: events over back-to-back calls read the
+            # host's time a call where it exceeds the card's
+            "device_ms": sum(kernel_device_ms(kern, k)[0] for k in kernels),
+            "shape": shape,
         }
         rows.append(row)
         log(f"kernel {name} [{shape}]: kernel_ms={row['ms']} "
+            f"device_ms={row['device_ms']} "
             f"bound_ms={row['bound_ms']} ({row['bound_by']}) "
             f"plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
             f"launches={row['launches']} max_abs_err={err}")
@@ -1340,9 +1435,11 @@ def planted_bag(mask):
 
 def check_sparse_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     """Both sparse kernels against their plain versions on the contract's
-    edges: an empty graph and E = 0, nodes with no edges, one hot node,
-    destinations outside [0, n_nodes), E off every span, D of 1, 7, 16,
-    33 and past one column tile (300); empty batches, NNZ of 0, 1, 4, 33,
+    edges: an empty graph and E = 0 to 5 (a last chunk off 16 bytes),
+    nodes with no edges, one hot node and a hub whose run covers whole
+    ranges, destinations outside [0, n_nodes), E off every span, D of 1,
+    7, 16, 33 and past one column tile (300, 4096), msg or dst off 16
+    bytes (the scalar route); empty batches, NNZ of 0, 1, 4, 33,
     37 and 600 (past the shared-memory ring), D of 1 to 300 on and off the
     16-byte width, bag counts off a chunk, a single bag, table, ids and
     mask off 16 bytes, weighted and all-masked bags. Random normal inputs
@@ -1384,31 +1481,58 @@ def check_sparse_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
             d[torch.rand(E, generator=gen, device=dev) < 0.9] = hot
         return d.sort().values.to(torch.int32)
 
-    segment_cases = [  # label, E, N, D, dst
-        ("empty graph", 0, 0, 16, None),
-        ("E=0", 0, 50, 16, None),
-        ("one edge", 1, 1, 1, None),
-        ("nodes without edges", 1000, 5000, 16, None),
-        ("hot node", 100_003, 64, 16, dict(hot=5)),
-        ("dst outside [0, n)", 20_000, 300, 7, dict(lo=-40, hi=340)),
-        ("E off the span, D=1", 8193, 700, 1, None),
-        ("E off the span, D=16", 513, 40, 16, None),
-        ("D=33", 9999, 2000, 33, None),
-        ("D=300, two column tiles", 3001, 500, 300, None),
-        ("long runs", 1_000_003, 5000, 7, None),
+    def off16(t, k):
+        """A contiguous copy of ``t`` starting ``k`` elements past a
+        16-byte boundary."""
+        flat = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+        out = flat[k:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    segment_cases = [  # label, E, N, D, dst, (msg, dst) elements off 16
+        ("empty graph", 0, 0, 16, None, None),
+        ("E=0", 0, 50, 16, None, None),
+        ("one edge", 1, 1, 1, None, None),
+        ("E=2", 2, 3, 7, None, None),
+        ("E=3", 3, 2, 16, None, None),
+        ("E=5, a last chunk off 16 bytes", 5, 4, 7, None, None),
+        ("nodes without edges", 1000, 5000, 16, None, None),
+        ("hot node", 100_003, 64, 16, dict(hot=5), None),
+        # 90% of the edges on one node: whole ranges inside its run
+        ("hub across whole ranges", 2_000_003, 5000, 16, dict(hot=7), None),
+        ("hub across whole ranges, D=1", 2_000_003, 5000, 1, dict(hot=7),
+         None),
+        ("dst outside [0, n)", 20_000, 300, 7, dict(lo=-40, hi=340), None),
+        ("E off the span, D=1", 8193, 700, 1, None, None),
+        ("E off the span, D=16", 513, 40, 16, None, None),
+        ("D=33", 9999, 2000, 33, None, None),
+        ("D=300, two column tiles", 3001, 500, 300, None, None),
+        ("D=4096, one column loop of 16 tiles", 203, 20, 4096, None, None),
+        ("long runs", 1_000_003, 5000, 7, None, None),
+        # the scalar route: msg or dst off 16 bytes
+        ("msg off 16 bytes, D=16", 100_003, 3000, 16, None, (1, 0)),
+        ("msg off 16 bytes, D=7", 100_003, 3000, 7, None, (3, 0)),
+        ("dst off 16 bytes, D=1", 100_003, 3000, 1, None, (0, 1)),
+        ("both off 16 bytes, hub", 300_001, 3000, 16, dict(hot=7), (2, 3)),
     ]
     for name in dtypes:
         dtype = getattr(torch, name)
-        for label, E, N, D, kw in segment_cases:
+        for label, E, N, D, kw, offs in segment_cases:
             dst = sorted_dst(E, max(N, 1), **(kw or {}))
             msg = torch.randn((E, D), generator=gen, device=dev).to(dtype)
             label = f"segment_sum_sorted {name} {label} E={E} N={N} D={D}"
-            record(label, name, segment_sum_sorted(msg, dst, N),
+
+            def kernel(m):
+                if offs is None:
+                    return segment_sum_sorted(m, dst, N)
+                return segment_sum_sorted(off16(m, offs[0]),
+                                          off16(dst, offs[1]), N)
+            record(label, name, kernel(msg),
                    ref.segment_sum_sorted_reference(msg, dst, N),
                    segment_bound(msg, dst, N))
             msg = torch.randint(-2, 3, (E, D), generator=gen, device=dev,
                                 dtype=torch.float32).to(dtype)
-            exact(label + " integer", segment_sum_sorted(msg, dst, N),
+            exact(label + " integer", kernel(msg),
                   ref.segment_sum_sorted_reference(msg, dst, N))
     bag_cases = [  # B, F, NNZ, V, D
         (0, 3, 4, 10, 8), (1, 1, 1, 1, 1), (7, 3, 5, 100, 7),
@@ -1424,14 +1548,6 @@ def check_sparse_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
             bag_cases.append((67, 3, NNZ, 3000, D))
     bag_cases.append((1, 1, 4, 3000, 32))
     weights = torch.tensor([0.0, 0.5, 1.0, 2.0], device=dev)
-
-    def off16(t, k):
-        """A contiguous copy of ``t`` starting ``k`` elements past a
-        16-byte boundary."""
-        flat = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
-        out = flat[k:].view(t.shape)
-        out.copy_(t)
-        return out
 
     for name in dtypes:
         dtype = getattr(torch, name)
@@ -1891,85 +2007,129 @@ def gnn_serve(cfg, params, graph: dict, device, calls: int,
     return res
 
 
-def segment_kernel_row(edges, n_nodes: int, d: int, launches, hbm) -> dict:
-    """``segment_sum_sorted`` at a layer's shape (the graph's sorted dst,
-    [E, d] messages) against its plain version on the same card inputs:
-    exactly on integer-valued messages in {-2, ..., 2} (every sum is under
-    2^24, so exact in any order), per element on normal messages at d and
-    at the forward's other widths (1 and the classes) and in bfloat16;
-    each against a planted fault (``planted_segment``) that must fail it.
-    Timed beside its bound and ``index_add_``."""
+def segment_widths(cfg, params, graph: dict) -> dict:
+    """The launches of ``segment_sum_sorted`` in one forward by the width
+    D of their messages, {D: launches} (counts set to 0 just before the
+    forward, read just after; they must sum to the wrapper's count). Off
+    the card every width counts 0 launches."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import gnn
+    widths: dict[int, int] = {}
+    kernel = gnn.segment_sum_sorted
+
+    def tally(msg, dst, n_nodes, out=None):
+        before = launch_counts().get("segment_sum_sorted", 0)
+        res = kernel(msg, dst, n_nodes, out)
+        widths[msg.shape[1]] = widths.get(msg.shape[1], 0) + \
+            launch_counts().get("segment_sum_sorted", 0) - before
+        return res
+
+    gnn.segment_sum_sorted = tally
+    try:
+        reset_launch_counts()
+        gnn.gcn_forward(cfg, params, graph["feat"], graph["edges"])
+        _sync(graph["feat"].device)
+        counts = launch_counts()
+    finally:
+        gnn.segment_sum_sorted = kernel
+    if sum(widths.values()) != counts.get("segment_sum_sorted", 0):
+        raise AssertionError(f"segment widths {widths} vs launches {counts}")
+    return widths
+
+
+def segment_kernel_rows(edges, n_nodes: int, widths: dict, hbm) -> list:
+    """``segment_sum_sorted`` at each width the forward launches (the
+    graph's sorted dst, [E, D] messages) against its plain version on the
+    same card inputs: exactly on integer-valued messages in {-2, ..., 2}
+    (every sum is under 2^24, so exact in any order), per element on
+    normal messages in float32 and bfloat16 and on the scalar route (msg
+    one element off 16 bytes); each against a planted fault
+    (``planted_segment``) that must fail it. Timed beside its bound and
+    ``index_add_``; one row a width, ``launches`` the forward's launches
+    at that width."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.segment_mp import segment_sum_sorted
+    from repro_torch.kernels.segment_mp import segment_plan, segment_sum_sorted
 
     dev = edges.device
     gen = torch.Generator(device=dev).manual_seed(17)
     dst = edges[:, 1].contiguous()
     E = dst.shape[0]
-    shape = f"E={E} N={n_nodes} D={d}"
-    checks, widths = {}, {}
-
-    msg = torch.randint(-2, 3, (E, d), generator=gen, device=dev,
-                        dtype=torch.float32)
-    want = ref.segment_sum_sorted_reference(msg, dst, n_nodes)
-    got = segment_sum_sorted(msg, dst, n_nodes)
-    planted = ref.segment_sum_sorted_reference(planted_segment(msg, dst),
-                                               dst, n_nodes)
-    checks["exact"] = [float((got - want).abs().max()),
-                       float((planted - want).abs().max())]
-    del msg, want, got, planted
-    for name, width in (("float32", d), ("float32", 7), ("float32", 1),
-                        ("bfloat16", d)):
-        msg = torch.randn((E, width), generator=gen, device=dev).to(
-            getattr(torch, name))
+    rows = []
+    for d in sorted(widths, reverse=True):
+        shape = f"E={E} N={n_nodes} D={d}"
+        checks = {}
+        msg = torch.randint(-2, 3, (E, d), generator=gen, device=dev,
+                            dtype=torch.float32)
         want = ref.segment_sum_sorted_reference(msg, dst, n_nodes)
-        bound = segment_bound(msg, dst, n_nodes)
-        err = sum_err(segment_sum_sorted(msg, dst, n_nodes), want, bound)
-        control = sum_err(ref.segment_sum_sorted_reference(
-            planted_segment(msg, dst), dst, n_nodes), want, bound)
-        checks[f"{name} D={width}"] = [*err, *control]
-        if name == "float32" and width != d:
-            widths[width] = time_ms(
-                lambda: segment_sum_sorted(msg, dst, n_nodes))
-        del msg, want, bound
-    _sync(dev)
-    bad = [] if (checks["exact"][0] == 0 and checks["exact"][1] > 0) \
-        else ["exact"]
-    bad += [k for k, v in checks.items()
-            if k != "exact" and not v[1] <= 1.0 < v[3]]
-    if bad:
-        raise AssertionError(f"segment_sum_sorted [{shape}]: {bad}: "
-                             f"{checks}")
+        got = segment_sum_sorted(msg, dst, n_nodes)
+        planted = ref.segment_sum_sorted_reference(planted_segment(msg, dst),
+                                                   dst, n_nodes)
+        checks["exact"] = [float((got - want).abs().max()),
+                           float((planted - want).abs().max())]
+        del msg, want, got, planted
+        scalar_ms = None
+        for name in ("float32", "bfloat16", "float32 off16"):
+            msg = torch.randn((E, d), generator=gen, device=dev).to(
+                getattr(torch, name.split()[0]))
+            want = ref.segment_sum_sorted_reference(msg, dst, n_nodes)
+            bound = segment_bound(msg, dst, n_nodes)
+            kmsg = msg
+            if name.endswith("off16"):       # the scalar route
+                flat = torch.empty(E * d + 1, dtype=msg.dtype, device=dev)
+                kmsg = flat[1:].view(E, d)
+                kmsg.copy_(msg)
+                scalar_ms = time_ms(
+                    lambda: segment_sum_sorted(kmsg, dst, n_nodes))
+            err = sum_err(segment_sum_sorted(kmsg, dst, n_nodes), want,
+                          bound)
+            control = sum_err(ref.segment_sum_sorted_reference(
+                planted_segment(msg, dst), dst, n_nodes), want, bound)
+            checks[name] = [*err, *control]
+            del msg, kmsg, want, bound
+        _sync(dev)
+        bad = [] if (checks["exact"][0] == 0 and checks["exact"][1] > 0) \
+            else ["exact"]
+        bad += [k for k, v in checks.items()
+                if k != "exact" and not v[1] <= 1.0 < v[3]]
+        if bad:
+            raise AssertionError(f"segment_sum_sorted [{shape}]: {bad}: "
+                                 f"{checks}")
 
-    msg = torch.randn((E, d), generator=gen, device=dev)
-    lib_err = float((torch.zeros((n_nodes, d), device=dev)
-                     .index_add_(0, dst, msg)
-                     - ref.segment_sum_sorted_reference(msg, dst, n_nodes))
-                    .abs().max())
-    row = sparse_row(
-        "segment_sum_sorted", launches, checks[f"float32 D={d}"][0],
-        lambda: segment_sum_sorted(msg, dst, n_nodes),
-        lambda: ref.segment_sum_sorted_reference(msg, dst, n_nodes),
-        lambda: torch.zeros((n_nodes, d), device=dev).index_add_(0, dst,
-                                                                 msg),
-        E * d * 4 + E * 4 + n_nodes * d * 4, hbm)
-    others = {w: [ms, (E * w * 4 + E * 4 + n_nodes * w * 4) / hbm * 1e3]
-              for w, ms in widths.items()}
-    log(f"kernel segment_sum_sorted [{shape} f32]: kernel_ms={row['ms']} "
-        f"bound_ms={row['bound_ms']} (bytes) plain_ms={row['plain_ms']} "
-        f"library_ms={row['library_ms']} (zeros + index_add_; max "
-        f"|library - plain| {lib_err}) launches={row['launches']}; "
-        f"[kernel_ms, bound_ms] at the other widths {json.dumps(others)}; "
-        f"checks [max_abs_err, ratio, planted max_abs_err, planted "
-        f"ratio]: {json.dumps(checks)}")
-    return row
+        msg = torch.randn((E, d), generator=gen, device=dev)
+        lib_err = float((torch.zeros((n_nodes, d), device=dev)
+                         .index_add_(0, dst, msg)
+                         - ref.segment_sum_sorted_reference(msg, dst,
+                                                            n_nodes))
+                        .abs().max())
+        row = sparse_row(
+            "segment_sum_sorted", {"segment_sum_sorted": widths[d]},
+            checks["float32"][0],
+            lambda: segment_sum_sorted(msg, dst, n_nodes),
+            lambda: ref.segment_sum_sorted_reference(msg, dst, n_nodes),
+            lambda: torch.zeros((n_nodes, d), device=dev).index_add_(
+                0, dst, msg),
+            E * d * 4 + E * 4 + n_nodes * d * 4, hbm)
+        row["shape"] = shape
+        rows.append(row)
+        log(f"kernel segment_sum_sorted [{shape} f32 "
+            f"{segment_plan(E, d, 4, True)}]: kernel_ms={row['ms']} "
+            f"bound_ms={row['bound_ms']} (bytes) plain_ms={row['plain_ms']} "
+            f"library_ms={row['library_ms']} (zeros + index_add_; max "
+            f"|library - plain| {lib_err}) launches={row['launches']}; "
+            f"scalar route (msg off 16 bytes) {scalar_ms} ms; checks "
+            f"[max_abs_err, ratio, planted max_abs_err, planted ratio]: "
+            f"{json.dumps(checks)}")
+        del msg
+        torch.cuda.empty_cache()
+    return rows
 
 
 def gnn_phase(args, hbm: float | None, device) -> list[dict]:
     """GCN inference: card against CPU at full_graph_sm, then a forward
     on ogb_products' full size drawn on the card; returns the
-    ``segment_sum_sorted`` row (none off the card)."""
+    ``segment_sum_sorted`` rows, one a width the forward launches (none
+    off the card)."""
     import dataclasses
 
     import torch
@@ -2002,13 +2162,15 @@ def gnn_phase(args, hbm: float | None, device) -> list[dict]:
     if res["launches"] != want:
         raise AssertionError(f"gcn forward launches {res['launches']}, "
                              f"want {want}")
+    widths = segment_widths(pcfg, params, graph)
+    log(f"gnn ogb_products segment_sum_sorted launches by D: "
+        f"{json.dumps(widths)}")
     del params, graph["feat"]
     torch.cuda.empty_cache()
-    row = segment_kernel_row(graph["edges"], shape["n_nodes"], cfg.d_hidden,
-                             res["launches"], hbm)
+    rows = segment_kernel_rows(graph["edges"], shape["n_nodes"], widths, hbm)
     del graph
     torch.cuda.empty_cache()
-    return [row]
+    return rows
 
 
 
@@ -2039,7 +2201,8 @@ def run_phase(label: str, gen, store, n_queries: int, max_rows: int,
     if res["backend"].device.type == "cuda" and missing:
         raise AssertionError(f"{label}: kernels not launched on the main "
                              f"path: {missing}")
-    shown = {k: v for k, v in res.items() if k != "backend"}
+    shown = {k: v for k, v in res.items()
+             if k not in ("backend", "probe_largest")}
     log(f"serving {label}: {json.dumps(shown)}")
     return res
 

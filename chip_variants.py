@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Time ``embedding_bag`` and ``scan_probe`` beside timing-only variants of
-themselves, on one NVIDIA GPU.
+"""Time ``embedding_bag``, ``scan_probe``, ``segment_sum_sorted`` and
+``probe_sorted_many`` beside timing-only variants of themselves, on one
+NVIDIA GPU.
 
     python3 chip_variants.py            # from the root of a checkout
+    python3 chip_variants.py --kernels segment,probe
+                                        # some of the four sections
 
 A variant is either a plan that the launchers would not pick (ids and mask
 read from device memory instead of through the ring, one element a lane
-instead of 16 bytes, another grid, another sample size) or a copy of a
-kernel's source with one part changed by a text substitution (its L2
-hints, the out-of-range shortcut), compiled at run time under
-``build/variants``. No variant is part of the port. Each variant's output
-is checked bit for bit against the shipped kernel's before it is timed;
-the variants then run in turns, forward and backward (CUDA events over
-back-to-back calls, ``chip_smoke.time_ms``).
+instead of 16 bytes, another grid, another sample size, another number of
+ring stages, the scalar route on aligned data) or a copy of a kernel's
+source with one part changed by a text substitution (its L2 hints, the
+out-of-range shortcut, no run carried across chunks, the replaced probe
+kernel appended), compiled at run time under ``build/variants``. No
+variant is part of the port. Each variant's output is checked bit for bit
+against the shipped kernel's before it is timed (the segment sums on
+integer-valued messages, exact in any order); the variants then run in
+turns, forward and backward (CUDA events over back-to-back calls,
+``chip_smoke.time_ms``).
 
 ``embedding_bag`` runs at wide-deep's ``serve_bulk`` shape (262,144
 samples x 40 fields of 4 ids, D = 32 float32, u^3 ids). ``scan_probe``
@@ -22,10 +28,20 @@ every object as a probe) and on two controls of the same size: probes
 drawn uniformly from the keys' range, and probes above every key. The
 last line is one JSON object of every time in ms, beside the card's name
 and power limit.
+
+``segment_sum_sorted`` runs at the GCN forward's three launches on
+ogb_products' size (61,841,859 edges drawn by ``chip_smoke.gnn_graph``, D
+= 16, 7 and 1). ``probe_sorted_many`` runs at K = P = 1,347,882 (the
+sorted ``follows`` subjects as keys, their objects as probes) and at
+4,000 of those probes, where the plan shrinks the sample, and in the
+steady cold batch of ``chip_smoke.py``'s query mix, where the replaced
+kernel stands in behind the same wrapper: the profiler's device time of
+the batch's launches of each (the gathers there include ``scan_probe``'s).
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -56,6 +72,67 @@ def _evict_last(load: str) -> str:
             + " " + rest.replace("];\\n", "], q;\\n}\\n"))
 
 
+# the probe_sorted_many kernel this one replaced: one thread a probe, a
+# full binary search of the keys, then a gallop (appended to rdf_kernels.cu
+# as rdf_probe_sorted_old)
+_OLD_PROBE = r"""
+__device__ __forceinline__ int old_lower_bound(const int* __restrict__ keys,
+                                               int n, int v) {
+  int base = 0, len = n;
+  while (len > 0) {
+    const int half = len >> 1;
+    const bool right = __ldg(keys + base + half) < v;
+    base = right ? base + half + 1 : base;
+    len = right ? len - half - 1 : half;
+  }
+  return base;
+}
+__device__ __forceinline__ int old_upper_bound(const int* __restrict__ keys,
+                                               int n, int v) {
+  int base = 0, len = n;
+  while (len > 0) {
+    const int half = len >> 1;
+    const bool right = __ldg(keys + base + half) <= v;
+    base = right ? base + half + 1 : base;
+    len = right ? len - half - 1 : half;
+  }
+  return base;
+}
+__device__ __forceinline__ int old_upper_from(const int* __restrict__ keys,
+                                              int n, int lo, int v) {
+  int prev = lo, probe = lo;
+  int64_t step = 1;
+  while (probe < n && __ldg(keys + probe) <= v) {
+    prev = probe + 1;
+    probe = step < n - prev ? prev + static_cast<int>(step) : n;
+    step <<= 1;
+  }
+  return prev + old_upper_bound(keys + prev, probe - prev, v);
+}
+__global__ void old_probe_kernel(const int* __restrict__ keys, int K,
+                                 const int* __restrict__ probes, int64_t n,
+                                 int* __restrict__ lo, int* __restrict__ hi) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x; i < n; i += stride) {
+    const int v = probes[i];
+    const int l = old_lower_bound(keys, K, v);
+    lo[i] = l;
+    hi[i] = old_upper_from(keys, K, l, v);
+  }
+}
+int rdf_probe_sorted_old(const void* keys, int K, const void* probes,
+                         int64_t n, void* lo, void* hi, void* stream) {
+  old_probe_kernel<<<grid_for(n), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(keys), K, static_cast<const int*>(probes), n,
+      static_cast<int*>(lo), static_cast<int*>(hi));
+  return static_cast<int>(cudaGetLastError());
+}
+
+"""
+_ERROR_STRING = "const char* rdf_error_string(int code) {"
+
 # name: (source file, [(shipped text, variant text)])
 VARIANTS = {
     # no L2 hints at all: plain stores, bulk copies without a policy
@@ -69,7 +146,22 @@ VARIANTS = {
     "probe_noshortcut": ("rdf_kernels.cu", [
         ("in[r] = K > 0 && r0 + r < T && v[r] >= first && v[r] <= last;",
          "in[r] = K > 0 && r0 + r < T;")]),
+    # the replaced probe_sorted_many kernel beside the shipped ones
+    "probe_old": ("rdf_kernels.cu", [
+        (_ERROR_STRING, _OLD_PROBE + _ERROR_STRING)]),
+    # no run carried across chunks: each chunk's first and last runs are
+    # added atomically, as a range's are
+    "seg_nocarry": ("sparse_kernels.cu", [
+        ("const int first_node = __ldg(dst + e_begin);",
+         "int first_node = __ldg(dst + e_begin);"),
+        ("const int last_node = __ldg(dst + e_end - 1);",
+         "int last_node = __ldg(dst + e_end - 1);"),
+        ("const bool have_carry = k > 0;", "const bool have_carry = false;"),
+        ("const bool range_ends = k + 1 == n_chunks;",
+         "const bool range_ends = true;\n"
+         "    first_node = cd[0];\n    last_node = chunk_last_node;")]),
 }
+SECTIONS = ("bag", "scan", "segment", "probe")
 
 
 def log(msg: str) -> None:
@@ -90,10 +182,13 @@ def variant_sources() -> dict[str, str]:
     return out
 
 
-def build_variants(nvcc_flags: list[str], nvcc: str) -> dict[str, ctypes.CDLL]:
+def build_variants(nvcc_flags: list[str], nvcc: str,
+                   names) -> dict[str, ctypes.CDLL]:
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in variant_sources().items():
+        if name not in names:
+            continue
         src = OUT / f"{name}.cu"
         src.write_text(text)
         lib = OUT / f"lib{name}.so"
@@ -109,7 +204,20 @@ def build_variants(nvcc_flags: list[str], nvcc: str) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def main() -> int:
+# the variants each section builds
+SECTION_VARIANTS = {"bag": ("bag_nohint", "bag_evictlast"),
+                    "scan": ("probe_noshortcut",),
+                    "segment": ("seg_nocarry",), "probe": ("probe_old",)}
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", default=",".join(SECTIONS),
+                    help=f"comma-separated sections of {SECTIONS}")
+    args = ap.parse_args([] if argv is None else argv)
+    sections = args.kernels.split(",")
+    if not set(sections) <= set(SECTIONS):
+        ap.error(f"--kernels takes {SECTIONS}")
     import torch
     if not torch.cuda.is_available():
         print("chip_variants: CUDA is not available", file=sys.stderr)
@@ -120,24 +228,38 @@ def main() -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.embedding_bag import (BAG_THREADS, bag_plan,
                                                    embedding_bag)
-    from repro_torch.kernels.join_probe import probe_plan, scan_probe
+    from repro_torch.kernels.join_probe import (probe_plan, probe_sorted_many,
+                                                scan_probe)
+    from repro_torch.kernels.segment_mp import (seg_ranges, seg_smem_bytes,
+                                                segment_plan,
+                                                segment_sum_sorted)
     from repro_torch.models.recsys import _field_ids
     from repro_torch.rdf.generator import generate_watdiv_like
     from repro_torch.sparql.engine import TorchBackend
 
     t0 = time.perf_counter()
     _build.build("sparse", "rdf")
-    libs = build_variants(_build.NVCC_FLAGS, _build._nvcc())
-    libs["bag"] = _build.library("sparse")
+    libs = build_variants(_build.NVCC_FLAGS, _build._nvcc(),
+                          {v for sec in sections
+                           for v in SECTION_VARIANTS[sec]})
+    libs["bag"] = libs["seg"] = _build.library("sparse")
     libs["probe"] = _build.library("rdf")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    for name in VARIANTS:
+    for name, lib in libs.items():
         if name.startswith("bag"):
-            libs[name].sparse_embedding_bag.argtypes = \
+            lib.sparse_embedding_bag.argtypes = \
                 [P, P, P, P, I, L, I, I, I, I, I, I, I, I, P]
+        elif name.startswith("seg"):
+            lib.sparse_segment_sum_sorted.argtypes = \
+                [P, P, P, P, I, L, I, I, L, I, I, I, I, I, I, I, P]
         else:
-            libs[name].rdf_scan_probe.argtypes = \
+            lib.rdf_scan_probe.argtypes = \
                 [P, L, I, I, I, P, I, I, I, I, I, I, P, P, P, P, P]
+            lib.rdf_probe_sorted_many.argtypes = \
+                [P, I, P, L, I, I, I, I, P, P, P, P]
+    if "probe_old" in libs:
+        libs["probe_old"].rdf_probe_sorted_old.argtypes = \
+            [P, I, P, L, P, P, P]
     gpu = smoke.gpu_line()
     log(f"build {time.perf_counter() - t0:.1f} s; {gpu}")
     dev = torch.device("cuda")
@@ -161,103 +283,261 @@ def main() -> int:
                 log(f"{label} {name} [{rnd}]: {ms} ms")
 
     # ------------------------------------------------------ embedding_bag
-    cfg = get_spec(smoke.RECSYS_ARCH).config
-    data = smoke._recsys_inputs(cfg, 262_144, 2, dev)
-    ids = _field_ids(data["ids"], cfg.vocab_per_field)
-    mask = data["id_mask"]
-    B, F, NNZ = ids.shape
-    D = cfg.embed_dim
-    table = torch.randn((cfg.n_sparse * cfg.vocab_per_field, D),
-                        generator=torch.Generator(device=dev).manual_seed(0),
-                        device=dev)
-    n_bags = B * F
+    if "bag" in sections:
+        cfg = get_spec(smoke.RECSYS_ARCH).config
+        data = smoke._recsys_inputs(cfg, 262_144, 2, dev)
+        ids = _field_ids(data["ids"], cfg.vocab_per_field)
+        mask = data["id_mask"]
+        B, F, NNZ = ids.shape
+        D = cfg.embed_dim
+        table = torch.randn(
+            (cfg.n_sparse * cfg.vocab_per_field, D),
+            generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        n_bags = B * F
 
-    def bag(lib, vec, ring, blocks=None):
-        plan = bag_plan(n_bags, NNZ, D, 4, aligned=vec > 1)
-        lanes = plan.lanes
-        chunk = plan.chunk if ring else BAG_THREADS // lanes
-        out = torch.empty((B, F, D), device=dev)
-        rc = libs[lib].sparse_embedding_bag(
-            table.data_ptr(), ids.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), 0, n_bags, NNZ, D, 1, vec, lanes, chunk,
-            blocks or plan.blocks, int(ring), stream())
-        if rc:
-            raise RuntimeError(f"embedding_bag variant: CUDA error {rc}")
-        return out
+        def bag(lib, vec, ring, blocks=None):
+            plan = bag_plan(n_bags, NNZ, D, 4, aligned=vec > 1)
+            lanes = plan.lanes
+            chunk = plan.chunk if ring else BAG_THREADS // lanes
+            out = torch.empty((B, F, D), device=dev)
+            rc = libs[lib].sparse_embedding_bag(
+                table.data_ptr(), ids.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), 0, n_bags, NNZ, D, 1, vec, lanes, chunk,
+                blocks or plan.blocks, int(ring), stream())
+            if rc:
+                raise RuntimeError(f"embedding_bag variant: CUDA error {rc}")
+            return out
 
-    want = embedding_bag(table, ids, mask)
-    order = [
-        ("shipped", lambda: embedding_bag(table, ids, mask)),
-        ("none of the three", lambda: bag("bag_nohint", 1, False)),
-        ("(a) ring alone", lambda: bag("bag_nohint", 1, True)),
-        ("(b) 16-byte rows alone", lambda: bag("bag_nohint", 4, False)),
-        ("(c) hints alone", lambda: bag("bag_evictlast", 1, False)),
-        ("(c) shipped hints alone", lambda: bag("bag", 1, False)),
-        ("(a)+(b)", lambda: bag("bag_nohint", 4, True)),
-        ("shipped + evict_last row loads",
-         lambda: bag("bag_evictlast", 4, True)),
-        ("shipped, 8 blocks an SM", lambda: bag("bag", 4, True, 132 * 8)),
-    ]
-    run_in_turns("embedding_bag", order, want, calls=5)
-    del table, data, ids, mask, want
-    torch.cuda.empty_cache()
-
-    # --------------------------------------------------------- scan_probe
-    t0 = time.perf_counter()
-    gen = generate_watdiv_like(scale=1000, seed=0)
-    backend = TorchBackend(device=dev)
-    follows = gen.dictionary.predicate_id("follows")
-    real = (backend._triples(gen.store),
-            backend._pred_views(gen.store, follows)[0][0])
-    T, K = real[0].shape[0], real[1].shape[0]
-    log(f"WatDiv-like scale 1000: T={T} K={K} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    lo_k, hi_k = int(real[1][0]), int(real[1][-1])
-    tri = real[0].clone()
-    tri[:, 2] = torch.from_numpy(rng.integers(lo_k, hi_k + 1, T).astype(
-        np.int32)).to(dev)
-    above = real[0].clone()
-    above[:, 2] = hi_k + 1 + above[:, 2].abs() % 1000
-    pat = (-1, follows, -1)
-
-    def probe(lib, rows, keys, stride=None, vec=1):
-        plan = probe_plan(T, K, True)
-        stride = stride or plan.stride
-        n_samples = -(-K // stride)
-        sample = torch.empty(n_samples, dtype=torch.int32, device=dev)
-        out = [torch.empty(T, dtype=torch.int32, device=dev)
-               for _ in range(3)]
-        rc = libs[lib].rdf_scan_probe(
-            rows.data_ptr(), T, *pat, keys.data_ptr(), K, 2, stride,
-            n_samples, vec, plan.blocks, sample.data_ptr(),
-            *(o.data_ptr() for o in out), stream())
-        if rc:
-            raise RuntimeError(f"scan_probe variant: CUDA error {rc}")
-        return tuple(out)
-
-    for label, rows in (("real", real[0]), ("uniform in range", tri),
-                        ("all above the keys", above)):
-        keys = real[1]
-        want = ref.scan_probe_reference(rows, *pat, keys, 2)
-        if smoke.max_abs_err(scan_probe(rows, pat, keys, 2), want):
-            raise AssertionError(f"scan_probe {label}: differs from plain")
+        want = embedding_bag(table, ids, mask)
         order = [
-            ("shipped", lambda: scan_probe(rows, pat, keys, 2)),
-            ("no out-of-range shortcut",
-             lambda: probe("probe_noshortcut", rows, keys)),
-            ("sample 8192", lambda: probe("probe", rows, keys,
-                                          -(-K // 8192))),
-            ("sample 16384", lambda: probe("probe", rows, keys,
-                                           -(-K // 16384))),
-            ("scalar row loads", lambda: probe("probe", rows, keys, vec=0)),
+            ("shipped", lambda: embedding_bag(table, ids, mask)),
+            ("none of the three", lambda: bag("bag_nohint", 1, False)),
+            ("(a) ring alone", lambda: bag("bag_nohint", 1, True)),
+            ("(b) 16-byte rows alone", lambda: bag("bag_nohint", 4, False)),
+            ("(c) hints alone", lambda: bag("bag_evictlast", 1, False)),
+            ("(c) shipped hints alone", lambda: bag("bag", 1, False)),
+            ("(a)+(b)", lambda: bag("bag_nohint", 4, True)),
+            ("shipped + evict_last row loads",
+             lambda: bag("bag_evictlast", 4, True)),
+            ("shipped, 8 blocks an SM", lambda: bag("bag", 4, True, 132 * 8)),
         ]
-        run_in_turns(f"scan_probe {label}", order, want, calls=20)
-        del want
+        run_in_turns("embedding_bag", order, want, calls=5)
+        del table, data, ids, mask, want
+        torch.cuda.empty_cache()
+
+    # -------------------------------------------- scan_probe and the keys
+    if "scan" in sections or "probe" in sections:
+        t0 = time.perf_counter()
+        gen = generate_watdiv_like(scale=1000, seed=0)
+        backend = TorchBackend(device=dev)
+        follows = gen.dictionary.predicate_id("follows")
+        real = (backend._triples(gen.store),
+                backend._pred_views(gen.store, follows)[0][0])
+        T, K = real[0].shape[0], real[1].shape[0]
+        log(f"WatDiv-like scale 1000: T={T} K={K} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "scan" in sections:
+        rng = np.random.default_rng(0)
+        lo_k, hi_k = int(real[1][0]), int(real[1][-1])
+        tri = real[0].clone()
+        tri[:, 2] = torch.from_numpy(rng.integers(lo_k, hi_k + 1, T).astype(
+            np.int32)).to(dev)
+        above = real[0].clone()
+        above[:, 2] = hi_k + 1 + above[:, 2].abs() % 1000
+        pat = (-1, follows, -1)
+
+        def probe(lib, rows, keys, stride=None, vec=1):
+            plan = probe_plan(T, K, True)
+            stride = stride or plan.stride
+            n_samples = -(-K // stride)
+            sample = torch.empty(n_samples, dtype=torch.int32, device=dev)
+            out = [torch.empty(T, dtype=torch.int32, device=dev)
+                   for _ in range(3)]
+            rc = libs[lib].rdf_scan_probe(
+                rows.data_ptr(), T, *pat, keys.data_ptr(), K, 2, stride,
+                n_samples, vec, plan.blocks, sample.data_ptr(),
+                *(o.data_ptr() for o in out), stream())
+            if rc:
+                raise RuntimeError(f"scan_probe variant: CUDA error {rc}")
+            return tuple(out)
+
+        for label, rows in (("real", real[0]), ("uniform in range", tri),
+                            ("all above the keys", above)):
+            keys = real[1]
+            want = ref.scan_probe_reference(rows, *pat, keys, 2)
+            if smoke.max_abs_err(scan_probe(rows, pat, keys, 2), want):
+                raise AssertionError(f"scan_probe {label}: differs from plain")
+            order = [
+                ("shipped", lambda: scan_probe(rows, pat, keys, 2)),
+                ("no out-of-range shortcut",
+                 lambda: probe("probe_noshortcut", rows, keys)),
+                ("sample 8192", lambda: probe("probe", rows, keys,
+                                              -(-K // 8192))),
+                ("sample 16384", lambda: probe("probe", rows, keys,
+                                               -(-K // 16384))),
+                ("scalar row loads",
+                 lambda: probe("probe", rows, keys, vec=0)),
+            ]
+            run_in_turns(f"scan_probe {label}", order, want, calls=20)
+            del want
+    # --------------------------------------------------- probe_sorted_many
+    if "probe" in sections:
+        keys = real[1]
+        tids = torch.from_numpy(gen.store.pred_tids(follows)).to(dev)
+        objects = real[0][tids, 2].contiguous()
+        inside = float(((objects >= keys[0]) & (objects <= keys[-1]))
+                       .float().mean())
+        log(f"probe_sorted_many: {inside} of the K = P probes lie inside "
+            f"the keys' range (each takes a search)")
+        for label, probes in (("K=P", objects[None, :]),
+                              ("n=4000", objects[None, :4000].clone())):
+            n = probes.numel()
+            want = ref.probe_sorted_reference(keys, probes)
+            if smoke.max_abs_err(probe_sorted_many(keys, probes), want):
+                raise AssertionError(f"probe_sorted_many {label}: differs")
+
+            def probe_many(stride, probes=probes, n=n):
+                plan = probe_plan(n, K, True)
+                n_samples = -(-K // stride)
+                sample = torch.empty(n_samples, dtype=torch.int32,
+                                     device=dev)
+                lo, hi = (torch.empty(probes.shape, dtype=torch.int32,
+                                      device=dev) for _ in range(2))
+                rc = libs["probe"].rdf_probe_sorted_many(
+                    keys.data_ptr(), K, probes.data_ptr(), n, stride,
+                    n_samples, 1, plan.blocks, sample.data_ptr(),
+                    lo.data_ptr(), hi.data_ptr(), stream())
+                if rc:
+                    raise RuntimeError(f"probe variant: CUDA error {rc}")
+                return lo, hi
+
+            def probe_old(probes=probes, n=n):
+                lo, hi = (torch.empty(probes.shape, dtype=torch.int32,
+                                      device=dev) for _ in range(2))
+                rc = libs["probe_old"].rdf_probe_sorted_old(
+                    keys.data_ptr(), K, probes.data_ptr(), n, lo.data_ptr(),
+                    hi.data_ptr(), stream())
+                if rc:
+                    raise RuntimeError(f"old probe kernel: CUDA error {rc}")
+                return lo, hi
+
+            log(f"probe_sorted_many {label}: shipped plan "
+                f"{probe_plan(n, K, True)}")
+            order = [
+                ("shipped", lambda probes=probes:
+                 probe_sorted_many(keys, probes)),
+                ("the replaced kernel", probe_old),
+                ("full 32K sample", lambda: probe_many(-(-K // 32768))),
+                ("sample 8192", lambda: probe_many(-(-K // 8192))),
+                ("sample 1024", lambda: probe_many(-(-K // 1024))),
+            ]
+            run_in_turns(f"probe_sorted_many {label}", order, want,
+                         calls=20)
+            # events over back-to-back calls read the host's time a call
+            # here; the profiler reads the card's
+            for name, fn, kernels in (
+                    ("shipped", order[0][1],
+                     ("probe_sorted_kernel", "gather_sample_kernel")),
+                    ("the replaced kernel", probe_old, ("old_probe_kernel",))):
+                ms = sum(smoke.kernel_device_ms(fn, k)[0] for k in kernels)
+                times[f"probe_sorted_many {label} {name} device"] = ms
+                log(f"probe_sorted_many {label} {name} device: {ms} ms")
+            del want
+
+        # the cold batch's launches (the device route's joins), the shipped
+        # kernel beside the replaced one put behind the same wrapper
+        from repro_torch.kernels import join_probe
+        from repro_torch.sparql.endpoint import SparqlEndpoint
+        from repro_torch.sparql.engine import QueryEngine
+        texts = smoke.query_mix(gen, 24, seed=1)
+        ep = SparqlEndpoint(gen.store, gen.dictionary, engine=QueryEngine(
+            backend=backend, max_rows=5_000_000))
+        ep.query_many(texts)                   # stages the store's views
+        shipped = join_probe.probe_sorted_many
+
+        def replaced(keys, probes):
+            lo, hi = (torch.empty(probes.shape, dtype=torch.int32,
+                                  device=dev) for _ in range(2))
+            if probes.numel():
+                rc = libs["probe_old"].rdf_probe_sorted_old(
+                    keys.data_ptr(), keys.shape[0], probes.data_ptr(),
+                    probes.numel(), lo.data_ptr(), hi.data_ptr(), stream())
+                if rc:
+                    raise RuntimeError(f"old probe kernel: CUDA error {rc}")
+            return lo, hi
+
+        track = ("probe_sorted_kernel", "old_probe_kernel",
+                 "gather_sample_kernel")
+        for rnd, name in enumerate(("shipped", "the replaced kernel",
+                                    "the replaced kernel", "shipped")):
+            join_probe.probe_sorted_many = (shipped if name == "shipped"
+                                            else replaced)
+            try:
+                prof = smoke.device_profile(
+                    lambda: smoke._steady_cold(ep, texts), track=track)
+            finally:
+                join_probe.probe_sorted_many = shipped
+            for k, (ms, n) in prof["tracked"].items():
+                times[f"cold batch {name} {k} [{rnd}]"] = ms
+            log(f"cold batch, {name} [{rnd}]: [device ms, launches] "
+                f"{json.dumps(prof['tracked'])}; batch {prof['wall_ms']} ms")
+
+    # -------------------------------------------------- segment_sum_sorted
+    if "segment" in sections:
+        shape = get_spec(smoke.GNN_ARCH).shapes["ogb_products"]
+        N = shape["n_nodes"]
+        graph = smoke.gnn_graph(N, shape["n_edges"], 1, 0, dev)
+        dst = graph["edges"][:, 1].contiguous()
+        del graph
+        E = dst.shape[0]
+        gen_t = torch.Generator(device=dev).manual_seed(3)
+
+        def seg(lib, msg, stages=None, grid=None, ring=True):
+            """The shipped plan with its stages, grid or route replaced."""
+            D = msg.shape[1]
+            plan = segment_plan(E, D, 4, True)
+            stages = stages or (plan.stages if ring else 1)
+            smem = seg_smem_bytes(stages, plan.chunk, D, 4)
+            grid = grid or 132 * min(3, 228 * 1024 // (smem + 1024))
+            per, blocks = seg_ranges(E, 4, grid)
+            plan = plan._replace(stages=stages, ring=ring, smem=smem,
+                                 per=per, blocks=blocks)
+            out = torch.empty((N, D), device=dev)
+            rc = libs[lib].sparse_segment_sum_sorted(
+                msg.data_ptr(), dst.data_ptr(), out.data_ptr(), None, 0, E,
+                D, N, plan.per, plan.chunk, plan.sub, plan.n_sub, plan.cols,
+                plan.stages, int(plan.ring), plan.blocks, stream())
+            if rc:
+                raise RuntimeError(f"segment variant: CUDA error {rc}")
+            return out
+
+        for D in (16, 7, 1):
+            # integer-valued: every order of the sums gives the same bits
+            msg = torch.randint(-2, 3, (E, D), generator=gen_t, device=dev,
+                                dtype=torch.float32)
+            want = segment_sum_sorted(msg, dst, N)
+            log(f"segment_sum_sorted D={D}: shipped plan "
+                f"{segment_plan(E, D, 4, True)}")
+            order = [
+                ("shipped", lambda msg=msg: segment_sum_sorted(msg, dst, N)),
+                ("ring off (the scalar route, 16-byte loads)",
+                 lambda msg=msg: seg("seg", msg, ring=False)),
+                ("3 stages (2 blocks an SM)",
+                 lambda msg=msg: seg("seg", msg, stages=3)),
+                ("4 stages (1 block an SM)",
+                 lambda msg=msg: seg("seg", msg, stages=4)),
+                ("2 blocks an SM", lambda msg=msg: seg("seg", msg, grid=264)),
+                ("1 block an SM", lambda msg=msg: seg("seg", msg, grid=132)),
+                ("no run carry (atomics a chunk)",
+                 lambda msg=msg: seg("seg_nocarry", msg)),
+            ]
+            run_in_turns(f"segment_sum_sorted D={D}", order, want, calls=10)
+            del msg, want
+            torch.cuda.empty_cache()
     print(gpu)
     print(json.dumps({"gpu": gpu, "ms": times}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

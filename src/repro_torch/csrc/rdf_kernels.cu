@@ -15,7 +15,7 @@
 // O(K*P) compare-and-count (repro/kernels/join_probe.py:41-62, dense
 // compares are free on the TPU's vector unit and gathers are slow). On
 // Hopper the contract is the bounds, not the schedule: each probe runs a
-// binary search, O(log K) loads instead of O(K) compares.
+// search (search4 below), O(log K) loads instead of O(K) compares.
 
 #include <cstdint>
 
@@ -40,50 +40,6 @@ inline int grid_for(int64_t n) {
 __device__ __forceinline__ int matches(int ts, int tp, int to, int s, int p,
                                        int o) {
   return (s < 0 || ts == s) && (p < 0 || tp == p) && (o < 0 || to == o);
-}
-
-// #(keys[0:n) < v), keys ascending: np.searchsorted(keys, v, "left").
-__device__ __forceinline__ int lower_bound(const int* __restrict__ keys,
-                                           int n, int v) {
-  int base = 0;
-  int len = n;
-  while (len > 0) {
-    const int half = len >> 1;
-    const bool right = __ldg(keys + base + half) < v;
-    base = right ? base + half + 1 : base;
-    len = right ? len - half - 1 : half;
-  }
-  return base;
-}
-
-// #(keys[0:n) <= v): np.searchsorted(keys, v, "right").
-__device__ __forceinline__ int upper_bound(const int* __restrict__ keys,
-                                           int n, int v) {
-  int base = 0;
-  int len = n;
-  while (len > 0) {
-    const int half = len >> 1;
-    const bool right = __ldg(keys + base + half) <= v;
-    base = right ? base + half + 1 : base;
-    len = right ? len - half - 1 : half;
-  }
-  return base;
-}
-
-// #(keys[0:n) <= v) given lo = #(keys[0:n) < v). Gallops up from lo and
-// finishes with a binary search: a run of keys equal to v is short next to
-// n, so a probe that misses costs one load instead of a second full search.
-__device__ __forceinline__ int upper_from(const int* __restrict__ keys, int n,
-                                          int lo, int v) {
-  int prev = lo;   // keys[lo:prev) are all <= v
-  int probe = lo;  // next index to test
-  int64_t step = 1;
-  while (probe < n && __ldg(keys + probe) <= v) {
-    prev = probe + 1;
-    probe = step < n - prev ? prev + static_cast<int>(step) : n;
-    step <<= 1;
-  }
-  return prev + upper_bound(keys + prev, probe - prev, v);
 }
 
 // Replaces repro/kernels/triple_scan.py:triple_scan. One thread per row of
@@ -132,67 +88,46 @@ __global__ void triple_scan_many_kernel(const int* __restrict__ triples,
   }
 }
 
-// Replaces repro/kernels/join_probe.py:probe_sorted_many. One thread per
-// probe: a lower-bound search over keys[0:K), then a gallop from it to the
-// upper bound. Bound by 12 bytes per probe plus ceil(log2(K+1)) dependent
-// key loads. K == 0 gives (0, 0); a -1 probe against
-// non-negative keys gives (0, 0), the padding contract of the TPU kernel.
-__global__ void probe_sorted_kernel(const int* __restrict__ keys, int K,
-                                    const int* __restrict__ probes, int64_t n,
-                                    int* __restrict__ lo,
-                                    int* __restrict__ hi) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += stride) {
-    const int v = probes[i];
-    const int l = lower_bound(keys, K, v);
-    lo[i] = l;
-    hi[i] = upper_from(keys, K, l, v);
-  }
-}
-
-// Replaces repro/kernels/join_probe.py:scan_probe. Like the TPU kernel it
-// gives the scan mask and both bounds of EVERY row's subject (col 0) or
-// object (col 2) in keys, matched or not (callers gather the matched
-// rows). Bound by 24 bytes per row; what costs is the search: its loads
-// scatter over the keys (in L2 at the serving shapes), and each costs a
-// 32-byte sector from L2 unless L1 still holds it. The design:
+// The two-level search that probe_sorted_many and scan_probe share: for up
+// to four values v, lo = #(keys < v) and hi = #(keys <= v), bit-identical
+// to np.searchsorted left and right. Its loads scatter over the keys (in
+// L2 at the serving shapes), and each costs a 32-byte sector from L2
+// unless L1 still holds it; L2's sector rate binds it. The design:
 //   - no search for a probe outside [keys[0], keys[K-1]]: its bounds are
-//     (0, 0) below and (K, K) above. At the serving shape most rows are
-//     (objects that are not followed users).
+//     (0, 0) below and (K, K) above (the caller sets them). At the serving
+//     shapes most probes are (objects that are not followed users), and a
+//     -1 padding probe is below every key.
 //   - a two-level search. A sample of the keys, keys[0], keys[stride], ...
-//     (at most kSampleMax, 128 KB), is gathered once into a contiguous
-//     buffer by a first small kernel; each block of a persistent grid (one
-//     an SM) copies it into shared memory. j = #(sample < v) is found
-//     there; then keys[(j-1) * stride] < v <= keys[j * stride], so the
-//     lower bound lies in the window of stride - 1 keys between the two
+//     (at most kSampleMax, 128 KB), is gathered once a call into a
+//     contiguous buffer by a first small kernel; each block of a persistent
+//     grid (one an SM) copies it into shared memory. j = #(sample < v) is
+//     found there; then keys[(j-1) * stride] < v <= keys[j * stride], so
+//     the lower bound lies in the window of stride - 1 keys between the two
 //     samples, 41 keys at the serving K. Binary steps narrow the window to
 //     at most kSpan keys; four 16-byte loads, issued together, read those
 //     (two or three sectors) and the count of keys < v among them ends the
-//     search. Each of these loads costs a 32-byte sector from L2, whose
-//     rate binds the search: the sample's size buys steps.
+//     search. The sample's size buys steps; the plan shrinks it where a
+//     call has few probes, whose searches would not repay its copy, and
+//     drops it (stride 0) for a call of under 32: the window is then every
+//     key, with no gather launched and nothing copied.
 //     Equal keys across a sample boundary need nothing special: the bounds
-//     above hold for any sorted keys. K <= kSampleMax puts every key in
-//     the sample (stride 1, an empty window). The same 16 keys give hi
-//     where v's run ends among them; else hi gallops up, as in
-//     probe_sorted.
-//   - each thread takes kRows = 4 consecutive rows: three 16-byte loads
-//     read their 48 bytes (kept in L1: a warp's three loads share their
-//     sectors, and each would fetch them from L2 again past L1), mask, lo
-//     and hi go out as 16-byte stores, and the four searches run
-//     interleaved. Both levels search in the same number of steps whatever
-//     the value (Khuong and Morin's branch-free form), so the four stay in
-//     lockstep; keys past K read as INT_MAX, which counts under no value.
-//     A last partial quad of rows, triples not on 16 bytes (vec == 0), or
-//     keys not on 16 bytes, take scalar loads.
+//     above hold for any sorted keys. K <= the sample puts every key in it
+//     (stride 1, an empty window). The same 16 keys give hi where v's run
+//     ends among them; else hi gallops up from them and a binary search
+//     ends it (a run of equal keys is short next to K, so a miss costs one
+//     load, not a second search).
+//   - four values a thread, searched interleaved. Both levels take the
+//     same number of steps whatever the value (Khuong and Morin's
+//     branch-free form), so the four stay in lockstep; keys past K read as
+//     INT_MAX, which counts under no value. Keys not on 16 bytes take
+//     scalar loads.
 // The stride and the grid come from kernels/join_probe.py:probe_plan.
 constexpr int kProbeThreads = 1024;
 constexpr int kSampleMax = 32768;
 constexpr int kRows = 4;
 constexpr int kSpan = 12;  // window keys left to the 16-byte loads
 
-// sample[i] = keys[i * stride]: the scan_probe kernel's sample, contiguous
+// sample[i] = keys[i * stride]: the search's sample, contiguous
 __global__ void gather_sample_kernel(const int* __restrict__ keys,
                                      int stride, int n_samples,
                                      int* __restrict__ sample) {
@@ -206,6 +141,267 @@ __device__ __forceinline__ int key_or_max(const int* __restrict__ keys,
   return at < K ? __ldg(keys + at) : 0x7fffffff;
 }
 
+// The block's copy of the gathered sample into shared memory, kInFlight
+// loads a thread in flight: one at a time, the 32K keys of a full sample
+// would cost 32 round trips to L2 before any search starts.
+constexpr int kInFlight = 16;
+__device__ __forceinline__ void load_sample(int* sample,
+                                            const int* __restrict__ gathered,
+                                            int n_samples) {
+  for (int i0 = threadIdx.x; i0 < n_samples; i0 += kInFlight * blockDim.x) {
+    int w[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int i = i0 + u * static_cast<int>(blockDim.x);
+      w[u] = i < n_samples ? __ldg(gathered + i) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int i = i0 + u * static_cast<int>(blockDim.x);
+      if (i < n_samples) sample[i] = w[u];
+    }
+  }
+  __syncthreads();
+}
+
+// The walk over the quads of kRows rows (or probes): runs of 32 quads go to
+// warp 0 of every block in turn, then to warp 1, ..., so a warp's loads
+// stay contiguous, a small call spreads over every block of the plan, and
+// a large one interleaves finely (rows that need searches cluster, and
+// contiguous shares per block would leave some blocks all the work).
+// The thread's first quad; the next is a grid's threads later.
+__device__ __forceinline__ int64_t first_quad() {
+  const int64_t warp = threadIdx.x / 32;
+  return (warp * gridDim.x + blockIdx.x) * 32 + threadIdx.x % 32;
+}
+
+// lo and hi of the values v[r] with in[r] set (inside [keys[0], keys[K-1]];
+// the caller has set the others' bounds); sample: the shared-memory copy.
+__device__ __forceinline__ void search4(const int* sample, int n_samples,
+                                        int stride,
+                                        const int* __restrict__ keys, int K,
+                                        bool keys16, const int (&v)[kRows],
+                                        const bool (&in)[kRows],
+                                        int (&l)[kRows], int (&h)[kRows]) {
+  // level 1: j = #(sample < v). Without a sample (stride 0: a call of a
+  // few probes, whose searches would not repay its gather) the window is
+  // every key: j = 1, b = 0.
+  int j[kRows] = {1, 1, 1, 1};
+  int b[kRows] = {0, 0, 0, 0};
+  if (stride > 0) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) j[r] = 0;
+    for (int n = n_samples; n > 1;) {
+      const int half = n >> 1;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        j[r] = sample[j[r] + half] < v[r] ? j[r] + half : j[r];
+      n -= half;
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      j[r] += sample[j[r]] < v[r];
+      b[r] = j[r] > 0 ? (j[r] - 1) * stride + 1 : 0;
+    }
+  }
+  // level 2: lo in keys[(j-1) * stride + 1, j * stride]; j == 0 gives 0.
+  // Binary steps keep lo in [b, b + n] and every key before b < v; at n <=
+  // kSpan, lo = b + #(keys[b, b + n) < v). Every load below is issued for
+  // all four rows before any is used (a row that needs none reads a key at
+  // offset 0, which the warp's other such rows share): loads behind
+  // per-row branches would wait out four latencies a step, one by one.
+  int n = stride > 0 ? stride - 1 : K;
+  for (; n > kSpan;) {
+    const int half = n >> 1;
+    int kv[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      kv[r] = key_or_max(keys, in[r] ? static_cast<int64_t>(b[r]) + half : 0,
+                         K);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (in[r] && kv[r] < v[r]) b[r] += half;
+    n -= half;
+  }
+  // the span: the 16 keys from a = b & ~3 hold keys[b, b + n); those < v,
+  // and those <= v, are prefixes of them. hi = a + #(<= v) where v's run
+  // ends among them; else a gallop up from a + 16 (every key before it is
+  // <= v). Keys off 16 bytes, or a span past K, count keys[b, b + n) one
+  // by one, and the gallop starts at lo.
+  int a[kRows], lt[kRows], le[kRows];
+  bool wide[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    a[r] = b[r] & ~3;
+    wide[r] = in[r] && keys16 && static_cast<int64_t>(a[r]) + 16 <= K;
+    lt[r] = 0;
+    le[r] = 0;
+  }
+  if (keys16 && K >= 16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int4 w[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        w[r] = __ldg(reinterpret_cast<const int4*>(keys) +
+                     (wide[r] ? a[r] / 4 : 0) + i);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        lt[r] += (w[r].x < v[r]) + (w[r].y < v[r]) + (w[r].z < v[r]) +
+                 (w[r].w < v[r]);
+        le[r] += (w[r].x <= v[r]) + (w[r].y <= v[r]) + (w[r].z <= v[r]) +
+                 (w[r].w <= v[r]);
+      }
+    }
+  }
+  int below[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    below[r] = wide[r] ? min(max(lt[r] - (b[r] - a[r]), 0), n) : 0;
+  if (!(wide[0] || !in[0]) || !(wide[1] || !in[1]) || !(wide[2] || !in[2]) ||
+      !(wide[3] || !in[3])) {
+#pragma unroll
+    for (int i = 0; i < kSpan; ++i) {
+      int kv[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        kv[r] = key_or_max(keys,
+                           in[r] && !wide[r] ? static_cast<int64_t>(b[r]) + i
+                                             : 0,
+                           K);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        below[r] += in[r] && !wide[r] && i < n && kv[r] < v[r];
+    }
+  }
+  int from[kRows];
+  bool gal[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    from[r] = 0;
+    gal[r] = in[r] && !(wide[r] && le[r] < 16);
+    if (!in[r]) continue;
+    l[r] = j[r] > 0 ? b[r] + below[r] : 0;
+    if (!gal[r]) h[r] = a[r] + le[r];
+    from[r] = wide[r] ? a[r] + 16 : l[r];
+  }
+
+  // the gallop, then a binary search of [prev, probe); the four values
+  // interleaved, their loads issued together
+  int prev[kRows], probe[kRows], len[kRows];
+  int64_t jump[kRows];
+  bool up[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    prev[r] = gal[r] ? from[r] : 0;
+    probe[r] = prev[r];
+    jump[r] = 1;
+    up[r] = gal[r] && probe[r] < K;
+  }
+  while (up[0] || up[1] || up[2] || up[3]) {
+    int kv[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      kv[r] = __ldg(keys + (up[r] ? probe[r] : 0));
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (!up[r]) continue;
+      if (kv[r] <= v[r]) {
+        prev[r] = probe[r] + 1;
+        probe[r] =
+            jump[r] < K - prev[r] ? prev[r] + static_cast<int>(jump[r]) : K;
+        jump[r] <<= 1;
+        up[r] = probe[r] < K;
+      } else {
+        up[r] = false;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    len[r] = gal[r] ? probe[r] - prev[r] : 0;
+    if (gal[r]) h[r] = prev[r];
+  }
+  while (len[0] > 0 || len[1] > 0 || len[2] > 0 || len[3] > 0) {
+    int kv[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      kv[r] = __ldg(keys + (len[r] > 0 ? h[r] + (len[r] >> 1) : 0));
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (len[r] <= 0) continue;
+      const int half = len[r] >> 1;
+      const bool right = kv[r] <= v[r];
+      h[r] = right ? h[r] + half + 1 : h[r];
+      len[r] = right ? len[r] - half - 1 : half;
+    }
+  }
+}
+
+// Replaces repro/kernels/join_probe.py:probe_sorted_many. lo and hi of n
+// probes (the [Q, P] array, flat) against keys[0:K): 12 bytes a probe move
+// (bound), and a search4 for each probe inside the keys' range. Threads take
+// quads of kRows = 4 consecutive probes (first_quad), each read as one
+// 16-byte load (probes on 16 bytes:
+// vec) and written as 16-byte stores of lo and hi; a last partial quad, or
+// probes off 16 bytes (vec == 0), take scalar loads. K == 0 gives (0, 0).
+__global__ void __launch_bounds__(kProbeThreads)
+    probe_sorted_kernel(const int* __restrict__ keys, int K,
+                        const int* __restrict__ probes, int64_t n,
+                        int stride, int n_samples,
+                        const int* __restrict__ gathered, int vec,
+                        int* __restrict__ lo, int* __restrict__ hi) {
+  extern __shared__ int sample[];  // n_samples keys
+  load_sample(sample, gathered, n_samples);
+  const bool keys16 = (reinterpret_cast<uintptr_t>(keys) & 15) == 0;
+  const int first = K > 0 ? __ldg(keys) : 0;
+  const int last = K > 0 ? __ldg(keys + K - 1) : 0;
+  const int64_t quads = (n + kRows - 1) / kRows;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t q = first_quad(); q < quads; q += step) {
+    const int64_t r0 = q * kRows;
+    const bool full = r0 + kRows <= n;
+    int v[kRows], l[kRows], h[kRows];
+    bool in[kRows];
+    if (vec && full) {
+      const int4 w = __ldg(reinterpret_cast<const int4*>(probes) + q);
+      v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) v[r] = r0 + r < n ? probes[r0 + r] : 0;
+    }
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      in[r] = K > 0 && r0 + r < n && v[r] >= first && v[r] <= last;
+      l[r] = h[r] = K > 0 && v[r] > last ? K : 0;
+      any |= in[r];
+    }
+    if (any) search4(sample, n_samples, stride, keys, K, keys16, v, in, l, h);
+    if (full) {
+      reinterpret_cast<int4*>(lo)[q] = make_int4(l[0], l[1], l[2], l[3]);
+      reinterpret_cast<int4*>(hi)[q] = make_int4(h[0], h[1], h[2], h[3]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r0 + r >= n) break;
+        lo[r0 + r] = l[r];
+        hi[r0 + r] = h[r];
+      }
+    }
+  }
+}
+
+// Replaces repro/kernels/join_probe.py:scan_probe. Like the TPU kernel it
+// gives the scan mask and both bounds of EVERY row's subject (col 0) or
+// object (col 2) in keys, matched or not (callers gather the matched
+// rows): 24 bytes a row move (bound), and a search4 for each row whose
+// probe lies inside the keys' range. Threads take quads of kRows = 4
+// consecutive rows (first_quad): three 16-byte loads read their 48 bytes
+// (kept in L1: a warp's three loads share their sectors, and each would
+// fetch them from L2 again past L1), and mask, lo and hi go out as 16-byte
+// stores. A last partial quad of rows, or triples not on 16 bytes (vec ==
+// 0), take scalar loads.
 __global__ void __launch_bounds__(kProbeThreads)
     scan_probe_kernel(const int* __restrict__ triples, int64_t T, int s,
                       int p, int o, const int* __restrict__ keys, int K,
@@ -214,20 +410,13 @@ __global__ void __launch_bounds__(kProbeThreads)
                       int* __restrict__ mask, int* __restrict__ lo,
                       int* __restrict__ hi) {
   extern __shared__ int sample[];  // n_samples keys
-  for (int i = threadIdx.x; i < n_samples; i += blockDim.x)
-    sample[i] = __ldg(gathered + i);
-  __syncthreads();
-
-  const int window = stride - 1;
+  load_sample(sample, gathered, n_samples);
   const bool keys16 = (reinterpret_cast<uintptr_t>(keys) & 15) == 0;
-  // probes outside [keys[0], keys[K-1]] need no search
   const int first = K > 0 ? __ldg(keys) : 0;
   const int last = K > 0 ? __ldg(keys + K - 1) : 0;
   const int64_t quads = (T + kRows - 1) / kRows;
   const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       q < quads; q += step) {
+  for (int64_t q = first_quad(); q < quads; q += step) {
     const int64_t r0 = q * kRows;
     const bool full = r0 + kRows <= T;
     int ts[kRows], tp[kRows], to[kRows];
@@ -250,126 +439,16 @@ __global__ void __launch_bounds__(kProbeThreads)
     }
     int m[kRows], v[kRows], l[kRows], h[kRows];
     bool in[kRows];
+    bool any = false;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       m[r] = matches(ts[r], tp[r], to[r], s, p, o);
       v[r] = col == 0 ? ts[r] : to[r];
       in[r] = K > 0 && r0 + r < T && v[r] >= first && v[r] <= last;
       l[r] = h[r] = K > 0 && v[r] > last ? K : 0;
+      any |= in[r];
     }
-    if (in[0] || in[1] || in[2] || in[3]) {
-      // level 1: j = #(sample < v)
-      int j[kRows] = {0, 0, 0, 0};
-      for (int n = n_samples; n > 1;) {
-        const int half = n >> 1;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          j[r] = sample[j[r] + half] < v[r] ? j[r] + half : j[r];
-        n -= half;
-      }
-      int b[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        j[r] += sample[j[r]] < v[r];
-        b[r] = j[r] > 0 ? (j[r] - 1) * stride + 1 : 0;
-      }
-      // level 2: lo in keys[(j-1) * stride + 1, j * stride]; j == 0 gives
-      // 0. Binary steps keep lo in [b, b + n] and every key before b < v;
-      // at n <= kSpan, lo = b + #(keys[b, b + n) < v).
-      int n = window;
-      for (; n > kSpan;) {
-        const int half = n >> 1;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int64_t at = static_cast<int64_t>(b[r]) + half;
-          if (in[r] && key_or_max(keys, at, K) < v[r])
-            b[r] = static_cast<int>(at);
-        }
-        n -= half;
-      }
-      // hi = #(keys <= v): where the span shows the end of v's run, from
-      // there; else a gallop up from `from` (every key before it is <= v)
-      int from[kRows];
-      bool gal[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        from[r] = 0;
-        gal[r] = false;
-        if (!in[r]) continue;
-        const int a = b[r] & ~3;
-        const bool wide = keys16 && static_cast<int64_t>(a) + 16 <= K;
-        int below = 0, le = 16;
-        if (wide) {
-          // keys[b, b + n) lie in the 16 sorted keys from a; those < v, and
-          // those <= v, are prefixes of them
-          const int4* span = reinterpret_cast<const int4*>(keys + a);
-          int lt = 0;
-          le = 0;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int4 w = __ldg(span + i);
-            lt += (w.x < v[r]) + (w.y < v[r]) + (w.z < v[r]) + (w.w < v[r]);
-            le += (w.x <= v[r]) + (w.y <= v[r]) + (w.z <= v[r]) +
-                  (w.w <= v[r]);
-          }
-          below = min(max(lt - (b[r] - a), 0), n);
-        } else {
-#pragma unroll
-          for (int i = 0; i < kSpan; ++i)
-            below += i < n && key_or_max(keys,
-                                         static_cast<int64_t>(b[r]) + i,
-                                         K) < v[r];
-        }
-        l[r] = j[r] > 0 ? b[r] + below : 0;
-        gal[r] = le == 16;
-        if (!gal[r]) h[r] = a + le;
-        from[r] = wide ? a + 16 : l[r];
-      }
-
-      // the gallop, then a binary search of [prev, probe); the four rows
-      // interleaved
-      int prev[kRows], probe[kRows], len[kRows];
-      int64_t jump[kRows];
-      bool up[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        prev[r] = from[r];
-        probe[r] = from[r];
-        jump[r] = 1;
-        up[r] = gal[r] && probe[r] < K;
-      }
-      while (up[0] || up[1] || up[2] || up[3]) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (!up[r]) continue;
-          if (__ldg(keys + probe[r]) <= v[r]) {
-            prev[r] = probe[r] + 1;
-            probe[r] = jump[r] < K - prev[r]
-                           ? prev[r] + static_cast<int>(jump[r])
-                           : K;
-            jump[r] <<= 1;
-            up[r] = probe[r] < K;
-          } else {
-            up[r] = false;
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        len[r] = gal[r] ? probe[r] - prev[r] : 0;
-        if (gal[r]) h[r] = prev[r];
-      }
-      while (len[0] > 0 || len[1] > 0 || len[2] > 0 || len[3] > 0) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (len[r] <= 0) continue;
-          const int half = len[r] >> 1;
-          const bool right = __ldg(keys + h[r] + half) <= v[r];
-          h[r] = right ? h[r] + half + 1 : h[r];
-          len[r] = right ? len[r] - half - 1 : half;
-        }
-      }
-    }
+    if (any) search4(sample, n_samples, stride, keys, K, keys16, v, in, l, h);
 
     if (full) {
       reinterpret_cast<int4*>(mask)[q] = make_int4(m[0], m[1], m[2], m[3]);
@@ -385,6 +464,41 @@ __global__ void __launch_bounds__(kProbeThreads)
       }
     }
   }
+}
+
+// Gather the sample (stride > 1) and allow the search kernel `kernel` its
+// shared memory; returns the sample the kernel copies (the keys
+// themselves at stride 1) through `gathered`, or a CUDA error.
+template <typename Kernel>
+int prepare_search(Kernel kernel, const void* keys, int stride,
+                   int n_samples, void* sample, cudaStream_t st,
+                   const int** gathered) {
+  *gathered = static_cast<const int*>(keys);
+  if (stride > 1) {
+    gather_sample_kernel<<<(n_samples + kThreads - 1) / kThreads, kThreads,
+                           0, st>>>(static_cast<const int*>(keys), stride,
+                                    n_samples, static_cast<int*>(sample));
+    *gathered = static_cast<const int*>(sample);
+  }
+  if (n_samples * static_cast<int>(sizeof(int)) > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSampleMax * static_cast<int>(sizeof(int)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+bool misaligned(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
+}
+
+// The plan checks both search kernels share (stride 0: no sample).
+bool bad_search_plan(int K, int stride, int n_samples, int blocks,
+                     const void* sample) {
+  return K < 0 || stride < 0 || blocks < 1 ||
+         n_samples != (stride > 0 ? (K + stride - 1) / stride : 0) ||
+         n_samples > kSampleMax || (stride > 1 && sample == nullptr);
 }
 
 }  // namespace
@@ -408,12 +522,29 @@ int rdf_triple_scan_many(const void* triples, int64_t T, const void* patterns,
   return static_cast<int>(cudaGetLastError());
 }
 
+// keys [K] int32 ascending; probes [n] int32 (the [Q, P] array, flat); lo
+// and hi [n] int32 on 16 bytes. stride, n_samples, vec and blocks come
+// from kernels/join_probe.py:probe_plan; sample is int32 [n_samples]
+// scratch (unused, may be null, at stride 1). A plan the kernel cannot run
+// is refused (cudaErrorInvalidValue).
 int rdf_probe_sorted_many(const void* keys, int K, const void* probes,
-                          int64_t n, void* lo, void* hi, void* stream) {
-  probe_sorted_kernel<<<grid_for(n), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+                          int64_t n, int stride, int n_samples, int vec,
+                          int blocks, void* sample, void* lo, void* hi,
+                          void* stream) {
+  if (n < 0 || bad_search_plan(K, stride, n_samples, blocks, sample) ||
+      (vec && misaligned(probes)) || misaligned(lo) || misaligned(hi))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int* gathered = nullptr;
+  const int rc = prepare_search(probe_sorted_kernel, keys, stride, n_samples,
+                                sample, st, &gathered);
+  if (rc != 0) return rc;
+  probe_sorted_kernel<<<blocks, kProbeThreads,
+                        n_samples * static_cast<int>(sizeof(int)), st>>>(
       static_cast<const int*>(keys), K, static_cast<const int*>(probes), n,
-      static_cast<int*>(lo), static_cast<int*>(hi));
+      stride, n_samples, gathered, vec, static_cast<int*>(lo),
+      static_cast<int*>(hi));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -426,31 +557,18 @@ int rdf_scan_probe(const void* triples, int64_t T, int s, int p, int o,
                    const void* keys, int K, int col, int stride,
                    int n_samples, int vec, int blocks, void* sample,
                    void* mask, void* lo, void* hi, void* stream) {
-  const auto misaligned = [](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
-  };
-  if (T < 0 || K < 0 || stride < 1 || blocks < 1 ||
-      n_samples != (K + stride - 1) / stride || n_samples > kSampleMax ||
-      (stride > 1 && sample == nullptr) || (vec && misaligned(triples)) ||
-      misaligned(mask) || misaligned(lo) || misaligned(hi))
+  if (T < 0 || bad_search_plan(K, stride, n_samples, blocks, sample) ||
+      (vec && misaligned(triples)) || misaligned(mask) || misaligned(lo) ||
+      misaligned(hi))
     return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
-  const int* gathered = static_cast<const int*>(keys);
-  if (stride > 1) {
-    gather_sample_kernel<<<(n_samples + kThreads - 1) / kThreads, kThreads,
-                           0, st>>>(static_cast<const int*>(keys), stride,
-                                    n_samples, static_cast<int*>(sample));
-    gathered = static_cast<const int*>(sample);
-  }
-  const int smem = n_samples * static_cast<int>(sizeof(int));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scan_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSampleMax * static_cast<int>(sizeof(int)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  scan_probe_kernel<<<blocks, kProbeThreads, smem, st>>>(
+  const int* gathered = nullptr;
+  const int rc = prepare_search(scan_probe_kernel, keys, stride, n_samples,
+                                sample, st, &gathered);
+  if (rc != 0) return rc;
+  scan_probe_kernel<<<blocks, kProbeThreads,
+                      n_samples * static_cast<int>(sizeof(int)), st>>>(
       static_cast<const int*>(triples), T, s, p, o,
       static_cast<const int*>(keys), K, col, stride, n_samples, gathered,
       vec, static_cast<int*>(mask), static_cast<int*>(lo),

@@ -43,25 +43,48 @@
 // segment_sum_sorted replaces repro/kernels/segment_mp.py:segment_sum_sorted.
 // The TPU kernel multiplies a one-hot [edge chunk, node block] matrix into
 // the messages on the MXU. On Hopper that product would spend D times the
-// work of the sum itself, so the kernel sums directly. Bytes bound it too:
-// the messages are read once, the destinations once, the output written
-// once. Two hazards shape it:
-//   - skew: a power-law graph sends over 1% of all edges to one node, so a
-//     block (or warp) per node would serialise that node's run on one SM.
-//     Each block instead takes a fixed span of edges whatever their
-//     destinations; the work is even by construction.
-//   - narrow rows (D = 1, 7, 16): lanes over D alone would leave most of a
-//     warp idle and read rows of 4 to 64 bytes. Each block stages its span
-//     of messages in shared memory with coalesced loads over the span's
-//     contiguous bytes, then threads map to (edge sub-span, column).
-// A thread sums runs of equal dst over its sub-span in registers. A run that
-// lies wholly inside the sub-span belongs to that thread alone and is
-// stored; a run cut by a sub-span's edge is added with atomics, in shared
-// memory first when it is the block's first or last node (where a hub's
-// long run lands), else straight into the output, which the launcher zeroes
-// first. Destinations outside [0, n_nodes) are dropped, as the Pallas
-// kernel's padding drops them. Offsets are int64: E * D passes 2^31 at
-// full width.
+// work of the sum itself, so the kernel sums directly. Bytes bound it: the
+// messages are read once, the destinations once, the output written once
+// (E * (4 D + 4) + 4 N D bytes in float32). What the design does about it:
+//   - a persistent grid: every block is resident (the plan sizes the grid
+//     from the shared memory a block takes) and owns one contiguous range
+//     of edges, whatever their destinations, so a power-law hub (1.1% of
+//     the edges on one node) spreads over many blocks. A range starts on a
+//     multiple of 4 edges (8 for bfloat16), so with msg and dst on 16
+//     bytes every range's messages and destinations start on 16 bytes.
+//   - a bulk-copy ring: one thread copies each chunk of the range, its
+//     messages ([e, e + n) x D, contiguous bytes) and its dst, into a ring
+//     of 2 to 4 stages in shared memory with cp.async.bulk, which completes
+//     on an mbarrier. Tens of KB are in flight an SM and the threads never
+//     load a message from device memory. The plan takes 2 stages of ~32 KB
+//     and 3 blocks an SM: priced on the H100 (chip_variants.py), a chunk's
+//     fixed cost (two barriers, the scan) wants chunks of 32 KB or more,
+//     and a third resident block hides more of it than a third stage. The last chunk of the graph may
+//     end off 16 bytes: the thread copies those <= 14 bytes itself before
+//     the arrive. A msg or dst off 16 bytes takes the scalar route of the
+//     same kernel (ring == 0): the block's threads copy each chunk into
+//     shared memory with plain loads, then sum it.
+//   - runs carried across chunks: a chunk is cut into n_sub sub-spans of
+//     `sub` edges; thread (sub-span s, column c) sums the runs of equal dst
+//     in its sub-span from shared memory and stores every run that starts
+//     and ends there. The runs cut by a sub-span's ends are joined by a
+//     segmented scan over the sub-spans of each column (warp shuffles, and
+//     one step through shared memory across warps), which hands each run's
+//     total to the thread where it ends. The run still open at a chunk's
+//     end is carried into the next chunk. So a run is added to the output
+//     once, by a store, unless it is the range's first or last run, which
+//     other blocks may share: those are added atomically, one atomic a
+//     column for each block a hub crosses. The launcher zeroes the output
+//     first (nodes without edges stay 0).
+//   - narrow rows: `sub` is 1 modulo 32 (64 for bfloat16; any odd number
+//     when D is a power of two), so the threads of a warp, which read
+//     sub-spans `sub` rows apart, fall on distinct banks. D over 256 loops
+//     over column tiles of 256 inside the block, on the same copy.
+// Destinations outside [0, n_nodes) are dropped, as the Pallas kernel's
+// padding drops them. Offsets are int64: E * D passes 2^31 at full width.
+// The plan (ranges, chunk, sub-span, stages, grid) comes from
+// kernels/segment_mp.py:segment_plan; the launcher refuses a plan it cannot
+// run.
 
 #include <cstdint>
 
@@ -434,103 +457,290 @@ int launch_bag(const void* table, void* out, const BagArgs& a, int vec,
 // ---------------------------------------------------------------------------
 
 constexpr int kSegThreads = 256;
-constexpr int kEdgesPerThread = 32;  // a thread's sub-span of edges
-constexpr int kMaxCols = 256;        // column tile: threads along D
+constexpr int kSegWarps = kSegThreads / 32;
+constexpr int kSegMaxStages = 4;
+constexpr int kSegMinBlocks = 3;  // resident blocks an SM: <= 85 registers
+constexpr uint32_t kMaxStageTx = (1u << 20) - 1;  // an mbarrier phase's bytes
 
-// A block covers span = (kSegThreads / cols) * kEdgesPerThread edges and a
-// tile of up to `cols` columns (cols = min(D, kMaxCols); the last column
-// tile may be narrower). Thread t is (sub-span t / cols, column t % cols).
-// Shared memory holds the span's messages in float32, one extra row after
-// each sub-span so that a warp's reads fall on distinct banks.
-template <typename T>
-__global__ void __launch_bounds__(kSegThreads)
-    segment_sum_kernel(const T* __restrict__ msg, const int* __restrict__ dst,
-                       float* __restrict__ out, int64_t E, int D, int n_nodes,
-                       int cols) {
-  __shared__ float tile[kSegThreads * (kEdgesPerThread + 1)];
-  __shared__ float edge_acc[2][kMaxCols];  // the block's first / last node
-  __shared__ int edge_used[2];
+struct SegArgs {
+  int64_t E;
+  int D, n_nodes;
+  int64_t per;   // edges of a block's range: a multiple of 4 (8 for bf16)
+  int chunk;     // edges of a ring stage: n_sub * sub
+  int sub;       // edges of a thread's sub-span
+  int n_sub;     // sub-spans of a chunk
+  int cols;      // threads along D: min(D, kSegThreads)
+  int stages;    // ring stages (1 on the scalar route)
+  int ring;      // chunks by bulk copies (msg and dst on 16 bytes)
+  int msg_slot;  // bytes of one stage's messages (a multiple of 16)
+  int dst_slot;  // bytes of one stage's dst (a multiple of 16)
+};
 
-  const int n_sub = kSegThreads / cols;
-  const int64_t span = static_cast<int64_t>(n_sub) * kEdgesPerThread;
-  const int64_t e0 = static_cast<int64_t>(blockIdx.x) * span;
-  const int c0 = blockIdx.y * cols;
-  const int cw = min(cols, D - c0);
-  const int n_in = static_cast<int>(E - e0 < span ? E - e0 : span);
-  const int tid = threadIdx.x;
+// Bytes of dynamic shared memory a block takes for the plan: the stages'
+// messages and dst, the mbarriers, the scan's scratch and the carried run
+// sums of every column.
+inline int64_t seg_smem_bytes(const SegArgs& a) {
+  return static_cast<int64_t>(a.stages) * (a.msg_slot + a.dst_slot) +
+         8 * kSegMaxStages + 4 * (2 * kSegThreads + 2 * kSegWarps) +
+         4 * static_cast<int64_t>(a.D);
+}
 
-  for (int i = tid; i < 2 * kMaxCols; i += kSegThreads)
-    (&edge_acc[0][0])[i] = 0.f;
-  if (tid < 2) edge_used[tid] = 0;
-  // stage msg[e0 : e0 + n_in, c0 : c0 + cw]; when cw == D the span is one
-  // contiguous run of n_in * D elements, read in order
-  const int n_el = n_in * cw;  // at most kSegThreads * kEdgesPerThread
-  for (int i = tid; i < n_el; i += kSegThreads) {
-    const int r = i / cw;
-    const int c = i - r * cw;
-    tile[(r + r / kEdgesPerThread) * cw + c] =
-        to_f32(msg[(e0 + r) * D + c0 + c]);
+// `bytes` (a multiple of 2) from global memory at `src` to shared memory at
+// `dst`, two bytes a load: the ends a bulk copy cannot take. One thread.
+__device__ __forceinline__ void copy_by_halves(unsigned char* dst,
+                                               const unsigned char* src,
+                                               uint32_t bytes) {
+  for (uint32_t k = 0; k < bytes; k += 2)
+    *reinterpret_cast<unsigned short*>(dst + k) =
+        *reinterpret_cast<const unsigned short*>(src + k);
+}
+
+// The scalar route's copy of `bytes` (a multiple of 2) at `src` into the
+// slot at `dst` (16-byte aligned) by every thread of the block: 16-byte
+// loads where src is on 16 bytes, else 4 or 2 bytes a load.
+__device__ __forceinline__ void copy_by_threads(unsigned char* dst,
+                                                const unsigned char* src,
+                                                uint32_t bytes) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(src);
+  uint32_t done = 0;
+  if ((at & 15) == 0) {
+    done = bytes & ~15u;
+    for (uint32_t k = 16 * threadIdx.x; k < done; k += 16 * kSegThreads)
+      *reinterpret_cast<int4*>(dst + k) =
+          __ldg(reinterpret_cast<const int4*>(src + k));
+  } else if ((at & 3) == 0) {
+    done = bytes & ~3u;
+    for (uint32_t k = 4 * threadIdx.x; k < done; k += 4 * kSegThreads)
+      *reinterpret_cast<int*>(dst + k) =
+          __ldg(reinterpret_cast<const int*>(src + k));
   }
-  const int first_node = __ldg(dst + e0);
-  const int last_node = __ldg(dst + e0 + n_in - 1);
-  __syncthreads();
+  for (uint32_t k = done + 2 * threadIdx.x; k < bytes; k += 2 * kSegThreads)
+    *reinterpret_cast<unsigned short*>(dst + k) =
+        *reinterpret_cast<const unsigned short*>(src + k);
+}
 
-  const int s = tid / cols;
-  const int c = tid - s * cols;
-  const int64_t first = e0 + static_cast<int64_t>(s) * kEdgesPerThread;
-  const int64_t left = E - first;
-  const int n_mine = (s < n_sub && c < cw && left > 0)
-                         ? static_cast<int>(left < kEdgesPerThread
-                                                ? left
-                                                : kEdgesPerThread)
-                         : 0;
+// Bring chunk `k` of the block's range [e_begin, e_end) into ring stage
+// k % stages by bulk copies counted on that stage's mbarrier; one thread.
+// Chunks start on 16 bytes; the <= 14 bytes past the last multiple of 16
+// (the graph's last chunk alone has them) are copied by plain loads before
+// the arrive, which releases them to the waiting threads.
+template <typename T>
+__device__ __forceinline__ void seg_stage(unsigned char* smem, uint32_t bars,
+                                          const SegArgs& a, const T* msg,
+                                          const int* dst, int64_t e_begin,
+                                          int64_t e_end, int k,
+                                          uint64_t policy) {
+  const int64_t e0 = e_begin + static_cast<int64_t>(k) * a.chunk;
+  if (e0 >= e_end) return;
+  const int st = k % a.stages;
+  const int64_t n = min(static_cast<int64_t>(a.chunk), e_end - e0);
+  const uint32_t mbytes = static_cast<uint32_t>(n * a.D * sizeof(T));
+  const uint32_t dbytes = static_cast<uint32_t>(n * 4);
+  unsigned char* ms = smem + st * a.msg_slot;
+  unsigned char* ds = smem + a.stages * a.msg_slot + st * a.dst_slot;
+  const auto* msrc =
+      reinterpret_cast<const unsigned char*>(msg + e0 * a.D);
+  const auto* dsrc = reinterpret_cast<const unsigned char*>(dst + e0);
+  const uint32_t mbody = mbytes & ~15u;
+  const uint32_t dbody = dbytes & ~15u;
+  copy_by_halves(ms + mbody, msrc + mbody, mbytes - mbody);
+  copy_by_halves(ds + dbody, dsrc + dbody, dbytes - dbody);
+  // the slot's last readers and the plain copies above are generic-proxy
+  // accesses; order them before the bulk copies' writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  const uint32_t bar = bars + 8u * st;
+  mbar_expect_tx(bar, mbody + dbody);
+  if (mbody) bulk_copy(smem_addr(ms), msrc, mbody, bar, policy);
+  if (dbody) bulk_copy(smem_addr(ds), dsrc, dbody, bar, policy);
+}
 
-  // add one run's sum for `node`; `cut` when other threads add to it too
-  auto flush = [&](int node, float acc, bool cut) {
-    if (node < 0 || node >= n_nodes) return;
-    float* slot = out + static_cast<int64_t>(node) * D + c0 + c;
-    if (!cut) {
-      *slot = acc;
-    } else if (node == first_node) {
-      atomicAdd(&edge_acc[0][c], acc);
-      edge_used[0] = 1;
-    } else if (node == last_node) {
-      atomicAdd(&edge_acc[1][c], acc);
-      edge_used[1] = 1;
-    } else {
-      atomicAdd(slot, acc);
-    }
+// msg [E, D], dst [E] sorted, out float32 [n_nodes, D] zeroed by the
+// launcher. Block b owns edges [b * per, min((b + 1) * per, E)).
+template <typename T>
+__global__ void __launch_bounds__(kSegThreads, kSegMinBlocks)
+    segment_sum_kernel(const T* __restrict__ msg, const int* __restrict__ dst,
+                       float* __restrict__ out, const SegArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int D = a.D;
+  const int64_t e_begin = static_cast<int64_t>(blockIdx.x) * a.per;
+  const int64_t e_end = min(e_begin + a.per, a.E);
+  if (e_begin >= e_end) return;
+  const int n_chunks =
+      static_cast<int>((e_end - e_begin + a.chunk - 1) / a.chunk);
+  unsigned char* dst_slots = smem + a.stages * a.msg_slot;
+  unsigned char* bar_area = dst_slots + a.stages * a.dst_slot;
+  const uint32_t bars = smem_addr(bar_area);
+  float* head = reinterpret_cast<float*>(bar_area + 8 * kSegMaxStages);
+  float* tail = head + kSegThreads;
+  float* warp_sum = tail + kSegThreads;
+  int* warp_pass = reinterpret_cast<int*>(warp_sum + kSegWarps);
+  float* carry = reinterpret_cast<float*>(warp_pass + kSegWarps);  // [D]
+
+  // the range's first and last runs may continue in the neighbouring
+  // ranges: they alone are added atomically
+  const int first_node = __ldg(dst + e_begin);
+  const int last_node = __ldg(dst + e_end - 1);
+  auto flush = [&](int node, int col, float sum) {
+    if (node < 0 || node >= a.n_nodes) return;
+    float* slot = out + static_cast<int64_t>(node) * D + col;
+    if (node == first_node || node == last_node)
+      atomicAdd(slot, sum);
+    else
+      *slot = sum;
   };
 
-  if (n_mine > 0) {
-    const float* mine = tile + s * (kEdgesPerThread + 1) * cw + c;
-    int cur = __ldg(dst + first);
-    bool cut = first > 0 && __ldg(dst + first - 1) == cur;
-    float acc = 0.f;
-    for (int j = 0; j < n_mine; ++j) {
-      const int node = __ldg(dst + first + j);
-      if (node != cur) {
-        flush(cur, acc, cut);
-        cur = node;
-        acc = 0.f;
-        cut = false;
-      }
-      acc = __fadd_rn(acc, mine[j * cw]);
+  if (a.ring) {
+    if (tid == 0) {
+      const uint64_t once = l2_evict_first();
+      for (int st = 0; st < a.stages; ++st) mbar_init(bars + 8u * st, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int k = 0; k < a.stages; ++k)
+        seg_stage(smem, bars, a, msg, dst, e_begin, e_end, k, once);
     }
-    const int64_t next = first + n_mine;
-    flush(cur, acc, cut || (next < E && __ldg(dst + next) == cur));
+    __syncthreads();
   }
-  __syncthreads();
 
-  // one atomic per column for each of the block's edge nodes that received
-  // a cut run (an uncut run was stored: adding to it would race the store)
-  if (tid < cw) {
-    if (edge_used[0] && first_node >= 0 && first_node < n_nodes)
-      atomicAdd(out + static_cast<int64_t>(first_node) * D + c0 + tid,
-                edge_acc[0][tid]);
-    if (edge_used[1] && last_node >= 0 && last_node < n_nodes)
-      atomicAdd(out + static_cast<int64_t>(last_node) * D + c0 + tid,
-                edge_acc[1][tid]);
+  int carry_node = 0;  // dst of the previous chunk's last edge
+  for (int k = 0; k < n_chunks; ++k) {
+    const int st = k % a.stages;
+    const int64_t e0 = e_begin + static_cast<int64_t>(k) * a.chunk;
+    const int n = static_cast<int>(min(static_cast<int64_t>(a.chunk),
+                                       e_end - e0));
+    unsigned char* ms = smem + st * a.msg_slot;
+    unsigned char* ds = dst_slots + st * a.dst_slot;
+    if (a.ring) {
+      mbar_wait(bars + 8u * st, static_cast<uint32_t>(k / a.stages) & 1);
+    } else {
+      copy_by_threads(ms, reinterpret_cast<const unsigned char*>(msg + e0 * D),
+                      static_cast<uint32_t>(n * D * sizeof(T)));
+      copy_by_threads(ds, reinterpret_cast<const unsigned char*>(dst + e0),
+                      static_cast<uint32_t>(n * 4));
+      __syncthreads();
+    }
+    const T* cm = reinterpret_cast<const T*>(ms);
+    const int* cd = reinterpret_cast<const int*>(ds);
+    const int chunk_last_node = cd[n - 1];
+    const bool have_carry = k > 0;
+    const bool range_ends = k + 1 == n_chunks;
+
+    for (int c0 = 0; c0 < D; c0 += a.cols) {
+      // 1. thread (s, c) = (tid / cols, tid % cols) walks sub-span s at
+      //    column c0 + c: runs that start and end inside it are flushed
+      //    here; the sum of its leading run (when that run began before
+      //    the sub-span) and of its trailing run go to the scan.
+      {
+        const int s = tid / a.cols;
+        const int col = c0 + tid - s * a.cols;
+        const int j0 = s * a.sub;
+        const int j1 = min(j0 + a.sub, n);
+        float h = 0.f, t = 0.f;
+        if (s < a.n_sub && col < D && j0 < j1) {
+          int cur = cd[j0];
+          const bool cont =
+              j0 > 0 ? cd[j0 - 1] == cur : (have_carry && carry_node == cur);
+          bool lead = true;
+          float acc = 0.f;
+#pragma unroll 4
+          for (int j = j0; j < j1; ++j) {
+            const int node = cd[j];
+            if (node != cur) {
+              if (lead && cont)
+                h = acc;
+              else
+                flush(cur, col, acc);
+              lead = false;
+              cur = node;
+              acc = 0.f;
+            }
+            acc = __fadd_rn(acc, to_f32(cm[j * D + col]));
+          }
+          t = acc;
+          if (lead) h = acc;
+        }
+        head[tid] = h;
+        tail[tid] = t;
+      }
+      __syncthreads();
+
+      // 2. item u = tid = (c, s) = (tid / n_sub, tid % n_sub): the sub-spans
+      //    of a column are consecutive items. carry-out y of sub-span s =
+      //    its trailing sum, plus the carry-in when the sub-span is one run
+      //    that continues one from before (pass). A column's first item
+      //    takes the chunk's carry-in and starts a segment.
+      const int c = tid / a.n_sub;
+      const int s = tid - c * a.n_sub;
+      const int col = c0 + c;
+      const int j0 = s * a.sub;
+      const int j1 = min(j0 + a.sub, n);
+      const bool live = c < a.cols && col < D && j0 < j1;
+      int f = 0, l = 0;
+      bool cont = false, whole = false;
+      float y = 0.f, h = 0.f, cin = 0.f;
+      int pass = 0;
+      if (live) {
+        f = cd[j0];
+        l = cd[j1 - 1];
+        whole = f == l;
+        cont = j0 > 0 ? cd[j0 - 1] == f : (have_carry && carry_node == f);
+        const int at = s * a.cols + c;
+        y = tail[at];
+        h = head[at];
+        pass = whole && cont;
+        if (s == 0) {
+          cin = have_carry ? carry[col] : 0.f;
+          if (pass) y = __fadd_rn(cin, y);
+          pass = 0;
+        }
+      }
+      // inclusive segmented scan of y_u = y + pass * y_{u-1}
+      int p = pass;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const float yo = __shfl_up_sync(0xffffffffu, y, d);
+        const int po = __shfl_up_sync(0xffffffffu, p, d);
+        if (lane >= d) {
+          if (p) y = __fadd_rn(yo, y);
+          p &= po;
+        }
+      }
+      float before = 0.f;  // y of the item before this warp's first
+      if (32 % a.n_sub != 0) {
+        // a column's items cross warps: fold in the warps before this one
+        if (lane == 31) {
+          warp_sum[warp] = y;
+          warp_pass[warp] = p;
+        }
+        __syncthreads();
+        for (int w = 0; w < warp; ++w)
+          before = warp_pass[w] ? __fadd_rn(before, warp_sum[w]) : warp_sum[w];
+        if (p) y = __fadd_rn(before, y);
+      }
+      float prev = __shfl_up_sync(0xffffffffu, y, 1);
+      if (lane == 0) prev = before;
+      // 3. flushes: the carried run where it ended with the last chunk, the
+      //    leading run where it ends here, the trailing run where it ends
+      //    at the sub-span's end; the run open at the chunk's end is carried
+      if (live) {
+        if (s > 0) cin = prev;
+        if (s == 0 && have_carry && !cont) flush(carry_node, col, cin);
+        if (cont && !whole) flush(f, col, __fadd_rn(cin, h));
+        if (j1 < n) {
+          if (cd[j1] != l) flush(l, col, y);
+        } else if (range_ends) {
+          flush(l, col, y);
+        } else {
+          carry[col] = y;
+        }
+      }
+      __syncthreads();
+    }
+    carry_node = chunk_last_node;
+    if (a.ring && tid == 0)  // every thread is done with stage st
+      seg_stage(smem, bars, a, msg, dst, e_begin, e_end, k + a.stages,
+                l2_evict_first());
   }
 }
 
@@ -544,22 +754,39 @@ __global__ void f32_to_bf16_kernel(const float* __restrict__ src,
     dst[i] = __float2bfloat16(src[i]);
 }
 
-// out: float32 [n_nodes, D] the kernel sums into (the result itself for a
-// float32 msg, the caller's scratch for bfloat16, converted at the end).
+// acc: float32 [n_nodes, D] the kernel sums into (the result itself for a
+// float32 msg, the caller's scratch for bfloat16, converted at the end),
+// zeroed by the caller. `a` is the plan, checked here.
 template <typename T>
-int launch_segment(const void* msg, const void* dst, float* acc,
-                   int64_t E, int D, int n_nodes, cudaStream_t stream) {
-  const int cols = D < kMaxCols ? D : kMaxCols;
-  const int64_t span =
-      static_cast<int64_t>(kSegThreads / cols) * kEdgesPerThread;
-  const int64_t blocks = (E + span - 1) / span;
-  const int col_tiles = (D + cols - 1) / cols;
-  if (blocks > 0x7fffffffLL || col_tiles > 65535)
+int launch_segment(const void* msg, const void* dst, float* acc, SegArgs a,
+                   int blocks, cudaStream_t stream) {
+  const int64_t align = 16 / static_cast<int64_t>(sizeof(T));
+  const bool on16 = reinterpret_cast<uintptr_t>(msg) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+  const int64_t mbytes = static_cast<int64_t>(a.chunk) * a.D * sizeof(T);
+  if (a.cols != (a.D < kSegThreads ? a.D : kSegThreads) || a.n_sub < 1 ||
+      a.sub < 1 || a.n_sub * a.cols > kSegThreads ||
+      static_cast<int64_t>(a.n_sub) * a.sub != a.chunk ||
+      a.chunk % align != 0 || a.per < 1 || a.per % align != 0 ||
+      blocks < 1 || static_cast<int64_t>(blocks) * a.per < a.E ||
+      static_cast<int64_t>(blocks - 1) * a.per >= a.E ||
+      (a.ring ? (a.stages < 2 || a.stages > kSegMaxStages || !on16)
+              : a.stages != 1) ||
+      mbytes + 4 * a.chunk > kMaxStageTx)
     return static_cast<int>(cudaErrorInvalidValue);
-  segment_sum_kernel<T>
-      <<<dim3(static_cast<unsigned>(blocks), col_tiles), kSegThreads, 0,
-         stream>>>(static_cast<const T*>(msg), static_cast<const int*>(dst),
-                   acc, E, D, n_nodes, cols);
+  a.msg_slot = static_cast<int>((mbytes + 15) / 16 * 16);
+  a.dst_slot = (4 * a.chunk + 15) / 16 * 16;
+  const int64_t smem = seg_smem_bytes(a);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = segment_sum_kernel<T>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<blocks, kSegThreads, static_cast<int>(smem), stream>>>(
+      static_cast<const T*>(msg), static_cast<const int*>(dst), acc, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -604,10 +831,15 @@ int sparse_embedding_bag(const void* table, const void* ids, const void* mask,
 
 // msg [E, D] contiguous; dst [E] int32 sorted ascending (not checked);
 // out [n_nodes, D] contiguous in msg's dtype. scratch: float32 [n_nodes, D]
-// for a bfloat16 msg (unused, may be null, for float32).
+// for a bfloat16 msg (unused, may be null, for float32). per, chunk, sub,
+// n_sub, cols, stages, ring and blocks come from
+// kernels/segment_mp.py:segment_plan; a plan the kernel cannot run is
+// refused (cudaErrorInvalidValue).
 int sparse_segment_sum_sorted(const void* msg, const void* dst, void* out,
                               void* scratch, int dtype, int64_t E, int D,
-                              int n_nodes, void* stream) {
+                              int n_nodes, int64_t per, int chunk, int sub,
+                              int n_sub, int cols, int stages, int ring,
+                              int blocks, void* stream) {
   if (E < 0 || D <= 0 || n_nodes < 0 || dtype < 0 || dtype > 1 ||
       (dtype == 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -618,17 +850,18 @@ int sparse_segment_sum_sorted(const void* msg, const void* dst, void* out,
   cudaError_t err = cudaMemsetAsync(acc, 0, n_out * sizeof(float), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (E > 0) {
-    const int rc = dtype == 0
-                       ? launch_segment<float>(msg, dst, acc, E, D, n_nodes,
-                                               st)
-                       : launch_segment<__nv_bfloat16>(msg, dst, acc, E, D,
-                                                       n_nodes, st);
+    const SegArgs a{E,    D,      n_nodes, per,       chunk, sub, n_sub,
+                    cols, stages, ring,    /*msg_slot=*/0,   /*dst_slot=*/0};
+    const int rc =
+        dtype == 0
+            ? launch_segment<float>(msg, dst, acc, a, blocks, st)
+            : launch_segment<__nv_bfloat16>(msg, dst, acc, a, blocks, st);
     if (rc != 0) return rc;
   }
   if (dtype == 1) {
-    const int64_t blocks = (n_out + 255) / 256;
-    f32_to_bf16_kernel<<<static_cast<unsigned>(blocks < 132 * 32 ? blocks
-                                                                 : 132 * 32),
+    const int64_t cvt = (n_out + 255) / 256;
+    f32_to_bf16_kernel<<<static_cast<unsigned>(cvt < 132 * 32 ? cvt
+                                                              : 132 * 32),
                          256, 0, st>>>(acc,
                                        static_cast<__nv_bfloat16*>(out),
                                        n_out);

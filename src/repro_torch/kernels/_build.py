@@ -45,7 +45,9 @@ LIBRARIES = {
         # pointers, sizes, pattern ints, ...
         "triple_scan": [_P, _L, _I, _I, _I, _P],
         "triple_scan_many": [_P, _L, _P, _I, _P],
-        "probe_sorted_many": [_P, _I, _P, _L, _P, _P],
+        # keys, K, probes, n, stride, n_samples, vec, blocks, sample, lo,
+        # hi
+        "probe_sorted_many": [_P, _I, _P, _L, _I, _I, _I, _I, _P, _P, _P],
         # triples, T, s, p, o, keys, K, col, stride, n_samples, vec,
         # blocks, sample, mask, lo, hi
         "scan_probe": [_P, _L, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P,
@@ -76,8 +78,10 @@ LIBRARIES = {
         # plan: vec, lanes, chunk, blocks, ring
         "embedding_bag": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I,
                           _I, _I],
-        # msg, dst, out, scratch, dtype, E, D, n_nodes
-        "segment_sum_sorted": [_P, _P, _P, _P, _I, _L, _I, _I],
+        # msg, dst, out, scratch, dtype, E, D, n_nodes, then the plan:
+        # per, chunk, sub, n_sub, cols, stages, ring, blocks
+        "segment_sum_sorted": [_P, _P, _P, _P, _I, _L, _I, _I, _L, _I, _I,
+                               _I, _I, _I, _I, _I],
     }),
 }
 # a kernel's default library: the first that has it (the attention kernels

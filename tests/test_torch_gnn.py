@@ -161,8 +161,9 @@ def test_chip_smoke_gnn_checks_on_cpu(monkeypatch):
     """The GNN phase's checks on the CPU, with the plain versions on both
     sides: card-vs-CPU logits at full_graph_sm, a forward on a small
     power-law graph drawn and sorted by ``gnn_graph`` (three launches on a
-    card, none here), the segment row's exact, per-element and planted
-    checks; and ``sum_err`` refusing a planted fault."""
+    card, none here), the segment rows' exact, per-element and planted
+    checks at the forward's three widths; and ``sum_err`` refusing a
+    planted fault."""
     smoke = _chip_smoke()
     cfg = tgnn.GNNConfig(name="gcn-cora", model="gcn", n_layers=2,
                          d_hidden=16, n_classes=7, d_feat=1433)
@@ -176,8 +177,13 @@ def test_chip_smoke_gnn_checks_on_cpu(monkeypatch):
     assert res["launches"] == {} and res["max_in_degree"] > 100
     monkeypatch.setattr(smoke, "time_ms",         # CUDA events: card only
                         lambda fn, calls=1, reps=1: (fn(), 0.0)[1])
-    row = smoke.segment_kernel_row(graph["edges"], 3000, 16, {}, 3.35e12)
-    assert row["max_abs_err"] == 0.0 and row["name"] == "segment_sum_sorted"
+    widths = smoke.segment_widths(pcfg, params, graph)
+    assert widths == {1: 0, 16: 0, 7: 0}
+    rows = smoke.segment_kernel_rows(graph["edges"], 3000, widths, 3.35e12)
+    assert [r["shape"].split()[-1] for r in rows] == ["D=16", "D=7", "D=1"]
+    for row in rows:
+        assert row["max_abs_err"] == 0.0
+        assert row["name"] == "segment_sum_sorted" and row["launches"] == 0
     msg = torch.randn(5000, 4)
     dst = torch.sort(torch.randint(0, 50, (5000,))).values.to(torch.int32)
     want = tgnn.segment_sum_sorted(msg, dst, 50)

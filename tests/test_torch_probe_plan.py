@@ -1,6 +1,6 @@
-"""The two-level search of the ``scan_probe`` kernel
-(``csrc/rdf_kernels.cu``) emulated in numpy on the CPU, against
-``np.searchsorted`` left and right.
+"""The two-level search that the ``scan_probe`` and ``probe_sorted_many``
+kernels share (``csrc/rdf_kernels.cu``: ``search4``) emulated in numpy on
+the CPU, against ``np.searchsorted`` left and right.
 
 The kernel cannot run here, so its index arithmetic is emulated as it
 runs, from the plan the launcher takes (``join_probe.probe_plan``):
@@ -14,16 +14,22 @@ among them, hi; else the gallop and the binary search that ends it. Keys
 off 16 bytes take the scalar path. Cases: K of 0, 1 and around the
 sample size, all keys equal, runs of equal keys across every sample
 boundary, -1 and the int32 extremes as probes, and the serving K; and the
-grid's walk over quads of rows covers every row once."""
+grid's walk over quads of rows covers every row once. The
+``probe_sorted_many`` route: n probes off a multiple of 4 (a scalar last
+quad), -1 padding, probes off 16 bytes, the sample shrunk for small n,
+and the serving K = P."""
 
 import numpy as np
 import pytest
 
 pytest.importorskip("torch")
 
-from repro_torch.kernels.join_probe import (PROBE_ROWS,  # noqa: E402
-                                            PROBE_SPAN, PROBE_THREADS,
-                                            SAMPLE_MAX, probe_plan)
+from repro_torch.kernels.join_probe import (PROBE_MIN_QUADS,  # noqa: E402
+                                            PROBE_ROWS, PROBE_SPAN,
+                                            PROBE_THREADS,
+                                            SAMPLE_MAX, SAMPLE_MIN,
+                                            SAMPLE_PER_PROBE, probe_plan,
+                                            sample_cap)
 
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 SERVING_K = 1_347_882        # sorted follows subjects at WatDiv scale 1000
@@ -62,10 +68,13 @@ def emulate(keys, v, plan, keys16=True):
     def padded(i):
         return np.where(i < K, keys[np.minimum(i, K - 1)], INT32_MAX)
 
-    sample = keys[np.arange(plan.n_samples) * stride]
-    j = _lockstep_lower(lambda i: sample[i], plan.n_samples, v)
-    b = np.where(j > 0, (j - 1) * stride + 1, 0)
-    n = stride - 1
+    if stride:
+        sample = keys[np.arange(plan.n_samples) * stride]
+        j = _lockstep_lower(lambda i: sample[i], plan.n_samples, v)
+        b = np.where(j > 0, (j - 1) * stride + 1, 0)
+        n = stride - 1
+    else:                       # no sample: the window is every key
+        j, b, n = np.ones(v.shape, np.int64), np.zeros(v.shape, np.int64), K
     while n > PROBE_SPAN:
         half = n >> 1
         b = np.where(padded(b + half) < v, b + half, b)
@@ -112,6 +121,29 @@ def emulate(keys, v, plan, keys16=True):
     return lo, hi
 
 
+def _walk(n, plan):
+    """The kernels' walk over n rows or probes (``first_quad``): thread
+    (block b, warp w, lane l) starts at quad (w * blocks + b) * 32 + l and
+    steps by the grid's threads. Returns how often each row is taken, the
+    number of partial quads (scalar loads and stores) and the number of
+    blocks with work."""
+    quads = -(-n // PROBE_ROWS)
+    b, t = np.meshgrid(np.arange(plan.blocks), np.arange(PROBE_THREADS),
+                       indexing="ij")
+    first = ((t // 32) * plan.blocks + b) * 32 + t % 32
+    cover = np.zeros(n, np.int64)
+    partial = 0
+    busy = int((first.min(axis=1) < quads).sum())
+    step = plan.blocks * PROBE_THREADS
+    for q0 in range(0, quads, step):
+        q = (first + q0).ravel()
+        q = q[q < quads]
+        rows = (q[:, None] * PROBE_ROWS + np.arange(PROBE_ROWS)).ravel()
+        np.add.at(cover, rows[rows < n], 1)
+        partial += int(((q + 1) * PROBE_ROWS > n).sum())
+    return cover, partial, busy
+
+
 def _probes(keys, rng, n=2000):
     """Every key value near its run ends, neighbours of key values,
     random values, and -1 / INT32_MIN / INT32_MAX."""
@@ -124,14 +156,17 @@ def _probes(keys, rng, n=2000):
                            rng.integers(keys.min() - 3, keys.max() + 4, n)])
 
 
-def _check(keys, probes):
+def _check(keys, probes, n=None):
+    """The plan for ``n`` probes (by default len(probes)) and its search
+    of ``probes``, with the keys on and off 16 bytes."""
     keys = np.asarray(keys, np.int32)
-    plan = probe_plan(len(probes), len(keys), aligned=True)
-    assert plan.n_samples <= SAMPLE_MAX
-    assert plan.n_samples == -(-len(keys) // plan.stride)
+    n = len(probes) if n is None else n
+    plan = probe_plan(n, len(keys), aligned=True)
+    cap = sample_cap(n, plan.blocks)
+    assert plan.n_samples <= cap <= SAMPLE_MAX
+    assert plan.n_samples == -(-len(keys) // max(1, plan.stride))
     # the smallest stride that fits: one less would need too many samples
-    assert plan.stride == 1 or -(-len(keys) // (plan.stride - 1)) > \
-        SAMPLE_MAX
+    assert plan.stride <= 1 or -(-len(keys) // (plan.stride - 1)) > cap
     for keys16 in (True, False):
         lo, hi = emulate(keys, probes, plan, keys16)
         np.testing.assert_array_equal(lo, np.searchsorted(keys, probes,
@@ -147,8 +182,9 @@ def _check(keys, probes):
 def test_two_level_search_equals_searchsorted(K):
     rng = np.random.default_rng(K)
     keys = np.sort(rng.integers(0, 3 * K + 10, K))
-    plan = _check(keys, _probes(keys, rng))
+    plan = _check(keys, _probes(keys, rng), n=10 ** 7)
     assert (plan.stride == 1) == (K <= SAMPLE_MAX)
+    _check(keys, _probes(keys, rng))
 
 
 @pytest.mark.parametrize("K", [1, SAMPLE_MAX, 3 * SAMPLE_MAX + 7])
@@ -164,38 +200,38 @@ def test_two_level_search_runs_across_every_sample_boundary(K):
     covers keys[i * stride - 1 : i * stride + stride - 1], across every
     sample boundary; a second array adds runs of three strides."""
     rng = np.random.default_rng(2)
-    stride = probe_plan(1, K, True).stride
+    stride = probe_plan(10 ** 7, K, True).stride
     assert stride > 2
     m = np.arange(K)
     keys = 2 * ((m + 1) // stride)
     b = np.arange(1, K // stride) * stride
     assert (keys[b - 1] == keys[b]).all() and (keys[b] == keys[b + 1]).all()
-    _check(keys, _probes(keys, rng))
+    _check(keys, _probes(keys, rng), n=10 ** 7)
     long_runs = 2 * ((m + 1) // (3 * stride))
-    _check(long_runs, _probes(long_runs, rng))
+    _check(long_runs, _probes(long_runs, rng), n=10 ** 7)
 
 
 def test_two_level_search_at_the_serving_k():
+    """scan_probe's rows (T = 9,963,797) and probe_sorted_many's probes
+    (P = K) at the serving K both take the full sample."""
     rng = np.random.default_rng(3)
     keys = np.sort(rng.integers(0, 2_000_000, SERVING_K))
-    plan = _check(keys, _probes(keys, rng, 20_000))
-    assert plan.stride == 42 and plan.n_samples == 32_093
+    for n in (9_963_797, SERVING_K):
+        plan = _check(keys, _probes(keys, rng, 20_000), n=n)
+        assert plan.stride == 42 and plan.n_samples == 32_093
+        assert plan.blocks == 132
 
 
 @pytest.mark.parametrize("T", [1, 3, 4, 5, 1023, 100_003, 9_963_797])
 def test_grid_covers_every_row_once(T):
-    """Threads of the persistent grid walk quads of PROBE_ROWS rows by
-    the grid's stride; a last partial quad takes its live rows only."""
+    """Threads of the persistent grid walk quads of PROBE_ROWS rows in
+    runs of 32 a warp, interleaved over the blocks; a last partial quad
+    takes its live rows only."""
     plan = probe_plan(T, 100, aligned=True)
-    threads = plan.blocks * PROBE_THREADS
-    quads = -(-T // PROBE_ROWS)
     assert 1 <= plan.blocks <= 132
-    cover = np.zeros(T, np.int64)
-    for q0 in range(0, quads, threads):
-        q = np.arange(q0, min(q0 + threads, quads))
-        rows = (q[:, None] * PROBE_ROWS + np.arange(PROBE_ROWS)).ravel()
-        np.add.at(cover, rows[rows < T], 1)
+    cover, _, busy = _walk(T, plan)
     assert (cover == 1).all()
+    assert busy == min(plan.blocks, -(-T // PROBE_ROWS))
 
 
 def test_plan_alignment_and_refusals():
@@ -204,3 +240,56 @@ def test_plan_alignment_and_refusals():
     assert probe_plan(8, 0, True)[:2] == (1, 0)
     with pytest.raises(ValueError):
         probe_plan(-1, 3, True)
+
+
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 4_001, 100_003])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_probe_sorted_many_route(n, aligned):
+    """n probes of a [Q, P] array, -1 padding among them: every probe
+    taken once, a last partial quad when n is not a multiple of 4, and
+    the bounds of np.searchsorted; probes off 16 bytes read scalar."""
+    rng = np.random.default_rng(n)
+    K = 3 * SAMPLE_MAX + 5
+    keys = np.sort(rng.integers(0, 4 * K, K)).astype(np.int32)
+    probes = rng.integers(-3, 4 * K + 3, n)
+    probes[rng.random(n) < 0.2] = -1
+    plan = probe_plan(n, K, aligned)
+    assert plan.vec is aligned
+    cover, partial, busy = _walk(n, plan)
+    assert (cover == 1).all() and partial == (n % PROBE_ROWS != 0)
+    # every block of a small call's grid has quads to search
+    assert busy == plan.blocks
+    for keys16 in (True, False):
+        lo, hi = emulate(keys, probes, plan, keys16)
+        np.testing.assert_array_equal(lo, np.searchsorted(keys, probes,
+                                                          "left"))
+        np.testing.assert_array_equal(hi, np.searchsorted(keys, probes,
+                                                          "right"))
+        assert (lo[probes == -1] == 0).all() and (hi[probes == -1] == 0).all()
+
+
+@pytest.mark.parametrize("n", [1, 4, 12, 31, 32, 100, 1_000, 4_000, 30_000,
+                               200_000])
+def test_small_n_plans_shrink_the_sample(n):
+    """A block copies the whole sample: for few probes the plan keeps it
+    to SAMPLE_PER_PROBE keys for each probe the block searches (never
+    under SAMPLE_MIN), so a few thousand probes copy a few KB a block; a
+    call of under 32 probes (most of a cold batch's joins) takes none."""
+    K = SERVING_K
+    plan = probe_plan(n, K, True)
+    per_block = -(-n // plan.blocks)
+    assert plan.n_samples <= max(SAMPLE_MIN, SAMPLE_PER_PROBE * per_block)
+    assert plan.blocks * plan.n_samples <= max(
+        plan.blocks * SAMPLE_MIN, SAMPLE_PER_PROBE * (n + plan.blocks))
+    # a block takes at least PROBE_MIN_QUADS quads: small calls spread
+    assert plan.blocks == min(132, max(1, -(-n // (4 * PROBE_MIN_QUADS))))
+    if SAMPLE_PER_PROBE * n < SAMPLE_MIN:   # no sample, no gather
+        assert plan.blocks == 1 and plan[:2] == (0, 0)
+    rng = np.random.default_rng(n)
+    keys = np.sort(rng.integers(0, 2 * K, K)).astype(np.int32)
+    probes = np.concatenate([[-1], rng.integers(0, 2 * K, n - 1)])
+    lo, hi = emulate(keys, probes, plan)
+    np.testing.assert_array_equal(lo, np.searchsorted(keys, probes, "left"))
+    np.testing.assert_array_equal(hi, np.searchsorted(keys, probes, "right"))
