@@ -45,6 +45,13 @@
    forward's widths (16, 7 and 1) against its plain version and timed
    beside its bound. Every model and
    kernel check also reads a planted fault that must fail it.
+8. The paper's system, last: ``EdgeCloudSystem`` on the scale-1000 store
+   (20 users, 4 edges, B&B and the four baselines, each round cold and
+   warm; thread overlap; a query split across two edges), then the SPARQL
+   UPDATE write path and an asynchronous rebalance on the 4-shard store;
+   every round's results held against the numpy endpoint, bnb's
+   objective the lowest, the query kernels launched against the edges'
+   stores.
 
 Fails (non-zero exit, no result line) on any mismatch or exception, and
 when CUDA is not available. The last line is
@@ -56,6 +63,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -149,6 +157,10 @@ SEGMENT_CUT = 256            # a planted segment fault's edge boundary
 SPARSE_MODEL_TOL = 2e-6
 
 
+# profiling sessions kernel_device_ms runs before it gives up
+PROFILE_TRIES = 3
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -159,20 +171,46 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def _columns(table) -> np.ndarray:
+    """The bindings with their columns in variable-name order."""
+    order = sorted(table.var_names)
+    return table.bindings[:, [table.var_names.index(v) for v in order]]
+
+
 def sorted_rows(table) -> np.ndarray:
     """Solution multiset as rows sorted lexicographically, columns in
     variable-name order."""
-    order = sorted(table.var_names)
-    rows = table.bindings[:, [table.var_names.index(v) for v in order]]
-    if len(rows) == 0:
+    rows = _columns(table)
+    if len(rows) == 0 or rows.shape[1] == 0:       # ASK: rows alone count
         return rows
     return rows[np.lexsort(rows.T[::-1])]
 
 
 def same_answer(a, b) -> bool:
+    """Equal solution multisets. Where every row's ids fit one int64 (ids
+    offset to start at 0, a field of ``bits`` bits a column), the rows are
+    packed into such keys, an injective map, and the sorted keys compared;
+    otherwise the rows are sorted lexicographically. Both are exact."""
     if sorted(a.var_names) != sorted(b.var_names):
         return False
-    return np.array_equal(sorted_rows(a), sorted_rows(b))
+    ra, rb = _columns(a), _columns(b)
+    if ra.shape != rb.shape:
+        return False
+    if ra.size == 0:
+        return True
+    lo = min(int(ra.min()), int(rb.min()))
+    bits = max(int(ra.max()), int(rb.max())) - lo
+    bits = max(1, bits.bit_length())
+    if bits * ra.shape[1] > 63:
+        return np.array_equal(sorted_rows(a), sorted_rows(b))
+
+    def keys(rows):
+        k = np.zeros(len(rows), dtype=np.int64)
+        for c in range(rows.shape[1]):
+            k = (k << bits) | (rows[:, c].astype(np.int64) - lo)
+        k.sort()
+        return k
+    return np.array_equal(keys(ra), keys(rb))
 
 
 def query_mix(gen, n_queries: int, seed: int) -> list[str]:
@@ -296,16 +334,19 @@ def serve(store, dictionary, texts: list[str], capacity_text: str,
     }
 
 
-def device_profile(fn, track: tuple[str, ...] = ()) -> dict:
+def device_profile(fn, track: tuple[str, ...] = (),
+                   cpu: bool = True) -> dict:
     """Device time of one ``fn()`` under ``torch.profiler``: the sum over
     kernels and copies, its share of the call's wall time (which the
     profiler itself inflates), the largest items, and [ms, launches] of
-    the kernels whose names contain a string of ``track``."""
+    the kernels whose names contain a string of ``track``. ``cpu=False``
+    traces the device alone (a long host-bound call's CPU trace would
+    hold millions of events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=([ProfilerActivity.CPU] if cpu else [])
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -329,19 +370,27 @@ def kernel_device_ms(fn, kernel: str, calls: int = 20) -> tuple[float, int]:
     the launches the profiler recorded, and their number. The kernel's own
     time, where back-to-back CUDA events read the host's time per call
     once that exceeds the kernel's; the profiler can drop records, so the
-    mean is taken over those it kept, not over ``calls``."""
+    mean is taken over those it kept, not over ``calls``. It has dropped
+    a whole session's records of one kernel on the card now and then, so
+    a session that kept none is run again, up to ``PROFILE_TRIES`` in
+    all, before this raises; each such retry is logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key
-            and str(e.device_type).endswith("CUDA")]
-    n = sum(e.count for e in hits)
-    if not n:
-        raise AssertionError(f"the profiler recorded no {kernel} launch")
-    return sum(e.self_device_time_total for e in hits) / n / 1e3, n
+    for session in range(1, PROFILE_TRIES + 1):
+        if session > 1:
+            log(f"profiler retry: session {session - 1} of "
+                f"{PROFILE_TRIES} recorded no {kernel} launch")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel in e.key
+                and str(e.device_type).endswith("CUDA")]
+        n = sum(e.count for e in hits)
+        if n:
+            return sum(e.self_device_time_total for e in hits) / n / 1e3, n
+    raise AssertionError(f"the profiler recorded no {kernel} launch in "
+                         f"{PROFILE_TRIES} sessions")
 
 
 def host_us_per_call(fn, calls: int = 50) -> float:
@@ -2174,6 +2223,467 @@ def gnn_phase(args, hbm: float | None, device) -> list[dict]:
 
 
 
+# ---------------------------------------------------------------------------
+# system phase: the paper's cloud-edge pipeline (EdgeCloudSystem)
+# ---------------------------------------------------------------------------
+
+# the mix without ``complex``: that template's pattern drops its constant,
+# and its induced match passes the placement index's 20M-row cap from
+# scale 100 up (a limit of the reference package too)
+SYSTEM_TEMPLATES = [t for t in MIX_TEMPLATES if t != "complex"]
+# the paper's §5.1 system as the quickstart builds it: 20 users, 4 edges
+# (SystemParams.synthetic(seed=1)), each edge's budget 0.69 of the cloud's
+# bytes (the quickstart's 400,000 of 579,360), 5 history queries a user
+SYSTEM_USERS, SYSTEM_EDGES, SYSTEM_HISTORY = 20, 4, 5
+SYSTEM_BUDGET_SHARE = 0.69
+SYSTEM_ROUND_QUERIES = 16
+POLICIES = ("cloud_only", "random", "edge_first", "greedy", "bnb")
+# the quickstart's algebra texts: OPTIONAL, UNION with LIMIT, DISTINCT with
+# ORDER BY, ASK
+SYSTEM_ALGEBRA = [
+    "SELECT ?x ?g WHERE { ?x <likes> ?p . OPTIONAL { ?p <hasGenre> ?g } }",
+    "SELECT ?x ?y WHERE { { ?x <follows> ?y } UNION { ?x <likes> ?y } } "
+    "LIMIT 50",
+    "SELECT DISTINCT ?c WHERE { ?u <country> ?c } ORDER BY ?c",
+    "ASK { ?x <subgenreOf> ?y }",
+]
+# a cyclic BGP (mutual follows): the one text of the round that the device
+# join does not cover, so its scans take the host route's fused prescan
+# (``triple_scan_many``); no history holds its pattern, so it runs at the
+# cloud
+SYSTEM_HOST_TEXT = "SELECT ?x ?y WHERE { ?x <follows> ?y . ?y <follows> ?x }"
+# the quickstart's collaborative system: one edge holds <likes>, the other
+# <hasGenre>, and the path query over both is split across them
+PARTIAL_LEAVES = ("SELECT ?x ?p WHERE { ?x <likes> ?p }",
+                  "SELECT ?p ?gn WHERE { ?p <hasGenre> ?gn }")
+PARTIAL_TEXT = ("SELECT ?x ?gn WHERE { { ?x <likes> ?p } "
+                "{ ?p <hasGenre> ?gn } }")
+
+
+def system_pairs(gen) -> list[tuple[int, str]]:
+    """The round's (user, text) pairs: text n goes to user n mod 20."""
+    from repro_torch.rdf.generator import workload_sparql
+    texts = workload_sparql(gen, SYSTEM_ROUND_QUERIES, seed=77,
+                            templates=SYSTEM_TEMPLATES) + SYSTEM_ALGEBRA
+    texts.append(SYSTEM_HOST_TEXT)
+    return [(n % SYSTEM_USERS, t) for n, t in enumerate(texts)]
+
+
+def build_system(gen, store, device, max_rows):
+    """The quickstart's system on ``store`` behind one torch engine on
+    ``device``, placed from the users' histories; returns the system and
+    what its placement holds."""
+    from repro_torch.core.cost import SystemParams
+    from repro_torch.edge.system import EdgeCloudSystem
+    from repro_torch.rdf.generator import workload_sparql
+    from repro_torch.sparql.engine import QueryEngine, TorchBackend
+    params = SystemParams.synthetic(n_users=SYSTEM_USERS,
+                                    n_edges=SYSTEM_EDGES, seed=1)
+    budget = int(SYSTEM_BUDGET_SHARE * store.size_bytes())
+    engine = QueryEngine(backend=TorchBackend(device=device),
+                         max_rows=max_rows)
+    system = EdgeCloudSystem(store, gen.dictionary, params, budget,
+                             engine=engine)
+    history = [workload_sparql(gen, SYSTEM_HISTORY, seed=100 + n,
+                               templates=SYSTEM_TEMPLATES)
+               for n in range(SYSTEM_USERS)]
+    system.prepare(history)
+    info = {"construction_seconds": system.construction_seconds,
+            "budget_bytes": budget,
+            "edges": [{"patterns": len(es.index),
+                       "triples": (es.store.num_triples
+                                   if es.store is not None else 0),
+                       "bytes": es.used_bytes()} for es in system.edges]}
+    return system, info
+
+
+class Oracle:
+    """The numpy-backend endpoint over the system's cloud store: each
+    text's table is computed once a store version and reused."""
+
+    def __init__(self, store, dictionary, max_rows: int):
+        from repro_torch.sparql.endpoint import SparqlEndpoint
+        from repro_torch.sparql.engine import QueryEngine
+        self.store = store
+        self.ep = SparqlEndpoint(store, dictionary, result_cache_size=0,
+                                 engine=QueryEngine(backend="numpy",
+                                                    max_rows=max_rows))
+        self._version, self._tables = None, {}
+
+    def tables(self, texts: list[str]) -> list:
+        if self.store.version != self._version:
+            self._version, self._tables = self.store.version, {}
+        todo = [t for t in dict.fromkeys(texts) if t not in self._tables]
+        if todo:
+            self._tables.update(zip(todo, self.ep.query_many(todo)))
+        return [self._tables[t] for t in texts]
+
+
+def check_round(label: str, rep, pairs, want) -> None:
+    bad = [t for (_, t), got, w in zip(pairs, rep.results, want)
+           if not same_answer(got, w)]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} of {len(pairs)} results "
+                             f"differ from the numpy oracle, first: {bad[0]}")
+
+
+def edge_share(rep) -> float:
+    """Share of the round's queries that ran at an edge, whole or split."""
+    n = max(1, len(rep.outcomes))
+    return sum(v for k, v in rep.assignment_counts.items() if k != -1) / n
+
+
+def staged_versions(store) -> set:
+    """Versions of the flat arrays ``store`` stages (its non-empty shards
+    for a sharded store)."""
+    shards = getattr(store, "shards", None)
+    if shards is None:
+        return {store.version}
+    return {sh.version for sh in shards if sh.num_triples}
+
+
+def _launch_delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
+
+
+def system_rounds(system, ep, pairs, oracle, device) -> dict:
+    """Each policy's round once cold and once warm, every result held
+    against the oracle; returns each policy's times, objective, edge share,
+    staging uploads and kernel launches."""
+    from repro_torch.kernels import launch_counts
+    backend = system.engine.backend
+    want = oracle.tables([t for _, t in pairs])
+    out = {}
+    for policy in POLICIES:
+        row = {}
+        for phase in ("cold", "warm"):
+            if phase == "cold":
+                system.clear_engine_caches()
+            u0, l0 = backend.staged_uploads, launch_counts()
+            rep = ep.run_round(pairs, policy=policy, observe=False,
+                               collect_results=True)
+            _sync(device)
+            check_round(f"{policy} {phase}", rep, pairs, want)
+            row[phase] = {
+                "execute_wall_seconds": rep.execute_wall_seconds,
+                "schedule_ms": rep.schedule_seconds * 1e3,
+                "staged_uploads": backend.staged_uploads - u0,
+                "launches": _launch_delta(launch_counts(), l0)}
+            if policy == "bnb":
+                row[phase]["optimal"] = rep.schedule_info.get("optimal")
+                row[phase]["nodes_explored"] = rep.schedule_info.get(
+                    "nodes_explored")
+        row.update(objective=rep.objective, edge_share=edge_share(rep),
+                   assignment={str(k): v for k, v in
+                               sorted(rep.assignment_counts.items())},
+                   partial_queries=rep.partial_queries)
+        out[policy] = row
+    return out
+
+
+def partial_round(gen, store, engine, oracle) -> dict:
+    """The quickstart's collaborative system (§6b) on ``store``: a bnb
+    round of the path query must split it across the two edges and
+    assemble exactly the oracle's rows."""
+    from repro_torch.core.cost import SystemParams
+    from repro_torch.core.pattern import pattern_of
+    from repro_torch.edge.system import EdgeCloudSystem
+    from repro_torch.sparql.endpoint import SparqlEndpoint
+    from repro_torch.sparql.query import parse_sparql
+    params = SystemParams(
+        F=np.full(2, 1.0e9), r_edge=np.full((4, 2), 75e6),
+        r_cloud=np.full(4, 5e6), assoc=np.ones((4, 2), dtype=bool),
+        r_backhaul=np.full(2, 1e9),          # fast edge->assembler backhaul
+        F_cloud=0.05e9)                      # congested cloud compute pool
+    collab = EdgeCloudSystem(store, gen.dictionary, params,
+                             storage_budgets=store.size_bytes(),
+                             engine=engine)
+    for es, text in zip(collab.edges, PARTIAL_LEAVES):
+        es.deploy(store, [pattern_of(parse_sparql(text, gen.dictionary))])
+    cep = SparqlEndpoint.from_system(collab)
+    pairs = [(0, PARTIAL_TEXT)]
+    t0 = time.perf_counter()
+    rep = cep.run_round(pairs, policy="bnb", collect_results=True)
+    wall = time.perf_counter() - t0
+    if rep.partial_queries != 1 or rep.partial_fallbacks:
+        raise AssertionError(f"partial round: {rep.partial_queries} partial "
+                             f"queries, {rep.partial_fallbacks} fallbacks; "
+                             "want 1 and 0")
+    check_round("partial", rep, pairs, oracle.tables([PARTIAL_TEXT]))
+    return {"rows": int(rep.results[0].num_matches),
+            "servers": list(rep.outcomes[0].partial_servers),
+            "shipped_bytes": rep.partial_bytes_shipped,
+            "execute_wall_seconds": rep.execute_wall_seconds,
+            "round_seconds": wall}
+
+
+def system_phase(gen, store, device, max_rows: int) -> dict:
+    """Part A: the paper's pipeline on ``store`` (history -> placement ->
+    five policies' rounds -> thread overlap -> partial split), every
+    result held against the numpy oracle. Raises on any failed check."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.sparql.endpoint import SparqlEndpoint
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    system, info = build_system(gen, store, device, max_rows)
+    ep = SparqlEndpoint.from_system(system)
+    pairs = system_pairs(gen)
+    oracle = Oracle(store, gen.dictionary, max_rows)
+    t1 = time.perf_counter()
+    oracle.tables([t for _, t in pairs])
+    info["oracle_seconds"] = time.perf_counter() - t1
+
+    reset_launch_counts()
+    rounds = system_rounds(system, ep, pairs, oracle, device)
+    launches = launch_counts()
+    info["rounds"] = rounds
+    info["launches"] = launches
+    missing = [k for k in REPLACES if launches.get(k, 0) <= 0]
+    if on_card and missing:
+        raise AssertionError(f"system: kernels not launched by the rounds: "
+                             f"{missing}")
+    best = min(r["objective"] for r in rounds.values())
+    if rounds["bnb"]["objective"] > best * (1 + 1e-12):
+        raise AssertionError(f"bnb objective {rounds['bnb']['objective']} "
+                             f"above another policy's {best}")
+    idle = [p for p in ("edge_first", "greedy", "bnb")
+            if rounds[p]["edge_share"] <= 0]
+    if idle:
+        raise AssertionError(f"no query ran at an edge under {idle}")
+    backend = system.engine.backend
+    need = staged_versions(system.cloud.store).union(
+        *(staged_versions(es.store) for es in system.edges
+          if es.store is not None))
+    info["staged"] = {"versions": len(backend._staged),
+                      "missing": sorted(need - set(backend._staged))}
+    if info["staged"]["missing"]:
+        raise AssertionError("the staging LRU lacks the versions "
+                             f"{info['staged']['missing']} of the cloud "
+                             "and the populated edges")
+
+    if on_card:
+        def cold_bnb():
+            system.clear_engine_caches()
+            ep.run_round(pairs, policy="bnb", observe=False,
+                         collect_results=True)
+        prof = device_profile(cold_bnb, track=QUERY_KERNELS, cpu=False)
+        kern_ms = sum(ms for ms, _ in prof["tracked"].values())
+        prof["query_kernel_share"] = kern_ms / max(prof["device_ms"], 1e-12)
+        info["cold_bnb_profile"] = prof
+
+    # overlap: the port never forks; "process" runs on threads
+    want = oracle.tables([t for _, t in pairs])
+    info["overlap"] = {}
+    for overlap, collect in ((True, True), ("process", False)):
+        system.clear_engine_caches()
+        rep = ep.run_round(pairs, policy="bnb", observe=False,
+                           overlap=overlap, collect_results=collect)
+        children = multiprocessing.active_children()
+        if rep.overlap_mode != "thread" or children:
+            raise AssertionError(f"overlap={overlap!r}: mode "
+                                 f"{rep.overlap_mode!r}, child processes "
+                                 f"{children}; want thread, none")
+        if collect:
+            check_round(f"overlap={overlap!r}", rep, pairs, want)
+        else:
+            got = [o.n_matches for o in rep.outcomes]
+            if got != [w.num_matches for w in want]:
+                raise AssertionError(f"overlap={overlap!r}: row counts "
+                                     "differ from the numpy oracle")
+        info["overlap"][str(overlap)] = {
+            "mode": rep.overlap_mode,
+            "execute_wall_seconds": rep.execute_wall_seconds}
+
+    info["partial"] = partial_round(gen, store, system.engine, oracle)
+    if on_card:
+        info["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+    info["phase_seconds"] = time.perf_counter() - t0
+    return info
+
+
+class CommitLog:
+    """Records the :class:`IngestReport` of every commit the system
+    makes through ``apply_update`` / ``apply_delta``."""
+
+    def __init__(self, system):
+        self.reports: list = []
+        for name in ("apply_update", "apply_delta"):
+            def wrapped(*a, _fn=getattr(system, name), **kw):
+                rep = _fn(*a, **kw)
+                self.reports.append(rep)
+                return rep
+            setattr(system, name, wrapped)
+
+    def summary(self, since: int = 0) -> list[dict]:
+        return [{"kind": r.kind, "n_add": r.n_add, "n_evict": r.n_evict,
+                 "new_terms": r.new_terms, "edges_updated": r.edges_updated,
+                 "shipped_bytes": r.shipped_bytes,
+                 "patterns_carried": r.patterns_carried,
+                 "patterns_invalidated": r.patterns_invalidated,
+                 "apply_seconds": r.apply_seconds}
+                for r in self.reports[since:]]
+
+
+def pattern_instance(pattern, dictionary, tag: str) -> list[tuple]:
+    """A fresh match of ``pattern``: one new term per vertex, one triple
+    per edge, as (subject, predicate, object) strings."""
+    return [(f"{tag}_v{u}", dictionary.predicate(label), f"{tag}_v{v}")
+            for u, v, label in pattern.edges]
+
+
+def _data_block(triples) -> str:
+    return " . ".join(f"<{s}> <{p}> <{o}>" for s, p, o in triples)
+
+
+def ingest_phase(gen, store, device, max_rows: int) -> dict:
+    """Part B: the write path and the rebalance on ``store``. A bnb round
+    observes the workload; an INSERT DATA of new terms completing a
+    resident pattern's match must reach the edges holding it; a window of
+    two ground updates and a DELETE WHERE must commit the two as one; a
+    rebalance overlaps a greedy round. After each step a round's results
+    equal the numpy oracle over the mutated cloud store."""
+    import torch
+    from repro_torch.core.pattern import VAR_PRED_LABEL
+    from repro_torch.rdf.deltas import member_rows
+    from repro_torch.sparql.endpoint import SparqlEndpoint
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    system, info = build_system(gen, store, device, max_rows)
+    d = gen.dictionary
+    ep = SparqlEndpoint.from_system(system)
+    pairs = system_pairs(gen)
+    oracle = Oracle(store, d, max_rows)
+    backend = system.engine.backend
+    commits = CommitLog(system)
+    info["steps"] = {}
+
+    def round_(label, policy="bnb", observe=False):
+        u0 = backend.staged_uploads
+        rep = ep.run_round(pairs, policy=policy, observe=observe,
+                           collect_results=True)
+        _sync(device)
+        check_round(label, rep, pairs, oracle.tables([t for _, t in pairs]))
+        return {"execute_wall_seconds": rep.execute_wall_seconds,
+                "staged_uploads": backend.staged_uploads - u0,
+                "edge_share": edge_share(rep)}
+
+    info["steps"]["observe"] = round_("observe", observe=True)
+
+    # an insert of new terms that completes a resident pattern's match
+    holders = {}
+    for es in system.edges:
+        for key, p in es._resident.items():
+            if all(lab != VAR_PRED_LABEL for _, _, lab in p.edges):
+                holders.setdefault(key, (p, []))[1].append(es)
+    if not holders:
+        raise AssertionError("no edge holds a pattern of bound predicates")
+    pat, edges = max(holders.values(), key=lambda pe: len(pe[1]))
+    rows_a = pattern_instance(pat, d, "ingestA")
+    t1 = time.perf_counter()
+    ack = ep.update(f"INSERT DATA {{ {_data_block(rows_a)} }}")
+    ack["seconds"] = time.perf_counter() - t1
+    if not (ack["edges_updated"] > 0 and ack["new_terms"] > 0
+            and ack["inserted"] == len(rows_a)):
+        raise AssertionError(f"insert completing a resident match: {ack}")
+    ids = np.array([[d.entity_id(s), d.predicate_id(p), d.entity_id(o)]
+                    for s, p, o in rows_a], dtype=np.int64)
+    for es in edges:
+        if not member_rows(ids, es.store.triples()).all():
+            raise AssertionError(f"edge {es.server_id} holds the resident "
+                                 "pattern but not the inserted rows")
+    info["steps"]["insert"] = {"ack": ack, "pattern_edges": len(pat.edges),
+                               "holders": [es.server_id for es in edges],
+                               "commits": commits.summary()}
+    info["steps"]["insert"]["round"] = round_("after insert")
+
+    # one window: two ground updates coalesce into one commit, then a
+    # DELETE WHERE commits on its own
+    rows_b = pattern_instance(pat, d, "ingestB")
+    s_b, p_b, _ = rows_b[0]
+    window = [f"INSERT DATA {{ {_data_block(rows_b)} }}",
+              f"DELETE DATA {{ {_data_block(rows_a[:1])} }}",
+              f"DELETE WHERE {{ <{s_b}> <{p_b}> ?o }}"]
+    n0, w0 = len(commits.reports), ep.write_commits
+    t1 = time.perf_counter()
+    acks = ep.update_many(window)
+    seconds = time.perf_counter() - t1
+    failed = [a for a in acks if isinstance(a, Exception)]
+    if failed:
+        raise failed[0]
+    if ([a["coalesced"] for a in acks] != [2, 2, 1]
+            or ep.write_commits - w0 != 2 or len(commits.reports) - n0 != 2
+            or acks[1]["deleted"] != 1 or acks[2]["deleted"] < 1):
+        raise AssertionError(f"update_many window: acks {acks}, "
+                             f"{ep.write_commits - w0} commits; want "
+                             "coalesced [2, 2, 1] in 2 commits")
+    info["steps"]["window"] = {"acks": acks, "seconds": seconds,
+                               "commits": commits.summary(n0)}
+    info["steps"]["window"]["round"] = round_("after window")
+
+    # a rebalance overlapping a greedy round, then a round on its result
+    t1 = time.perf_counter()
+    handle = system.rebalance_async()
+    info["steps"]["rebalance_overlap"] = round_("rebalance overlap",
+                                                policy="greedy")
+    rb = handle.join()
+    info["steps"]["rebalance"] = {
+        "seconds": time.perf_counter() - t1,
+        "changes": {str(k): v for k, v in rb.changes.items()},
+        "shipped_bytes": rb.shipped_bytes, "full_bytes": rb.full_bytes,
+        "matcher_calls": rb.matcher_calls, "induced_hits": rb.induced_hits,
+        "compute_seconds": rb.compute_seconds,
+        "commit_seconds": rb.commit_seconds, "epoch": rb.epoch}
+    info["steps"]["after_rebalance"] = round_("after rebalance")
+    info["staged_slots"] = {"max_staged": backend.max_staged,
+                            "flat_arrays": len(staged_versions(
+                                system.cloud.store).union(*(
+                                    staged_versions(es.store)
+                                    for es in system.edges
+                                    if es.store is not None)))}
+    if on_card:
+        info["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+    info["phase_seconds"] = time.perf_counter() - t0
+    return info
+
+
+def log_system(info: dict, gpu: str) -> None:
+    """The system phase's lines: placement, each policy's cold and warm
+    round, the cold bnb round's device time, overlap and the partial
+    round."""
+    log(f"system placement on {gpu}: construction_seconds "
+        f"{info['construction_seconds']}, budget {info['budget_bytes']} B, "
+        f"edges {json.dumps(info['edges'])}, oracle "
+        f"{info['oracle_seconds']} s")
+    for policy, r in info["rounds"].items():
+        log(f"system round {policy} on {gpu}: cold "
+            f"{r['cold']['execute_wall_seconds']} s, warm "
+            f"{r['warm']['execute_wall_seconds']} s, schedule_ms "
+            f"{r['cold']['schedule_ms']}, objective {r['objective']}, "
+            f"edge_share {r['edge_share']}: {json.dumps(r)}")
+        if policy == "bnb" and not (r["cold"]["optimal"]
+                                    and r["warm"]["optimal"]):
+            log("system round bnb: B&B stopped at its budget, the "
+                "incumbent is not certified optimal")
+    log(f"system launches over the rounds: {json.dumps(info['launches'])}; "
+        f"staged {json.dumps(info['staged'])}")
+    if "cold_bnb_profile" in info:
+        log(f"system cold bnb round under the profiler on {gpu}: "
+            f"{json.dumps(info['cold_bnb_profile'])}")
+    log(f"system overlap: {json.dumps(info['overlap'])}")
+    log(f"system partial round on {gpu}: {json.dumps(info['partial'])}")
+    log(f"system max_memory_allocated_gb "
+        f"{info.get('max_memory_allocated_gb')}, phase "
+        f"{info['phase_seconds']} s")
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2280,7 +2790,7 @@ def main(argv: list[str] | None = None) -> int:
             f"{time.perf_counter() - t0:.1f} s")
         run_phase("sharded", small, sharded, args.queries,
                   args.sharded_max_rows, dev)
-        del gen, small, sharded, full
+        del full
         torch.cuda.empty_cache()
 
     if not args.sparse_only:
@@ -2299,6 +2809,24 @@ def main(argv: list[str] | None = None) -> int:
         t0 = time.perf_counter()
         rows += gnn_phase(args, hbm, dev)
         log(f"gnn phase {time.perf_counter() - t0:.1f} s")
+
+    if not (args.lm_only or args.sparse_only):
+        # the paper's system on the SPARQL phases' stores, last: its long
+        # host-bound rounds perturb no earlier phase's measurements
+        t0 = time.perf_counter()
+        sys_a = system_phase(gen, gen.store, dev, args.max_rows)
+        log_system(sys_a, gpu)
+        # launches of one cold bnb round (the ten rounds' total is logged)
+        cold_bnb = sys_a["rounds"]["bnb"]["cold"]["launches"]
+        for row in rows:
+            if row["name"] in REPLACES:
+                row["system_launches"] = int(cold_bnb.get(row["name"], 0))
+        sys_b = ingest_phase(small, sharded, dev, args.sharded_max_rows)
+        log(f"system ingest (scale {args.sharded_scale}, 4 shards) on "
+            f"{gpu}: {json.dumps(sys_b)}")
+        log(f"system phase {time.perf_counter() - t0:.1f} s")
+        del gen, small, sharded, sys_a, sys_b
+        torch.cuda.empty_cache()
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

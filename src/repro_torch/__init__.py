@@ -5,12 +5,18 @@ The port of :mod:`repro` (the JAX package, kept as the reference). It
 imports nothing of ``repro`` and nothing of JAX: the framework-neutral
 modules it needs are its own copies, and the device layer is torch.
 
-Layers (ported so far: the SPARQL read path, the dense LM serving path,
-Wide&Deep scoring and retrieval, GCN inference)
+Layers (ported so far: the SPARQL read and write paths, the paper's
+cloud-edge system, the dense LM serving path, Wide&Deep scoring and
+retrieval, GCN inference)
 -----------------------------------------------------------------------
 - ``repro_torch.rdf``     : dictionary-encoded triple store + generators
 - ``repro_torch.sparql``  : parser, algebra, matcher, batched engine with
-  the ``torch`` backend and the device-resident join, ``SparqlEndpoint``
+  the ``torch`` backend and the device-resident join, SPARQL UPDATE
+  compilation, partial evaluation across edges, ``SparqlEndpoint``
+- ``repro_torch.core``    : query patterns and their index, pattern-induced
+  subgraphs, placement, the cost model, CRA, B&B and the baselines
+- ``repro_torch.edge``    : edge and cloud servers, rebalancing, and
+  ``EdgeCloudSystem`` (history -> placement -> schedule -> execution)
 - ``repro_torch.models``  : dense decoder LM (prefill, KV-cache decode),
   Wide&Deep (scoring, retrieval), GCN (forward over sorted edges)
 - ``repro_torch.data``    : synthetic recsys batches and graphs
@@ -19,8 +25,9 @@ Wide&Deep scoring and retrieval, GCN inference)
 - ``repro_torch.kernels`` : CUDA kernels (``csrc/rdf_kernels.cu``,
   ``csrc/attention_kernels.cu``, ``csrc/sparse_kernels.cu``) and their
   plain torch versions
-- ``repro_torch.convert`` : carries a reference store + dictionary, or a
-  reference LM, Wide&Deep or GCN parameter tree, over
+- ``repro_torch.convert`` : carries a reference store + dictionary, the
+  system's ``SystemParams``, or a reference LM, Wide&Deep or GCN parameter
+  tree, over
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -36,6 +43,10 @@ _LAZY = {
     "parse_query": ("repro_torch.sparql.query", "parse_query"),
     "parse_sparql": ("repro_torch.sparql.query", "parse_sparql"),
     "from_reference": ("repro_torch.convert", "from_reference"),
+    "system_params_from_reference": ("repro_torch.convert",
+                                     "system_params_from_reference"),
+    "EdgeCloudSystem": ("repro_torch.edge.system", "EdgeCloudSystem"),
+    "SystemParams": ("repro_torch.core.cost", "SystemParams"),
     "lm_params_from_reference": ("repro_torch.convert",
                                  "lm_params_from_reference"),
     "LMConfig": ("repro_torch.models.transformer", "LMConfig"),

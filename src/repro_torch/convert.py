@@ -7,8 +7,9 @@ and ``Dictionary.to_arrays()`` produce and rebuilds them as the port's
 store and dictionary. :func:`lm_params_from_reference`,
 :func:`recsys_params_from_reference` and :func:`gnn_params_from_reference`
 turn the model zoo's LM, Wide&Deep and GCN parameter trees, given as numpy
-arrays, into the port's params. All read plain arrays only, so they import
-nothing of the JAX package.
+arrays, into the port's params, and :func:`system_params_from_reference`
+the cloud-edge system's ``SystemParams``. All read plain arrays only, so
+they import nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from .device import resolve_device
 
+from .core.cost import SystemParams
 from .rdf.dictionary import Dictionary
 from .rdf.graph import TripleStore
 from .rdf.sharding import ShardedTripleStore
@@ -95,3 +97,18 @@ def gnn_params_from_reference(tree: dict, device=None) -> dict:
                                   f"(got keys {sorted(tree)})")
     dev = resolve_device(device)
     return {"w": [_tensor(w, dev) for w in tree["w"]]}
+
+
+def system_params_from_reference(ref_params) -> SystemParams:
+    """The port's :class:`~repro_torch.core.cost.SystemParams` from the
+    reference's: its numpy fields (``F``, ``r_edge``, ``r_cloud``,
+    ``assoc``, ``r_backhaul``, ``F_cloud``) copied as they are, so both
+    sides schedule on the same numbers."""
+    bh = getattr(ref_params, "r_backhaul", None)
+    return SystemParams(
+        F=np.array(ref_params.F, dtype=np.float64),
+        r_edge=np.array(ref_params.r_edge, dtype=np.float64),
+        r_cloud=np.array(ref_params.r_cloud, dtype=np.float64),
+        assoc=np.array(ref_params.assoc, dtype=bool),
+        r_backhaul=None if bh is None else np.array(bh, dtype=np.float64),
+        F_cloud=float(ref_params.F_cloud))

@@ -330,6 +330,10 @@ class TorchBackend(MatcherBackend):
         self.host_transfers = 0
         self.host_transfer_bytes = 0
         self.scalar_syncs = 0
+        # [T, 3] arrays copied to the device (staging LRU misses): a system
+        # whose cloud and edge stores need more flat arrays than
+        # ``max_staged`` re-uploads some of them every round
+        self.staged_uploads = 0
         # staging LRU is shared across overlapped server batches
         self._stage_lock = threading.Lock()
 
@@ -386,6 +390,7 @@ class TorchBackend(MatcherBackend):
             raise ValueError("dictionary ids exceed int32 kernel range")
         arr = self._to_device(store.triples())
         with self._stage_lock:
+            self.staged_uploads += 1
             self._staged[store.version] = arr
             limit = max(self.max_staged, min_slots)
             while len(self._staged) > limit:

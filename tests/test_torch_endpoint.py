@@ -136,7 +136,14 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.embedding_bag",
             "repro_torch.models.recsys", "repro_torch.models.gnn",
             "repro_torch.data.recsys", "repro_torch.data.graphs",
-            "repro_torch.configs.wide_deep", "repro_torch.configs.gcn_cora"}
+            "repro_torch.configs.wide_deep", "repro_torch.configs.gcn_cora",
+            "repro_torch.core.pattern", "repro_torch.core.induced",
+            "repro_torch.core.placement", "repro_torch.core.cost",
+            "repro_torch.core.cra", "repro_torch.core.bnb",
+            "repro_torch.core.baselines", "repro_torch.core.scheduler",
+            "repro_torch.core.parallel", "repro_torch.edge.server",
+            "repro_torch.edge.rebalance", "repro_torch.edge.system",
+            "repro_torch.sparql.update", "repro_torch.sparql.partial_eval"}
     assert want <= set(got["modules"])
 
 

@@ -1,0 +1,183 @@
+"""``chip_smoke.same_answer``, the multiset comparison that decides every
+SPARQL and system check of ``chip_smoke.py``: its packed-key route (rows
+packed into one int64 where their ids fit) agrees with the lexicographic
+sort, and both routes reject each kind of wrong answer."""
+
+import importlib
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _smoke():
+    sys.path.insert(0, str(ROOT))
+    try:
+        return importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+
+
+smoke = _smoke()
+
+
+def table(names, rows) -> SimpleNamespace:
+    """A solution table as ``same_answer`` reads it."""
+    return SimpleNamespace(var_names=list(names),
+                           bindings=np.asarray(rows, dtype=np.int64)
+                           .reshape(-1, len(names)))
+
+
+def packs(rows: np.ndarray) -> bool:
+    """Whether ``same_answer`` takes the packed route for these rows."""
+    span = int(rows.max()) - int(rows.min())
+    return max(1, span.bit_length()) * rows.shape[1] <= 63
+
+
+def lexsort_equal(a, b) -> bool:
+    """The plain definition: same variables, same sorted rows."""
+    if sorted(a.var_names) != sorted(b.var_names):
+        return False
+    ra, rb = smoke.sorted_rows(a), smoke.sorted_rows(b)
+    return ra.shape == rb.shape and np.array_equal(ra, rb)
+
+
+NAMES = ["?x", "?p", "?y"]
+# narrow ids take the packed route; ids near 2^40 over three columns
+# (123 bits) take the lexicographic one
+WIDTHS = {"packed": 60, "lexsort": 2 ** 40}
+
+
+def rows_of(rng, width: str, n: int = 300) -> np.ndarray:
+    hi = WIDTHS[width]
+    rows = rng.integers(0, hi, size=(n, len(NAMES)))
+    rows[rng.random(rows.shape) < 0.05] = -1       # OPTIONAL's unbound
+    # column 1 never equals column 0, so swapping them changes the answer
+    rows[:, 1] = (rows[:, 0] + 1 + rng.integers(0, 5, n)) % hi
+    assert packs(rows) == (width == "packed")
+    return rows
+
+
+def shuffled(rng, rows: np.ndarray) -> np.ndarray:
+    return rows[rng.permutation(len(rows))].copy()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_packed_route_agrees_with_lexsort(seed):
+    """Random pairs over a small alphabet, half of them equal multisets
+    and half differing in one place: the packed route answers as the
+    lexicographic sort does."""
+    rng = np.random.default_rng(seed)
+    answers = set()
+    for _ in range(200):
+        a = rng.integers(-1, 4, size=(int(rng.integers(0, 12)), 3))
+        b = shuffled(rng, a)
+        if len(b) and rng.random() < 0.5:
+            i, j = rng.integers(len(b)), rng.integers(3)
+            b[i, j] = rng.integers(-1, 4)
+        assert packs(np.concatenate([a, b])) if len(a) else True
+        ta, tb = table(NAMES, a), table(NAMES, b)
+        want = lexsort_equal(ta, tb)
+        assert smoke.same_answer(ta, tb) == want
+        assert smoke.same_answer(tb, ta) == want
+        answers.add(want)
+    assert answers == {True, False}
+
+
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_accepts_the_same_multiset(width):
+    """Rows in another order, and columns in another order with their
+    names, are the same answer on either route."""
+    rng = np.random.default_rng(1)
+    a = rows_of(rng, width)
+    b = shuffled(rng, a)
+    assert smoke.same_answer(table(NAMES, a), table(NAMES, b))
+    perm = [2, 0, 1]
+    assert smoke.same_answer(table(NAMES, a),
+                             table([NAMES[c] for c in perm], b[:, perm]))
+
+
+def mutate(kind: str, rng, a: np.ndarray) -> np.ndarray:
+    b = shuffled(rng, a)
+    if kind == "changed_cell":
+        b[7, 2] += 1 if b[7, 2] < a.max() else -1
+    elif kind == "duplicated_row":
+        j = next(j for j in range(1, len(b))
+                 if not np.array_equal(b[j], b[0]))
+        b[j] = b[0]
+    elif kind == "swapped_columns":
+        b[:, [0, 1]] = b[:, [1, 0]]
+    elif kind == "unbound_id":
+        i = int(np.flatnonzero(b[:, 2] >= 0)[0])
+        b[i, 2] = -1
+    elif kind == "bound_id":
+        i = int(np.flatnonzero(b[:, 2] < 0)[0])
+        b[i, 2] = 0
+    elif kind == "dropped_row":
+        b = b[1:]
+    return b
+
+
+KINDS = ["changed_cell", "duplicated_row", "swapped_columns", "unbound_id",
+         "bound_id", "dropped_row"]
+
+
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("kind", KINDS)
+def test_rejects_a_wrong_answer(width, kind):
+    """One changed cell, a duplicated row in place of another, two columns
+    swapped under the same names, a -1 (unbound) in place of an id and an
+    id in place of a -1, or a row less: each is a different answer, on
+    the packed route and on the lexicographic one."""
+    rng = np.random.default_rng(2)
+    a = rows_of(rng, width)
+    b = mutate(kind, rng, a)
+    ta, tb = table(NAMES, a), table(NAMES, b)
+    assert not lexsort_equal(ta, tb)
+    assert not smoke.same_answer(ta, tb)
+    assert not smoke.same_answer(tb, ta)
+
+
+@pytest.mark.parametrize("a,b", [
+    # a field one bit too narrow would pack both rows to 8
+    ([[0, 8]], [[1, 0]]),
+    # ids offset from -1: an unbound id must not borrow the next field
+    ([[-1, 5]], [[0, -1]]),
+    ([[2 ** 30, 0]], [[0, 2 ** 30]]),
+    # 31 bits a column: 62 bits, still packed, at the edge
+    ([[2 ** 31 - 1, 0], [0, 1]], [[0, 2 ** 31 - 1], [1, 0]]),
+])
+def test_rejects_rows_that_a_narrow_field_would_merge(a, b):
+    ta, tb = table(["?a", "?b"], a), table(["?a", "?b"], b)
+    assert packs(np.concatenate([ta.bindings, tb.bindings]))
+    assert not smoke.same_answer(ta, tb)
+
+
+def test_variables_and_ask_tables():
+    """Different variables differ; zero-column (ASK) tables compare by
+    their row count."""
+    rows = [[1, 2, 3]]
+    assert not smoke.same_answer(table(NAMES, rows),
+                                 table(["?x", "?p", "?z"], rows))
+    ask = [SimpleNamespace(var_names=[], bindings=np.zeros((n, 0), np.int64))
+           for n in (0, 1, 1)]
+    assert smoke.same_answer(ask[1], ask[2])
+    assert not smoke.same_answer(ask[0], ask[1])
+
+
+@pytest.mark.parametrize("first", [0, 2 ** 40 - 5])
+def test_wide_rows_differing_in_the_first_column(first):
+    """Three columns of 41 bits do not fit one int64: rows that differ only
+    in the first column (in variable-name order), whose field a packed key
+    would shift out, still differ."""
+    names = ["?a", "?b", "?c"]
+    a = table(names, [[first, 0, 2 ** 40], [first + 1, 1, 2 ** 40]])
+    b = table(names, [[first + 2, 0, 2 ** 40], [first + 1, 1, 2 ** 40]])
+    assert not packs(np.concatenate([a.bindings, b.bindings]))
+    assert not smoke.same_answer(a, b)
