@@ -52,6 +52,14 @@
    every round's results held against the numpy endpoint, bnb's
    objective the lowest, the query kernels launched against the edges'
    stores.
+9. The serving front end on the same two systems: the ``qad_solve``
+   kernel (R-QAD, behind B&B) against its plain version on the cold bnb
+   round's frontiers and seeded instances; B&B with the R-QAD and the
+   marginal bounds on that round's instance; a bnb round on the R-QAD
+   bound; HTTP in pool mode (two replicas and the cloud, 32 clients) and
+   in round mode (B&B on R-QAD every window, 16 clients); a window of
+   reads and two coalesced INSERT DATA on the ingest system; a sampled
+   workload replayed through the admission queue, every answer verified.
 
 Fails (non-zero exit, no result line) on any mismatch or exception, and
 when CUDA is not available. The last line is
@@ -61,6 +69,7 @@ when CUDA is not available. The last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import multiprocessing
@@ -2418,10 +2427,13 @@ def partial_round(gen, store, engine, oracle) -> dict:
             "round_seconds": wall}
 
 
-def system_phase(gen, store, device, max_rows: int) -> dict:
+def system_phase(gen, store, device, max_rows: int,
+                 keep: dict | None = None) -> dict:
     """Part A: the paper's pipeline on ``store`` (history -> placement ->
     five policies' rounds -> thread overlap -> partial split), every
-    result held against the numpy oracle. Raises on any failed check."""
+    result held against the numpy oracle. Raises on any failed check.
+    ``keep`` receives the system, its endpoint, the round's pairs and the
+    oracle for the serve phase."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.sparql.endpoint import SparqlEndpoint
@@ -2499,6 +2511,9 @@ def system_phase(gen, store, device, max_rows: int) -> dict:
             "execute_wall_seconds": rep.execute_wall_seconds}
 
     info["partial"] = partial_round(gen, store, system.engine, oracle)
+    if keep is not None:
+        keep.update(system=system, ep=ep, pairs=pairs, oracle=oracle,
+                    bnb_objective=rounds["bnb"]["objective"])
     if on_card:
         info["max_memory_allocated_gb"] = \
             torch.cuda.max_memory_allocated() / 1e9
@@ -2540,7 +2555,8 @@ def _data_block(triples) -> str:
     return " . ".join(f"<{s}> <{p}> <{o}>" for s, p, o in triples)
 
 
-def ingest_phase(gen, store, device, max_rows: int) -> dict:
+def ingest_phase(gen, store, device, max_rows: int,
+                 keep: dict | None = None) -> dict:
     """Part B: the write path and the rebalance on ``store``. A bnb round
     observes the workload; an INSERT DATA of new terms completing a
     resident pattern's match must reach the edges holding it; a window of
@@ -2641,6 +2657,8 @@ def ingest_phase(gen, store, device, max_rows: int) -> dict:
         "compute_seconds": rb.compute_seconds,
         "commit_seconds": rb.commit_seconds, "epoch": rb.epoch}
     info["steps"]["after_rebalance"] = round_("after rebalance")
+    if keep is not None:
+        keep.update(system=system, ep=ep, oracle=oracle)
     info["staged_slots"] = {"max_staged": backend.max_staged,
                             "flat_arrays": len(staged_versions(
                                 system.cloud.store).union(*(
@@ -2652,6 +2670,654 @@ def ingest_phase(gen, store, device, max_rows: int) -> dict:
             torch.cuda.max_memory_allocated() / 1e9
     info["phase_seconds"] = time.perf_counter() - t0
     return info
+
+
+# ---------------------------------------------------------------------------
+# the serving front end (R-QAD on the card, the pool, admission, HTTP,
+# workload replay)
+# ---------------------------------------------------------------------------
+
+QAD_SOURCE = "src/repro_torch/csrc/qad_kernels.cu"
+# qad_solve replaces no pl.pallas_call: the reference's jitted XLA solve
+QAD_REPLACES = "src/repro/core/qad.py:96 (solve_rqad; solve_rqad_batch at " \
+               ":146; jitted XLA, no pl.pallas_call)"
+QAD_ITERS = 200              # B&B's solver_iters
+# kernel vs plain: D within QAD_TOL plus what one ulp of A moves the plain
+# version (the relaxation's own float32 conditioning); f and lb within
+# QAD_TOL * max(1, |f|)
+QAD_TOL = 1e-5
+# seeded instances beside the round's: (N, K, children, seed)
+QAD_SEEDED = [(8, 2, 1, 1), (33, 5, 4, 2), (64, 8, 6, 3)]
+FADD_CYCLES = 4              # latency of a dependent float add (Hopper)
+SERVE_CLIENTS_POOL, SERVE_CLIENTS_ROUND = 32, 16
+SERVE_ROUND_WINDOW_S = 0.05
+SERVE_WRITE_WINDOW_S = 1.0   # all six requests of the write window in one
+# the workload harness as benchmarks/bench_workload.py samples it
+WORKLOAD_PER_SHAPE = 4
+WORKLOAD_TRAFFIC = dict(duration_s=3.0, qps=100.0, zipf_s=1.2,
+                        cold_fraction=0.15, seed=1)
+# row cap of the replay's oracle and engine: unanchored sampled shapes
+# reach millions of rows at scale 1000 (4.05M at scale 100)
+WORKLOAD_MAX_ROWS = 50_000_000
+
+
+def serve_texts(gen) -> list[str]:
+    """Texts whose answers stay small at scale 1000: the mix's anchored
+    chains and stars, the quickstart's ASK and DISTINCT, the cyclic text of
+    the host route."""
+    from repro_torch.rdf.generator import workload_sparql
+    return (workload_sparql(gen, 3, seed=3, templates=["anchored_chain"])
+            + workload_sparql(gen, 2, seed=3, templates=["anchored_star"])
+            + [SYSTEM_ALGEBRA[3], SYSTEM_ALGEBRA[2], SYSTEM_HOST_TEXT])
+
+
+def qad_instance(N, K, B, seed):
+    """A seeded instance of the relaxation (``make_instance``'s recipe of
+    the scheduler tests) with a frontier of B children pinned to seeded
+    prefixes of a third of the rows, as float32 host arrays."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(1e7, 5e8, N)
+    w = rng.uniform(1e5, 5e7, N)
+    e = (rng.random((N, K)) < 0.7).astype(np.float64)
+    A = e * np.sqrt(c)[:, None]
+    b = e * (w[:, None] / rng.uniform(2e6, 8e7, (N, K)) - w[:, None] / 5e6)
+    F = rng.uniform(1e8, 1e9, K)
+    fm = np.zeros(N)
+    fm[:max(1, N // 3)] = 1.0
+    Ds = np.zeros((B, N, K))
+    for i in range(B):
+        for n in range(max(1, N // 3)):
+            feas = np.flatnonzero(e[n])
+            ch = rng.integers(-1, len(feas))
+            if ch >= 0:
+                Ds[i, n, feas[ch]] = 1.0
+    return [x.astype(np.float32) for x in (A, b, F, e, fm, Ds)]
+
+
+class FrontierLog:
+    """Records each expansion's R-QAD inputs while B&B runs (a wrapper on
+    ``RqadBounder.solve``)."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    def __enter__(self):
+        from repro_torch.core import qad
+        self._cls, self._real = qad.RqadBounder, qad.RqadBounder.solve
+        log_ = self
+
+        def solve(bounder, fixed_mask, fixed_Ds, iters):
+            log_.calls.append(([t.cpu().numpy() for t in bounder._arrays],
+                               np.asarray(fixed_mask, np.float32),
+                               np.asarray(fixed_Ds, np.float32)))
+            return log_._real(bounder, fixed_mask, fixed_Ds, iters)
+        self._cls.solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.solve = self._real
+
+
+def qad_compare(args, device, iters=QAD_ITERS) -> dict:
+    """The kernel against the plain version on the card (both float32) on
+    one instance; raises past the tolerance."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.qad_solve import qad_solve, unpack
+    A, b, F, e, fm, Ds = (torch.from_numpy(np.ascontiguousarray(x))
+                          .to(device) for x in args)
+    N, K = A.shape
+    got = unpack(qad_solve(A, b, F, e, fm, Ds, iters).cpu(), N, K)
+    plain = unpack(ref.qad_solve_reference(A, b, F, e, fm, Ds, iters)
+                   .cpu(), N, K)
+    nudged = unpack(ref.qad_solve_reference(
+        A * (1 + 2.0 ** -23), b, F, e, fm, Ds, iters).cpu(), N, K)
+    spread = float((nudged[0] - plain[0]).abs().max())
+    return {"N": N, "K": K, "B": int(Ds.shape[0]),
+            **qad_errors(got, plain, spread)}
+
+
+def qad_errors(got, plain, spread: float) -> dict:
+    D, f, lb = got
+    pD, pf, plb = plain
+    scale = pf.abs().clamp_min(1.0)
+    out = {"d_err": float((D - pD).abs().max()),
+           "f_err": float(((f - pf).abs() / scale).max()),
+           "lb_err": float(((lb - plb).abs() / scale).max()),
+           "d_tol": QAD_TOL + spread}
+    out["ok"] = bool(out["d_err"] <= out["d_tol"]
+                     and out["f_err"] <= QAD_TOL
+                     and out["lb_err"] <= QAD_TOL)
+    return out
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def qad_kernel_row(args, launches: int, err: float, hbm: float) -> dict:
+    """``qad_solve`` at the round's shape: its time (median of 20 solves),
+    the plain version's on the card, and its bound: the larger of the bytes
+    over the memory rate, the float operations over the float32 peak and
+    the dependency chain (a row's 40 bisection steps, K dependent adds
+    each, every Nesterov step, at the card's top SM clock)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.qad_solve import qad_solve
+    dev = torch.device("cuda")
+    A, b, F, e, fm, Ds = (torch.from_numpy(np.ascontiguousarray(x))
+                          .to(dev) for x in args)
+    B, N, K = Ds.shape
+    kern_ms = time_ms(lambda: qad_solve(A, b, F, e, fm, Ds, QAD_ITERS),
+                      calls=1, reps=20)
+    plain_ms = time_ms(lambda: ref.qad_solve_reference(
+        A, b, F, e, fm, Ds, QAD_ITERS), calls=1, reps=3)
+    nbytes = 4 * (3 * N * K + K + N + B * N * K + B * (N * K + 2))
+    flops = B * QAD_ITERS * N * K * (ref.QAD_BISECT * 3 + 12)
+    chain = QAD_ITERS * ref.QAD_BISECT * K * FADD_CYCLES / sm_clock_hz()
+    bounds = {"bytes": nbytes / hbm * 1e3,
+              "operations": flops / SCALAR_OPS_PER_S * 1e3,
+              "chain": chain * 1e3}
+    return {"name": "qad_solve", "route": "cuda", "source": QAD_SOURCE,
+            "replaces": QAD_REPLACES, "pallas_counterpart": None,
+            "launches": int(launches), "max_abs_err": err, "ms": kern_ms,
+            "plain_ms": plain_ms, "bound_ms": max(bounds.values()),
+            "bound_by": "operations", "bound_parts_ms": bounds,
+            "shape": {"B": B, "N": N, "K": K, "iters": QAD_ITERS},
+            "library_ms": None}
+
+
+def check_bnb(rq, mg, launches: int | None) -> None:
+    """B&B with the R-QAD bound against the marginal bound on one
+    instance: both certified, same objective and D, one kernel launch an
+    expansion (``launches`` None on the CPU, which launches none)."""
+    if not (rq.optimal and mg.optimal):
+        raise AssertionError(f"bnb not certified: rqad {rq.optimal}, "
+                             f"marginal {mg.optimal}")
+    if not math.isclose(rq.objective, mg.objective, rel_tol=1e-9):
+        raise AssertionError(f"bnb objectives differ: rqad {rq.objective}, "
+                             f"marginal {mg.objective}")
+    if not np.array_equal(rq.D, mg.D):
+        raise AssertionError("bnb: rqad and marginal assignments differ")
+    if launches is not None and launches != rq.nodes_explored:
+        raise AssertionError(f"qad_solve launched {launches} times for "
+                             f"{rq.nodes_explored} expansions")
+
+
+def must_fail(label: str, check, *a) -> None:
+    """A planted fault must fail ``check``."""
+    try:
+        check(*a)
+    except AssertionError:
+        return
+    raise AssertionError(f"{label}: the planted fault passed the check")
+
+
+def rqad_checks(kept: dict, device, hbm: float) -> tuple[dict, dict]:
+    """Checks 1 and 2: the kernel against its plain version on the cold
+    bnb round's own instance and on seeded ones; B&B on that instance with
+    both bounds."""
+    import torch
+    from repro_torch.core.bnb import branch_and_bound
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    on_card = torch.device(device).type == "cuda"
+    system, ep, pairs = kept["system"], kept["ep"], kept["pairs"]
+    queries = [(u, ep.parse(t)) for u, t in pairs]
+    with FrontierLog() as frontiers:
+        tasks, params, _, _ = system._schedule_round(
+            queries, "bnb", {"bound": "rqad", "device": device},
+            include_partial=True)
+    calls = frontiers.calls
+    if not calls:
+        raise AssertionError("the round's B&B bounded no frontier")
+    widest = max(range(len(calls)), key=lambda i: len(calls[i][2]))
+    picks = sorted({0, widest, len(calls) - 1})
+    cases = [("round", [*calls[i][0], calls[i][1], calls[i][2]])
+             for i in picks]
+    cases += [(f"seeded{N}x{K}", qad_instance(N, K, B, seed))
+              for N, K, B, seed in QAD_SEEDED]
+    rows = []
+    for label, args in cases:
+        r = qad_compare(args, device)
+        r["case"] = label
+        rows.append(r)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"qad_solve differs from its plain version: "
+                             f"{bad}")
+    # planted fault: a kernel that ignores the pinned rows
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.qad_solve import qad_solve, unpack
+    round_args = [*calls[widest][0], calls[widest][1], calls[widest][2]]
+    A, b, F, e, fm, Ds = (torch.from_numpy(np.ascontiguousarray(x))
+                          .to(device) for x in round_args)
+    N, K = A.shape
+    kern = unpack(qad_solve(A, b, F, e, fm, Ds, QAD_ITERS).cpu(), N, K)
+    unpinned = unpack(ref.qad_solve_reference(
+        A, b, F, e, torch.zeros_like(fm), Ds, QAD_ITERS).cpu(), N, K)
+    planted = qad_errors(kern, unpinned, 0.0)
+    if planted["ok"]:
+        raise AssertionError("qad_solve: the planted fault (pins dropped) "
+                             "passed the check")
+    check1 = {"cases": rows, "planted": planted, "expansions": len(calls),
+              "widest": int(len(calls[widest][2])), "N": int(N),
+              "K": int(K),
+              "row": (qad_kernel_row(round_args, 0,
+                                     max(r["d_err"] for r in rows), hbm)
+                      if on_card else None)}
+
+    # check 2: B&B on the card with both bounds
+    times = {"rqad": [], "marginal": []}
+    for _ in range(3 if on_card else 1):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rq = branch_and_bound(tasks, params, bound="rqad", device=device)
+        _sync(device)
+        times["rqad"].append((time.perf_counter() - t0) * 1e3)
+        launches = (launch_counts().get("qad_solve", 0) if on_card
+                    else None)
+        t0 = time.perf_counter()
+        mg = branch_and_bound(tasks, params, bound="marginal")
+        times["marginal"].append((time.perf_counter() - t0) * 1e3)
+        check_bnb(rq, mg, launches)
+    cut = branch_and_bound(tasks, params, bound="rqad", device=device,
+                           max_nodes=1)
+    must_fail("bnb", check_bnb, cut, mg, launches)
+    check2 = {"nodes_explored": {"rqad": rq.nodes_explored,
+                                 "marginal": mg.nodes_explored},
+              "nodes_pruned": {"rqad": rq.nodes_pruned,
+                               "marginal": mg.nodes_pruned},
+              "schedule_ms": {k: statistics.median(v)
+                              for k, v in times.items()},
+              "qad_solve_launches": launches, "objective": rq.objective,
+              "N": tasks.N, "K": params.K}
+    return check1, check2
+
+
+def http_request(url: str, text: str, how: str, user: int = 0):
+    """One SPARQL request (GET, a raw POST or a form POST); returns the
+    JSON body and the seconds it took."""
+    import urllib.request
+    from urllib.parse import urlencode
+    t0 = time.perf_counter()
+    if how == "get":
+        req = urllib.request.Request(
+            f"{url}/sparql?{urlencode({'query': text, 'user': user})}")
+    elif how == "raw":
+        req = urllib.request.Request(
+            f"{url}/sparql?{urlencode({'user': user})}", data=text.encode(),
+            headers={"Content-Type": "application/sparql-query"})
+    else:
+        req = urllib.request.Request(
+            f"{url}/sparql", data=urlencode({"query": text, "user": user})
+            .encode(), headers={
+                "Content-Type": "application/x-www-form-urlencoded"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        body = json.loads(r.read())
+    return body, time.perf_counter() - t0
+
+
+def json_answer(table, text: str, dictionary) -> dict:
+    """The W3C JSON of ``table`` as the port's serializer writes it."""
+    from repro_torch.runtime.http import ask_to_json, table_to_json
+    from repro_torch.sparql.algebra import AskNode, compile_query
+    from repro_torch.sparql.query import parse_query
+    plan = compile_query(parse_query(text, dictionary), dictionary)
+    return ask_to_json(table) if isinstance(plan, AskNode) \
+        else table_to_json(table)
+
+
+def same_json(a: dict, b: dict) -> bool:
+    """Equal heads, and bindings equal as multisets."""
+    if a.get("head") != b.get("head") or a.get("boolean") != \
+            b.get("boolean"):
+        return False
+    def rows(x):
+        return sorted(json.dumps(r, sort_keys=True)
+                      for r in x.get("results", {}).get("bindings", []))
+    return rows(a) == rows(b)
+
+
+def check_json(label: str, bodies: list, want: list) -> None:
+    bad = sum(not same_json(g, w) for g, w in zip(bodies, want))
+    if bad or len(bodies) != len(want):
+        raise AssertionError(f"{label}: {bad} of {len(want)} HTTP answers "
+                             "differ from the numpy oracle's")
+
+
+def clients(url: str, jobs: list) -> tuple[list, list]:
+    """Runs each (text, how, user) job on its own thread, all released
+    together; returns the bodies and the seconds each took."""
+    import threading
+    out: list = [None] * len(jobs)
+    gate = threading.Barrier(len(jobs))
+    errors: list = []
+
+    def run(i, job):
+        try:
+            gate.wait(60)
+            out[i] = http_request(url, *job)
+        except Exception as err:          # surfaced below
+            errors.append(err)
+    threads = [threading.Thread(target=run, args=(i, j))
+               for i, j in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if errors:
+        raise errors[0]
+    return [o[0] for o in out], [o[1] for o in out]
+
+
+def latency(secs: list) -> dict:
+    return {"p50_ms": float(np.percentile(secs, 50) * 1e3),
+            "p99_ms": float(np.percentile(secs, 99) * 1e3)}
+
+
+def http_pool(gen, store, oracle, device, max_rows: int) -> tuple:
+    """Check 4: the pool front end as ``examples/serve_offload.py`` lays it
+    out, over HTTP."""
+    from repro_torch.runtime.http import SparqlHttpServer
+    from repro_torch.runtime.serving import (OffloadServingPool, Replica,
+                                             make_sparql_runner)
+    from repro_torch.sparql.endpoint import SparqlEndpoint
+    from repro_torch.sparql.engine import QueryEngine, TorchBackend
+    engine = QueryEngine(backend=TorchBackend(device=device),
+                         max_rows=max_rows)
+    runner = make_sparql_runner(store, engine)
+    pool = OffloadServingPool(
+        replicas=[Replica(0, {0}, 2e8, 75e6, runner),
+                  Replica(1, {0}, 4e8, 75e6, runner)],
+        cloud_runner=runner, cloud_link_bps=5e6)
+    ep = SparqlEndpoint(store, gen.dictionary, engine=engine, pool=pool)
+    texts = serve_texts(gen)
+    want = [json_answer(t, x, gen.dictionary)
+            for t, x in zip(oracle.tables(texts), texts)]
+    hows = ("get", "raw", "form")
+    jobs = [(texts[i % len(texts)], hows[i % 3], 0)
+            for i in range(SERVE_CLIENTS_POOL)]
+    t0 = time.perf_counter()
+    with SparqlHttpServer(ep, mode="pool", window_s=0.002, max_batch=64,
+                          mode_kw={"policy": "greedy"}) as srv:
+        bodies, secs = clients(srv.url, jobs)
+        wall = time.perf_counter() - t0
+        stats = srv.stats_dict()
+    expect = [want[i % len(texts)] for i in range(len(jobs))]
+    check_json("http pool", bodies, expect)
+    must_fail("http pool", check_json, "planted", bodies,
+              expect[1:] + expect[:1])
+    adm = stats["admission"]
+    if not adm["batches"] < adm["submitted"]:
+        raise AssertionError(f"http pool: {adm['batches']} batches for "
+                             f"{adm['submitted']} requests")
+    return {
+        "wall_s": wall, **latency(secs), "batches": adm["batches"],
+        "submitted": adm["submitted"],
+        "mean_batch_size": adm["mean_batch_size"],
+        "assignment_counts": adm["assignment_counts"],
+        "rows": [len(b.get("results", {}).get("bindings", []))
+                 for b in want]}
+
+
+def check_windows(label: str, infos: list) -> None:
+    if not infos or not all(i.get("optimal") for i in infos):
+        raise AssertionError(f"{label}: B&B not certified in every window: "
+                             f"{infos}")
+
+
+def http_round(gen, kept: dict, device) -> dict:
+    """Check 5: the round front end over the scale-1000 system, B&B on the
+    R-QAD bound in every window."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.runtime.http import SparqlHttpServer
+    ep, oracle = kept["ep"], kept["oracle"]
+    budget = ({} if torch.device(device).type == "cuda"
+              else {"max_seconds": None})
+    infos: list = []
+    real = ep.run_round
+
+    def run_round(*a, **kw):
+        rep = real(*a, **kw)
+        infos.append(dict(rep.schedule_info))
+        return rep
+    ep.run_round = run_round
+    texts = serve_texts(gen)
+    want = [json_answer(t, x, gen.dictionary)
+            for t, x in zip(oracle.tables(texts), texts)]
+    jobs = [(texts[i % len(texts)], ("get", "raw", "form")[i % 3],
+             i % SYSTEM_USERS) for i in range(SERVE_CLIENTS_ROUND)]
+    l0 = launch_counts().get("qad_solve", 0)
+    try:
+        t0 = time.perf_counter()
+        with SparqlHttpServer(ep, mode="round",
+                              window_s=SERVE_ROUND_WINDOW_S, max_batch=32,
+                              mode_kw={"policy": "bnb", "bound": "rqad",
+                                       **budget}) as srv:
+            bodies, secs = clients(srv.url, jobs)
+            wall = time.perf_counter() - t0
+            stats = srv.stats_dict()
+    finally:
+        del ep.run_round
+    expect = [want[i % len(texts)] for i in range(len(jobs))]
+    check_json("http round", bodies, expect)
+    must_fail("http round", check_json, "planted", bodies,
+              expect[1:] + expect[:1])
+    check_windows("http round", infos)
+    must_fail("http round", check_windows, "planted",
+              infos + [{"optimal": False}])
+    qad = launch_counts().get("qad_solve", 0) - l0
+    if qad <= 0 and torch.device(device).type == "cuda":
+        raise AssertionError("http round: B&B ran without qad_solve")
+    return {"wall_s": wall, **latency(secs),
+            "batches": stats["admission"]["batches"],
+            "mean_batch_size": stats["admission"]["mean_batch_size"],
+            "windows": [{k: i.get(k) for k in ("nodes_explored",
+                                                "optimal", "solve_seconds")}
+                        for i in infos],
+            "qad_solve_launches": qad}
+
+
+def write_window(small, kept: dict) -> dict:
+    """Check 6: four reads and two INSERT DATA POSTs to ``/update`` in one
+    window of the ingest system's round front end."""
+    import threading
+    import urllib.request
+    from repro_torch.runtime.http import SparqlHttpServer
+    ep, oracle, d = kept["ep"], kept["oracle"], small.dictionary
+    store = kept["system"].cloud.store
+    pid = d.predicate_id("likes")
+    idx = store.pred_index(pid)
+    user = d.entity(int(store.s[idx.s_order[0]]))
+    mine = f"SELECT ?p WHERE {{ <{user}> <likes> ?p }}"
+    texts = [mine, f"ASK {{ <{user}> <likes> ?p }}"] + serve_texts(small)[:2]
+    writes = [f"INSERT DATA {{ <{user}> <likes> <serveW{i}> }}"
+              for i in range(2)]
+    before = [json_answer(t, x, d)
+              for t, x in zip(oracle.tables(texts), texts)]
+    out: dict = {}
+    gate = threading.Barrier(len(texts) + len(writes))
+
+    def read(i):
+        gate.wait(60)
+        out[("r", i)] = http_request(srv.url, texts[i], "get")[0]
+
+    def write(i):
+        gate.wait(60)
+        req = urllib.request.Request(
+            f"{srv.url}/update", data=writes[i].encode(),
+            headers={"Content-Type": "application/sparql-update"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out[("w", i)] = json.loads(r.read())
+
+    commits0 = ep.write_commits
+    with SparqlHttpServer(ep, mode="round", coalesce_writes=True,
+                          window_s=SERVE_WRITE_WINDOW_S, max_batch=64) as srv:
+        threads = ([threading.Thread(target=read, args=(i,))
+                    for i in range(len(texts))]
+                   + [threading.Thread(target=write, args=(i,))
+                      for i in range(len(writes))])
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t0
+        batches = srv.queue.stats.batches
+        after = http_request(srv.url, mine, "get")[0]
+    reads = [out[("r", i)] for i in range(len(texts))]
+    acks = [out[("w", i)] for i in range(len(writes))]
+    check_json("write window reads", reads, before)
+    want_after = json_answer(oracle.tables([mine])[0], mine, d)
+    check_json("read after the window", [after], [want_after])
+    must_fail("write window", check_json, "planted", reads[:1],
+              [want_after])
+    if (batches != 1 or [a["coalesced"] for a in acks] != [2, 2]
+            or [a["inserted"] for a in acks] != [1, 1]
+            or ep.write_commits - commits0 != 1):
+        raise AssertionError(f"write window: {batches} batches, acks {acks},"
+                             f" {ep.write_commits - commits0} commits; want "
+                             "one window, both coalesced in 1 commit")
+    got_rows = len(after["results"]["bindings"])
+    if got_rows != len(before[0]["results"]["bindings"]) + 2:
+        raise AssertionError("the read after the window misses the inserts")
+    return {"wall_s": wall, "acks": acks, "commits": 1,
+            "rows_before": len(before[0]["results"]["bindings"]),
+            "rows_after": got_rows}
+
+
+def check_replay(label: str, rep, sched) -> None:
+    if not (rep.verification_ok and rep.errors == 0
+            and rep.completed == len(sched.events)
+            and rep.verified == sched.n_queries):
+        raise AssertionError(f"{label}: completed {rep.completed} of "
+                             f"{len(sched.events)}, errors {rep.errors}, "
+                             f"verified {rep.verified}, mismatches "
+                             f"{rep.mismatches}")
+
+
+def workload_replay(gen, store, device) -> dict:
+    """Check 7: sampled templates replayed through the endpoint's
+    admission queue on the card, every answer checked against the
+    cardinality the sampler's numpy oracle recorded."""
+    from repro_torch.runtime.admission import AdmissionQueue
+    from repro_torch.sparql.endpoint import SparqlEndpoint
+    from repro_torch.sparql.engine import QueryEngine, TorchBackend
+    from repro_torch.workload import (PatternSampler, Schedule,
+                                      ShapeConfig, TrafficConfig,
+                                      build_schedule, replay)
+    from repro_torch.workload.sampler import SHAPES
+    t0 = time.perf_counter()
+    smp = PatternSampler(store, gen.dictionary, seed=0,
+                         exclude_predicates=["country"],
+                         engine=QueryEngine(backend="numpy",
+                                            max_rows=WORKLOAD_MAX_ROWS))
+    templates = smp.sample_mix(
+        [ShapeConfig(s, size=3, const_frac=0.3,
+                     decorations=(None, "filter", "limit"))
+         for s in SHAPES], WORKLOAD_PER_SHAPE)
+    sample_s = time.perf_counter() - t0
+    sched = build_schedule(templates, TrafficConfig(**WORKLOAD_TRAFFIC))
+    ep = SparqlEndpoint(store, gen.dictionary, engine=QueryEngine(
+        backend=TorchBackend(device=device), max_rows=WORKLOAD_MAX_ROWS))
+    with AdmissionQueue(ep, mode="endpoint", window_s=0.002,
+                        max_batch=64) as q:
+        rep = replay(q, sched)
+        check_replay("workload replay", rep, sched)
+        wrong = [dataclasses.replace(e, cardinality=e.cardinality + 1)
+                 for e in sched.events[:20]]
+        bad = Schedule(events=wrong, config=sched.config,
+                       templates=sched.templates)
+        must_fail("workload replay", check_replay, "planted",
+                  replay(q, bad, speed=100.0), bad)
+    return {"sample_s": sample_s, "templates": [
+                {"shape": t.shape, "cardinality": t.cardinality,
+                 "decoration": t.decoration} for t in templates],
+            "events": len(sched.events), "completed": rep.completed,
+            "errors": rep.errors, "verified": rep.verified,
+            "wall_s": rep.wall_s,
+            "per_shape": {k: {"count": v.count,
+                              **{p: v.percentiles()[p] * 1e3
+                                 for p in ("p50", "p99")}}
+                          for k, v in sorted(rep.per_shape.items())},
+            "batches": rep.admission["batches"],
+            "mean_batch_size": rep.admission["mean_batch_size"]}
+
+
+def serve_phase(gen, small, kept_a: dict, kept_b: dict, device,
+                max_rows: int, hbm: float) -> tuple[dict, dict]:
+    """The serving front end on the card: the R-QAD kernel against its
+    plain version, B&B with both bounds, a bnb round on the R-QAD bound,
+    HTTP in pool and round modes, a write window, a workload replay.
+    Returns the phase's info and the ``qad_solve`` kernel row."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    info: dict = {}
+    info["qad"], info["bnb"] = rqad_checks(kept_a, device, hbm)
+    row = info["qad"].pop("row")
+
+    # the main path, through the entry points a user calls
+    reset_launch_counts()
+    ep, pairs, oracle = kept_a["ep"], kept_a["pairs"], kept_a["oracle"]
+    kept_a["system"].clear_engine_caches()
+    t1 = time.perf_counter()
+    # the system's 2-s B&B budget on the card; the plain version on the
+    # CPU (a rehearsal) takes ~0.3 s a solve, so there B&B runs unbudgeted
+    budget = {} if on_card else {"max_seconds": None}
+    rep = ep.run_round(pairs, policy="bnb", bound="rqad", observe=False,
+                       collect_results=True, **budget)
+    _sync(device)
+    want = oracle.tables([t for _, t in pairs])
+    check_round("bnb round (rqad)", rep, pairs, want)
+    must_fail("bnb round (rqad)", check_round, "planted", rep, pairs,
+              want[1:] + want[:1])
+    if not (rep.schedule_info.get("optimal") and math.isclose(
+            rep.objective, kept_a["bnb_objective"], rel_tol=1e-9)):
+        raise AssertionError(f"bnb round (rqad): objective {rep.objective} "
+                             f"against the marginal round's "
+                             f"{kept_a['bnb_objective']}, info "
+                             f"{rep.schedule_info}")
+    info["round"] = {"seconds": time.perf_counter() - t1,
+                     "execute_wall_seconds": rep.execute_wall_seconds,
+                     "schedule_ms": rep.schedule_seconds * 1e3,
+                     "objective": rep.objective,
+                     "nodes_explored": rep.schedule_info.get(
+                         "nodes_explored")}
+    info["http_pool"] = http_pool(gen, gen.store, oracle, device, max_rows)
+    info["http_round"] = http_round(gen, kept_a, device)
+    info["write_window"] = write_window(small, kept_b)
+    info["workload"] = workload_replay(gen, gen.store, device)
+    launches = launch_counts()
+    info["launches"] = launches
+    missing = [k for k in [*REPLACES, "qad_solve"]
+               if launches.get(k, 0) <= 0]
+    if row is not None:
+        if missing:
+            raise AssertionError(f"serve: kernels not launched on the "
+                                 f"serving path: {missing}")
+        row["launches"] = int(launches["qad_solve"])
+    info["phase_seconds"] = time.perf_counter() - t0
+    return info, row
+
+
+def log_serve(info: dict, gpu: str) -> None:
+    q = info["qad"]
+    log(f"serve qad_solve vs plain on {gpu}: {q['expansions']} expansions "
+        f"of the round (N {q['N']}, K {q['K']}, widest {q['widest']}); "
+        f"{json.dumps(q['cases'])}; planted {json.dumps(q['planted'])}")
+    log(f"serve bnb on {gpu}: {json.dumps(info['bnb'])}")
+    log(f"serve bnb round rqad on {gpu}: {json.dumps(info['round'])}")
+    for key in ("http_pool", "http_round", "write_window", "workload"):
+        log(f"serve {key} on {gpu}: {json.dumps(info[key])}")
+    log(f"serve launches on the serving path: {json.dumps(info['launches'])}"
+        f"; phase {info['phase_seconds']} s")
 
 
 def log_system(info: dict, gpu: str) -> None:
@@ -2814,18 +3480,27 @@ def main(argv: list[str] | None = None) -> int:
         # the paper's system on the SPARQL phases' stores, last: its long
         # host-bound rounds perturb no earlier phase's measurements
         t0 = time.perf_counter()
-        sys_a = system_phase(gen, gen.store, dev, args.max_rows)
+        kept_a, kept_b = {}, {}
+        sys_a = system_phase(gen, gen.store, dev, args.max_rows, keep=kept_a)
         log_system(sys_a, gpu)
         # launches of one cold bnb round (the ten rounds' total is logged)
         cold_bnb = sys_a["rounds"]["bnb"]["cold"]["launches"]
         for row in rows:
             if row["name"] in REPLACES:
                 row["system_launches"] = int(cold_bnb.get(row["name"], 0))
-        sys_b = ingest_phase(small, sharded, dev, args.sharded_max_rows)
+        sys_b = ingest_phase(small, sharded, dev, args.sharded_max_rows,
+                             keep=kept_b)
         log(f"system ingest (scale {args.sharded_scale}, 4 shards) on "
             f"{gpu}: {json.dumps(sys_b)}")
         log(f"system phase {time.perf_counter() - t0:.1f} s")
-        del gen, small, sharded, sys_a, sys_b
+        # the serving front end on the same two systems, no second placement
+        t0 = time.perf_counter()
+        serve, qad_row = serve_phase(gen, small, kept_a, kept_b, dev,
+                                     args.max_rows, hbm)
+        log_serve(serve, gpu)
+        rows.append(qad_row)
+        log(f"serve phase {time.perf_counter() - t0:.1f} s")
+        del gen, small, sharded, sys_a, sys_b, kept_a, kept_b, serve
         torch.cuda.empty_cache()
 
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -6,7 +6,8 @@ imports nothing of ``repro`` and nothing of JAX: the framework-neutral
 modules it needs are its own copies, and the device layer is torch.
 
 Layers (ported so far: the SPARQL read and write paths, the paper's
-cloud-edge system, the dense LM serving path, Wide&Deep scoring and
+cloud-edge system with B&B on the R-QAD bound, the serving front end, the
+workload harness, the dense LM serving path, Wide&Deep scoring and
 retrieval, GCN inference)
 -----------------------------------------------------------------------
 - ``repro_torch.rdf``     : dictionary-encoded triple store + generators
@@ -14,7 +15,12 @@ retrieval, GCN inference)
   the ``torch`` backend and the device-resident join, SPARQL UPDATE
   compilation, partial evaluation across edges, ``SparqlEndpoint``
 - ``repro_torch.core``    : query patterns and their index, pattern-induced
-  subgraphs, placement, the cost model, CRA, B&B and the baselines
+  subgraphs, placement, the cost model, CRA, the R-QAD relaxation, B&B and
+  the baselines
+- ``repro_torch.runtime`` : the offload serving pool, micro-batch admission,
+  the SPARQL-protocol HTTP server
+- ``repro_torch.workload``: witnessed query sampling, traffic schedules,
+  replay with verification
 - ``repro_torch.edge``    : edge and cloud servers, rebalancing, and
   ``EdgeCloudSystem`` (history -> placement -> schedule -> execution)
 - ``repro_torch.models``  : dense decoder LM (prefill, KV-cache decode),
@@ -23,8 +29,9 @@ retrieval, GCN inference)
 - ``repro_torch.configs`` : qwen3-0.6b, qwen3-1.7b, gemma2-2b, wide-deep,
   gcn-cora; LM, recsys and GNN shapes
 - ``repro_torch.kernels`` : CUDA kernels (``csrc/rdf_kernels.cu``,
-  ``csrc/attention_kernels.cu``, ``csrc/sparse_kernels.cu``) and their
-  plain torch versions
+  ``csrc/attention_kernels.cu``, ``csrc/flash_tc.cu``, ``csrc/decode_tc.cu``,
+  ``csrc/sparse_kernels.cu``, ``csrc/qad_kernels.cu``) and their plain
+  torch versions
 - ``repro_torch.convert`` : carries a reference store + dictionary, the
   system's ``SystemParams``, or a reference LM, Wide&Deep or GCN parameter
   tree, over
@@ -77,6 +84,22 @@ _LAZY = {
     "segment_sum_sorted": ("repro_torch.kernels.segment_mp",
                            "segment_sum_sorted"),
     "embedding_bag": ("repro_torch.kernels.embedding_bag", "embedding_bag"),
+    "branch_and_bound": ("repro_torch.core.bnb", "branch_and_bound"),
+    "solve_rqad": ("repro_torch.core.qad", "solve_rqad"),
+    "solve_rqad_batch": ("repro_torch.core.qad", "solve_rqad_batch"),
+    "qad_solve": ("repro_torch.kernels.qad_solve", "qad_solve"),
+    "OffloadServingPool": ("repro_torch.runtime.serving",
+                           "OffloadServingPool"),
+    "Replica": ("repro_torch.runtime.serving", "Replica"),
+    "make_sparql_runner": ("repro_torch.runtime.serving",
+                           "make_sparql_runner"),
+    "AdmissionQueue": ("repro_torch.runtime.admission", "AdmissionQueue"),
+    "SparqlHttpServer": ("repro_torch.runtime.http", "SparqlHttpServer"),
+    "PatternSampler": ("repro_torch.workload.sampler", "PatternSampler"),
+    "ShapeConfig": ("repro_torch.workload.sampler", "ShapeConfig"),
+    "TrafficConfig": ("repro_torch.workload.traffic", "TrafficConfig"),
+    "build_schedule": ("repro_torch.workload.traffic", "build_schedule"),
+    "replay": ("repro_torch.workload.driver", "replay"),
 }
 
 

@@ -401,6 +401,10 @@ class EdgeCloudSystem:
             # anytime budget: at paper scale (K=4, N=20) optimality is
             # proven in ms; at fleet scale the incumbent is returned
             sched_kw.setdefault("max_seconds", 2.0)
+            # bound="rqad" solves on the engine's device (the CPU for the
+            # numpy backend)
+            sched_kw.setdefault("device", getattr(self.engine.backend,
+                                                  "device", "cpu"))
         t0 = time.perf_counter()
         sr: ScheduleResult = schedule(tasks, params_batch, policy=policy,
                                       **sched_kw)

@@ -6,7 +6,8 @@ library with a plain C interface under ``<repo>/build/`` and loaded with
 ``attention_kernels.cu`` (the float32 LM attention kernels: prefill and
 decode), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
 cores), ``decode_tc.cu`` (bfloat16 decode attention: a TMA ring, scores on
-the tensor cores) and ``sparse_kernels.cu`` (the recsys and GNN kernels).
+the tensor cores), ``sparse_kernels.cu`` (the recsys and GNN kernels) and
+``qad_kernels.cu`` (the R-QAD solve behind B&B).
 A file name carries a hash of its source and flags, so an edited source
 is rebuilt and a stale library is never loaded. Nothing here runs when
 the module is imported: the CPU tests import every module of the
@@ -82,6 +83,11 @@ LIBRARIES = {
         # per, chunk, sub, n_sub, cols, stages, ring, blocks
         "segment_sum_sorted": [_P, _P, _P, _P, _I, _L, _I, _I, _L, _I, _I,
                                _I, _I, _I, _I, _I],
+    }),
+    "qad": ("qad_kernels.cu", {
+        # A, b, F, e, fixed_mask, fixed_Ds, out, B, N, K, iters, threads,
+        # smem bytes
+        "qad_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
     }),
 }
 # a kernel's default library: the first that has it (the attention kernels

@@ -163,3 +163,75 @@ def embedding_bag_reference(table: torch.Tensor, ids: torch.Tensor,
     if combiner == "mean":
         s = s / m.sum(dim=2).clamp(min=1.0)[..., None]
     return s.to(table.dtype)
+
+
+# ---------------------------------------------------------------------------
+# R-QAD (the scheduler's relaxation bound behind B&B)
+# ---------------------------------------------------------------------------
+
+QAD_BISECT = 40              # bisection steps of a row projection
+
+
+def project_rows_reference(x: torch.Tensor, e: torch.Tensor,
+                           n_bisect: int = QAD_BISECT) -> torch.Tensor:
+    """Project the rows of x onto {d in [0, 1]^K : sum_{k: e_k > 0} d_k <=
+    1}: a row whose clipped sum is at most 1 is the clip; otherwise
+    ``clip(x - tau, 0, 1)`` with tau found by ``n_bisect`` bisection steps
+    on [0, max(x, 0)]."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    x = torch.where(e > 0, x, zero)
+    y = x.clamp(0.0, 1.0)
+    s = y.sum(-1)
+    lo = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    hi = x.amax(-1).clamp_min(0.0)
+    for _ in range(n_bisect):
+        mid = 0.5 * (lo + hi)
+        gt = (x - mid[..., None]).clamp(0.0, 1.0).sum(-1) > 1.0
+        lo = torch.where(gt, mid, lo)
+        hi = torch.where(gt, hi, mid)
+    z = (x - hi[..., None]).clamp(0.0, 1.0)
+    return torch.where((s <= 1.0)[..., None], y, z)
+
+
+def qad_solve_reference(A: torch.Tensor, b: torch.Tensor, F: torch.Tensor,
+                        e: torch.Tensor, fixed_mask: torch.Tensor,
+                        fixed_Ds: torch.Tensor, iters: int) -> torch.Tensor:
+    """A, b, e [N, K], F [K], fixed_mask [N] (0 or 1), fixed_Ds [B, N, K],
+    all float32 -> [B, N*K + 2] float32: each child's relaxed D (rows
+    where ``fixed_mask`` is 1 pinned to its ``fixed_Ds`` rows), then its
+    objective f and its Frank-Wolfe certified lower bound lb.
+
+    ``iters`` projected Nesterov steps on f(D) = sum_k (sum_n D_nk A_nk)^2
+    / F_k + sum_nk D_nk b_nk with step 1/L, L = 2 max_k sum_n A_nk^2 / F_k;
+    then lb = f + sum over free rows of min(0, min_{k: free} g_nk) - g_n.x_n
+    (g the gradient at the solution). The arithmetic follows
+    ``repro/core/qad.py:solve_rqad`` step for step, in float32."""
+    B, N, K = fixed_Ds.shape
+    free = (1.0 - fixed_mask)[:, None] * e
+    pinned = fixed_mask[:, None] > 0
+
+    def grad(D):
+        S = (D * A).sum(-2)
+        return (2.0 * A * (S / F)[:, None, :] + b) * free, S
+
+    L = 2.0 * ((A * A).sum(0) / F).amax() + 1e-12
+    step = 1.0 / L
+    x = project_rows_reference(torch.full_like(A, 0.5) * free, e) * free
+    x = x.expand(B, N, K).contiguous()
+    x_prev = x
+    for t in range(iters):
+        beta = float(torch.tensor(float(t)) / (torch.tensor(float(t)) + 3.0))
+        y = x + beta * (x - x_prev)
+        g, _ = grad(torch.where(pinned, fixed_Ds, y * free))
+        x, x_prev = project_rows_reference(y - step * g, e) * free, x
+    x = project_rows_reference(x, e) * free
+    D = torch.where(pinned, fixed_Ds, x * free)
+    g, S = grad(D)
+    f = (S * S / F).sum(-1) + (D * b).sum((-2, -1))
+    inf = torch.tensor(float("inf"), dtype=g.dtype, device=g.device)
+    row_min = torch.where(free > 0, g, inf).amin(-1).clamp_max(0.0)
+    row_min = torch.where(torch.isfinite(row_min), row_min,
+                          torch.zeros_like(row_min))
+    gap = (row_min - (g * x).sum(-1)) * (1.0 - fixed_mask)
+    lb = f + gap.sum(-1)
+    return torch.cat([D.reshape(B, N * K), f[:, None], lb[:, None]], dim=1)

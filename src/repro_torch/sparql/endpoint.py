@@ -29,8 +29,13 @@ Construction from the edge-cloud stack:
 - :meth:`update` / :meth:`update_many` are the write path (SPARQL UPDATE):
   through ``system.apply_update`` / ``apply_delta`` when a system is
   attached, straight onto the store otherwise.
-
-The serving pool's ``admit_many`` is not part of this package yet.
+- ``pool=`` attaches an
+  :class:`~repro_torch.runtime.serving.OffloadServingPool` whose replicas
+  serve compiled plans through
+  :func:`~repro_torch.runtime.serving.make_sparql_runner`; :meth:`admit_many`
+  builds the admission batch from query texts. The HTTP front end
+  (:class:`~repro_torch.runtime.http.SparqlHttpServer`) drives the endpoint
+  through :class:`~repro_torch.runtime.admission.AdmissionQueue`.
 """
 
 from __future__ import annotations
@@ -55,7 +60,8 @@ class SparqlEndpoint:
     ``engine`` (or ``backend`` and ``device``) selects the execution
     engine; one endpoint may share an engine with other endpoints or with a
     running system (caches are version-keyed and lock-guarded). ``system``
-    attaches the cloud-edge scheduler and its write path.
+    attaches the cloud-edge scheduler and its write path, ``pool`` the
+    serving pool of :meth:`admit_many`.
     """
 
     def __init__(self, store: RDFStore | None = None,
@@ -63,7 +69,7 @@ class SparqlEndpoint:
                  engine: QueryEngine | None = None,
                  backend: str = "torch",
                  device: str | torch.device | None = None,
-                 system=None,
+                 system=None, pool=None,
                  plan_cache_size: int = 256,
                  result_cache_size: int = 256,
                  result_cache_bytes: int = 256 * 1024 * 1024) -> None:
@@ -78,6 +84,7 @@ class SparqlEndpoint:
         self.store = store
         self.dictionary = dictionary
         self.system = system
+        self.pool = pool
         if engine is None:
             engine = QueryEngine(backend=(TorchBackend(device=device)
                                           if backend == "torch" else backend))
@@ -408,3 +415,24 @@ class SparqlEndpoint:
             raise ValueError("endpoint has no EdgeCloudSystem attached")
         queries = [(user, self.parse(text)) for user, text in user_texts]
         return self.system.run_round_batched(queries, policy=policy, **kw)
+
+    def admit_many(self, texts: list[str], class_of=None,
+                   policy: str = "bnb", **kw):
+        """Build and admit one serving batch from query texts through the
+        attached :class:`~repro_torch.runtime.serving.OffloadServingPool`.
+
+        ``class_of``: optional ``plan -> int`` request classifier (default:
+        every request is class 0). Cycles/result-bits come from the cost
+        estimator over the plan's BGP leaves.
+        """
+        if self.pool is None:
+            raise ValueError("endpoint has no OffloadServingPool attached")
+        from ..core.cost import estimate_query_cost
+        requests = []
+        for t in texts:
+            plan = self.parse(t)
+            c, w = estimate_query_cost(self.store, plan)
+            requests.append({
+                "class_id": int(class_of(plan)) if class_of else 0,
+                "cycles": c, "result_bits": w, "payload": plan})
+        return self.pool.admit(requests, policy=policy, **kw)

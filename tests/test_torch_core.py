@@ -3,7 +3,8 @@ on the same inputs: pattern keys and the pattern index, induced edge ids,
 the knapsack's choices, ``SystemParams.synthetic`` and the cost estimates
 (all exact), and the schedulers (B&B with the marginal bound, the four
 baselines, CRA) on seeded random instances: assignments exact,
-objectives within rtol 1e-12. ``bound="rqad"`` is not ported and raises."""
+objectives within rtol 1e-12. ``bound="rqad"`` is held to the reference in
+``tests/test_torch_qad.py``."""
 
 import numpy as np
 import pytest
@@ -304,13 +305,3 @@ def test_cra_and_costs_match_reference(seed):
                           rel=1e-12)
     assert np.array_equal(t_base.random_assign(t_tasks, t_params),
                           r_base.random_assign(r_tasks, r_params))
-
-
-def test_rqad_bound_is_not_ported():
-    tasks, params = _instance(t_cost, 6, 3, 0)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        t_bnb.branch_and_bound(tasks, params, bound="rqad")
-    with pytest.raises(NotImplementedError):
-        t_sched.schedule(tasks, params, policy="bnb", bound="rqad")
-    with pytest.raises(ValueError):
-        t_bnb.branch_and_bound(tasks, params, bound="nope")

@@ -143,7 +143,11 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.core.baselines", "repro_torch.core.scheduler",
             "repro_torch.core.parallel", "repro_torch.edge.server",
             "repro_torch.edge.rebalance", "repro_torch.edge.system",
-            "repro_torch.sparql.update", "repro_torch.sparql.partial_eval"}
+            "repro_torch.sparql.update", "repro_torch.sparql.partial_eval",
+            "repro_torch.core.qad", "repro_torch.kernels.qad_solve",
+            "repro_torch.runtime.serving", "repro_torch.runtime.admission",
+            "repro_torch.runtime.http", "repro_torch.workload.sampler",
+            "repro_torch.workload.traffic", "repro_torch.workload.driver"}
     assert want <= set(got["modules"])
 
 
