@@ -54,7 +54,8 @@
    stores.
 9. The serving front end on the same two systems: the ``qad_solve``
    kernel (R-QAD, behind B&B) against its plain version on the cold bnb
-   round's frontiers and seeded instances; B&B with the R-QAD and the
+   round's frontiers and seeded instances, both of its routes (the
+   register route; the generic route at K = 18); B&B with the R-QAD and the
    marginal bounds on that round's instance; a bnb round on the R-QAD
    bound; HTTP in pool mode (two replicas and the cloud, 32 clients) and
    in round mode (B&B on R-QAD every window, 16 clients); a window of
@@ -2686,8 +2687,11 @@ QAD_ITERS = 200              # B&B's solver_iters
 # version (the relaxation's own float32 conditioning); f and lb within
 # QAD_TOL * max(1, |f|)
 QAD_TOL = 1e-5
-# seeded instances beside the round's: (N, K, children, seed)
-QAD_SEEDED = [(8, 2, 1, 1), (33, 5, 4, 2), (64, 8, 6, 3)]
+# seeded instances beside the round's: (N, K, children, seed); K = 18
+# takes the generic route, the others the register route (two warps a
+# child at 33 and 64 rows)
+QAD_SEEDED = [(8, 2, 1, 1), (33, 5, 4, 2), (64, 8, 6, 3), (24, 18, 3, 5)]
+QAD_ROUTES = ("register", "generic")
 FADD_CYCLES = 4              # latency of a dependent float add (Hopper)
 SERVE_CLIENTS_POOL, SERVE_CLIENTS_ROUND = 32, 16
 SERVE_ROUND_WINDOW_S = 0.05
@@ -2763,7 +2767,7 @@ def qad_compare(args, device, iters=QAD_ITERS) -> dict:
     one instance; raises past the tolerance."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.qad_solve import qad_solve, unpack
+    from repro_torch.kernels.qad_solve import qad_plan, qad_solve, unpack
     A, b, F, e, fm, Ds = (torch.from_numpy(np.ascontiguousarray(x))
                           .to(device) for x in args)
     N, K = A.shape
@@ -2774,7 +2778,7 @@ def qad_compare(args, device, iters=QAD_ITERS) -> dict:
         A * (1 + 2.0 ** -23), b, F, e, fm, Ds, iters).cpu(), N, K)
     spread = float((nudged[0] - plain[0]).abs().max())
     return {"N": N, "K": K, "B": int(Ds.shape[0]),
-            **qad_errors(got, plain, spread)}
+            "route": qad_plan(N, K).route, **qad_errors(got, plain, spread)}
 
 
 def qad_errors(got, plain, spread: float) -> dict:
@@ -2800,20 +2804,29 @@ def sm_clock_hz() -> float:
 
 
 def qad_kernel_row(args, launches: int, err: float, hbm: float) -> dict:
-    """``qad_solve`` at the round's shape: its time (median of 20 solves),
-    the plain version's on the card, and its bound: the larger of the bytes
-    over the memory rate, the float operations over the float32 peak and
-    the dependency chain (a row's 40 bisection steps, K dependent adds
-    each, every Nesterov step, at the card's top SM clock)."""
+    """``qad_solve`` at the round's shape: its time (events over 10
+    back-to-back solves, median of 7), the profiler's device time a launch,
+    the plain version's time on the card, and its bound: the larger of the
+    bytes over the memory rate, the float operations over the float32 peak
+    and the dependency chain (a row's 40 bisection steps, K dependent adds
+    each, every Nesterov step, at the card's top SM clock). ``bound_by``
+    names the kind of the largest part (the chain is one of dependent
+    operations), ``bound_part`` the part itself."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.qad_solve import qad_solve
+    from repro_torch.kernels.qad_solve import qad_plan, qad_solve
     dev = torch.device("cuda")
     A, b, F, e, fm, Ds = (torch.from_numpy(np.ascontiguousarray(x))
                           .to(dev) for x in args)
     B, N, K = Ds.shape
-    kern_ms = time_ms(lambda: qad_solve(A, b, F, e, fm, Ds, QAD_ITERS),
-                      calls=1, reps=20)
+    plan = qad_plan(N, K)
+
+    def solve():
+        return qad_solve(A, b, F, e, fm, Ds, QAD_ITERS)
+    kern_ms = time_ms(solve, calls=10)
+    device_ms, recorded = kernel_device_ms(
+        solve, "qad_reg_kernel" if plan.route == "register"
+        else "qad_solve_kernel")
     plain_ms = time_ms(lambda: ref.qad_solve_reference(
         A, b, F, e, fm, Ds, QAD_ITERS), calls=1, reps=3)
     nbytes = 4 * (3 * N * K + K + N + B * N * K + B * (N * K + 2))
@@ -2822,13 +2835,16 @@ def qad_kernel_row(args, launches: int, err: float, hbm: float) -> dict:
     bounds = {"bytes": nbytes / hbm * 1e3,
               "operations": flops / SCALAR_OPS_PER_S * 1e3,
               "chain": chain * 1e3}
+    part = max(bounds, key=bounds.get)
     return {"name": "qad_solve", "route": "cuda", "source": QAD_SOURCE,
             "replaces": QAD_REPLACES, "pallas_counterpart": None,
             "launches": int(launches), "max_abs_err": err, "ms": kern_ms,
-            "plain_ms": plain_ms, "bound_ms": max(bounds.values()),
-            "bound_by": "operations", "bound_parts_ms": bounds,
+            "device_ms": device_ms, "device_launches": recorded,
+            "plain_ms": plain_ms, "bound_ms": bounds[part],
+            "bound_by": "bytes" if part == "bytes" else "operations",
+            "bound_part": part, "bound_parts_ms": bounds,
             "shape": {"B": B, "N": N, "K": K, "iters": QAD_ITERS},
-            "library_ms": None}
+            "qad_route": plan.route, "library_ms": None}
 
 
 def check_bnb(rq, mg, launches: int | None) -> None:
@@ -2889,6 +2905,9 @@ def rqad_checks(kept: dict, device, hbm: float) -> tuple[dict, dict]:
     if bad:
         raise AssertionError(f"qad_solve differs from its plain version: "
                              f"{bad}")
+    if {r["route"] for r in rows} != set(QAD_ROUTES):
+        raise AssertionError(f"qad_solve: the cases did not take both "
+                             f"routes: {[r['route'] for r in rows]}")
     # planted fault: a kernel that ignores the pinned rows
     from repro_torch.kernels import ref
     from repro_torch.kernels.qad_solve import qad_solve, unpack
@@ -2918,8 +2937,8 @@ def rqad_checks(kept: dict, device, hbm: float) -> tuple[dict, dict]:
         rq = branch_and_bound(tasks, params, bound="rqad", device=device)
         _sync(device)
         times["rqad"].append((time.perf_counter() - t0) * 1e3)
-        launches = (launch_counts().get("qad_solve", 0) if on_card
-                    else None)
+        counts = launch_counts()
+        launches = counts.get("qad_solve", 0) if on_card else None
         t0 = time.perf_counter()
         mg = branch_and_bound(tasks, params, bound="marginal")
         times["marginal"].append((time.perf_counter() - t0) * 1e3)
@@ -2933,7 +2952,10 @@ def rqad_checks(kept: dict, device, hbm: float) -> tuple[dict, dict]:
                                "marginal": mg.nodes_pruned},
               "schedule_ms": {k: statistics.median(v)
                               for k, v in times.items()},
-              "qad_solve_launches": launches, "objective": rq.objective,
+              "qad_solve_launches": launches,
+              "qad_solve_launches_by_route": {
+                  r: counts.get(f"qad_solve/{r}", 0) for r in QAD_ROUTES},
+              "objective": rq.objective,
               "N": tasks.N, "K": params.K}
     return check1, check2
 
@@ -3303,6 +3325,8 @@ def serve_phase(gen, small, kept_a: dict, kept_b: dict, device,
             raise AssertionError(f"serve: kernels not launched on the "
                                  f"serving path: {missing}")
         row["launches"] = int(launches["qad_solve"])
+        row["launches_by_route"] = {
+            r: int(launches.get(f"qad_solve/{r}", 0)) for r in QAD_ROUTES}
     info["phase_seconds"] = time.perf_counter() - t0
     return info, row
 

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time ``embedding_bag``, ``scan_probe``, ``segment_sum_sorted`` and
-``probe_sorted_many`` beside timing-only variants of themselves, on one
-NVIDIA GPU.
+"""Time ``embedding_bag``, ``scan_probe``, ``segment_sum_sorted``,
+``probe_sorted_many`` and ``qad_solve`` beside timing-only variants of
+themselves, on one NVIDIA GPU.
 
     python3 chip_variants.py            # from the root of a checkout
     python3 chip_variants.py --kernels segment,probe
-                                        # some of the four sections
+                                        # some of the five sections
 
 A variant is either a plan that the launchers would not pick (ids and mask
 read from device memory instead of through the ring, one element a lane
@@ -37,6 +37,22 @@ sorted ``follows`` subjects as keys, their objects as probes) and at
 steady cold batch of ``chip_smoke.py``'s query mix, where the replaced
 kernel stands in behind the same wrapper: the profiler's device time of
 the batch's launches of each (the gathers there include ``scan_probe``'s).
+
+``qad_solve`` runs at the round's shape (a seeded instance of B = 4
+children, N = 21 rows, K = 4 edges, 200 iterations) and at the register
+route's seeded shapes of ``chip_smoke.QAD_SEEDED``: the shipped register
+route, the generic route forced on the same instance (the kernel the
+register route replaced on these shapes), the register route without the
+bisection's early exit (held to the shipped output bit for bit, which
+checks on the card that the early exit is exact), the bisection with a
+vote before every step instead of every second one (held to it bit for
+bit too) and the register route with an exact projection in place of the
+bisection (each row's threshold found from the 2K breakpoints of its
+clipped sum; timing only, its D error against the plain version logged). Each is also timed by the profiler's
+device time a launch. Then B&B on a seeded instance of the round's shape
+(21 users, 4 edges) on R-QAD with each route behind the wrapper, and on
+the marginal bound, in turns (same objective and assignment), and the
+device's busy share of one B&B on the shipped route.
 """
 
 from __future__ import annotations
@@ -44,6 +60,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -133,6 +151,50 @@ int rdf_probe_sorted_old(const void* keys, int K, const void* probes,
 """
 _ERROR_STRING = "const char* rdf_error_string(int code) {"
 
+# the register route's projection, as the shipped source declares it
+_PROJECT = ("__device__ __forceinline__ void project(float (&v)[KMAX],\n"
+            "                                        const float (&e)[KMAX])"
+            " {")
+# an exact projection in its place: the threshold tau where the clipped sum
+# phi(tau) = sum_k clip(v_k - tau, 0, 1) crosses 1, found from phi's
+# breakpoints (v_k and v_k - 1 in [0, max v]): phi is linear between the
+# largest breakpoint where it is above 1 and the smallest where it is not;
+# the shipped projection stays beside it as project_bisect
+_EXACT_PROJECT = _PROJECT + r"""
+  float c[KMAX];
+  float hi = 0.f;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    v[k] = e[k] > 0.f ? v[k] : 0.f;
+    c[k] = clip01(v[k]);
+    hi = fmaxf(hi, v[k]);
+  }
+  const float s = tree_sum(c);
+  float tau = 0.f;
+  if (s > 1.f) {
+    float a = 0.f, fa = s, z = hi, fz = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2 * KMAX; ++j) {
+      const float p = fminf(
+          fmaxf(j < KMAX ? v[j] : v[j - KMAX] - 1.f, 0.f), hi);
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) c[k] = clip01(v[k] - p);
+      const float fp = tree_sum(c);
+      if (fp > 1.f) {
+        if (p > a) a = p, fa = fp;
+      } else if (p < z) {
+        z = p, fz = fp;
+      }
+    }
+    tau = a + (fa - 1.f) * (z - a) / (fa - fz);
+  }
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k)
+    v[k] = (s > 1.f ? clip01(v[k] - tau) : clip01(v[k])) * e[k];
+}
+template <int KMAX>
+""" + _PROJECT.replace("project(", "project_bisect(")
+
 # name: (source file, [(shipped text, variant text)])
 VARIANTS = {
     # no L2 hints at all: plain stores, bulk copies without a policy
@@ -160,8 +222,23 @@ VARIANTS = {
         ("const bool range_ends = k + 1 == n_chunks;",
          "const bool range_ends = true;\n"
          "    first_node = cd[0];\n    last_node = chunk_last_node;")]),
+    # the register route's bisection runs all 40 steps
+    "qad_noexit": ("qad_kernels.cu", [
+        ("    if (!again) break;\n", "")]),
+    # a vote before every bisection step, its latency on the step's chain
+    "qad_vote1": ("qad_kernels.cu", [
+        ("  for (int it = 0; it < kBisect; it += 2) {\n"
+         "    const float lo0 = lo, hi0 = hi;\n",
+         "  for (int it = 0; it < kBisect; ++it) {\n"
+         "    if (!__any_sync(kFull, moving)) break;\n"
+         "    const float lo0 = lo, hi0 = hi;\n"),
+        ("    const bool again = __any_sync(kFull, moving);\n"
+         "    bisect_step(v, lo, hi);\n"
+         "    if (!again) break;\n", "")]),
+    # the register route with an exact projection for the bisection
+    "qad_exact": ("qad_kernels.cu", [(_PROJECT, _EXACT_PROJECT)]),
 }
-SECTIONS = ("bag", "scan", "segment", "probe")
+SECTIONS = ("bag", "scan", "segment", "probe", "qad")
 
 
 def log(msg: str) -> None:
@@ -207,7 +284,8 @@ def build_variants(nvcc_flags: list[str], nvcc: str,
 # the variants each section builds
 SECTION_VARIANTS = {"bag": ("bag_nohint", "bag_evictlast"),
                     "scan": ("probe_noshortcut",),
-                    "segment": ("seg_nocarry",), "probe": ("probe_old",)}
+                    "segment": ("seg_nocarry",), "probe": ("probe_old",),
+                    "qad": ("qad_noexit", "qad_vote1", "qad_exact")}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -238,7 +316,7 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.sparql.engine import TorchBackend
 
     t0 = time.perf_counter()
-    _build.build("sparse", "rdf")
+    _build.build("sparse", "rdf", "qad")
     libs = build_variants(_build.NVCC_FLAGS, _build._nvcc(),
                           {v for sec in sections
                            for v in SECTION_VARIANTS[sec]})
@@ -252,7 +330,7 @@ def main(argv: list[str] | None = None) -> int:
         elif name.startswith("seg"):
             lib.sparse_segment_sum_sorted.argtypes = \
                 [P, P, P, P, I, L, I, I, L, I, I, I, I, I, I, I, P]
-        else:
+        elif name.startswith("probe"):
             lib.rdf_scan_probe.argtypes = \
                 [P, L, I, I, I, P, I, I, I, I, I, I, P, P, P, P, P]
             lib.rdf_probe_sorted_many.argtypes = \
@@ -260,6 +338,9 @@ def main(argv: list[str] | None = None) -> int:
     if "probe_old" in libs:
         libs["probe_old"].rdf_probe_sorted_old.argtypes = \
             [P, I, P, L, P, P, P]
+    for name in SECTION_VARIANTS["qad"]:
+        if name in libs:
+            libs[name].qad_qad_solve.argtypes = [P] * 7 + [I] * 8 + [P]
     gpu = smoke.gpu_line()
     log(f"build {time.perf_counter() - t0:.1f} s; {gpu}")
     dev = torch.device("cuda")
@@ -268,8 +349,13 @@ def main(argv: list[str] | None = None) -> int:
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    def run_in_turns(label, order, want, calls):
+    def run_in_turns(label, order, want, calls, exact=None):
+        """Each variant's output against ``want`` bit for bit (only those
+        named in ``exact``, when given), then the variants timed in turns,
+        forward and backward."""
         for name, fn in order:
+            if exact is not None and name not in exact:
+                continue
             got = fn()
             same = all(torch.equal(g, w) for g, w in zip(
                 got if isinstance(got, tuple) else (got,),
@@ -534,6 +620,121 @@ def main(argv: list[str] | None = None) -> int:
             run_in_turns(f"segment_sum_sorted D={D}", order, want, calls=10)
             del msg, want
             torch.cuda.empty_cache()
+    # ------------------------------------------------------------ qad_solve
+    if "qad" in sections:
+        from repro_torch.kernels.qad_solve import (ROUTES, generic_plan,
+                                                   qad_plan, qad_solve,
+                                                   unpack)
+        libs["qad"] = _build.library("qad")
+        iters = smoke.QAD_ITERS
+        shapes = [(21, 4, 4, 0)] + [s for s in smoke.QAD_SEEDED
+                                    if qad_plan(s[0], s[1]).route
+                                    == "register"]
+        for N, K, B, seed in shapes:
+            A, b, F, e, fm, Ds = (torch.from_numpy(x).to(dev) for x in
+                                  smoke.qad_instance(N, K, B, seed))
+            plan = qad_plan(N, K)
+
+            def variant(lib, plan=plan, A=A, b=b, F=F, e=e, fm=fm, Ds=Ds):
+                n, k = A.shape
+                out = torch.empty((Ds.shape[0], n * k + 2), device=dev)
+                rc = libs[lib].qad_qad_solve(
+                    A.data_ptr(), b.data_ptr(), F.data_ptr(), e.data_ptr(),
+                    fm.data_ptr(), Ds.data_ptr(), out.data_ptr(),
+                    Ds.shape[0], n, k, iters, ROUTES.index(plan.route),
+                    plan.kmax, plan.threads, plan.smem_bytes, stream())
+                if rc:
+                    raise RuntimeError(f"qad variant {lib}: CUDA error {rc}")
+                return out
+
+            args = (A, b, F, e, fm, Ds, iters)
+            label = f"qad_solve B={B} N={N} K={K}"
+            log(f"{label}: shipped plan {plan}, generic "
+                f"{generic_plan(N, K)}")
+            order = [
+                ("shipped (register route)", lambda args=args:
+                 qad_solve(*args)),
+                ("generic route", lambda variant=variant, N=N, K=K:
+                 variant("qad", generic_plan(N, K))),
+                ("no early exit", lambda variant=variant:
+                 variant("qad_noexit")),
+                ("a vote every step", lambda variant=variant:
+                 variant("qad_vote1")),
+                ("exact projection", lambda variant=variant:
+                 variant("qad_exact")),
+            ]
+            want = order[0][1]()
+            plain = unpack(ref.qad_solve_reference(*args).cpu(), N, K)
+            for name, fn in order:
+                err = smoke.qad_errors(unpack(fn().cpu(), N, K), plain, 0.0)
+                log(f"{label} {name} vs plain: {json.dumps(err)}")
+                times[f"{label} {name} d_err"] = err["d_err"]
+            run_in_turns(label, order, want, calls=10,
+                         exact=[name for name, _ in order if name not in (
+                             "generic route", "exact projection")])
+            for name, fn in order:
+                kernel = ("qad_solve_kernel" if name == "generic route"
+                          else "qad_reg_kernel")
+                ms, n = smoke.kernel_device_ms(fn, kernel)
+                times[f"{label} {name} device"] = ms
+                log(f"{label} {name} device: {ms} ms ({n} launches "
+                    f"recorded)")
+        # B&B on R-QAD on a seeded instance of the round's shape (N = 21
+        # users, K = 4 edges, tests/test_scheduler.py's recipe): the
+        # shipped route beside the generic route put behind the same
+        # wrapper, and the marginal bound, in turns; then the device's
+        # busy share of one B&B on the shipped route
+        from repro_torch.core import cost
+        from repro_torch.core.bnb import branch_and_bound
+        from repro_torch.kernels import qad_solve as qad_mod
+        rng = np.random.default_rng(1)
+        params = cost.SystemParams.synthetic(21, 4, seed=1)
+        tasks = cost.QueryTasks(
+            c=rng.uniform(1e7, 5e8, 21), w=rng.uniform(1e5, 5e7, 21),
+            e=(rng.random((21, 4)) < 0.7).astype(float) * params.assoc)
+        shipped_plan = qad_mod.qad_plan
+
+        def bnb(bound, plan=shipped_plan):
+            qad_mod.qad_plan = plan
+            try:
+                t0 = time.perf_counter()
+                res = branch_and_bound(tasks, params, bound=bound,
+                                       device=dev)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3, res
+            finally:
+                qad_mod.qad_plan = shipped_plan
+
+        runs = {"rqad, register route": ("rqad", shipped_plan),
+                "rqad, generic route": ("rqad", generic_plan),
+                "marginal": ("marginal", shipped_plan)}
+        base = bnb("marginal")[1]
+        ms = {name: [] for name in runs}
+        for rnd in range(6):
+            for name in (list(runs) if rnd % 2 == 0 else list(runs)[::-1]):
+                t, res = bnb(*runs[name])
+                if not (res.optimal and np.array_equal(res.D, base.D)
+                        and math.isclose(res.objective, base.objective,
+                                         rel_tol=1e-9)):
+                    raise AssertionError(f"bnb {name}: {res.objective} "
+                                         f"against {base.objective}")
+                ms[name].append(t)
+                if rnd == 0:
+                    log(f"bnb {name}: {res.nodes_explored} expansions, "
+                        f"objective {res.objective}")
+        for name, ts in ms.items():
+            times[f"bnb 21x4 {name}"] = statistics.median(ts)
+            log(f"bnb 21x4 {name}: median {statistics.median(ts)} ms of "
+                f"{ts}")
+        prof = smoke.device_profile(lambda: bnb("rqad"),
+                                    track=("qad_reg_kernel",))
+        times["bnb 21x4 rqad busy share"] = prof["busy_share"]
+        log(f"bnb 21x4 rqad under the profiler: wall {prof['wall_ms']} ms, "
+            f"device {prof['device_ms']} ms, busy {prof['busy_share']}, "
+            f"qad_reg_kernel [ms, launches] "
+            f"{prof['tracked']['qad_reg_kernel']}")
+        for line in _build.build_log("qad").splitlines():
+            log(f"ptxas: {line.strip()}")
     print(gpu)
     print(json.dumps({"gpu": gpu, "ms": times}))
     return 0

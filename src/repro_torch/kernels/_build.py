@@ -85,9 +85,10 @@ LIBRARIES = {
                                _I, _I, _I, _I, _I],
     }),
     "qad": ("qad_kernels.cu", {
-        # A, b, F, e, fixed_mask, fixed_Ds, out, B, N, K, iters, threads,
-        # smem bytes
-        "qad_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+        # A, b, F, e, fixed_mask, fixed_Ds, out, B, N, K, iters, then the
+        # plan: route, kmax, threads, smem bytes
+        "qad_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _I],
     }),
 }
 # a kernel's default library: the first that has it (the attention kernels
@@ -160,11 +161,12 @@ def build(*libs: str) -> dict[str, Path]:
     return paths
 
 
-def build_log() -> str:
+def build_log(*libs: str) -> str:
     """nvcc's output from the builds in this process (``-Xptxas=-v``
-    register and shared-memory report), empty when the libraries were
-    found."""
-    return "\n".join(_build_logs.values())
+    register, spill and shared-memory report) of the named libraries (all
+    by default), empty when the libraries were found."""
+    return "\n".join(log for lib, log in _build_logs.items()
+                     if not libs or lib in libs)
 
 
 def library(lib: str) -> ctypes.CDLL:
@@ -185,10 +187,11 @@ def library(lib: str) -> ctypes.CDLL:
 
 
 def launch(kernel: str, device: torch.device, *args,
-           lib: str | None = None) -> None:
+           lib: str | None = None, route: str | None = None) -> None:
     """Launch ``kernel`` (of library ``lib``, by default the first that has
     it) on ``device``'s current stream; raise on a non-zero CUDA status,
-    else count the launch under the kernel's name."""
+    else count the launch under the kernel's name and, for a kernel with
+    routes, under ``kernel/route`` too."""
     lib = lib or _LIBRARY_OF[kernel]
     handle = library(lib)
     with torch.cuda.device(device):
@@ -199,6 +202,8 @@ def launch(kernel: str, device: torch.device, *args,
         raise RuntimeError(f"{kernel}: CUDA launch failed ({rc}: {msg})")
     with _lock:
         _launches[kernel] += 1
+        if route:
+            _launches[f"{kernel}/{route}"] += 1
 
 
 def launch_counts() -> dict[str, int]:

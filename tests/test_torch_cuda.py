@@ -190,3 +190,30 @@ def test_cuda_decode_bf16_serving_layout_launches_ring_kernel():
     assert smoke.attn_err(out, want)[1] <= 1.0
     assert not out[lengths.tolist().index(0)].any()
     assert torch.equal(decode_attention(q, k, v, lengths), out)
+
+
+@pytest.mark.cuda
+def test_cuda_qad_solve_both_routes_match_plain_version():
+    """``qad_solve`` against its plain version on the card on
+    ``chip_smoke.QAD_SEEDED``: the register route (one warp a child at 8
+    rows, two warps at 33 and 64) and the generic route (K = 18), each
+    launch counted under its route; D within ``QAD_TOL`` plus the one-ulp
+    spread, f and lb within ``QAD_TOL`` relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import reset_launch_counts
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    reset_launch_counts()
+    rows = [smoke.qad_compare(smoke.qad_instance(N, K, B, seed),
+                              torch.device("cuda"))
+            for N, K, B, seed in smoke.QAD_SEEDED]
+    assert all(r["ok"] for r in rows), rows
+    counts = launch_counts()
+    for route in smoke.QAD_ROUTES:
+        assert counts[f"qad_solve/{route}"] == \
+            sum(r["route"] == route for r in rows) > 0
+    assert counts["qad_solve"] == len(rows)

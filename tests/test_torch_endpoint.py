@@ -184,6 +184,10 @@ def test_chip_variants_refuses_without_cuda_and_matches_the_sources(
     assert "st.global.cs" not in sources["bag_nohint"].split(
         "__nv_bfloat16, 8")[0]
     assert sources["bag_evictlast"].count("L2::evict_last") == 2
+    assert "break;" not in sources["qad_noexit"].split(
+        "void project(")[1].split("template")[0]
+    assert sources["qad_exact"].count("void project(") == 1
+    assert sources["qad_exact"].count("void project_bisect(") == 1
 
 
 @pytest.mark.parametrize("sharded", [False, True])

@@ -8,10 +8,13 @@ same order: XLA fuses multiply-adds and picks its own reduction order, so
 the two agree within float32 rounding, not bit for bit. Tolerances: D
 within 1e-5 absolute, f and lb within 1e-5 * max(1, |f|) (the relaxation
 is flat in places, so float32 rounding alone moves D by about that much).
-A numpy emulation of the kernel's own arithmetic (rows in threads, the
-warp-shuffle column sums, the pinned rows' sums taken once) is held to the
-plain version within the same tolerances, so the kernel's order is pinned
-here; the kernel itself runs only on the card (``cuda`` marker)."""
+A numpy emulation of each route of the kernel (the generic route: rows in
+threads, the warp-shuffle column sums, the pinned rows' sums taken once;
+the register route: one lane a row with K padded, xor-shuffle trees, the
+clipped sums as trees and the bisection's early exit) is held to the plain
+version within the same tolerances, so the kernel's order is pinned here;
+the early exit is held to the 40-step bisection bit for bit. The kernel
+itself runs only on the card (``cuda`` marker)."""
 
 import numpy as np
 import pytest
@@ -191,11 +194,15 @@ def test_wrapper_checks_and_plan():
         t_kern.qad_solve(A.double(), iters=5, **ok)
     with pytest.raises(ValueError):
         t_kern.qad_solve(A, iters=5, **dict(ok, F=torch.ones(3)))
-    assert t_kern.qad_plan(21, 4) == (32, 4 * (5 * 84 + 21 + 12 + 4))
+    assert t_kern.qad_plan(21, 4) == ("register", 4, 32, 0)
+    assert t_kern.generic_plan(21, 4) == \
+        ("generic", 0, 32, 4 * (5 * 84 + 21 + 12 + 4))
     assert t_kern.qad_plan(2000, 4).threads == 1024
-    t_kern.qad_plan(1000, 11)                 # 220 KB: fits
+    t_kern.generic_plan(1000, 11)             # 220 KB: fits
     with pytest.raises(ValueError, match="shared memory"):
-        t_kern.qad_plan(1000, 12)
+        t_kern.generic_plan(1000, 12)
+    with pytest.raises(ValueError, match="shared memory"):
+        t_kern.qad_plan(2000, 12)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             t_qad.solve_rqad_batch(A.numpy(), ok["b"], ok["F"], ok["e"],
@@ -266,7 +273,7 @@ def _project(V, E):
 def emulate_kernel(A, b, F, e, fm, Ds, iters):
     A, b, F, e, fm, Ds = map(_f32, (A, b, F, e, fm, Ds))
     N, K = A.shape
-    threads = t_kern.qad_plan(N, K).threads
+    threads = t_kern.generic_plan(N, K).threads
     free = ~(fm > 0)
     L = np.float32(0)
     for k in range(K):
@@ -323,22 +330,250 @@ def test_kernel_emulation_matches_plain(N, K, seed, depth, iters):
                  [x.numpy() for x in plain], (N, K, seed))
 
 
+# -- the register route's arithmetic, emulated in numpy ----------------------
+
+def _tree(C):
+    """``tree_sum`` over the last axis (KMAX): c[k] += c[k + h], h = KMAX/2,
+    ..., 1."""
+    C = C.copy()
+    h = C.shape[-1] // 2
+    while h:
+        C[..., :h] = C[..., :h] + C[..., h:2 * h]
+        h //= 2
+    return C[..., 0]
+
+
+def _xor_sums(P, base):
+    """``child_sums``: each warp's xor-shuffle trees over its 32 lanes (P
+    [threads, M], one row a lane), then ``base`` (zeros: 0.f) plus the
+    warps' sums in warp order."""
+    lanes = np.arange(32)
+    out = base.copy()
+    for w in range(len(P) // 32):
+        v = P[32 * w:32 * w + 32].copy()
+        for off in (16, 8, 4, 2, 1):
+            v = v + v[lanes ^ off]
+        assert (v == v[0]).all()                 # every lane: the same bits
+        out = out + v[0]
+    return out
+
+
+def project_register(V, E, early_exit=True):
+    """``project`` on rows of one warp (V, E [rows, KMAX] float32): the
+    clipped values summed as a tree; the bisection two steps a turn, left
+    after a turn whose first step changed no row's lo or hi (the warp's
+    vote), or after 40 steps. Returns the rows and the steps the warp
+    took."""
+    X = np.where(E > 0, V, np.float32(0))
+    bisect = _tree(np.clip(X, 0, 1)) > 1
+    hi = np.maximum(X.max(axis=1), np.float32(0))
+    lo = np.zeros(len(V), np.float32)
+    moving = bisect.copy()
+
+    def step(lo, hi):
+        mid = _f32(0.5) * (lo + hi)
+        gt = _tree(np.clip(X - mid[:, None], 0, 1)) > 1
+        return np.where(gt, mid, lo), np.where(gt, hi, mid)
+
+    steps = 0
+    for _ in range(t_ref.QAD_BISECT // 2):
+        nlo, nhi = step(lo, hi)
+        moving &= (nlo != lo) | (nhi != hi)
+        lo, hi = step(nlo, nhi)
+        steps += 2
+        if early_exit and not moving.any():
+            break
+    out = np.where(bisect[:, None], np.clip(X - hi[:, None], 0, 1),
+                   np.clip(X, 0, 1))
+    return (out * E).astype(np.float32), steps
+
+
+def _project_warps(V, E):
+    return np.concatenate([project_register(V[w:w + 32], E[w:w + 32])[0]
+                           for w in range(0, len(V), 32)])
+
+
+def emulate_register(A, b, F, e, fm, Ds, iters):
+    """``qad_reg_kernel``: one lane a row (rows padded to the plan's
+    threads, K to its KMAX with inert coordinates), the pinned rows' sums
+    and the column sums as xor trees, q = S / F once a step, pinned rows
+    and rows past N zero in A, b, e and x."""
+    A, b, F, e, fm, Ds = map(_f32, (A, b, F, e, fm, Ds))
+    N, K = A.shape
+    plan = t_kern.qad_plan(N, K)
+    assert plan.route == "register"
+    T, KM = plan.threads, plan.kmax
+
+    def pad(X, fill=0.0):
+        out = np.full((T, KM), fill, np.float32)
+        out[:N, :K] = X
+        return out
+
+    Fp = np.ones(KM, np.float32)
+    Fp[:K] = F
+    L = np.float32(0)
+    for k in range(K):
+        s = np.float32(0)
+        for n in range(N):
+            s = s + A[n, k] * A[n, k]
+        L = max(L, s / F[k])
+    step = np.float32(1) / (np.float32(2) * L + np.float32(1e-12))
+    pinned = np.zeros(T, bool)
+    pinned[:N] = fm > 0
+    free = ~pinned
+    free[N:] = False
+    zero = np.zeros(KM, np.float32)
+    Ar, br, er = (np.where(free[:, None], pad(X), 0) for X in (A, b, e))
+    out = []
+    for Dfix in Ds:
+        Sfix = _xor_sums(np.where(pinned[:, None], pad(Dfix) * pad(A), 0),
+                         zero)
+        x = _project_warps(_f32(0.5) * er, er)
+        xp = x.copy()
+        for t in range(iters):
+            beta = np.float32(t) / (np.float32(t) + np.float32(3))
+            y = x + beta * (x - xp)
+            xp = x
+            q = _xor_sums(y * Ar, Sfix) / Fp
+            g = (np.float32(2) * Ar * q + br) * er
+            x = _project_warps(y - step * g, er)
+        x = _project_warps(x, er)
+        S = _xor_sums(x * Ar, Sfix)
+        D = np.where(pinned[:N, None], Dfix, (x * er)[:N, :K])
+        g = ((np.float32(2) * Ar * (S / Fp) + br) * er)[:N, :K]
+        lin = np.where(e > 0, g, np.float32(np.inf)).min(axis=1)
+        lin = np.minimum(lin, 0)
+        lin = np.where(np.isfinite(lin), lin, 0)
+        sums = np.zeros((T, 2), np.float32)
+        for k in range(K):
+            sums[:N, 0] = sums[:N, 0] + D[:, k] * b[:, k]
+        gx = np.zeros(N, np.float32)
+        for k in range(K):
+            gx = gx + g[:, k] * x[:N, k]
+        sums[:N, 1] = np.where(free[:N], np.float32(0) + (lin - gx), 0)
+        db, gap = _xor_sums(sums, np.zeros(2, np.float32))
+        f = np.float32(0)
+        for k in range(K):
+            f = f + S[k] * S[k] / F[k]
+        f = f + db
+        out.append((D, f, f + gap))
+    return (np.stack([o[0] for o in out]), np.array([o[1] for o in out]),
+            np.array([o[2] for o in out]))
+
+
+@pytest.mark.parametrize("N,K,seed,depth,iters",
+                         [(8, 3, 4, 2, 300), (20, 4, 1, 3, 200),
+                          (40, 3, 2, 5, 100), (21, 6, 5, 4, 200),
+                          (12, 9, 7, 2, 150)])
+def test_register_emulation_matches_plain(N, K, seed, depth, iters):
+    """The register route's arithmetic (one warp a child up to 32 rows,
+    two warps at 40; K padded to 4, 8 and 16) within the tolerances of the
+    plain version."""
+    A, b, F, e = qad_arrays(N, K, seed)
+    fm, Ds = frontier(e, depth, seed)
+    plain = t_qad.solve_rqad_batch(A, b, F, e, fm, Ds, iters, device="cpu")
+    assert_close(emulate_register(A, b, F, e, fm, Ds, iters),
+                 [x.numpy() for x in plain], (N, K, seed))
+
+
+def _rows(kind, rng, KM=4):
+    """Seeded float32 rows [64, KMAX] and their masks."""
+    V = rng.uniform(-0.3, 1.3, (64, KM))
+    E = np.ones((64, KM))
+    if kind == "near_zero_threshold":       # the clipped sum just above 1
+        V = rng.uniform(0, 0.2, (64, KM))
+        V[:, 0] = 1.0 - V[:, 1:].sum(1) + rng.uniform(1e-7, 1e-5, 64)
+    elif kind == "clipped_sum_at_most_1":
+        V = rng.uniform(-1, 1.0 / KM, (64, KM))
+    elif kind == "tied_maxima":
+        V[:, :3] = V[:, :1]
+    elif kind == "padded":                  # K = 5 of KMAX = 8
+        KM = 8
+        V = rng.uniform(-0.3, 1.3, (64, KM))
+        E = np.ones((64, KM))
+        E[:, 5:] = 0
+        V[:, 5:] = 0
+    elif kind == "masked_edges":            # some e = 0 inside K
+        E = (rng.random((64, KM)) < 0.7).astype(float)
+    return _f32(V), _f32(E)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "near_zero_threshold",
+                                  "clipped_sum_at_most_1", "tied_maxima",
+                                  "padded", "masked_edges"])
+def test_early_exit_bisection_is_exact(kind):
+    """Leaving the bisection once a step changes neither lo nor hi gives
+    the 40-step bisection's rows bit for bit, warp by warp."""
+    rng = np.random.default_rng(["uniform", "near_zero_threshold",
+                                 "clipped_sum_at_most_1", "tied_maxima",
+                                 "padded", "masked_edges"].index(kind))
+    V, E = _rows(kind, rng)
+    for w in range(0, 64, 32):
+        fast, steps = project_register(V[w:w + 32], E[w:w + 32])
+        full, all_steps = project_register(V[w:w + 32], E[w:w + 32],
+                                           early_exit=False)
+        assert all_steps == t_ref.QAD_BISECT
+        assert np.array_equal(fast.view(np.int32), full.view(np.int32))
+        if kind == "clipped_sum_at_most_1":
+            assert steps == 2
+        elif kind != "near_zero_threshold":
+            assert steps < t_ref.QAD_BISECT
+    # and the rows are the plain version's projection, within rounding
+    plain = t_ref.project_rows_reference(torch.from_numpy(V),
+                                         torch.from_numpy(E)).numpy() * E
+    got = np.concatenate([project_register(V[w:w + 32], E[w:w + 32])[0]
+                          for w in (0, 32)])
+    assert np.abs(got - plain).max() <= 1e-6
+
+
+@pytest.mark.parametrize("N,K,route,kmax,threads", [
+    (21, 4, "register", 4, 32),         # the round's instance: one warp
+    (33, 5, "register", 8, 64),
+    (64, 8, "register", 8, 64),
+    (24, 16, "register", 16, 32),
+    (1024, 1, "register", 4, 1024),
+    (24, 17, "generic", 0, 32),
+    (1025, 4, "generic", 0, 1024),
+    (24, 18, "generic", 0, 32)])
+def test_qad_plan_picks_the_route_from_the_shapes(N, K, route, kmax,
+                                                   threads):
+    plan = t_kern.qad_plan(N, K)
+    assert (plan.route, plan.kmax, plan.threads) == (route, kmax, threads)
+    assert plan.smem_bytes == (t_kern.generic_plan(N, K).smem_bytes
+                               if route == "generic" else 0)
+
+
+def test_qad_plan_raises_past_shared_memory():
+    """Beyond the register route's shapes the generic route keeps the
+    instance in shared memory, and raises past 227 KB."""
+    t_kern.qad_plan(1025, 10)                 # 210 KB: fits
+    for N, K in ((1025, 12), (100, 120)):
+        with pytest.raises(ValueError, match="shared memory"):
+            t_kern.qad_plan(N, K)
+    with pytest.raises(ValueError):
+        t_kern.qad_plan(0, 4)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
+    """Both routes against the plain version on the card: the register
+    route on the paper-scale frontiers, the generic one at K = 17."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the qad_solve kernel has no CPU mode")
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    for N, K, seed, depth, iters in CASES[1:]:
+    for N, K, seed, depth, iters in CASES[1:] + [(12, 17, 2, 3, 200)]:
         A, b, F, e = qad_arrays(N, K, seed)
         fm, Ds = frontier(e, depth, seed)
+        route = t_kern.qad_plan(N, K).route
         reset_launch_counts()
         got = t_qad.solve_rqad_batch(A, b, F, e, fm, Ds, iters,
                                      device="cuda")
         assert launch_counts().get("qad_solve") == 1
+        assert launch_counts().get(f"qad_solve/{route}") == 1
         plain = t_qad.solve_rqad_batch(A, b, F, e, fm, Ds, iters,
                                        device="cpu")
         assert_close([x.cpu().numpy() for x in got],
-                     [x.numpy() for x in plain], (N, K, seed))
+                      [x.numpy() for x in plain], (N, K, seed))
 
 
 # -- B&B with the R-QAD bound -------------------------------------------------
