@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --lm-only --prefill-seq 4096 --decode-cache 4096
-                                     # LM phase alone, short (kernel edits)
+                                     # LM and MoE phases alone, short
+                                     # (kernel edits)
     python3 chip_smoke.py --sparse-only
                                      # recsys and GNN phases alone
 
@@ -26,33 +27,48 @@
    logits against prefill logits on a short prompt; ``flash_attention``
    (bf16 on the tensor cores, float32 on the CUDA cores) and
    ``decode_attention`` (bf16 through a TMA ring, float32 on the CUDA
-   cores) held against their plain versions (qwen3 and gemma2 head shapes,
-   ragged lengths, GQA groups of 1 to 16, the bf16 kernels' tile and chunk
-   edges, strided and copied operands, a cancellation case whose
-   single-rounding control must fail) and timed beside their bounds at the
-   serving shapes, decode also at gemma2-2b's.
-6. ``segment_sum_sorted`` and ``embedding_bag`` held against their plain
+   cores) held against their plain versions (qwen3, gemma2, granite-moe
+   and phi3.5-moe head shapes, ragged lengths, GQA groups of 1 to 16, the
+   bf16 kernels' tile and chunk edges, strided and copied operands, a
+   cancellation case whose single-rounding control must fail) and timed
+   beside their bounds at the serving shapes, decode also at gemma2-2b's.
+6. MoE LM serving (also under ``--lm-only``), granite-moe-1b at full width
+   and depth (weights from ``--seed``): float32 prefill and decode on the
+   card against the CPU, whose controls (TF32; each token's K-th expert
+   left out of the combine) must fail, with the expert choices of both
+   sides compared; one layer's routing with drops (capacity factor 0.5,
+   dyadic inputs, so the router logits and their ties are exact) on the
+   card against the CPU, ids, keep mask and kept count equal, and a
+   planted off-by-one capacity that must fail; a bf16 prefill of 32,768
+   tokens and 64 decode steps of 32 sequences against a 32,768-position
+   cache, with launch counts, no operand copy and decode against prefill;
+   ``decode_attention`` timed at its decode shape. Then phi3.5-moe at full
+   width and 24 of its 32 layers: a prefill of 4,096 tokens and 16 decode
+   steps of 8 sequences against a 4,096-position cache, the same checks.
+   After each model, ``flash_attention`` at its prefill shape against the
+   plain version, timed.
+7. ``segment_sum_sorted`` and ``embedding_bag`` held against their plain
    versions on edge cases (integer-valued inputs exactly, normal ones
    within a summation bound), then Wide&Deep at full width (weights from
    ``--seed``): float32 logits, scores and top-100 on the card against the
    CPU at B = 512; ``serve_p99`` (B = 512), ``serve_bulk`` (B = 262,144)
    and ``retrieval_cand`` (1M candidates) timed; ``embedding_bag`` at the
    bulk shape against its plain version and timed beside its bound.
-7. GCN (gcn-cora): float32 logits on the card against the CPU at
+8. GCN (gcn-cora): float32 logits on the card against the CPU at
    full_graph_sm (``cora_like``, 2,708 nodes); a graph of ogb_products'
    size (2,449,029 nodes, ~61.8M edges, d_feat 100) drawn and sorted on
    the card, its forward timed; ``segment_sum_sorted`` at each of the
    forward's widths (16, 7 and 1) against its plain version and timed
    beside its bound. Every model and
    kernel check also reads a planted fault that must fail it.
-8. The paper's system, last: ``EdgeCloudSystem`` on the scale-1000 store
+9. The paper's system, last: ``EdgeCloudSystem`` on the scale-1000 store
    (20 users, 4 edges, B&B and the four baselines, each round cold and
    warm; thread overlap; a query split across two edges), then the SPARQL
    UPDATE write path and an asynchronous rebalance on the 4-shard store;
    every round's results held against the numpy endpoint, bnb's
    objective the lowest, the query kernels launched against the edges'
    stores.
-9. The serving front end on the same two systems: the ``qad_solve``
+10. The serving front end on the same two systems: the ``qad_solve``
    kernel (R-QAD, behind B&B) against its plain version on the cold bnb
    round's frontiers and seeded instances, both of its routes (the
    register route; the generic route at K = 18); B&B with the R-QAD and the
@@ -70,6 +86,7 @@ when CUDA is not available. The last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -141,6 +158,27 @@ SPLIT_GROWTH = 2.0 ** -15
 MODEL_TOL = 2e-5
 CONSISTENCY_TOL = 0.05
 PLANTED_DROP = 64            # keys a planted attention fault leaves out
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_SECOND_ARCH = "phi3.5-moe-42b-a6.6b"
+# granite serves decode_32k at batch 128 -> 32 (128 caches are 206 GB);
+# phi3.5-moe at 24 of its 32 layers (its 41.9B parameters are 83.7 GB in
+# bf16, more than the card's 80; 24 layers are 62.9 GB, and a layer more
+# takes 2.6 GB), prefill 4,096 tokens and 16 decode steps of 8 sequences
+# against a 4,096-position cache
+MOE_DECODE_BATCH = 32
+MOE_SECOND_LAYERS = 24
+MOE_SECOND_SEQ = 4096
+MOE_SECOND_BATCH = 8
+MOE_SECOND_STEPS = 16
+# the routing check with drops: 4 groups of 1,024 tokens, capacity 0.5
+MOE_DROP_GROUPS = 4
+MOE_DROP_TOKENS = 1024
+MOE_DROP_FACTOR = 0.5
+# decode against prefill on a 16-token prompt (positions 8 to 15 decoded):
+# the off-by-one control leaves out 1 of n keys, and at the dense check's
+# n = 33 to 64 that moves granite's random-weight logits less than the
+# limit, so the check could not see it there
+MOE_CONSISTENCY_PROMPT = 16
 SPARSE_SOURCE = "src/repro_torch/csrc/sparse_kernels.cu"
 SPARSE_REPLACES = {
     "segment_sum_sorted": "src/repro/kernels/segment_mp.py:107",
@@ -716,6 +754,66 @@ def _reset_peak(device) -> None:
         torch.cuda.reset_peak_memory_stats()
 
 
+@contextlib.contextmanager
+def patched(module, name: str, fn):
+    """``module.name`` replaced by ``fn`` (given the original) inside the
+    block: a planted fault or a recorder around one model function."""
+    old = getattr(module, name)
+    setattr(module, name, fn(old))
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def route_capture(calls: list):
+    """A wrapper of ``transformer._moe_route`` that appends each call's
+    ``MoeRoute`` to ``calls``."""
+    def wrap(route):
+        def captured(*args):
+            calls.append(route(*args))
+            return calls[-1]
+        return captured
+    return wrap
+
+
+def drop_kth_expert(route):
+    """Planted routing fault: each token's K-th (smallest) expert left out
+    of the combine."""
+    def faulty(cfg, router, x, e0, El):
+        r = route(cfg, router, x, e0, El)
+        w = r.weights.clone()
+        w[..., -1] = 0
+        return r._replace(weights=w)
+    return faulty
+
+
+def topk_gap(route):
+    """Each token's gap between its K-th and (K+1)-th router
+    probabilities [G, Tg] on the host: the smallest change of the float32
+    router sums that could pick another expert."""
+    import torch
+    K = route.ids.shape[-1]
+    top = torch.topk(route.probs, K + 1, dim=-1).values
+    return (top[..., K - 1] - top[..., K]).cpu()
+
+
+def routing_flips(got: list, want: list) -> dict:
+    """Expert choices of two runs of the same calls (``route_capture``)
+    compared: the smallest K-th vs (K+1)-th gap of the reference run, and
+    the calls whose ids differ with the smallest gap among their flipped
+    tokens."""
+    import torch
+    flips = []
+    for a, b in zip(got, want):
+        differ = (a.ids.cpu() != b.ids.cpu()).any(dim=-1)
+        if differ.any():
+            flips.append(float(topk_gap(b)[differ].min()))
+    return {"route_calls": len(want),
+            "min_topk_gap": min(float(topk_gap(r).min()) for r in want),
+            "flipped_calls": len(flips), "flip_gaps": flips[:8]}
+
+
 def lm_model_check(cfg, seed: int, device, prompt: int = 128,
                    steps: int = 16, ref_device="cpu") -> dict:
     """Float32 weights from ``seed``: a prefill of ``prompt`` tokens and
@@ -724,8 +822,12 @@ def lm_model_check(cfg, seed: int, device, prompt: int = 128,
     (the plain versions on the CPU). ok when every logit is finite and
     max |diff| <= MODEL_TOL * max(1, max |logit|). On a card the control
     runs the card side again with TF32 matmuls; ok also needs its diff
-    above the limit, or the check could not see such a fault."""
+    above the limit, or the check could not see such a fault. An MoE
+    config adds a second control on any device, each token's K-th expert
+    left out of the combine (``drop_kth_expert``), and records the expert
+    choices of both sides (``routing_flips``)."""
     import torch
+    from repro_torch.models import transformer
     from repro_torch.models.transformer import (init_kv_cache, init_lm_params,
                                                 lm_decode_step, lm_prefill)
     dev = torch.device(device)
@@ -733,23 +835,26 @@ def lm_model_check(cfg, seed: int, device, prompt: int = 128,
         seed), torch.float32, dev)
     tokens = _tokens(seed, (1, prompt), cfg.vocab, "cpu")
 
-    def run(p, d):
-        pre = lm_prefill(cfg, p, tokens.to(d))
-        cache = init_kv_cache(cfg, 1, steps, torch.float32, d)
-        dec = [lm_decode_step(cfg, p, cache, tokens[:, t:t + 1].to(d), t)[0]
-               for t in range(steps)]
+    def run(p, d, routes=None):
+        with (patched(transformer, "_moe_route", route_capture(routes))
+              if routes is not None else contextlib.nullcontext()):
+            pre = lm_prefill(cfg, p, tokens.to(d))
+            cache = init_kv_cache(cfg, 1, steps, torch.float32, d)
+            dec = [lm_decode_step(cfg, p, cache, tokens[:, t:t + 1].to(d),
+                                  t)[0] for t in range(steps)]
         return pre.cpu(), torch.cat(dec, dim=1).cpu()
 
     def diff(got):
         return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
-    got = run(params, dev)
+    routes_got, routes_want = ([], []) if cfg.moe else (None, None)
+    got = run(params, dev, routes_got)
     ref_dev = torch.device(ref_device)
-    want = run(_params_to(params, ref_dev), ref_dev)
+    want = run(_params_to(params, ref_dev), ref_dev, routes_want)
     scale = max(float(w.abs().max()) for w in want)
     limit = MODEL_TOL * max(1.0, scale)
     finite = all(bool(torch.isfinite(g).all()) for g in got)
-    control = None
+    control = routing = None
     if dev.type == "cuda":
         matmul = torch.backends.cuda.matmul
         tf32, matmul.allow_tf32 = matmul.allow_tf32, True
@@ -757,18 +862,94 @@ def lm_model_check(cfg, seed: int, device, prompt: int = 128,
             control = diff(run(params, dev))
         finally:
             matmul.allow_tf32 = tf32
-    return {"prompt": prompt, "steps": steps, "max_abs_diff": diff(got),
-            "max_abs_logit": scale, "limit": limit,
-            "tf32_control_diff": control,
-            "ok": finite and diff(got) <= limit
-            and (control is None or control > limit)}
+    out = {"prompt": prompt, "steps": steps, "max_abs_diff": diff(got),
+           "max_abs_logit": scale, "limit": limit,
+           "tf32_control_diff": control}
+    if cfg.moe:
+        with patched(transformer, "_moe_route", drop_kth_expert):
+            routing = diff(run(params, dev))
+        out["routing_control_diff"] = routing
+        out.update(routing_flips(routes_got, routes_want))
+    out["ok"] = (finite and diff(got) <= limit
+                 and (control is None or control > limit)
+                 and (routing is None or routing > limit))
+    return out
+
+
+def kept_recount(ids, E: int, C: int) -> int:
+    """Kept assignments recomputed in numpy from the expert ids [G, Tg, K]:
+    per group and expert, at most C (the first C in token order)."""
+    ids = ids.cpu().numpy().reshape(ids.shape[0], -1)
+    return sum(int(np.minimum(np.bincount(g, minlength=E), C).sum())
+               for g in ids)
+
+
+def moe_drop_check(cfg, seed: int, device, ref_device="cpu",
+                   groups: int = MOE_DROP_GROUPS,
+                   tokens: int = MOE_DROP_TOKENS,
+                   planted: bool = False) -> dict:
+    """``_moe_core`` of one layer at ``cfg``'s width on ``groups`` groups of
+    ``tokens`` tokens with capacity factor ``MOE_DROP_FACTOR`` (so that
+    assignments drop), in float32 on ``device`` and on ``ref_device``.
+    x and the router are small dyadic values (integers in [-2, 2] over 4
+    and over 8), so the router logits are exact on both devices and equal
+    logits tie exactly on both; the experts' weights are normal draws. ok
+    when the expert ids, the keep mask and the kept count are equal on
+    both sides, the kept count equals ``kept_recount`` of the ids, some
+    assignments drop, and y is within MODEL_TOL * max(1, max |y|).
+    ``planted`` runs the ``device`` side with the capacity off by one."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.common import dense_init
+    cfg = dataclasses.replace(cfg, capacity_factor=MOE_DROP_FACTOR)
+    E, D, F, K = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.top_k
+    g = torch.Generator().manual_seed(seed + 5)
+    x = torch.randint(-2, 3, (groups, tokens, D), generator=g).float() / 4
+    router = torch.randint(-2, 3, (D, E), generator=g).float() / 8
+    experts = [dense_init(g, shape, dtype=torch.float32)
+               for shape in ((E, D, F), (E, D, F), (E, F, D))]
+
+    def run(d, capacity_fault=False):
+        routes = []
+        with (patched(transformer, "moe_capacity",
+                      lambda cap: lambda c, tg: cap(c, tg) + 1)
+              if capacity_fault else contextlib.nullcontext()), \
+                patched(transformer, "_moe_route", route_capture(routes)):
+            y, aux = transformer._moe_core(
+                cfg, *(t.to(d) for t in (router, *experts, x)))
+        return routes[0], y.cpu(), float(aux)
+
+    r_got, y_got, aux_got = run(torch.device(device), planted)
+    r_want, y_want, aux_want = run(torch.device(ref_device))
+    scale = float(y_want.abs().max())
+    limit = MODEL_TOL * max(1.0, scale)
+    kept = int(r_got.keep.sum())
+    kept_want = int(r_want.keep.sum())
+    recount = kept_recount(r_want.ids, E, r_want.capacity)
+    top = torch.sort(r_want.probs, dim=-1, descending=True).values
+    out = {"groups": groups, "tokens": tokens, "capacity": r_got.capacity,
+           "assignments": groups * tokens * K, "kept": kept,
+           "kept_ref": kept_want, "kept_recount": recount,
+           "tied_kth": int((top[..., K - 1] == top[..., K]).sum()),
+           "ids_equal": torch.equal(r_got.ids.cpu(), r_want.ids.cpu()),
+           "keep_equal": torch.equal(r_got.keep.cpu(), r_want.keep.cpu()),
+           "max_abs_diff": float((y_got - y_want).abs().max()),
+           "max_abs_y": scale, "limit": limit,
+           "aux_diff": abs(aux_got - aux_want)}
+    out["ok"] = (out["ids_equal"] and out["keep_equal"]
+                 and kept == kept_want == recount
+                 and recount < out["assignments"]
+                 and out["max_abs_diff"] <= limit)
+    return out
 
 
 def lm_prefill_phase(cfg, params, seq: int, batch: int, warm_seq: int,
-                     seed: int, device, profile: bool = False) -> dict:
+                     seed: int, device, profile: bool = False,
+                     track: tuple[str, ...] = ()) -> dict:
     """One untimed prefill of ``warm_seq`` tokens, then one timed prefill
     of [batch, seq] tokens; the launch counts are set to 0 just before the
-    timed pass and read just after. ``profile`` adds a profiled pass."""
+    timed pass and read just after. ``profile`` adds a profiled pass
+    (``track``: kernel-name parts whose time it adds up)."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.transformer import lm_prefill
@@ -793,12 +974,13 @@ def lm_prefill_phase(cfg, params, seq: int, batch: int, warm_seq: int,
     del logits
     if profile:                          # a second pass, under the profiler
         out["profile"] = device_profile(lambda: lm_prefill(cfg, params,
-                                                           tokens))
+                                                           tokens), track)
     return out
 
 
 def lm_decode_phase(cfg, params, batch: int, cache_len: int, steps: int,
-                    seed: int, device, profile: int = 0) -> dict:
+                    seed: int, device, profile: int = 0,
+                    track: tuple[str, ...] = ()) -> dict:
     """A KV cache of ``cache_len`` positions whose first ``cache_len -
     steps`` are filled from ``seed``, then ``steps`` greedy decode steps
     that fill the rest; the launch counts are set to 0 just before the
@@ -847,11 +1029,42 @@ def lm_decode_phase(cfg, params, batch: int, cache_len: int, steps: int,
             lm_decode_step(cfg, params, cache, tok, pos)
 
     if profile:
-        out["profile"] = device_profile(again)
+        out["profile"] = device_profile(again, track)
         out["profile"]["steps"] = profile
         out["profile"]["device_ms_per_step"] = (out["profile"]["device_ms"]
                                                 / profile)
     return out
+
+
+def layer_cursor(L: int):
+    """For the MoE calls of one pass in order (a prefill, then decode
+    steps: layers 0 to L - 1 in turn), ``next(Tg)`` gives the call's layer
+    and the first position of its Tg tokens."""
+    calls, start = [0], [0] * L
+
+    def next_call(Tg: int) -> tuple[int, int]:
+        layer = calls[0] % L
+        calls[0] += 1
+        start[layer] += Tg
+        return layer, start[layer] - Tg
+    return next_call
+
+
+def forced_topk(ids: list, L: int):
+    """A wrapper of ``transformer._moe_topk`` that makes each call choose
+    the experts ``ids[layer]`` [G, S, K] chose at the call's positions (a
+    prefill's choices), with their probabilities renormalized as weights."""
+    cursor = layer_cursor(L)
+
+    def wrap(topk):
+        def forced(cfg, router, x):
+            probs, _, _, aux = topk(cfg, router, x)
+            layer, pos = cursor(x.shape[1])
+            chosen = ids[layer][:, pos:pos + x.shape[1]]
+            w = probs.gather(-1, chosen)
+            return probs, chosen, w / w.sum(dim=-1, keepdim=True), aux
+        return forced
+    return wrap
 
 
 def lm_consistency(cfg, params, prompt: int, seed: int, device) -> dict:
@@ -859,36 +1072,62 @@ def lm_consistency(cfg, params, prompt: int, seed: int, device) -> dict:
     cache, decode the second half token by token, and compare those
     logits with a prefill of the whole prompt. The control decodes again
     with a planted off-by-one: each step's attention leaves out the
-    current token (valid lengths ``pos`` instead of ``pos + 1``)."""
+    current token (valid lengths ``pos`` instead of ``pos + 1``).
+
+    An MoE config decodes with the whole prompt's expert choices
+    (``forced_topk``): in bf16 the two attention routes round apart, and
+    where a token's K-th and (K+1)-th router probabilities lie that close
+    it takes another expert, a difference of routing and not of the cache.
+    The free decode's diff and its expert choices that differ from the
+    prefill's are recorded beside it."""
     import torch
     from repro_torch.models import transformer
     from repro_torch.models.transformer import (init_kv_cache,
                                                 lm_decode_step, lm_prefill)
     tokens = _tokens(seed + 4, (1, prompt), cfg.vocab, device)
-    want = lm_prefill(cfg, params, tokens)[:, prompt // 2:].float()
-    half = prompt // 2
+    half, L = prompt // 2, cfg.n_layers
+    routes = []
+    with (patched(transformer, "_moe_route", route_capture(routes))
+          if cfg.moe else contextlib.nullcontext()):
+        want = lm_prefill(cfg, params, tokens)[:, half:].float()
+    ids = [r.ids for r in routes]
 
-    def decode():
-        cache = init_kv_cache(cfg, 1, prompt, params["embed"].dtype, device)
-        lm_prefill(cfg, params, tokens[:, :half], cache)
-        return torch.cat([lm_decode_step(cfg, params, cache,
-                                         tokens[:, t:t + 1], t)[0]
-                          for t in range(half, prompt)], dim=1).float()
+    def decode(force: bool, free_routes=None):
+        with (patched(transformer, "_moe_topk", forced_topk(ids, L))
+              if force else contextlib.nullcontext()), \
+                (patched(transformer, "_moe_route",
+                         route_capture(free_routes))
+                 if free_routes is not None else contextlib.nullcontext()):
+            cache = init_kv_cache(cfg, 1, prompt, params["embed"].dtype,
+                                  device)
+            lm_prefill(cfg, params, tokens[:, :half], cache)
+            return torch.cat([lm_decode_step(cfg, params, cache,
+                                             tokens[:, t:t + 1], t)[0]
+                              for t in range(half, prompt)], dim=1).float()
 
-    got = decode()
-    kernel = transformer.decode_attention
-    transformer.decode_attention = (
-        lambda q, k, v, lengths, **kw: kernel(q, k, v, lengths - 1, **kw))
-    try:
-        planted = decode()
-    finally:
-        transformer.decode_attention = kernel
-    return {"prompt": prompt, "decoded": prompt - half,
-            "max_abs_diff": float((got - want).abs().max()),
-            "max_abs_logit": float(want.abs().max()),
-            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
-                                  .float().mean()),
-            "off_by_one_control_diff": float((planted - want).abs().max())}
+    got = decode(cfg.moe)
+    with patched(transformer, "decode_attention",
+                 lambda kernel: lambda q, k, v, lengths, **kw: kernel(
+                     q, k, v, lengths - 1, **kw)):
+        planted = decode(cfg.moe)
+    out = {"prompt": prompt, "decoded": prompt - half,
+           "max_abs_diff": float((got - want).abs().max()),
+           "max_abs_logit": float(want.abs().max()),
+           "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                 .float().mean()),
+           "off_by_one_control_diff": float((planted - want).abs().max())}
+    if cfg.moe:
+        free_routes = []
+        free = decode(False, free_routes)
+        cursor, flips = layer_cursor(L), 0
+        for r in free_routes:
+            layer, pos = cursor(r.ids.shape[1])
+            flips += int((r.ids != ids[layer][:, pos:pos + r.ids.shape[1]])
+                         .any(dim=-1).sum())
+        out["free_routing_diff"] = float((free - want).abs().max())
+        out["free_routing_changed"] = flips
+        out["routings"] = L * prompt
+    return out
 
 
 def _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev, layout="bshd"):
@@ -980,8 +1219,10 @@ def decode_edge_lengths(B, Hkv, S, d) -> list[int]:
 
 def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     """Both attention kernels against their plain versions on the card:
-    ragged S, GQA groups of 1, 2 and 8 (decode also 4 and 16), every
-    compiled head dim, windows, softcaps, strided and contiguous inputs;
+    ragged S, GQA groups of 1, 2, 4 and 8 (decode also 16), every
+    compiled head dim, the served models' head shapes (qwen3, gemma2,
+    granite-moe, phi3.5-moe), windows, softcaps, strided and contiguous
+    inputs;
     for flash also S at the 128-row query tile's edges, windows of 1 and
     narrower than a key tile, operands TMA cannot read (a q at an odd
     element offset, a k with d stride != 1: the bf16 route copies them)
@@ -1007,6 +1248,8 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
         (1, 4, 2, 300, 256, 64, 50.0), (1, 16, 2, 130, 128, 0, 0.0),
         (1, 16, 8, 4096, 128, 0, 0.0),          # qwen3 heads
         (1, 8, 4, 8192, 256, 4096, 50.0),       # gemma2 heads, local layer
+        (1, 16, 8, 4096, 64, 0, 0.0),           # granite-moe heads
+        (1, 32, 8, 4096, 128, 0, 0.0),          # phi3.5-moe heads
         # the tensor-core kernel's edges: S around the 128-row query tile
         # (64 rows at d = 256)
         (1, 2, 1, 127, 128, 0, 0.0), (1, 2, 2, 128, 64, 0, 0.0),
@@ -1033,7 +1276,9 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
         for n, (G, d) in enumerate((G, d) for G in (1, 2, 4, 8, 16)
                                    for d in HEAD_DIMS)]
     decode_cases += [(4, 16, 8, 4096, 128, 0, 0.0),    # qwen3 heads
-                     (4, 8, 4, 8192, 256, 4096, 50.0)]  # gemma2, local
+                     (4, 8, 4, 8192, 256, 4096, 50.0),  # gemma2, local
+                     (4, 16, 8, 4096, 64, 0, 0.0),      # granite-moe
+                     (4, 32, 8, 4096, 128, 0, 0.0)]     # phi3.5-moe
     decode_strided_case = (8, 4, 2, 600, 64, 0, 0.0)  # caches TMA cannot read
     worst, routes, bad = {}, {}, []
     calls = 0
@@ -1175,6 +1420,44 @@ def _sdpa(q, k, v, causal: bool):
         return None, None
 
 
+def flash_serving_row(cfg, B: int, S: int, launches: dict, hbm: float,
+                      gen) -> dict:
+    """``flash_attention`` at a model's prefill shape (its heads, B
+    sequences of S tokens in the model's strided layout, bf16) against the
+    plain version on the same card inputs, with the planted fault of
+    ``_attn_row``, timed beside its bound and one PyTorch call; raises if
+    the kernel copied an operand. ``launches``: the prefill's counts."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = torch.device("cuda")
+    H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, torch.bfloat16, dev)
+    pairs = B * H * S * (S + 1) // 2                  # causal (q, k) pairs
+    flops = 4 * d * pairs
+    nbytes = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
+    lib, how = _sdpa(q.contiguous(), k.contiguous(), v.contiguous(), True)
+    copies = flash_attention.copies
+    row = _attn_row(
+        "flash_attention", lambda: flash_attention(q, k, v),
+        lambda: ref.mha_reference(q, k, v),
+        lambda: ref.mha_reference(q, k, v, True, max(1, S - PLANTED_DROP)),
+        lib, how, flops, nbytes, hbm, launches,
+        f"{cfg.name}: B={B} H={H} Hkv={Hkv} S={S} d={d} bf16", calls=1,
+        reps=3, split=lambda: split_bound(q, k, v))
+    copies = flash_attention.copies - copies
+    log(f"kernel flash_attention at {cfg.name}'s prefill shape: "
+        f"{flops / row['ms'] / 1e9} TFLOP/s achieved ({flops} operations "
+        f"of the function; the split P runs 1.5x that on the tensor "
+        f"cores), {copies} operand copies")
+    if copies:
+        raise AssertionError(f"flash_attention copied {copies} operands of "
+                             f"the serving layout")
+    del q, k, v, lib
+    torch.cuda.empty_cache()
+    return row
+
+
 def attention_kernel_rows(cfg, prefill: dict, decode: dict,
                           hbm: float) -> list[dict]:
     """Both attention kernels at the serving shapes of the prefill and
@@ -1186,36 +1469,13 @@ def attention_kernel_rows(cfg, prefill: dict, decode: dict,
     from repro_torch.configs.registry import get_spec
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     dt = torch.bfloat16
     H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    rows = []
-
-    B, S = prefill["batch"], prefill["seq"]
-    q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dt, dev)
-    pairs = B * H * S * (S + 1) // 2                  # causal (q, k) pairs
-    flops = 4 * d * pairs
-    nbytes = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
-    lib, how = _sdpa(q.contiguous(), k.contiguous(), v.contiguous(), True)
-    copies = flash_attention.copies
-    rows.append(_attn_row(
-        "flash_attention", lambda: flash_attention(q, k, v),
-        lambda: ref.mha_reference(q, k, v),
-        lambda: ref.mha_reference(q, k, v, True, max(1, S - PLANTED_DROP)),
-        lib, how, flops, nbytes, hbm, prefill["launches"],
-        f"B={B} H={H} Hkv={Hkv} S={S} d={d} bf16", calls=1, reps=3,
-        split=lambda: split_bound(q, k, v)))
-    copies = flash_attention.copies - copies
-    log(f"kernel flash_attention: {flops / rows[-1]['ms'] / 1e9} TFLOP/s "
-        f"achieved ({flops} operations of the function; the split P runs "
-        f"1.5x that on the tensor cores), {copies} operand copies")
-    if copies:
-        raise AssertionError(f"flash_attention copied {copies} operands of "
-                             f"the serving layout")
-    del q, k, v
+    rows = [flash_serving_row(cfg, prefill["batch"], prefill["seq"],
+                              prefill["launches"], hbm, gen)]
 
     B, S = decode["batch"], decode["cache_len"]
     _, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dt, dev)
@@ -1430,6 +1690,195 @@ def lm_phase(args, hbm: float | None, device) -> list[dict]:
     log(f"attention edge cases within (atol, rtol) {ATTN_TOL}, the bf16 "
         f"flash route plus {SPLIT_GROWTH} * A: {json.dumps(cases)}")
     return attention_kernel_rows(cfg, pre, dec, hbm)
+
+
+def no_drop(cfg):
+    """``cfg`` with a capacity factor of 8 E / K, so that C >= Tg in both
+    branches of the capacity formula: no group of any size drops an
+    assignment, and prefill computes the function decode does."""
+    return dataclasses.replace(
+        cfg, capacity_factor=8.0 * cfg.n_experts / cfg.top_k)
+
+
+# kernel-name parts whose device time the MoE phase's profiles add up: the
+# two attention kernels, cuBLAS's GEMMs (nvjet, gemm), sorts, gathers,
+# elementwise passes and reductions (a name may hold two of them)
+MOE_TRACK = ("flash_tc", "decode_tc", "nvjet", "gemm", "Sort", "gather",
+             "elementwise", "reduce")
+
+
+def moe_layer_profile(cfg, params, shape: tuple[int, int], device,
+                      calls: int = 4) -> dict:
+    """Device time of layer 0's ``moe_ffn`` alone on a bf16 input of
+    ``shape`` = (B, S) normal rows (an RMS-normed activation's scale),
+    under the profiler over ``calls`` calls: ms a call and its top
+    kernels, the MoE layer's share of a prefill or a decode step."""
+    import torch
+    from repro_torch.models.transformer import layer_params, moe_ffn
+    lp = layer_params(params, 0)
+    x = torch.randn((*shape, cfg.d_model), device=device,
+                    generator=torch.Generator(device=device).manual_seed(17),
+                    dtype=params["embed"].dtype)
+    moe_ffn(cfg, lp, x)
+    prof = device_profile(lambda: [moe_ffn(cfg, lp, x) for _ in range(calls)],
+                          MOE_TRACK)
+    return {"shape": list(shape), "calls": calls,
+            "device_ms_per_call": prof["device_ms"] / calls,
+            "busy_share": prof["busy_share"], "top": prof["top"],
+            "tracked": prof["tracked"]}
+
+
+def moe_serving(cfg, params, prefill: tuple[int, int],
+                decode: tuple[int, int, int], seed: int, device,
+                profile: bool) -> dict:
+    """One MoE model's bf16 serving checks: a prefill of ``prefill`` =
+    (batch, seq) tokens, ``decode`` = (batch, cache_len, steps) greedy
+    decode steps, each launching ``flash_attention`` once a layer and
+    ``decode_attention`` once a layer a step with no operand copy, then
+    decode against prefill (capacity ``no_drop``, the prefill's expert
+    choices forced: ``lm_consistency``) within CONSISTENCY_TOL with its
+    off-by-one control above the limit."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    L = cfg.n_layers
+    (pb, seq), (db, cache_len, steps) = prefill, decode
+    copies = flash_attention.copies, decode_attention.copies
+    pre = lm_prefill_phase(cfg, params, seq, pb, min(PREFILL_WARM, seq),
+                           seed, device, profile=profile, track=MOE_TRACK)
+    log(f"moe {cfg.name} prefill: {json.dumps(pre)}")
+    torch.cuda.empty_cache()
+    dec = lm_decode_phase(cfg, params, db, cache_len, steps, seed, device,
+                          profile=4 if profile else 0, track=MOE_TRACK)
+    log(f"moe {cfg.name} decode: {json.dumps(dec)}")
+    if profile:
+        log(f"moe {cfg.name} decode: "
+            f"{dec['profile']['device_ms_per_step']} ms of device time per "
+            f"step under the profiler, {dec['ms_per_step']} ms per step "
+            f"unprofiled")
+        for label, shape, whole in (
+                ("prefill", (pb, seq), pre["profile"]["device_ms"]),
+                ("decode step", (db, 1),
+                 dec["profile"]["device_ms_per_step"])):
+            layer = moe_layer_profile(cfg, params, shape, device)
+            log(f"moe {cfg.name} MoE layer at the {label}'s shape: "
+                f"{json.dumps(layer)}; {L} layers "
+                f"{L * layer['device_ms_per_call']} of the {label}'s "
+                f"{whole} ms of device time")
+    torch.cuda.empty_cache()
+    made = (flash_attention.copies - copies[0],
+            decode_attention.copies - copies[1])
+    if made != (0, 0):
+        raise AssertionError(f"{cfg.name}: the prefill and decode copied "
+                             f"{made} attention operands")
+    want = {"flash_attention": L, "decode_attention": L * steps}
+    got = {"flash_attention": pre["launches"].get("flash_attention", 0),
+           "decode_attention": dec["launches"].get("decode_attention", 0)}
+    if got != want:
+        raise AssertionError(f"{cfg.name}: attention launches {got}, want "
+                             f"{want}")
+    cons = lm_consistency(no_drop(cfg), params, MOE_CONSISTENCY_PROMPT,
+                          seed, device)
+    cons["limit"] = CONSISTENCY_TOL * max(1.0, cons["max_abs_logit"])
+    log(f"moe {cfg.name} decode vs prefill (bf16, capacity factor "
+        f"{no_drop(cfg).capacity_factor}, the prefill's expert choices "
+        f"forced; free routing recorded): {json.dumps(cons)}")
+    if not cons["max_abs_diff"] <= cons["limit"]:
+        raise AssertionError(f"{cfg.name}: bf16 decode logits drift from "
+                             f"prefill: {cons}")
+    if not cons["off_by_one_control_diff"] > cons["limit"]:
+        raise AssertionError(f"{cfg.name}: a planted off-by-one is within "
+                             f"the decode limit: {cons}")
+    return {"launches": got, "prefill": pre, "decode": dec}
+
+
+def moe_phase(args, hbm: float, device) -> dict:
+    """The MoE LM serving phase: granite-moe-1b at full width and depth
+    (the f32 card-vs-CPU check with its TF32 and routing-fault controls,
+    the routing check with drops and its planted capacity fault, bf16
+    serving at the LM phase's shapes with decode at B = MOE_DECODE_BATCH,
+    a timed decode line at its shape), then phi3.5-moe at full width and
+    MOE_SECOND_LAYERS layers; after each model, ``flash_attention`` held to
+    its plain version at the model's prefill shape. Returns the attention
+    launches by model."""
+    import torch
+    from repro_torch.configs.registry import get_spec
+    from repro_torch.models.transformer import init_lm_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 checks
+    cfg = get_spec(MOE_ARCH).config
+    log(f"moe: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_head {cfg.d_head}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff} an "
+        f"expert, vocab {cfg.vocab} (padded {cfg.padded_vocab}), "
+        f"{cfg.param_count()} parameters ({cfg.active_param_count()} "
+        f"active); decode_32k's batch 128 cut to {MOE_DECODE_BATCH}")
+    t0 = time.perf_counter()
+    check = lm_model_check(cfg, args.seed, device)
+    log(f"moe model check (f32, card vs CPU): {json.dumps(check)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not check["ok"]:
+        raise AssertionError(f"{cfg.name}: f32 logits differ: {check}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    drops = moe_drop_check(cfg, args.seed, device)
+    log(f"moe routing with drops (f32, card vs CPU, capacity factor "
+        f"{MOE_DROP_FACTOR}): {json.dumps(drops)}")
+    if not drops["ok"]:
+        raise AssertionError(f"{cfg.name}: routing with drops differs: "
+                             f"{drops}")
+    planted = moe_drop_check(cfg, args.seed, device, planted=True)
+    log(f"moe routing, capacity off by one on the card (control): kept "
+        f"{planted['kept']} of {planted['assignments']} against "
+        f"{planted['kept_recount']}, ok {planted['ok']} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if planted["ok"]:
+        raise AssertionError(f"{cfg.name}: a planted capacity fault passes "
+                             f"the routing check")
+
+    params = init_lm_params(cfg, torch.Generator(device=device).manual_seed(
+        args.seed), torch.bfloat16, device)
+    launches = {cfg.name: moe_serving(
+        cfg, params, (PREFILL_BATCH, args.prefill_seq),
+        (MOE_DECODE_BATCH, args.decode_cache, args.decode_steps), args.seed,
+        device, profile=True)["launches"]}
+    del params
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(13)
+    flash_serving_row(cfg, PREFILL_BATCH, args.prefill_seq,
+                      launches[cfg.name], hbm, gen)
+    n = args.decode_cache
+    log(decode_shape_line(cfg, MOE_DECODE_BATCH, n, n, hbm, gen))
+    torch.cuda.empty_cache()
+
+    full = get_spec(MOE_SECOND_ARCH).config
+    cfg = dataclasses.replace(full, n_layers=MOE_SECOND_LAYERS)
+    t0 = time.perf_counter()
+    _reset_peak(device)
+    params = init_lm_params(cfg, torch.Generator(device=device).manual_seed(
+        args.seed), torch.bfloat16, device)
+    torch.cuda.synchronize()
+    weights_gb = sum(t.numel() * t.element_size() for v in params.values()
+                     for t in (v.values() if isinstance(v, dict) else [v])
+                     ) / 1e9
+    log(f"moe: {cfg.name} at {MOE_SECOND_LAYERS} of {full.n_layers} layers "
+        f"(all {full.param_count()} parameters take "
+        f"{full.param_count() * 2 / 1e9:.1f} GB in bf16, the card has 80), "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+        f"d_head {cfg.d_head}, {cfg.n_experts} experts top-{cfg.top_k}, d_ff "
+        f"{cfg.d_ff}: {cfg.param_count()} parameters, {weights_gb} GB of "
+        f"weights, drawn in {time.perf_counter() - t0:.1f} s, peak "
+        f"{_peak_gb(device)} GB")
+    seq = min(MOE_SECOND_SEQ, args.prefill_seq)
+    launches[cfg.name] = moe_serving(
+        cfg, params, (PREFILL_BATCH, seq),
+        (MOE_SECOND_BATCH, seq, min(MOE_SECOND_STEPS, args.decode_steps)),
+        args.seed, device, profile=False)["launches"]
+    del params
+    torch.cuda.empty_cache()
+    flash_serving_row(cfg, PREFILL_BATCH, seq, launches[cfg.name], hbm, gen)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3417,14 +3866,14 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--sharded-max-rows", type=int, default=500_000,
                     help="engine row cap of the sharded phase")
     ap.add_argument("--lm-only", action="store_true",
-                    help="the LM phase alone (a short run after an "
-                         "attention kernel edit)")
+                    help="the LM and MoE phases alone (a short run "
+                         "after an attention kernel edit)")
     ap.add_argument("--sparse-only", action="store_true",
                     help="the recsys and GNN phases alone (a short run "
                          "after a sparse kernel edit)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the LM, recsys and GNN phases' weights "
-                         "and inputs")
+                    help="seed of the LM, MoE, recsys and GNN phases' "
+                         "weights and inputs")
     ap.add_argument("--prefill-seq", type=int, default=32768)
     ap.add_argument("--decode-cache", type=int, default=32768)
     ap.add_argument("--decode-steps", type=int, default=64)
@@ -3487,6 +3936,13 @@ def main(argv: list[str] | None = None) -> int:
         t0 = time.perf_counter()
         rows += lm_phase(args, hbm, dev)
         log(f"lm phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        moe = moe_phase(args, hbm, dev)
+        for row in rows:
+            if row["name"] in LM_REPLACES:
+                row["moe_launches"] = {arch: got[row["name"]]
+                                       for arch, got in moe.items()}
+        log(f"moe phase {time.perf_counter() - t0:.1f} s")
 
     if not args.lm_only:
         t0 = time.perf_counter()

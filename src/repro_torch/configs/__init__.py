@@ -1,2 +1,2 @@
 """Architecture configs of the model zoo that the port serves (copies of
-``repro/configs``'s dense LM, Wide&Deep and GCN specs)."""
+``repro/configs``'s dense and MoE LM, Wide&Deep and GCN specs)."""

@@ -2,9 +2,9 @@
 archs and shape tables, ``repro/configs/registry.py``).
 
 Each arch module exposes ``spec() -> ArchSpec``. The port serves the dense
-LMs, Wide&Deep and GCN; the JAX registry's MoE archs, PNA, EGNN and NequIP
-and its cell construction (abstract inputs and shardings for the TPU dry
-run) are not ported.
+and MoE LMs (qwen3, gemma2, granite-moe, phi3.5-moe), Wide&Deep and GCN;
+the JAX registry's PNA, EGNN and NequIP and its cell construction
+(abstract inputs and shardings for the TPU dry run) are not ported.
 """
 
 from __future__ import annotations
@@ -12,9 +12,12 @@ from __future__ import annotations
 import importlib
 from dataclasses import dataclass, field
 
-ARCH_IDS = ["qwen3-0.6b", "qwen3-1.7b", "gemma2-2b", "gcn-cora", "wide-deep"]
+ARCH_IDS = ["phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m", "qwen3-0.6b",
+            "qwen3-1.7b", "gemma2-2b", "gcn-cora", "wide-deep"]
 
 _MODULE_OF = {
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "granite-moe-1b-a400m": "granite_moe",
     "qwen3-0.6b": "qwen3_0_6b",
     "qwen3-1.7b": "qwen3_1_7b",
     "gemma2-2b": "gemma2_2b",

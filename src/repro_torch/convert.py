@@ -6,8 +6,8 @@ package's ``TripleStore.to_arrays()`` / ``ShardedTripleStore.to_arrays()``
 and ``Dictionary.to_arrays()`` produce and rebuilds them as the port's
 store and dictionary. :func:`lm_params_from_reference`,
 :func:`recsys_params_from_reference` and :func:`gnn_params_from_reference`
-turn the model zoo's LM, Wide&Deep and GCN parameter trees, given as numpy
-arrays, into the port's params, and :func:`system_params_from_reference`
+turn the model zoo's LM (dense and MoE), Wide&Deep and GCN parameter
+trees, given as numpy arrays, into the port's params, and :func:`system_params_from_reference`
 the cloud-edge system's ``SystemParams``. All read plain arrays only, so
 they import nothing of the JAX package.
 """
@@ -48,19 +48,18 @@ def from_reference(store_arrays: dict[str, np.ndarray],
     return store, Dictionary.from_arrays(dict_arrays)
 
 
-# LM leaves the reference keeps in float32 whatever the weights' dtype
+# LM leaves the reference keeps in float32 whatever the weights' dtype: the
+# norm scales and the MoE router (routing in bf16 would pick other experts)
 _F32_LEAVES = {"final_norm", "ln_attn", "ln_mlp", "ln_attn_post",
-               "ln_mlp_post", "q_norm", "k_norm"}
+               "ln_mlp_post", "q_norm", "k_norm", "router"}
 
 
 def lm_params_from_reference(tree: dict, device=None,
                              dtype: torch.dtype = torch.bfloat16) -> dict:
-    """The port's LM params from the JAX ``init_lm_params`` tree, with its
-    leaves as numpy arrays (float32 or bfloat16): same keys and layouts,
-    norm scales in float32 and every other leaf in ``dtype``, on ``device``
-    (``cuda`` by default). The dense path only: an MoE tree raises."""
-    if "router" in tree.get("layers", {}):
-        raise NotImplementedError("MoE layers are not ported yet")
+    """The port's LM params from the JAX ``init_lm_params`` tree (dense or
+    MoE), with its leaves as numpy arrays (float32 or bfloat16): same keys
+    and layouts, norm scales and the router in float32 and every other
+    leaf in ``dtype``, on ``device`` (``cuda`` by default)."""
     dev = resolve_device(device)
 
     def leaf(name, a):

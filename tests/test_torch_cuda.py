@@ -217,3 +217,27 @@ def test_cuda_qad_solve_both_routes_match_plain_version():
         assert counts[f"qad_solve/{route}"] == \
             sum(r["route"] == route for r in rows) > 0
     assert counts["qad_solve"] == len(rows)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_routing_with_drops_matches_cpu():
+    """``_moe_core`` of one granite-moe layer at full width on the card
+    against the CPU, with capacity factor 0.5 (``chip_smoke.
+    moe_drop_check``): the same expert ids, keep mask and kept count on
+    both, equal to the count recomputed from the ids; a capacity off by
+    one on the card fails the check."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the MoE check compares it with "
+                    "the CPU")
+    from repro_torch.configs.registry import get_spec
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_spec(smoke.MOE_ARCH).config
+    dev = torch.device("cuda")
+    drops = smoke.moe_drop_check(cfg, 0, dev)
+    assert drops["ok"], drops
+    assert not smoke.moe_drop_check(cfg, 0, dev, planted=True)["ok"]

@@ -1,8 +1,9 @@
 """The port's dense LM (``repro_torch.models.transformer``) against the JAX
 package's model on the same float32 weights, carried over with
-``repro_torch.convert.lm_params_from_reference``; its configs against the
-reference's; its refusals (MoE, no CUDA); and a CPU rehearsal of
-``chip_smoke.py``'s LM checks.
+``repro_torch.convert.lm_params_from_reference``; its configs (dense and
+MoE) against the reference's; its refusal without CUDA; and a CPU
+rehearsal of ``chip_smoke.py``'s LM and MoE checks. The MoE layers are
+held to the reference in ``tests/test_torch_moe.py``.
 
 Tiny qwen3- and gemma2-shaped configs (``launch/train.py``'s
 ``reduce_config`` sizes: 2 layers, d_model 64, 4 heads, d_head 16, window
@@ -75,6 +76,8 @@ def test_configs_match_reference():
             assert mine.config.param_count() == ref.config.param_count()
         assert mine.shapes == ref.shapes
     assert get_spec("qwen3-0.6b").config.param_count() == 596_049_920
+    assert get_spec("granite-moe-1b-a400m").config.param_count() == \
+        1_334_628_352
 
 
 def test_common_numerics_match_jax():
@@ -197,20 +200,6 @@ def test_decode_past_the_cache_end():
                            torch.from_numpy(tokens[:, :1]), -1)
 
 
-def test_moe_raises():
-    jcfg = reduce_config(j_get_spec("granite-moe-1b-a400m"))
-    cfg = ttf.LMConfig(**dataclasses.asdict(jcfg))
-    g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
-        ttf.init_lm_params(cfg, g, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError):
-        ttf.lm_forward(cfg, {}, torch.zeros((1, 4), dtype=torch.long))
-    tree = jax.tree_util.tree_map(np.asarray, jtf.init_lm_params(
-        jcfg, jax.random.PRNGKey(0), dtype=jnp.float32))
-    with pytest.raises(NotImplementedError):
-        lm_params_from_reference(tree, device="cpu")
-
-
 def test_entry_points_need_cuda_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, cfg = _configs("qwen3-0.6b")
@@ -253,6 +242,40 @@ def test_chip_smoke_lm_checks_on_cpu():
                                 device="cpu")
     assert cons["max_abs_diff"] < 1e-4 and cons["argmax_agree"] == 1.0
     assert cons["off_by_one_control_diff"] > 1e-2
+
+
+def test_chip_smoke_moe_checks_on_cpu():
+    """The MoE phase's checks at the tiny granite config on the CPU, with
+    the plain versions on both sides: the f32 check passes, with the same
+    expert choices on both sides, and its planted routing fault (each
+    token's K-th expert left out of the combine) fails the limit; the
+    routing check with drops passes, and a planted off-by-one capacity
+    fails it; decode against prefill at the ``no_drop`` capacity, with the
+    prefill's expert choices forced and free."""
+    smoke = _chip_smoke()
+    _, cfg = _configs("granite-moe-1b-a400m")
+    check = smoke.lm_model_check(cfg, seed=0, device="cpu", prompt=16,
+                                 steps=4)
+    assert check["max_abs_diff"] == 0.0 and check["ok"]
+    assert check["routing_control_diff"] > check["limit"]
+    assert check["flipped_calls"] == 0 and check["min_topk_gap"] > 0
+    assert check["route_calls"] == cfg.n_layers * (1 + 4)
+    drops = smoke.moe_drop_check(cfg, seed=0, device="cpu", groups=2,
+                                 tokens=64)
+    assert drops["ok"] and drops["kept"] < drops["assignments"]
+    assert drops["capacity"] == 16 and drops["tied_kth"] > 0
+    planted = smoke.moe_drop_check(cfg, seed=0, device="cpu", groups=2,
+                                   tokens=64, planted=True)
+    assert not planted["ok"] and planted["kept"] > planted["kept_recount"]
+    params = ttf.init_lm_params(cfg, torch.Generator().manual_seed(0),
+                                torch.float32, "cpu")
+    cons = smoke.lm_consistency(smoke.no_drop(cfg), params, prompt=12,
+                                seed=0, device="cpu")
+    assert cons["max_abs_diff"] < 1e-4 and cons["argmax_agree"] == 1.0
+    assert cons["off_by_one_control_diff"] > 1e-2
+    # in float32 the free decode chooses the prefill's experts
+    assert cons["free_routing_changed"] == 0 and cons["routings"] == 24
+    assert cons["free_routing_diff"] < 1e-4
 
 
 def test_chip_smoke_attention_tolerance_on_cpu():
