@@ -54,13 +54,20 @@
    CPU at B = 512; ``serve_p99`` (B = 512), ``serve_bulk`` (B = 262,144)
    and ``retrieval_cand`` (1M candidates) timed; ``embedding_bag`` at the
    bulk shape against its plain version and timed beside its bound.
-8. GCN (gcn-cora): float32 logits on the card against the CPU at
-   full_graph_sm (``cora_like``, 2,708 nodes); a graph of ogb_products'
-   size (2,449,029 nodes, ~61.8M edges, d_feat 100) drawn and sorted on
-   the card, its forward timed; ``segment_sum_sorted`` at each of the
-   forward's widths (16, 7 and 1) against its plain version and timed
-   beside its bound. Every model and
-   kernel check also reads a planted fault that must fail it.
+8. GNNs at full width (weights from ``--seed``): GCN and PNA float32
+   logits on the card against the CPU at full_graph_sm (``cora_like``,
+   2,708 nodes, d_feat 1,433), EGNN (h, coordinates, energies) and NequIP
+   (l0, l1, l2, energies) at the molecule shape (``molecule_batch(128, 30,
+   64)``), EGNN and NequIP also under a random rotation; a graph of
+   ogb_products' size (2,449,029 nodes, ~61.8M edges, d_feat 100, species
+   and coordinates) drawn and sorted on the card, each model's forward
+   timed and profiled (PNA, EGNN and NequIP chunk by chunk, launches
+   checked against the chunk plan), EGNN and NequIP also at the molecule
+   shape; ``segment_sum_sorted`` at each width the forwards launch (GCN's
+   16, 7 and the degrees' 1 at the whole graph, PNA's 75, EGNN's 64 and 3
+   and NequIP's 64, 288 and 576 at a chunk) against its plain version and
+   timed beside its bound. Every model and kernel check also reads a
+   planted fault that must fail it.
 9. The paper's system, last: ``EdgeCloudSystem`` on the scale-1000 store
    (20 users, 4 edges, B&B and the four baselines, each round cold and
    warm; thread overlap; a query split across two edges), then the SPARQL
@@ -186,6 +193,11 @@ SPARSE_REPLACES = {
 }
 RECSYS_ARCH = "wide-deep"
 GNN_ARCH = "gcn-cora"
+GNN_ZOO = ("pna", "egnn", "nequip")
+# timed calls of each forward at ogb_products' size, beyond the warm-up, the
+# counted, the profiled and the width-tallied ones: PNA's takes 3.2 s and
+# NequIP's 7.8 s on an H100, so they are timed once
+GNN_CALLS = {"gcn": 5, "pna": 1, "egnn": 2, "nequip": 1}
 # The sparse kernels' sums against their plain versions, per element:
 # |kernel - plain| <= SUM_GROWTH * n * A + rtol * |plain|, with n the number
 # of terms and A the sum of their magnitudes (over the bag's count for
@@ -203,6 +215,11 @@ SEGMENT_CUT = 256            # a planted segment fault's edge boundary
 # control each run must exceed) move them by about 4e-5 (a CPU emulation
 # of TF32 rounding at full width)
 SPARSE_MODEL_TOL = 2e-6
+# EGNN and NequIP at x and at R x, relative to max(1, max |output|): R x
+# rounds the coordinates (2^-24 relative), which the layers carry through;
+# on the CPU the worst output (EGNN's energies) moved 1.5e-6, and the planted
+# permutation of the edge vectors' components moves them by 0.17-0.41
+ROTATION_TOL = 2e-5
 
 
 # profiling sessions kernel_device_ms runs before it gives up
@@ -735,8 +752,8 @@ def _tokens(seed: int, shape: tuple[int, ...], vocab: int, device):
 def _params_to(tree, device):
     if isinstance(tree, dict):
         return {k: _params_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_params_to(v, device) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_params_to(v, device) for v in tree)
     return tree.to(device)
 
 
@@ -2414,63 +2431,183 @@ def _drop_run_starts(kernel):
     return faulty
 
 
-def gnn_model_check(cfg, seed: int, device, ref_device="cpu") -> dict:
-    """Float32 GCN weights from ``seed`` on ``cora_like`` at the config's
-    full_graph_sm size (edges as generated, unsorted): logits on
-    ``device`` (through the kernel on a card) against the same weights on
-    ``ref_device`` (the plain versions on the CPU). ok when every logit is
-    finite and max |diff| <= SPARSE_MODEL_TOL * max(1, max |logit|), and
-    on a card when two controls exceed the limit: TF32 matmuls, and a
-    planted fault that leaves every node's first edge out of the
-    aggregation."""
-    import torch
+def _clamped_max(seg_max):
+    """``gnn.seg_max`` with a planted fault: ``scatter_reduce_`` with
+    ``include_self=True``, which takes the zeroed rows into every max, so
+    a max below 0 reads 0 (and, through ``seg_min``, a min above 0)."""
+    def faulty(x, idx, n, out=None):
+        out = x.new_zeros((n, x.shape[1])) if out is None else out.zero_()
+        return out.scatter_reduce_(0, idx.long()[:, None].expand_as(x), x,
+                                   "amax", include_self=True)
+    return faulty
+
+
+def _permuted_rel(rel):
+    """``gnn._rel`` with a planted fault: the edge vectors' components
+    turned (x, y, z) -> (y, z, x), a fixed rotation that does not commute
+    with the check's."""
+    def faulty(pos, a, b):
+        return rel(pos, a, b)[:, [1, 2, 0]]
+    return faulty
+
+
+def gnn_config(arch: str, shape: str):
+    """The registry's config of ``arch`` at GNN shape ``shape``: GCN and
+    PNA take the shape's d_feat (1,433 at full_graph_sm, 100 at
+    ogb_products), as the reference's cells pin it."""
+    from repro_torch.configs.registry import get_spec
+    spec = get_spec(arch)
+    cfg = spec.config
+    if cfg.model in ("gcn", "pna") and "d_feat" in spec.shapes[shape]:
+        cfg = dataclasses.replace(cfg, d_feat=spec.shapes[shape]["d_feat"])
+    return cfg
+
+
+def check_shape(cfg) -> str:
+    """The shape of the card-vs-CPU check: full_graph_sm for GCN and PNA,
+    molecule for EGNN and NequIP."""
+    return "full_graph_sm" if cfg.model in ("gcn", "pna") else "molecule"
+
+
+def gnn_inputs(cfg, seed: int) -> dict:
+    """numpy inputs at ``check_shape``: ``cora_like`` (edges as generated,
+    unsorted) or ``molecule_batch`` (edges unsorted, graph ids
+    ascending)."""
     from repro_torch.configs.registry import GNN_SHAPES
-    from repro_torch.data.graphs import cora_like
+    from repro_torch.data.graphs import cora_like, molecule_batch
+    sh = GNN_SHAPES[check_shape(cfg)]
+    if cfg.model in ("gcn", "pna"):
+        data = cora_like(sh["n_nodes"], sh["n_edges"], cfg.d_feat,
+                         cfg.n_classes, seed=seed)
+        return {k: data[k] for k in ("feat", "edge_index")}
+    data = molecule_batch(sh["n_graphs"], sh["nodes_per"], sh["edges_per"],
+                          cfg.n_species, seed=seed)
+    return {k: data[k] for k in ("species", "coords", "edge_index",
+                                 "graph_ids", "energy")}
+
+
+def gnn_outputs(cfg, params, data: dict, device) -> dict:
+    """The model's outputs on ``data`` (numpy) moved to ``device``, back on
+    the CPU: GCN's and PNA's logits; EGNN's h, coordinates and energies;
+    NequIP's l0, l1, l2 and energies (energies through ``*_energy``, a
+    second forward)."""
+    import torch
     from repro_torch.models import gnn
-    shape = GNN_SHAPES["full_graph_sm"]
-    data = cora_like(shape["n_nodes"], shape["n_edges"], shape["d_feat"],
-                     cfg.n_classes, seed=seed)
-    feat = torch.from_numpy(data["feat"])
-    edges = torch.from_numpy(data["edge_index"])
+    t = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    if cfg.model in ("gcn", "pna"):
+        fwd = gnn.gcn_forward if cfg.model == "gcn" else gnn.pna_forward
+        out = {"logits": fwd(cfg, params, t["feat"], t["edge_index"])}
+    else:
+        args = (cfg, params, t["species"], t["coords"], t["edge_index"])
+        if cfg.model == "egnn":
+            out = dict(zip(("h", "x"), gnn.egnn_forward(*args)))
+            energy = gnn.egnn_energy
+        else:
+            out = gnn.nequip_forward(*args)
+            energy = gnn.nequip_energy
+        out["energy"] = energy(*args, t["graph_ids"], len(data["energy"]))
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def gnn_model_check(cfg, seed: int, device, ref_device="cpu") -> dict:
+    """Float32 weights from ``seed`` at ``check_shape``: every output on
+    ``device`` (through the kernel on a card) against the same weights on
+    ``ref_device`` (the plain versions on the CPU). ok when every output is
+    finite and each within SPARSE_MODEL_TOL * max(1, max |output|)
+    (``ratio`` <= 1), and on a card when every control exceeds it: TF32
+    matmuls, a planted fault that leaves every node's first edge out of the
+    aggregation, and for PNA ``scatter_reduce_`` with ``include_self``."""
+    import torch
+    from repro_torch.models import gnn
+    data = gnn_inputs(cfg, seed)
     dev = torch.device(device)
-    params = gnn.gcn_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+    params = gnn.gnn_init(cfg, torch.Generator(device=dev).manual_seed(seed),
                           dev)
-
-    def run(p, d):
-        return gnn.gcn_forward(cfg, p, feat.to(d), edges.to(d)).cpu()
-
-    got = run(params, dev)
+    got = gnn_outputs(cfg, params, data, dev)
     ref_dev = torch.device(ref_device)
-    want = run(_params_to(params, ref_dev), ref_dev)
-    limit = SPARSE_MODEL_TOL * max(1.0, float(want.abs().max()))
-    diff = float((got - want).abs().max())
+    want = gnn_outputs(cfg, _params_to(params, ref_dev), data, ref_dev)
+    limits = {k: SPARSE_MODEL_TOL * max(1.0, float(w.abs().max()))
+              for k, w in want.items()}
+    diffs = {k: float((got[k] - want[k]).abs().max()) for k in want}
+
+    def ratio(out):
+        return max(float((out[k] - want[k]).abs().max()) / limits[k]
+                   for k in want)
+
     controls = {}
     if dev.type == "cuda":
         matmul = torch.backends.cuda.matmul
         tf32, matmul.allow_tf32 = matmul.allow_tf32, True
         try:
-            controls["tf32"] = float((run(params, dev) - want).abs().max())
+            controls["tf32"] = ratio(gnn_outputs(cfg, params, data, dev))
         finally:
             matmul.allow_tf32 = tf32
-        kernel = gnn.segment_sum_sorted
-        gnn.segment_sum_sorted = _drop_run_starts(kernel)
-        try:
-            controls["first_edge_dropped"] = float(
-                (run(params, dev) - want).abs().max())
-        finally:
-            gnn.segment_sum_sorted = kernel
-    return {"nodes": shape["n_nodes"], "edges": int(edges.shape[0]),
-            "d_feat": shape["d_feat"], "max_abs_diff": diff,
-            "max_abs_logit": float(want.abs().max()), "limit": limit,
-            "controls": controls,
-            "ok": bool(torch.isfinite(got).all()) and diff <= limit
-            and all(c > limit for c in controls.values())}
+        with patched(gnn, "segment_sum_sorted", _drop_run_starts):
+            controls["first_edge_dropped"] = ratio(
+                gnn_outputs(cfg, params, data, dev))
+        if cfg.model == "pna":
+            with patched(gnn, "seg_max", _clamped_max):
+                controls["max_include_self"] = ratio(
+                    gnn_outputs(cfg, params, data, dev))
+    return {"model": cfg.model, "shape": check_shape(cfg),
+            "nodes": len(data["coords" if "coords" in data else "feat"]),
+            "edges": len(data["edge_index"]), "max_abs_diff": max(
+                diffs.values()), "diffs": diffs, "limits": limits,
+            "ratio": ratio(got), "controls": controls,
+            "ok": all(bool(torch.isfinite(v).all()) for v in got.values())
+            and ratio(got) <= 1.0
+            and all(c > 1.0 for c in controls.values())}
+
+
+def random_rotation(seed: int) -> np.ndarray:
+    """A rotation (det +1) drawn from ``seed``: the Q of a normal 3x3
+    matrix's QR with R's diagonal made positive, a column flipped where
+    its determinant is -1."""
+    q, r = np.linalg.qr(np.random.default_rng(seed).standard_normal((3, 3)))
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q
+
+
+def rotation_check(cfg, seed: int, device, planted: bool = False) -> dict:
+    """EGNN or NequIP on the molecule inputs on ``device`` at coordinates x
+    and at R x, R from ``seed``: energies (and EGNN's h, NequIP's l0)
+    invariant, EGNN's coordinates R x', NequIP's l1 R v and l2 R M R^T,
+    each within ROTATION_TOL * max(1, max |want|) (``ratios`` <= 1).
+    ``planted`` turns the edge vectors' components (``_permuted_rel``),
+    which must fail it."""
+    import torch
+    from repro_torch.models import gnn
+    dev = torch.device(device)
+    data = gnn_inputs(cfg, seed)
+    R = random_rotation(seed)
+    turned = dict(data, coords=(data["coords"] @ R.T).astype(np.float32))
+    params = gnn.gnn_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          dev)
+    with (patched(gnn, "_rel", _permuted_rel) if planted
+          else contextlib.nullcontext()):
+        base = gnn_outputs(cfg, params, data, dev)
+        got = gnn_outputs(cfg, params, turned, dev)
+    r = torch.from_numpy(R.astype(np.float32))
+    want = dict(base)
+    for k in ("x", "l1"):
+        if k in want:
+            want[k] = base[k] @ r.T
+    if "l2" in want:
+        want["l2"] = r @ base["l2"] @ r.T
+    ratios = {k: float((got[k] - want[k]).abs().max())
+              / (ROTATION_TOL * max(1.0, float(want[k].abs().max())))
+              for k in want}
+    return {"model": cfg.model, "ratios": ratios,
+            "ok": max(ratios.values()) <= 1.0}
 
 
 def gnn_graph(n_nodes: int, n_edges: int, d_feat: int, seed: int,
-              device) -> dict:
+              device, n_species: int = 16) -> dict:
     """``power_law_graph`` drawn on ``device`` and sorted by destination
-    there (each timed to a synchronise), with normal features."""
+    there (each timed to a synchronise), with normal features, species in
+    [0, ``n_species``) and coordinates normal(0, 1.5)."""
     import torch
     from repro_torch.data.graphs import power_law_graph
     from repro_torch.models.gnn import is_sorted_by_dst, sort_by_dst
@@ -2485,97 +2622,182 @@ def gnn_graph(n_nodes: int, n_edges: int, d_feat: int, seed: int,
     if not is_sorted_by_dst(edges):
         raise AssertionError("sort_by_dst left dst unsorted")
     feat = torch.randn((n_nodes, d_feat), generator=gen, device=device)
-    return {"edges": edges, "feat": feat, "draw_s": t1 - t0,
-            "sort_s": t2 - t1}
+    species = torch.randint(0, n_species, (n_nodes,), generator=gen,
+                            device=device, dtype=torch.int32)
+    coords = torch.randn((n_nodes, 3), generator=gen, device=device) * 1.5
+    return {"edges": edges, "feat": feat, "species": species,
+            "coords": coords, "draw_s": t1 - t0, "sort_s": t2 - t1}
+
+
+def gnn_call(cfg, params, graph: dict, entry: bool = True):
+    """One model call on ``graph`` (edges sorted beforehand), as a closure.
+    ``entry``: what a user calls, GCN's and PNA's logits and EGNN's and
+    NequIP's energies of the graph as one molecule (G = 1, as the
+    reference's cells take ogb_products); else the forward."""
+    import torch
+    from repro_torch.models import gnn
+    e = graph["edges"]
+    if cfg.model in ("gcn", "pna"):
+        fwd = gnn.gcn_forward if cfg.model == "gcn" else gnn.pna_forward
+        return lambda: fwd(cfg, params, graph["feat"], e)
+    args = (cfg, params, graph["species"], graph["coords"], e)
+    if not entry:
+        fwd = gnn.egnn_forward if cfg.model == "egnn" else gnn.nequip_forward
+        return lambda: fwd(*args)
+    energy = gnn.egnn_energy if cfg.model == "egnn" else gnn.nequip_energy
+    ids = torch.zeros(graph["coords"].shape[0], dtype=torch.int32,
+                      device=e.device)
+    return lambda: energy(*args, ids, 1)
 
 
 def gnn_serve(cfg, params, graph: dict, device, calls: int,
               profile: bool = False) -> dict:
-    """``gcn_forward`` on a graph sorted beforehand, through
-    ``timed_calls``; ``profile`` adds a call under the profiler."""
+    """``gnn_call`` on a graph sorted beforehand, through ``timed_calls``;
+    ``profile`` adds a call under the profiler (device only)."""
     import torch
-    from repro_torch.models.gnn import degrees, gcn_forward
-    feat, edges = graph["feat"], graph["edges"]
-    n, E = feat.shape[0], edges.shape[0]
-    res = timed_calls(lambda: gcn_forward(cfg, params, feat, edges), calls,
-                      device)
-    logits = res.pop("out")
-    if logits.shape != (n, cfg.n_classes) or \
-            not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"logits {tuple(logits.shape)} not finite")
-    del logits
-    res.update(nodes=n, edges=E, d_feat=feat.shape[1],
-               max_in_degree=float(degrees(edges[:, 1].contiguous(),
-                                           n).max()),
+    from repro_torch.models.gnn import degrees, edge_chunks
+    edges = graph["edges"]
+    n, E = graph["feat"].shape[0], edges.shape[0]
+    fn = gnn_call(cfg, params, graph)
+    res = timed_calls(fn, calls, device)
+    out = res.pop("out")
+    want = (n, cfg.n_classes) if cfg.model in ("gcn", "pna") else (1,)
+    if tuple(out.shape) != want or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{cfg.name} output {tuple(out.shape)} not "
+                             f"finite or not {want}")
+    del out
+    dst = edges[:, 1].contiguous()
+    res.update(model=cfg.name, nodes=n, edges=E,
+               chunks=len(edge_chunks(dst, n)),
+               max_in_degree=float(degrees(dst, n).max()),
                draw_s=graph["draw_s"], sort_s=graph["sort_s"],
                edges_per_s=E / res["median_ms"] * 1e3)
+    if cfg.model in ("gcn", "pna"):
+        res["d_feat"] = cfg.d_feat
+    del dst
     if profile:
-        res["profile"] = device_profile(
-            lambda: gcn_forward(cfg, params, feat, edges))
+        res["profile"] = device_profile(fn, cpu=False)
     return res
+
+
+def expected_widths(cfg, n_chunks: int) -> dict:
+    """{D: launches} of ``segment_sum_sorted`` in one forward, from the
+    model and its chunk count: GCN the degrees (D = 1) and one a layer
+    (each layer's output width); PNA the degrees and, a chunk and layer,
+    the messages' sum and their squares' (D = hidden); EGNN the degrees
+    and, a chunk and layer, the coordinate update (D = 3) and the messages
+    (D = hidden); NequIP, a chunk and layer, l0, l1 and l2 (D = 2C, 9C,
+    18C)."""
+    L, H, k = cfg.n_layers, cfg.d_hidden, n_chunks
+    if cfg.model == "gcn":
+        want = {1: 1}
+        for d in [H] * (L - 1) + [cfg.n_classes]:
+            want[d] = want.get(d, 0) + 1
+        return want
+    if cfg.model == "pna":
+        return {1: 1, H: L * k * (1 + ("std" in cfg.aggregators))}
+    if cfg.model == "egnn":
+        return {1: 1, 3: L * k, H: L * k}
+    return {2 * H: L * k, 9 * H: L * k, 18 * H: L * k}
 
 
 def segment_widths(cfg, params, graph: dict) -> dict:
     """The launches of ``segment_sum_sorted`` in one forward by the width
     D of their messages, {D: launches} (counts set to 0 just before the
-    forward, read just after; they must sum to the wrapper's count). Off
-    the card every width counts 0 launches."""
+    forward, read just after; they must sum to the wrapper's count), and
+    the forward's outputs all finite. Off the card every width counts 0
+    launches."""
+    import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import gnn
     widths: dict[int, int] = {}
-    kernel = gnn.segment_sum_sorted
 
-    def tally(msg, dst, n_nodes, out=None):
-        before = launch_counts().get("segment_sum_sorted", 0)
-        res = kernel(msg, dst, n_nodes, out)
-        widths[msg.shape[1]] = widths.get(msg.shape[1], 0) + \
-            launch_counts().get("segment_sum_sorted", 0) - before
-        return res
+    def tally(kernel):
+        def counted(msg, dst, n_nodes, out=None):
+            before = launch_counts().get("segment_sum_sorted", 0)
+            res = kernel(msg, dst, n_nodes, out)
+            widths[msg.shape[1]] = widths.get(msg.shape[1], 0) + \
+                launch_counts().get("segment_sum_sorted", 0) - before
+            return res
+        return counted
 
-    gnn.segment_sum_sorted = tally
-    try:
+    fn = gnn_call(cfg, params, graph, entry=False)
+    with patched(gnn, "segment_sum_sorted", tally):
         reset_launch_counts()
-        gnn.gcn_forward(cfg, params, graph["feat"], graph["edges"])
-        _sync(graph["feat"].device)
+        out = fn()
+        _sync(graph["edges"].device)
         counts = launch_counts()
-    finally:
-        gnn.segment_sum_sorted = kernel
     if sum(widths.values()) != counts.get("segment_sum_sorted", 0):
         raise AssertionError(f"segment widths {widths} vs launches {counts}")
+    outs = out.values() if isinstance(out, dict) else \
+        out if isinstance(out, tuple) else (out,)
+    if not all(bool(torch.isfinite(t).all()) for t in outs):
+        raise AssertionError(f"{cfg.name} forward output not finite")
     return widths
 
 
-def segment_kernel_rows(edges, n_nodes: int, widths: dict, hbm) -> list:
-    """``segment_sum_sorted`` at each width the forward launches (the
-    graph's sorted dst, [E, D] messages) against its plain version on the
-    same card inputs: exactly on integer-valued messages in {-2, ..., 2}
-    (every sum is under 2^24, so exact in any order), per element on
-    normal messages in float32 and bfloat16 and on the scalar route (msg
-    one element off 16 bytes); each against a planted fault
-    (``planted_segment``) that must fail it. Timed beside its bound and
-    ``index_add_``; one row a width, ``launches`` the forward's launches
-    at that width."""
+def gnn_molecule_latency(cfg, seed: int, device, calls: int) -> dict:
+    """EGNN's or NequIP's energies of one molecule batch at the molecule
+    shape (the check's inputs, edges unsorted as generated) on ``device``,
+    through ``timed_calls``: one forward of one chunk, and the per-graph
+    sum."""
+    import torch
+    from repro_torch.models import gnn
+    data = gnn_inputs(cfg, seed)
+    t = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    params = gnn.gnn_init(cfg, torch.Generator(device=device).manual_seed(
+        seed), device)
+    energy = gnn.egnn_energy if cfg.model == "egnn" else gnn.nequip_energy
+    res = timed_calls(lambda: energy(cfg, params, t["species"], t["coords"],
+                                     t["edge_index"], t["graph_ids"],
+                                     len(data["energy"])), calls, device)
+    out = res.pop("out")
+    if out.shape != (len(data["energy"]),) or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{cfg.name} energies {tuple(out.shape)}")
+    res.update(model=cfg.name, graphs=len(data["energy"]),
+               nodes=len(data["species"]), edges=len(data["edge_index"]))
+    return res
+
+
+def segment_exact(dst, n_nodes: int, d: int, gen) -> list[float]:
+    """[max |kernel - plain|, max |planted - plain|] of
+    ``segment_sum_sorted`` on integer-valued [E, d] messages in {-2, ...,
+    2} (every sum is under 2^24, so exact in any order): the first must be
+    0, the second (``planted_segment``) not."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_mp import segment_sum_sorted
+    msg = torch.randint(-2, 3, (dst.shape[0], d), generator=gen,
+                        device=dst.device, dtype=torch.float32)
+    want = ref.segment_sum_sorted_reference(msg, dst, n_nodes)
+    got = segment_sum_sorted(msg, dst, n_nodes)
+    planted = ref.segment_sum_sorted_reference(planted_segment(msg, dst),
+                                               dst, n_nodes)
+    return [float((got - want).abs().max()),
+            float((planted - want).abs().max())]
+
+
+def segment_kernel_rows(dst, n_nodes: int, widths: dict, hbm) -> list:
+    """``segment_sum_sorted`` at each width a forward launches at this
+    shape (destination-sorted ``dst``, [E, D] messages) against its plain
+    version on the same card inputs: exactly on integer-valued messages
+    (``segment_exact``), per element on normal messages in float32 and
+    bfloat16 and on the scalar route (msg one element off 16 bytes); each
+    against a planted fault (``planted_segment``) that must fail it. Timed
+    beside its bound and ``index_add_``; one row a width, ``launches`` the
+    forwards' launches at that width and shape."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.segment_mp import segment_plan, segment_sum_sorted
 
-    dev = edges.device
+    dev = dst.device
     gen = torch.Generator(device=dev).manual_seed(17)
-    dst = edges[:, 1].contiguous()
     E = dst.shape[0]
     rows = []
     for d in sorted(widths, reverse=True):
         shape = f"E={E} N={n_nodes} D={d}"
-        checks = {}
-        msg = torch.randint(-2, 3, (E, d), generator=gen, device=dev,
-                            dtype=torch.float32)
-        want = ref.segment_sum_sorted_reference(msg, dst, n_nodes)
-        got = segment_sum_sorted(msg, dst, n_nodes)
-        planted = ref.segment_sum_sorted_reference(planted_segment(msg, dst),
-                                                   dst, n_nodes)
-        checks["exact"] = [float((got - want).abs().max()),
-                           float((planted - want).abs().max())]
-        del msg, want, got, planted
+        checks = {"exact": segment_exact(dst, n_nodes, d, gen)}
         scalar_ms = None
         for name in ("float32", "bfloat16", "float32 off16"):
             msg = torch.randn((E, d), generator=gen, device=dev).to(
@@ -2634,52 +2856,103 @@ def segment_kernel_rows(edges, n_nodes: int, widths: dict, hbm) -> list:
 
 
 def gnn_phase(args, hbm: float | None, device) -> list[dict]:
-    """GCN inference: card against CPU at full_graph_sm, then a forward
-    on ogb_products' full size drawn on the card; returns the
-    ``segment_sum_sorted`` rows, one a width the forward launches (none
-    off the card)."""
-    import dataclasses
-
+    """GCN, PNA, EGNN and NequIP inference: each card against CPU at
+    ``check_shape`` (EGNN and NequIP also under a rotation), then each
+    forward on ogb_products' size drawn on the card, and EGNN's and
+    NequIP's energies at the molecule shape; returns the
+    ``segment_sum_sorted`` rows: GCN's widths and the degrees at the whole
+    graph's shape, the new widths at a median chunk's (none off the
+    card)."""
     import torch
-    from repro_torch.configs.registry import get_spec
-    from repro_torch.models.gnn import gcn_init
+    from repro_torch.configs.registry import GNN_SHAPES, get_spec
+    from repro_torch.models.gnn import EDGE_CHUNK, edge_chunks, gnn_init
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 checks
-    spec = get_spec(GNN_ARCH)
-    cfg = spec.config
-    log(f"gnn: {cfg.name} ({spec.source}) {cfg.n_layers} layers, hidden "
-        f"{cfg.d_hidden}, {cfg.n_classes} classes; shapes full_graph_sm "
-        f"{spec.shapes['full_graph_sm']} and ogb_products "
-        f"{spec.shapes['ogb_products']}")
-    t0 = time.perf_counter()
-    check = gnn_model_check(cfg, args.seed, device)
-    log(f"gnn model check (f32, card vs CPU): {json.dumps(check)} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    if not check["ok"]:
-        raise AssertionError(f"gcn logits differ: {check}")
+    for arch in (GNN_ARCH,) + GNN_ZOO:
+        spec = get_spec(arch)
+        cfg = gnn_config(arch, "full_graph_sm")
+        t0 = time.perf_counter()
+        check = gnn_model_check(cfg, args.seed, device)
+        log(f"gnn {cfg.name} ({spec.source}) {cfg.n_layers} layers, hidden "
+            f"{cfg.d_hidden}: model check (f32, card vs CPU, "
+            f"{check_shape(cfg)} {spec.shapes[check_shape(cfg)]}): "
+            f"{json.dumps(check)} in {time.perf_counter() - t0:.1f} s")
+        if not check["ok"]:
+            raise AssertionError(f"{cfg.name} outputs differ: {check}")
+        if cfg.model in ("egnn", "nequip"):
+            rot = rotation_check(cfg, args.seed, device)
+            planted = rotation_check(cfg, args.seed, device, planted=True)
+            log(f"gnn {cfg.name} rotation check on the card (ROTATION_TOL "
+                f"{ROTATION_TOL}): {json.dumps(rot)}; planted rel "
+                f"permutation: {json.dumps(planted)}")
+            if not rot["ok"] or planted["ok"]:
+                raise AssertionError(f"{cfg.name} rotation check: {rot}, "
+                                     f"planted {planted}")
 
-    shape = spec.shapes["ogb_products"]
-    pcfg = dataclasses.replace(cfg, d_feat=shape["d_feat"])
-    graph = gnn_graph(shape["n_nodes"], shape["n_edges"], shape["d_feat"],
-                      args.seed, device)
-    params = gcn_init(pcfg, torch.Generator(device=device)
-                      .manual_seed(args.seed), device)
-    res = gnn_serve(pcfg, params, graph, device, calls=5, profile=True)
-    log(f"gnn ogb_products: {json.dumps(res)}")
-    want = {"segment_sum_sorted": cfg.n_layers + 1}
-    if res["launches"] != want:
-        raise AssertionError(f"gcn forward launches {res['launches']}, "
-                             f"want {want}")
-    widths = segment_widths(pcfg, params, graph)
-    log(f"gnn ogb_products segment_sum_sorted launches by D: "
-        f"{json.dumps(widths)}")
-    del params, graph["feat"]
-    torch.cuda.empty_cache()
-    rows = segment_kernel_rows(graph["edges"], shape["n_nodes"], widths, hbm)
+    shape = GNN_SHAPES["ogb_products"]
+    N = shape["n_nodes"]
+    graph = gnn_graph(N, shape["n_edges"], shape["d_feat"], args.seed,
+                      device)
+    dst = graph["edges"][:, 1].contiguous()
+    plan = edge_chunks(dst, N)
+    sizes = [c.e1 - c.e0 for c in plan]
+    log(f"gnn ogb_products: {len(plan)} chunks of at most {EDGE_CHUNK} "
+        f"edges (sizes {min(sizes)} to {max(sizes)}; "
+        f"{sum(c.hi - c.lo == 1 and s > EDGE_CHUNK for c, s in zip(plan, sizes))}"
+        f" a lone node past the cap)")
+    whole: dict[int, int] = {}       # {D: launches} at the graph's shape
+    chunk: dict[int, int] = {}       # ... and at chunks' shapes
+    for arch in (GNN_ARCH,) + GNN_ZOO:
+        cfg = gnn_config(arch, "ogb_products")
+        params = gnn_init(cfg, torch.Generator(device=device)
+                          .manual_seed(args.seed), device)
+        res = gnn_serve(cfg, params, graph, device,
+                        calls=GNN_CALLS[cfg.model], profile=True)
+        want = expected_widths(cfg, 1 if cfg.model == "gcn" else len(plan))
+        n_want = sum(want.values()) + (cfg.model in ("egnn", "nequip"))
+        if res["launches"] != {"segment_sum_sorted": n_want}:
+            raise AssertionError(f"{cfg.name} launches {res['launches']}, "
+                                 f"want {n_want}")
+        widths = segment_widths(cfg, params, graph)
+        log(f"gnn ogb_products {cfg.name}: {json.dumps(res)}; "
+            f"segment_sum_sorted launches by D in one forward "
+            f"{json.dumps(widths)}")
+        if widths != want:
+            raise AssertionError(f"{cfg.name} launches by D {widths}, "
+                                 f"want {want}")
+        for d, k in widths.items():
+            into = whole if cfg.model == "gcn" or d == 1 else chunk
+            into[d] = into.get(d, 0) + k
+        del params
+        torch.cuda.empty_cache()
+    for arch in GNN_ZOO[1:]:
+        cfg = gnn_config(arch, "molecule")
+        mol = gnn_molecule_latency(cfg, args.seed, device, calls=20)
+        log(f"gnn molecule {arch}: {json.dumps(mol)}")
+        n_want = sum(expected_widths(cfg, 1).values()) + 1
+        if mol["launches"] != {"segment_sum_sorted": n_want}:
+            raise AssertionError(f"{arch} molecule launches "
+                                 f"{mol['launches']}, want {n_want}")
     del graph
     torch.cuda.empty_cache()
-    return rows
 
+    rows = segment_kernel_rows(dst, N, whole, hbm)
+    gen = torch.Generator(device=device).manual_seed(18)
+    hub = max(plan, key=lambda c: c.e1 - c.e0)
+    exact = segment_exact(dst[hub.e0:hub.e1] - hub.lo, hub.hi - hub.lo,
+                          max(chunk), gen)
+    log(f"kernel segment_sum_sorted at the largest chunk (E={hub.e1 - hub.e0}"
+        f" N={hub.hi - hub.lo} D={max(chunk)}): [max_abs_err, planted "
+        f"max_abs_err] {exact}")
+    if exact[0] != 0 or exact[1] == 0:
+        raise AssertionError(f"segment_sum_sorted at the largest chunk: "
+                             f"{exact}")
+    mid = plan[len(plan) // 2]
+    rows += segment_kernel_rows(dst[mid.e0:mid.e1] - mid.lo,
+                                mid.hi - mid.lo, chunk, hbm)
+    del dst
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------

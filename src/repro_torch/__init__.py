@@ -7,8 +7,8 @@ modules it needs are its own copies, and the device layer is torch.
 
 Layers (ported so far: the SPARQL read and write paths, the paper's
 cloud-edge system with B&B on the R-QAD bound, the serving front end, the
-workload harness, the dense LM serving path, Wide&Deep scoring and
-retrieval, GCN inference)
+workload harness, the dense and MoE LM serving paths, Wide&Deep scoring
+and retrieval, GCN, PNA, EGNN and NequIP inference)
 -----------------------------------------------------------------------
 - ``repro_torch.rdf``     : dictionary-encoded triple store + generators
 - ``repro_torch.sparql``  : parser, algebra, matcher, batched engine with
@@ -24,16 +24,17 @@ retrieval, GCN inference)
 - ``repro_torch.edge``    : edge and cloud servers, rebalancing, and
   ``EdgeCloudSystem`` (history -> placement -> schedule -> execution)
 - ``repro_torch.models``  : dense decoder LM (prefill, KV-cache decode),
-  Wide&Deep (scoring, retrieval), GCN (forward over sorted edges)
+  Wide&Deep (scoring, retrieval), GCN, PNA, EGNN and NequIP (forwards
+  over sorted edges, chunked at node boundaries; energies)
 - ``repro_torch.data``    : synthetic recsys batches and graphs
-- ``repro_torch.configs`` : qwen3-0.6b, qwen3-1.7b, gemma2-2b, wide-deep,
-  gcn-cora; LM, recsys and GNN shapes
+- ``repro_torch.configs`` : the reference's ten archs (dense and MoE LMs,
+  PNA, EGNN, GCN, NequIP, Wide&Deep); LM, recsys and GNN shapes
 - ``repro_torch.kernels`` : CUDA kernels (``csrc/rdf_kernels.cu``,
   ``csrc/attention_kernels.cu``, ``csrc/flash_tc.cu``, ``csrc/decode_tc.cu``,
   ``csrc/sparse_kernels.cu``, ``csrc/qad_kernels.cu``) and their plain
   torch versions
 - ``repro_torch.convert`` : carries a reference store + dictionary, the
-  system's ``SystemParams``, or a reference LM, Wide&Deep or GCN parameter
+  system's ``SystemParams``, or a reference LM, Wide&Deep or GNN parameter
   tree, over
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -80,6 +81,12 @@ _LAZY = {
     "GNNConfig": ("repro_torch.models.gnn", "GNNConfig"),
     "gcn_init": ("repro_torch.models.gnn", "gcn_init"),
     "gcn_forward": ("repro_torch.models.gnn", "gcn_forward"),
+    "gnn_init": ("repro_torch.models.gnn", "gnn_init"),
+    "pna_forward": ("repro_torch.models.gnn", "pna_forward"),
+    "egnn_forward": ("repro_torch.models.gnn", "egnn_forward"),
+    "egnn_energy": ("repro_torch.models.gnn", "egnn_energy"),
+    "nequip_forward": ("repro_torch.models.gnn", "nequip_forward"),
+    "nequip_energy": ("repro_torch.models.gnn", "nequip_energy"),
     "sort_by_dst": ("repro_torch.models.gnn", "sort_by_dst"),
     "segment_sum_sorted": ("repro_torch.kernels.segment_mp",
                            "segment_sum_sorted"),

@@ -1,10 +1,11 @@
-"""Architecture lookup and serving shapes (port of the registry's served
-archs and shape tables, ``repro/configs/registry.py``).
+"""Architecture lookup and serving shapes (port of the registry's archs
+and shape tables, ``repro/configs/registry.py``).
 
-Each arch module exposes ``spec() -> ArchSpec``. The port serves the dense
-and MoE LMs (qwen3, gemma2, granite-moe, phi3.5-moe), Wide&Deep and GCN;
-the JAX registry's PNA, EGNN and NequIP and its cell construction
-(abstract inputs and shardings for the TPU dry run) are not ported.
+Each arch module exposes ``spec() -> ArchSpec``. The port serves all ten
+of the reference's archs: the dense and MoE LMs (qwen3, gemma2,
+granite-moe, phi3.5-moe), the GNNs (PNA, EGNN, GCN, NequIP) and
+Wide&Deep. The JAX registry's cell construction (abstract inputs and
+shardings for the TPU dry run) is not ported (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -12,8 +13,12 @@ from __future__ import annotations
 import importlib
 from dataclasses import dataclass, field
 
-ARCH_IDS = ["phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m", "qwen3-0.6b",
-            "qwen3-1.7b", "gemma2-2b", "gcn-cora", "wide-deep"]
+ARCH_IDS = [
+    "phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m", "qwen3-0.6b",
+    "qwen3-1.7b", "gemma2-2b",
+    "pna", "egnn", "gcn-cora", "nequip",
+    "wide-deep",
+]
 
 _MODULE_OF = {
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
@@ -21,7 +26,10 @@ _MODULE_OF = {
     "qwen3-0.6b": "qwen3_0_6b",
     "qwen3-1.7b": "qwen3_1_7b",
     "gemma2-2b": "gemma2_2b",
+    "pna": "pna",
+    "egnn": "egnn",
     "gcn-cora": "gcn_cora",
+    "nequip": "nequip",
     "wide-deep": "wide_deep",
 }
 
@@ -68,8 +76,8 @@ class ArchSpec:
 
 def get_spec(arch_id: str) -> ArchSpec:
     if arch_id not in _MODULE_OF:
-        raise KeyError(f"unknown or unported arch {arch_id!r}; the port "
-                       f"serves {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; the port serves "
+                       f"{ARCH_IDS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_MODULE_OF[arch_id]}")
     return mod.spec()

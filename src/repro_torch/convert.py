@@ -6,8 +6,9 @@ package's ``TripleStore.to_arrays()`` / ``ShardedTripleStore.to_arrays()``
 and ``Dictionary.to_arrays()`` produce and rebuilds them as the port's
 store and dictionary. :func:`lm_params_from_reference`,
 :func:`recsys_params_from_reference` and :func:`gnn_params_from_reference`
-turn the model zoo's LM (dense and MoE), Wide&Deep and GCN parameter
-trees, given as numpy arrays, into the port's params, and :func:`system_params_from_reference`
+turn the model zoo's LM (dense and MoE), Wide&Deep and GNN (GCN, PNA,
+EGNN, NequIP) parameter trees, given as numpy arrays, into the port's
+params, and :func:`system_params_from_reference`
 the cloud-edge system's ``SystemParams``. All read plain arrays only, so
 they import nothing of the JAX package.
 """
@@ -88,14 +89,21 @@ def recsys_params_from_reference(tree: dict, device=None) -> dict:
 
 
 def gnn_params_from_reference(tree: dict, device=None) -> dict:
-    """The port's GCN params from the JAX ``gcn_init`` tree of numpy
-    arrays: ``{"w": [...]}`` as it is, on ``device`` (``cuda`` by
-    default). Other GNN models are not ported yet."""
-    if set(tree) != {"w"}:
-        raise NotImplementedError("only GCN params are ported "
-                                  f"(got keys {sorted(tree)})")
+    """The port's GNN params from the JAX ``gnn_init`` tree of any of the
+    four models (``gcn_init``, ``pna_init``, ``egnn_init``,
+    ``nequip_init``), with its leaves as numpy arrays: the same nesting
+    (dicts, lists, ``(w, b)`` tuples), dtypes and layouts, on ``device``
+    (``cuda`` by default)."""
     dev = resolve_device(device)
-    return {"w": [_tensor(w, dev) for w in tree["w"]]}
+
+    def carry(node):
+        if isinstance(node, dict):
+            return {k: carry(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(carry(v) for v in node)
+        return _tensor(node, dev)
+
+    return carry(tree)
 
 
 def system_params_from_reference(ref_params) -> SystemParams:

@@ -1,8 +1,10 @@
-"""Synthetic graphs of the GNN serving path (copies of ``random_graph`` and
-``cora_like`` from ``repro/data/graphs.py``, numpy only), and
-:func:`power_law_graph`, the same degree law drawn on the device for graphs
-too large to draw on the host quickly. The neighbour sampler is not
-ported."""
+"""Synthetic graphs of the GNN serving path (copies of ``random_graph``,
+``cora_like`` and ``molecule_batch`` from ``repro/data/graphs.py``, numpy
+only), and :func:`power_law_graph`, the same degree law drawn on the device
+for graphs too large to draw on the host quickly. The reference's CSR
+graph and neighbour sampler (``CSRGraph``, ``sample_neighbors``,
+``pad_subgraph``, for the ``minibatch_lg`` shape) are not ported (ROADMAP
+Queue 1 item 11)."""
 
 from __future__ import annotations
 
@@ -34,6 +36,27 @@ def cora_like(n_nodes: int = 2708, n_edges: int = 10556, d_feat: int = 1433,
     return {"feat": feat, "edge_index": edge_index, "labels": labels,
             "label_mask": mask}
 
+
+def molecule_batch(batch: int = 128, n_nodes: int = 30, n_edges: int = 64,
+                   n_species: int = 16, seed: int = 0) -> dict:
+    """Batched small molecules: radius-graph-ish edges + synthetic energy."""
+    rng = np.random.default_rng(seed)
+    N = batch * n_nodes
+    species = rng.integers(0, n_species, N).astype(np.int32)
+    coords = rng.normal(0, 1.5, (N, 3)).astype(np.float32)
+    edges = []
+    for g in range(batch):
+        base = g * n_nodes
+        s = rng.integers(0, n_nodes, n_edges) + base
+        d = rng.integers(0, n_nodes, n_edges) + base
+        edges.append(np.stack([s, d], axis=1))
+    edge_index = np.concatenate(edges).astype(np.int32)
+    keep = edge_index[:, 0] != edge_index[:, 1]
+    edge_index = edge_index[keep]
+    graph_ids = np.repeat(np.arange(batch), n_nodes).astype(np.int32)
+    energy = rng.normal(0, 1, batch).astype(np.float32)
+    return {"species": species, "coords": coords, "edge_index": edge_index,
+            "graph_ids": graph_ids, "energy": energy}
 
 def power_law_graph(n_nodes: int, n_edges: int, generator: torch.Generator,
                     power: float = 0.8) -> torch.Tensor:

@@ -1,34 +1,53 @@
-"""GCN inference over destination-sorted edges (port of the GCN path of
-``repro/models/gnn.py``).
+"""GNN inference over destination-sorted edges (port of
+``repro/models/gnn.py``): GCN, PNA, EGNN and NequIP.
 
-Every aggregation runs through the ``segment_sum_sorted`` kernel, which
+Every sum over edges runs through the ``segment_sum_sorted`` kernel, which
 takes edges sorted by destination: :func:`sort_by_dst` sorts a graph once
-(stable), and :func:`gcn_forward` sorts edges it is handed unsorted. One
-forward launches the kernel ``n_layers + 1`` times: the degrees, then each
-layer's messages.
+(stable), and each forward sorts edges it is handed unsorted. PNA's max and
+min are ``scatter_reduce_`` (:func:`seg_max`), as they are XLA's
+``segment_max`` in the reference, not a Pallas kernel.
+
+PNA, EGNN and NequIP compute their messages chunk by chunk: a graph of
+more than :data:`EDGE_CHUNK` edges is cut at node boundaries
+(:func:`edge_chunks`), so every node's run of edges lies in one chunk, and
+each chunk's sums go straight into the rows of its node range. At
+ogb_products' size one [E, D] message tensor would not fit the card
+(NequIP's l2 messages alone are [61.86M, 576] float32, 142 GB). Below the
+cap a forward takes one chunk, the whole graph.
 
 Names and layouts at the public functions are the JAX module's: features
-[N, F], ``edge_index`` int32 [E, 2] (src, dst), params ``{"w": [...]}``.
-Where the port differs, by design: there is no sharding (``AxisRules``),
-as it serves from one card; the forward computes the symmetric edge norms
-once for all layers (the JAX module recomputes them per layer, with the
-same operations) and scales the gathered messages in place; PNA, EGNN,
-NequIP, ``segment_max`` and ``gnn_loss`` are not ported yet (ROADMAP
-Queue 1) and raise ``NotImplementedError``.
+[N, F], ``edge_index`` int32 [E, 2] (src, dst), species [N] int, coords
+[N, 3], params as nested dicts and lists with ``(w, b)`` tuples for MLP
+layers. Where the port differs, by design: there is no sharding
+(``AxisRules``), as it serves from one card, so the reference's fused
+shard_map NequIP path (``_nequip_aggregate_fused``) becomes the chunk loop
+above; GCN computes the symmetric edge norms once for all layers (the JAX
+module recomputes them per layer, with the same operations) and scales
+the gathered messages in place; ``gnn_loss`` is not ported yet (ROADMAP
+Queue 1 item 10).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels.segment_mp import segment_sum_sorted
 from .common import dense_init
 
-_UNPORTED = ("not ported yet (ROADMAP Queue 1: PNA, EGNN and NequIP with "
-             "segment_max/segment_min)")
+# Edges of one chunk. NequIP (C = 32) is the widest model: a chunk's
+# gathered sources (l0, l1, l2: 416 float32 an edge), radial weights (192),
+# its three message tensors (64 + 288 + 576) and the l2 path's
+# temporaries while the last is concatenated (~580) hold about 2,100
+# float32, 8.4 KB an edge, so 2^19 edges take about 4.4 GB (PNA's and
+# EGNN's about 3 and 2.5 KB an edge). A node whose in-degree passes the cap
+# (0.68M edges at ogb_products' hub) is a chunk of its own.
+EDGE_CHUNK = 1 << 19
 
 
 @dataclass(frozen=True)
@@ -47,6 +66,10 @@ class GNNConfig:
     scalers: tuple[str, ...] = ("identity", "amplification", "attenuation")
 
 
+# ---------------------------------------------------------------------------
+# sorted edges, chunks and segment helpers
+# ---------------------------------------------------------------------------
+
 def sort_by_dst(edge_index: torch.Tensor) -> torch.Tensor:
     """edge_index [E, 2] (src, dst) -> the same edges ordered by dst, ties
     in their original order: the layout the segment kernel takes. Done once
@@ -61,6 +84,74 @@ def is_sorted_by_dst(edge_index: torch.Tensor) -> bool:
     return bool((dst[1:] >= dst[:-1]).all())
 
 
+def _src_dst(edge_index: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Contiguous (src, dst) of the edges sorted by dst (sorted here when
+    they come unsorted)."""
+    if not is_sorted_by_dst(edge_index):
+        edge_index = sort_by_dst(edge_index)
+    return edge_index[:, 0].contiguous(), edge_index[:, 1].contiguous()
+
+
+class EdgeChunk(NamedTuple):
+    e0: int        # edges [e0, e1) of the sorted graph ...
+    e1: int
+    lo: int        # ... whose destinations all lie in nodes [lo, hi)
+    hi: int
+
+
+def edge_chunks(dst: torch.Tensor, n: int,
+                cap: int | None = None) -> list[EdgeChunk]:
+    """Cut destination-sorted ``dst`` [E] (all in [0, n)) into chunks of at
+    most ``cap`` edges (:data:`EDGE_CHUNK` by default) at node boundaries,
+    each edge and each node in exactly one chunk, the node ranges
+    contiguous from 0 to ``n``. A node whose run passes the cap is a chunk
+    of its own; runs are never split. One chunk, the whole graph, when E
+    <= cap; else two host reads per chunk (a run start by
+    ``torch.searchsorted``)."""
+    cap = EDGE_CHUNK if cap is None else int(cap)
+    if cap <= 0:
+        raise ValueError(f"cap must be positive, got {cap}")
+    E = int(dst.shape[0])
+    chunks: list[EdgeChunk] = []
+    e0 = lo = 0
+    while E - e0 > cap:
+        v = int(dst[e0 + cap])            # the node of the first edge past
+        e1 = int(torch.searchsorted(dst, v))   # the cap starts a chunk ...
+        hi = v
+        if e1 == e0:                      # ... unless its run starts here:
+            e1 = int(torch.searchsorted(dst, v, right=True))   # on its own
+            hi = v + 1
+        chunks.append(EdgeChunk(e0, e1, lo, hi))
+        e0, lo = e1, hi
+    if lo < n or not chunks:
+        chunks.append(EdgeChunk(e0, E, lo, n))
+    return chunks
+
+
+class _Chunk(NamedTuple):
+    src: torch.Tensor      # src[e0:e1]
+    dst: torch.Tensor      # dst[e0:e1]
+    local: torch.Tensor    # dst[e0:e1] - lo: a fresh tensor, on 16 bytes
+    lo: int
+    hi: int
+
+
+def _chunks(src: torch.Tensor, dst: torch.Tensor, n: int) -> list[_Chunk]:
+    """The forward's chunks with their index slices. A lone chunk keeps
+    ``dst`` itself as its local destinations."""
+    plan = edge_chunks(dst, n)
+    if len(plan) == 1:
+        return [_Chunk(src, dst, dst, 0, n)]
+    return [_Chunk(src[c.e0:c.e1], dst[c.e0:c.e1], dst[c.e0:c.e1] - c.lo,
+                   c.lo, c.hi) for c in plan]
+
+
+def _sum_into(acc: torch.Tensor, msg: torch.Tensor, ch: _Chunk) -> None:
+    """Sum a chunk's messages into its node rows ``acc[lo:hi]`` (the kernel
+    zeroes exactly those rows first)."""
+    segment_sum_sorted(msg, ch.local, ch.hi - ch.lo, out=acc[ch.lo:ch.hi])
+
+
 def seg_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """Segment sum of x [E] or [E, D] over ``idx`` sorted ascending."""
     if x.dim() == 1:
@@ -68,19 +159,85 @@ def seg_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     return segment_sum_sorted(x, idx, n)
 
 
+def seg_max(x: torch.Tensor, idx: torch.Tensor, n: int,
+            out: torch.Tensor | None = None) -> torch.Tensor:
+    """Segment max of x [E, D] over ``idx`` [E] (any order), empty segments
+    0 (not -inf); ``out`` [n, D] receives it in place."""
+    out = x.new_zeros((n, x.shape[1])) if out is None else out.zero_()
+    return out.scatter_reduce_(0, idx.long()[:, None].expand_as(x), x,
+                               "amax", include_self=False)
+
+
+def seg_min(x: torch.Tensor, idx: torch.Tensor, n: int,
+            out: torch.Tensor | None = None) -> torch.Tensor:
+    """-seg_max(-x), as the reference takes it."""
+    return seg_max(-x, idx, n, out).neg_()
+
+
+def seg_mean(x: torch.Tensor, idx: torch.Tensor, n: int,
+             eps: float = 1e-9) -> torch.Tensor:
+    """Segment mean of x [E, D] over ``idx`` sorted ascending."""
+    cnt = seg_sum(torch.ones((x.shape[0], 1), dtype=x.dtype,
+                             device=x.device), idx, n)
+    return seg_sum(x, idx, n) / (cnt + eps)
+
+
 def mp_aggregate(msg: torch.Tensor, dst: torch.Tensor, n: int,
                  op: str = "sum") -> torch.Tensor:
     """Message aggregation onto nodes, the GNN hot path: one kernel launch
-    over destination-sorted edges. ``op="max"`` is not ported yet."""
-    if op != "sum":
-        raise NotImplementedError(f"mp_aggregate op={op!r} {_UNPORTED}")
-    return segment_sum_sorted(msg, dst, n)
+    over destination-sorted edges for ``op="sum"``; ``op="max"`` is
+    :func:`seg_max`."""
+    if op == "sum":
+        return segment_sum_sorted(msg, dst, n)
+    if op == "max":
+        return seg_max(msg, dst, n)
+    raise ValueError(f"mp_aggregate op must be 'sum' or 'max', got {op!r}")
 
 
 def degrees(dst: torch.Tensor, n: int) -> torch.Tensor:
     """In-degree [n] float32 of destination-sorted edges."""
     return seg_sum(torch.ones((dst.shape[0],), dtype=torch.float32,
                               device=dst.device), dst, n)
+
+
+def _mlp(params: list, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b`` a layer, silu between layers, none after the last."""
+    for i, (w, b) in enumerate(params):
+        x = torch.addmm(b, x, w)
+        if i < len(params) - 1:
+            x = F.silu(x, inplace=True)
+    return x
+
+
+def _mlp_init(generator: torch.Generator, dims: list[int],
+              dev: torch.device) -> list:
+    return [(dense_init(generator, (dims[i], dims[i + 1]),
+                        dtype=torch.float32, device=dev),
+             torch.zeros((dims[i + 1],), dtype=torch.float32, device=dev))
+            for i in range(len(dims) - 1)]
+
+
+def _dense(generator: torch.Generator, shape: tuple[int, int],
+           dev: torch.device) -> torch.Tensor:
+    return dense_init(generator, shape, dtype=torch.float32, device=dev)
+
+
+def _rel(pos: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """pos[a] - pos[b]: the edge vectors of EGNN (dst - src) and NequIP
+    (src - dst)."""
+    return pos[a] - pos[b]
+
+
+def _graph_sum(e_atom: torch.Tensor, graph_ids: torch.Tensor,
+               n_graphs: int) -> torch.Tensor:
+    """Per-graph sum of atom energies [N] over ``graph_ids`` [N] int32, one
+    kernel launch at D = 1. ``molecule_batch`` emits the ids ascending
+    (``np.repeat``), as the kernel takes them; unsorted ids are sorted here
+    first (stable)."""
+    if not bool((graph_ids[1:] >= graph_ids[:-1]).all()):
+        order = torch.sort(graph_ids, stable=True).indices
+        graph_ids, e_atom = graph_ids[order], e_atom[order]
+    return seg_sum(e_atom.contiguous(), graph_ids, n_graphs)
 
 
 # ---------------------------------------------------------------------------
@@ -93,8 +250,7 @@ def gcn_init(cfg: GNNConfig, generator: torch.Generator,
     generator on ``device``; ``cuda`` by default)."""
     dev = resolve_device(device)
     dims = [cfg.d_feat] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.n_classes]
-    return {"w": [dense_init(generator, (dims[i], dims[i + 1]),
-                             dtype=torch.float32, device=dev)
+    return {"w": [_dense(generator, (dims[i], dims[i + 1]), dev)
                   for i in range(cfg.n_layers)]}
 
 
@@ -105,10 +261,7 @@ def gcn_forward(cfg: GNNConfig, params: dict, feat: torch.Tensor,
     pass ``sort_by_dst(edge_index)`` to sort a graph once for many
     forwards."""
     n = feat.shape[0]
-    if not is_sorted_by_dst(edge_index):
-        edge_index = sort_by_dst(edge_index)
-    src = edge_index[:, 0].contiguous()
-    dst = edge_index[:, 1].contiguous()
+    src, dst = _src_dst(edge_index)
     deg = degrees(dst, n) + 1.0                           # +1 self loop
     inv_sqrt = torch.rsqrt(deg)
     norm = (inv_sqrt[src] * inv_sqrt[dst])[:, None]
@@ -125,11 +278,301 @@ def gcn_forward(cfg: GNNConfig, params: dict, feat: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# PNA (Corso et al.) — multi-aggregator + degree scalers
+# ---------------------------------------------------------------------------
+
+def pna_init(cfg: GNNConfig, generator: torch.Generator,
+             device: str | torch.device | None = None) -> dict:
+    dev = resolve_device(device)
+    h = cfg.d_hidden
+    n_agg = len(cfg.aggregators) * len(cfg.scalers)
+    return {
+        "encode": _mlp_init(generator, [cfg.d_feat, h], dev),
+        "layers": [{"msg": _mlp_init(generator, [2 * h, h, h], dev),
+                    "post": _mlp_init(generator, [n_agg * h + h, h, h], dev)}
+                   for _ in range(cfg.n_layers)],
+        "decode": _mlp_init(generator, [h, h, cfg.n_classes], dev),
+    }
+
+
+def pna_forward(cfg: GNNConfig, params: dict, feat: torch.Tensor,
+                edge_index: torch.Tensor) -> torch.Tensor:
+    """feat [N, F]; edge_index int32 [E, 2] (src, dst) -> logits [N,
+    n_classes]. Per chunk one message MLP on ``[x[dst], x[src]]``; its sum
+    and its square's sum go through the kernel, max and min through
+    :func:`seg_max`, and the chunk's messages are freed."""
+    for a in cfg.aggregators:
+        if a not in ("mean", "max", "min", "std"):
+            raise ValueError(f"unknown PNA aggregator {a!r}")
+    n = feat.shape[0]
+    src, dst = _src_dst(edge_index)
+    chunks = _chunks(src, dst, n)
+    cnt = degrees(dst, n)[:, None]
+    deg = cnt[:, 0]
+    safe_cnt = cnt.clamp(min=1.0)
+    # PNA degree scalers, delta = mean log(deg+1) over the batch graph
+    logd = torch.log(deg + 1.0)
+    delta = logd.mean() + 1e-9
+    scaler_map = {
+        "identity": torch.ones_like(deg),
+        "amplification": logd / delta,
+        # deg-0 rows aggregate to zero anyway; clamp keeps the scaler finite
+        "attenuation": delta / logd.clamp(min=math.log(2.0)),
+    }
+    x = _mlp(params["encode"], feat)
+    H = x.shape[1]
+    for lp in params["layers"]:
+        total = x.new_empty((n, H))
+        parts = {a: x.new_empty((n, H)) for a in cfg.aggregators
+                 if a != "mean"}
+        for ch in chunks:
+            m = _mlp(lp["msg"], torch.cat([x[ch.dst], x[ch.src]], dim=-1))
+            _sum_into(total, m, ch)
+            rows = slice(ch.lo, ch.hi)
+            if "std" in parts:
+                _sum_into(parts["std"], m * m, ch)
+            if "max" in parts:
+                seg_max(m, ch.local, ch.hi - ch.lo, out=parts["max"][rows])
+            if "min" in parts:
+                seg_min(m, ch.local, ch.hi - ch.lo, out=parts["min"][rows])
+            del m
+        mean = total / safe_cnt
+        del total
+        aggs = []
+        for a in cfg.aggregators:
+            if a == "mean":
+                aggs.append(mean)
+            elif a == "std":
+                sq = parts["std"] / safe_cnt
+                aggs.append(torch.sqrt(torch.clamp(sq - mean * mean, min=0.0)
+                                       + 1e-9))
+            else:
+                aggs.append(parts[a])
+        del parts
+        h = x.new_empty((n, len(cfg.scalers) * len(aggs) * H + H))
+        k = 0
+        for s in cfg.scalers:
+            scale = scaler_map[s][:, None]
+            for a in aggs:
+                torch.mul(a, scale, out=h[:, k:k + H])
+                k += H
+        h[:, k:] = x
+        del aggs, mean
+        x = x + _mlp(lp["post"], h)
+    return _mlp(params["decode"], x)
+
+
+# ---------------------------------------------------------------------------
+# EGNN (Satorras et al.) — E(n)-equivariant, scalar-distance messages
+# ---------------------------------------------------------------------------
+
+def egnn_init(cfg: GNNConfig, generator: torch.Generator,
+              device: str | torch.device | None = None) -> dict:
+    dev = resolve_device(device)
+    h = cfg.d_hidden
+    return {
+        "embed": _dense(generator, (cfg.n_species, h), dev),
+        "layers": [{"phi_e": _mlp_init(generator, [2 * h + 1, h, h], dev),
+                    "phi_x": _mlp_init(generator, [h, h, 1], dev),
+                    "phi_h": _mlp_init(generator, [2 * h, h, h], dev)}
+                   for _ in range(cfg.n_layers)],
+        "decode": _mlp_init(generator, [h, h, 1], dev),
+    }
+
+
+def egnn_forward(cfg: GNNConfig, params: dict, species: torch.Tensor,
+                 coords: torch.Tensor, edge_index: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """species [N] int, coords [N, 3]. Returns (h [N, H], coords' [N,
+    3])."""
+    n = coords.shape[0]
+    src, dst = _src_dst(edge_index)
+    chunks = _chunks(src, dst, n)
+    safe_cnt = degrees(dst, n)[:, None].clamp(min=1.0)
+    h = params["embed"][species]
+    x = coords
+    for lp in params["layers"]:
+        upd = x.new_empty((n, 3))
+        magg = h.new_empty(h.shape)
+        for ch in chunks:
+            rel = _rel(x, ch.dst, ch.src)
+            d2 = torch.sum(rel * rel, dim=-1, keepdim=True)
+            m = _mlp(lp["phi_e"], torch.cat([h[ch.dst], h[ch.src], d2],
+                                            dim=-1))
+            # coordinate update, normalized for stability (EGNN §3.1
+            # variant: unit-ish direction + bounded coefficient keeps |x|
+            # from blowing up)
+            coef = torch.tanh(_mlp(lp["phi_x"], m))
+            _sum_into(upd, rel / (torch.sqrt(d2) + 1.0) * coef, ch)
+            _sum_into(magg, m, ch)
+            del rel, d2, m, coef
+        x = x + upd / safe_cnt
+        h = h + _mlp(lp["phi_h"], torch.cat([h, magg], dim=-1))
+    return h, x
+
+
+def egnn_energy(cfg: GNNConfig, params: dict, species, coords, edge_index,
+                graph_ids, n_graphs: int) -> torch.Tensor:
+    """Energies [n_graphs]: the decoded atom energies summed per graph."""
+    h, _ = egnn_forward(cfg, params, species, coords, edge_index)
+    e_atom = _mlp(params["decode"], h)[:, 0]
+    return _graph_sum(e_atom, graph_ids, n_graphs)
+
+
+# ---------------------------------------------------------------------------
+# NequIP (Batzner et al.) — E(3)-equivariant tensor products, l_max = 2
+# Cartesian irrep basis: l0 [., C], l1 [., C, 3], l2 [., C, 3, 3] (sym-tr.)
+# ---------------------------------------------------------------------------
+
+def _sym_traceless(M: torch.Tensor) -> torch.Tensor:
+    Ms = 0.5 * (M + M.transpose(-1, -2))
+    tr = torch.diagonal(Ms, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    eye = torch.eye(3, dtype=M.dtype, device=M.device)
+    return Ms - tr * eye / 3.0
+
+
+def _bessel_rbf(r: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
+    """NequIP radial basis: sin(n pi r / rc) / r with polynomial cutoff."""
+    n = torch.arange(1, n_rbf + 1, dtype=torch.float32, device=r.device)
+    rc = cutoff
+    rs = torch.clamp(r, 1e-5, rc)
+    basis = math.sqrt(2.0 / rc) * torch.sin(n * math.pi * rs[..., None] / rc) \
+        / rs[..., None]
+    u = torch.clamp(r / rc, 0.0, 1.0)
+    env = 1.0 - 10.0 * u**3 + 15.0 * u**4 - 6.0 * u**5   # p=3 polynomial
+    return basis * env[..., None]
+
+
+def nequip_init(cfg: GNNConfig, generator: torch.Generator,
+                device: str | torch.device | None = None) -> dict:
+    dev = resolve_device(device)
+    C = cfg.d_hidden
+    return {
+        "embed": _dense(generator, (cfg.n_species, C), dev),
+        "layers": [{
+            # radial MLP -> per-path, per-channel weights (6 paths)
+            "radial": _mlp_init(generator, [cfg.n_rbf, C, 6 * C], dev),
+            # channel mixers per output l
+            "mix0": _dense(generator, (2 * C, C), dev),
+            "mix1": _dense(generator, (3 * C, C), dev),
+            "mix2": _dense(generator, (2 * C, C), dev),
+            # gates: scalars produced from l0 to gate l1/l2
+            "gate": _mlp_init(generator, [C, 2 * C], dev),
+            "self0": _dense(generator, (C, C), dev),
+            "self1": _dense(generator, (C, C), dev),
+            "self2": _dense(generator, (C, C), dev),
+        } for _ in range(cfg.n_layers)],
+        "decode": _mlp_init(generator, [C, C, 1], dev),
+    }
+
+
+def _nequip_geometry(cfg: GNNConfig, coords: torch.Tensor, src: torch.Tensor,
+                     dst: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(rbf [E, n_rbf], Y1 [E, 3], Y2 [E, 3, 3]) of the edges (src, dst):
+    the radial basis and the spherical harmonics in the Cartesian basis."""
+    rel = _rel(coords, src, dst)                       # [E, 3]
+    r = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12)
+    rhat = rel / r[:, None]
+    Y2 = _sym_traceless(rhat[:, :, None] * rhat[:, None, :])
+    return _bessel_rbf(r, cfg.n_rbf, cfg.cutoff), rhat, Y2
+
+
+def _nequip_messages(cfg: GNNConfig, radial_mlp, rbf, Y1, Y2, s0, s1, s2,
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tensor-product messages for one edge set (a chunk or the graph).
+
+    CG contractions in Cartesian form:
+      p0: l0 x Y0 -> l0        p1: l0 x Y1 -> l1     p2: l0 x Y2 -> l2
+      p3: l1 . Y1 -> l0        p4: l1 x Y1 -> l1 (cross)
+      p5: l2 @ Y1 -> l1        (+ l1 (x) Y1 -> l2 sym-traceless outer)
+    Returns flattened (m0 [E,2C], m1 [E,3C*3], m2 [E,2C*9]), each built
+    as soon as its parts exist, so the parts are freed early.
+    """
+    C = cfg.d_hidden
+    E = rbf.shape[0]
+    W = _mlp(radial_mlp, rbf).reshape(-1, 6, C)        # [E, 6 paths, C]
+    m0 = torch.cat([W[:, 0] * s0,
+                    W[:, 3] * torch.einsum("eci,ei->ec", s1, Y1)], -1)
+    m1 = torch.cat([
+        W[:, 1][..., None] * (s0[..., None] * Y1[:, None, :]),
+        W[:, 4][..., None] * torch.linalg.cross(s1, Y1[:, None, :], dim=-1),
+        W[:, 5][..., None] * torch.einsum("ecij,ej->eci", s2, Y1),
+    ], 1).reshape(E, -1)
+    m2 = torch.cat([
+        W[:, 2][..., None, None] * (s0[..., None, None] * Y2[:, None, :, :]),
+        # W[:, 3] again: the radial channel is shared with p3
+        W[:, 3][..., None, None]
+        * _sym_traceless(s1[..., :, None] * Y1[:, None, None, :]),
+    ], 1).reshape(E, -1)
+    return m0, m1, m2
+
+
+def nequip_forward(cfg: GNNConfig, params: dict, species: torch.Tensor,
+                   coords: torch.Tensor, edge_index: torch.Tensor) -> dict:
+    """Returns final irrep features {l0:[N,C], l1:[N,C,3], l2:[N,C,3,3]}.
+    The edge geometry is computed once a chunk, the messages once a chunk
+    and layer."""
+    n = coords.shape[0]
+    C = cfg.d_hidden
+    src, dst = _src_dst(edge_index)
+    chunks = _chunks(src, dst, n)
+    geometry = [_nequip_geometry(cfg, coords, ch.src, ch.dst)
+                for ch in chunks]
+    h0 = params["embed"][species]                      # [N, C]
+    h1 = coords.new_zeros((n, C, 3))
+    h2 = coords.new_zeros((n, C, 3, 3))
+    for lp in params["layers"]:
+        a0 = h0.new_empty((n, 2 * C))
+        a1 = h0.new_empty((n, 3 * C * 3))
+        a2 = h0.new_empty((n, 2 * C * 9))
+        for ch, (rbf, Y1, Y2) in zip(chunks, geometry):
+            m0, m1, m2 = _nequip_messages(cfg, lp["radial"], rbf, Y1, Y2,
+                                          h0[ch.src], h1[ch.src], h2[ch.src])
+            _sum_into(a0, m0, ch)
+            _sum_into(a1, m1, ch)
+            _sum_into(a2, m2, ch)
+            del m0, m1, m2
+
+        # channel mixing + self-interaction
+        n0 = a0 @ lp["mix0"] + h0 @ lp["self0"]
+        n1 = torch.einsum("nkx,kc->ncx", a1.reshape(n, 3 * C, 3),
+                          lp["mix1"]) \
+            + torch.einsum("ncx,cd->ndx", h1, lp["self1"])
+        n2 = torch.einsum("nkxy,kc->ncxy", a2.reshape(n, 2 * C, 3, 3),
+                          lp["mix2"]) \
+            + torch.einsum("ncxy,cd->ndxy", h2, lp["self2"])
+        del a0, a1, a2
+
+        # gated nonlinearity: scalars via silu; l>0 gated by sigmoids of l0
+        g1, g2 = torch.sigmoid(_mlp(lp["gate"], n0)).chunk(2, dim=-1)
+        h0 = h0 + F.silu(n0)
+        h1 = h1 + n1 * g1[..., None]
+        h2 = h2 + n2 * g2[..., None, None]
+    return {"l0": h0, "l1": h1, "l2": h2}
+
+
+def nequip_energy(cfg: GNNConfig, params: dict, species, coords, edge_index,
+                  graph_ids, n_graphs: int) -> torch.Tensor:
+    """Energies [n_graphs]: the decoded l0 atom energies summed per
+    graph."""
+    feats = nequip_forward(cfg, params, species, coords, edge_index)
+    e_atom = _mlp(params["decode"], feats["l0"])[:, 0]
+    return _graph_sum(e_atom, graph_ids, n_graphs)
+
+
+# ---------------------------------------------------------------------------
 # uniform family API
 # ---------------------------------------------------------------------------
 
+_INIT = {"gcn": gcn_init, "pna": pna_init, "egnn": egnn_init,
+         "nequip": nequip_init}
+
+
 def gnn_init(cfg: GNNConfig, generator: torch.Generator,
              device: str | torch.device | None = None) -> dict:
-    if cfg.model != "gcn":
-        raise NotImplementedError(f"GNN model {cfg.model!r} {_UNPORTED}")
-    return gcn_init(cfg, generator, device)
+    """Float32 params of ``cfg.model`` from ``generator`` on ``device``
+    (``cuda`` by default)."""
+    if cfg.model not in _INIT:
+        raise ValueError(f"unknown GNN model {cfg.model!r}; "
+                         f"one of {sorted(_INIT)}")
+    return _INIT[cfg.model](cfg, generator, device)

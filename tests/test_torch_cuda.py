@@ -241,3 +241,30 @@ def test_cuda_moe_routing_with_drops_matches_cpu():
     drops = smoke.moe_drop_check(cfg, 0, dev)
     assert drops["ok"], drops
     assert not smoke.moe_drop_check(cfg, 0, dev, planted=True)["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["pna", "egnn", "nequip"])
+def test_cuda_gnn_zoo_matches_cpu(arch):
+    """PNA at full_graph_sm, EGNN and NequIP at the molecule shape, full
+    width, on the card against the CPU (``chip_smoke.gnn_model_check``:
+    every output within ``SPARSE_MODEL_TOL``, its TF32, dropped-edge and,
+    for PNA, clamped-max controls above it); EGNN and NequIP also under a
+    rotation, the planted permutation failing it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the GNN check compares it with "
+                    "the CPU")
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = smoke.gnn_config(arch, "full_graph_sm")
+    check = smoke.gnn_model_check(cfg, 0, dev)
+    assert check["ok"], check
+    assert launch_counts()["segment_sum_sorted"] > 0
+    if cfg.model != "pna":
+        assert smoke.rotation_check(cfg, 0, dev)["ok"]
+        assert not smoke.rotation_check(cfg, 0, dev, planted=True)["ok"]

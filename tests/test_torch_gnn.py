@@ -1,8 +1,11 @@
 """The port's GCN (``repro_torch.models.gnn``) against the JAX package's
 model on the same float32 weights, carried over with
 ``repro_torch.convert.gnn_params_from_reference``, on the same graph from
-the data generators both packages share; the edge sort; the device graph
-generator's law; and a CPU rehearsal of ``chip_smoke.py``'s GNN checks.
+the data generators both packages share; the edge sort; that PNA, EGNN
+and NequIP build and run through ``gnn_init`` (``tests/test_torch_pna.py``
+and ``tests/test_torch_equivariant.py`` hold them to JAX); the device
+graph generator's law; and a CPU rehearsal of ``chip_smoke.py``'s GNN
+checks.
 
 ``reduce_config``'s gcn-cora (2 layers, hidden 16, d_feat 32, 5 classes)
 on ``cora_like(256, 1024)``, edges handed over unsorted as generated.
@@ -108,18 +111,39 @@ def test_degrees_match_jax(tiny):
     assert got.dtype == torch.float32
 
 
-def test_unported_models_and_ops_raise(tiny):
-    cfg = tiny[1]
+def test_zoo_models_and_max_build_and_run(tiny):
+    """PNA, EGNN and NequIP build through ``gnn_init`` and run on the CPU,
+    ``mp_aggregate(op="max")`` takes each segment's max (0 where empty),
+    and an unknown model name or op still raises."""
+    cfg, data = tiny[1], tiny[-1]
+    gen = torch.Generator().manual_seed(0)
+    feat = torch.from_numpy(data["feat"])
+    edges = torch.from_numpy(data["edge_index"])
+    species = torch.randint(0, cfg.n_species, (256,), generator=gen,
+                            dtype=torch.int32)
+    coords = torch.randn((256, 3), generator=gen)
     for model in ("pna", "egnn", "nequip"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tgnn.gnn_init(dataclasses.replace(cfg, model=model),
-                          torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mcfg = dataclasses.replace(cfg, model=model)
+        params = tgnn.gnn_init(mcfg, gen, "cpu")
+        if model == "pna":
+            out = [tgnn.pna_forward(mcfg, params, feat, edges)]
+            assert out[0].shape == (256, cfg.n_classes)
+        elif model == "egnn":
+            out = tgnn.egnn_forward(mcfg, params, species, coords, edges)
+        else:
+            out = tgnn.nequip_forward(mcfg, params, species, coords,
+                                      edges).values()
+        assert all(bool(torch.isfinite(t).all()) for t in out)
+    got = tgnn.mp_aggregate(torch.tensor([[1.0], [-3.0], [-2.0]]),
+                            torch.tensor([0, 0, 2], dtype=torch.int32), 3,
+                            op="max")
+    assert got[:, 0].tolist() == [1.0, 0.0, -2.0]
+    with pytest.raises(ValueError, match="unknown GNN model"):
+        tgnn.gnn_init(dataclasses.replace(cfg, model="gat"),
+                      torch.Generator(), "cpu")
+    with pytest.raises(ValueError, match="op"):
         tgnn.mp_aggregate(torch.zeros((3, 2)),
-                          torch.zeros(3, dtype=torch.int32), 2, op="max")
-    with pytest.raises(NotImplementedError):
-        gnn_params_from_reference({"encode": [], "layers": []},
-                                  device="cpu")
+                          torch.zeros(3, dtype=torch.int32), 2, op="min")
 
 
 def test_entry_points_need_cuda_unless_asked(monkeypatch, tiny):
@@ -179,7 +203,8 @@ def test_chip_smoke_gnn_checks_on_cpu(monkeypatch):
                         lambda fn, calls=1, reps=1: (fn(), 0.0)[1])
     widths = smoke.segment_widths(pcfg, params, graph)
     assert widths == {1: 0, 16: 0, 7: 0}
-    rows = smoke.segment_kernel_rows(graph["edges"], 3000, widths, 3.35e12)
+    rows = smoke.segment_kernel_rows(graph["edges"][:, 1].contiguous(),
+                                     3000, widths, 3.35e12)
     assert [r["shape"].split()[-1] for r in rows] == ["D=16", "D=7", "D=1"]
     for row in rows:
         assert row["max_abs_err"] == 0.0
