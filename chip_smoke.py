@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --lm-only --prefill-seq 4096 --decode-cache 4096
@@ -7,6 +7,8 @@
                                      # (kernel edits)
     python3 chip_smoke.py --sparse-only
                                      # recsys and GNN phases alone
+    python3 chip_smoke.py --train-only
+                                     # the training phase alone
 
 1. Builds the CUDA kernels of ``src/repro_torch/csrc`` with ``nvcc``, one
    process per source, all started together.
@@ -84,6 +86,20 @@
    in round mode (B&B on R-QAD every window, 16 clients); a window of
    reads and two coalesced INSERT DATA on the ingest system; a sampled
    workload replayed through the admission queue, every answer verified.
+11. Training (also alone under ``--train-only``): ``flash_attention_bwd``
+   (from the forward kernels' new row log-sum-exp) against autograd of
+   the plain version, element by element, and ``embedding_bag_bwd``
+   against ``zeros`` + ``index_add_`` on edge cases, each with a planted
+   fault; one f32
+   ``lm_loss`` step of qwen3-0.6b at 2 layers of full width on the card
+   against the CPU (TF32 control); a checkpoint of that model and its
+   AdamW state saved and restored on the card (a stale step as the
+   control); qwen3-0.6b at full width and depth (bf16, B = 8, S = 2,048)
+   and Wide&Deep at full width (B = 65,536) taking 5 AdamW steps each on
+   one batch, the loss finite and falling, step ms, tokens or samples/s,
+   peak memory and launches a step; both backward kernels at those shapes
+   against their plain versions, timed beside their bounds and the
+   library's (SDPA's backward, ``index_add_``).
 
 Fails (non-zero exit, no result line) on any mismatch or exception, and
 when CUDA is not available. The last line is
@@ -4096,6 +4112,831 @@ def log_system(info: dict, gpu: str) -> None:
         f"{info['phase_seconds']} s")
 
 
+# ---------------------------------------------------------------------------
+# training (card only, under --train-only too)
+# ---------------------------------------------------------------------------
+
+BWD_SOURCE = {"flash_attention_bwd": "src/repro_torch/csrc/flash_bwd.cu",
+              "embedding_bag_bwd": SPARSE_SOURCE}
+BWD_REPLACES = {
+    "flash_attention_bwd": "src/repro/models/transformer.py:223 "
+                           "(chunked_causal_attention, differentiated by "
+                           "XLA under jax.checkpoint; no Pallas kernel)",
+    "embedding_bag_bwd": "src/repro/models/recsys.py:103 (embedding_bag's "
+                         "gather, differentiated by XLA; no Pallas kernel)",
+}
+# flash_attention_bwd against autograd of the plain version (float32
+# inside, each gradient rounded once to its input's dtype), element by
+# element (flash_bwd_bound): |kernel - plain| <= BWD_REL |plain| + BWD_SUM M
+# + BWD_DELTA E. M sums the magnitudes of each gradient's terms (scale P
+# (|dO| |V|^T + |Delta|) times |K| or |Q|, P^T |dO|): float32 sums of up to
+# S terms in another order and P from the forward's lse. E is the part
+# that Delta carries: the kernel takes Delta = rowsum(dO O) from the
+# forward's output, rounded to bf16 (half an ulp, at most 2^-9 |O|). The
+# final rounding to bf16 of both sides moves them apart by up to one ulp,
+# 2^-7 |plain|; BWD_REL is twice that, BWD_DELTA twice 2^-9.
+BWD_REL = {"float32": 0.0, "bfloat16": 2.0 ** -6}
+BWD_DELTA = {"float32": 0.0, "bfloat16": 2.0 ** -8}
+BWD_SUM = 2.0 ** -14
+BWD_LATE_ERR = 1.0 / 8       # the later-rows control: dq off by 1/8
+LSE_TOL = 1e-5               # the forward's lse, times max(1, |lse|)
+TRAIN_SEQ = 2048             # qwen3-0.6b training: B = 8, S = 2048
+TRAIN_BATCH = 8
+TRAIN_STEPS = 5              # AdamW steps of each model on one batch
+TRAIN_LR = 1e-3
+RECSYS_TRAIN_BATCH = 65536   # RECSYS_SHAPES["train_batch"]
+GRAD_CHECK_LAYERS = 2        # the f32 lm_loss step, card vs CPU
+GRAD_CHECK_SEQ = 64
+GRAD_TOL = 1e-4              # each gradient leaf, times max |CPU leaf|
+
+
+def grad_err(got, want, tol: float) -> tuple[float, float]:
+    """(max |got - want|, the largest ratio over the tensors of max |got -
+    want| / (tol * max |want|)): within tolerance when at most 1."""
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype {tuple(g.shape)} {g.dtype} "
+                                 f"vs {tuple(w.shape)} {w.dtype}")
+    err, ratio = 0.0, 0.0
+    for g, w in zip(got, want):
+        if not g.numel():
+            continue
+        d = float((g.float() - w.float()).abs().max())
+        err = max(err, d)
+        ratio = max(ratio, d / (tol * max(float(w.float().abs().max()),
+                                          1e-30)))
+    return err, ratio
+
+
+def flash_bwd_bound(q, k, v, o, dout, want, window: int = 0,
+                    softcap: float = 0.0) -> list:
+    """The element-wise bound of |kernel - plain| for dq, dk and dv (see
+    BWD_REL): BWD_REL |want| + BWD_SUM M + BWD_DELTA E, with W = P
+    (|dO| |V|^T + A), A = rowsum(|dO| |O|) and, summed over each group,
+    M_dq = scale W |K|, M_dk = scale W^T |Q|, M_dv = P^T |dO|, E_dq =
+    scale (P A) |K|, E_dk = scale (P A)^T |Q|. The softcap's factor is at
+    most 1, so it is left out. Dense over [H, S, S] one batch row at a
+    time; float32."""
+    import torch
+    B, H, S, d = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    scale = d ** -0.5
+    name = str(q.dtype).removeprefix("torch.")
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    out = [BWD_REL[name] * w.float().abs() for w in want]
+    for b in range(B):
+        qf, dof = q[b].float(), dout[b].float()
+        kr = k[b].float().repeat_interleave(G, 0)
+        vr = v[b].float().repeat_interleave(G, 0)
+        x = torch.einsum("hqd,hkd->hqk", qf, kr) * scale
+        if softcap > 0:
+            x = torch.tanh(x / softcap) * softcap
+        p = torch.softmax(x.masked_fill_(~mask, float("-inf")), dim=-1)
+        del x
+        a = (dof.abs() * o[b].float().abs()).sum(-1, keepdim=True)
+        pa = p * a
+        w = torch.einsum("hqd,hkd->hqk", dof.abs(), vr.abs()).mul_(p) \
+            .add_(pa)
+        ak, aq = kr.abs(), qf.abs()
+        out[0][b] += scale * (BWD_SUM * (w @ ak) + BWD_DELTA[name] * (pa @ ak))
+        dk = BWD_SUM * (w.transpose(1, 2) @ aq) \
+            + BWD_DELTA[name] * (pa.transpose(1, 2) @ aq)
+        out[1][b] += scale * dk.view(Hkv, G, S, d).sum(1)
+        out[2][b] += BWD_SUM * (p.transpose(1, 2) @ dof.abs()).view(
+            Hkv, G, S, d).sum(1)
+        del p, pa, w
+    return out
+
+
+def bwd_err(got, want, bound) -> tuple[float, float]:
+    """(max |got - want|, max |got - want| / bound) over dq, dk and dv,
+    element by element: within tolerance when the second is at most 1."""
+    err, ratio = 0.0, 0.0
+    for g, w, b in zip(got, want, bound):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype {tuple(g.shape)} {g.dtype} "
+                                 f"vs {tuple(w.shape)} {w.dtype}")
+        if not g.numel():
+            continue
+        diff = (g.float() - w.float()).abs()
+        err = max(err, float(diff.max()))
+        ratio = max(ratio, float((diff / b.clamp(min=1e-30)).max()))
+    return err, ratio
+
+
+def late_rows_wrong(grads):
+    """A planted fault: dq of the later half of the rows off by
+    BWD_LATE_ERR, dk and dv as they are."""
+    dq = grads[0].clone()
+    dq[:, :, dq.shape[2] // 2:] *= 1 - BWD_LATE_ERR
+    return dq, grads[1], grads[2]
+
+
+def flash_bwd_math(q, k, v, o, dout, lse, window: int = 0,
+                   softcap: float = 0.0, fault: str | None = None):
+    """dq, dk, dv by the backward kernel's formulas (FlashAttention-2's),
+    dense in float32: P = exp(s - lse) on the causal (and window) mask,
+    Delta = rowsum(dO * O), dS = P (dO V^T - Delta) (1 - (s / c)^2),
+    dq = scale dS K, dk = scale dS^T Q summed over each group, dv = P^T dO
+    likewise. ``fault`` plants an error the checks must find:
+    ``"softcap"`` leaves out the softcap's factor, ``"delta"`` Delta.
+    Small S only (dense [B, H, S, S])."""
+    import torch
+    B, H, S, d = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    scale = d ** -0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    kr, vr = kf.repeat_interleave(G, 1), vf.repeat_interleave(G, 1)
+    x = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
+    factor = None
+    if softcap > 0:
+        t = torch.tanh(x / softcap)
+        x, factor = t * softcap, 1 - t * t
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    p = torch.where(mask, torch.exp(x - lse[..., None]), 0.0)
+    dof = dout.float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - (0.0 if fault == "delta" else delta))
+    if factor is not None and fault != "softcap":
+        ds = ds * factor
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf).view(
+        B, Hkv, G, S, d).sum(2) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).view(B, Hkv, G, S, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bag_bwd_bound(g, ids, mask, n_rows, combiner):
+    """SUM_GROWTH * (entries adding into the row) * sum of |g w| per row
+    and column: the order-of-summation bound of the atomics."""
+    import torch
+    from repro_torch.kernels import ref
+    live = (mask != 0).reshape(-1).float()
+    per_row = torch.zeros(n_rows, device=g.device).index_add_(
+        0, ids.reshape(-1).long(), live)
+    return SUM_GROWTH * per_row[:, None] * ref.embedding_bag_backward_reference(
+        g.abs().float(), ids, mask.abs(), n_rows, combiner)
+
+
+def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
+    """Both backward kernels against their plain versions on the card.
+    ``flash_attention_bwd`` (from the forward kernel's own output and row
+    lse, themselves checked) against autograd of ``mha_reference``: ragged
+    S, windows on and off, softcaps on and off, GQA groups of 1, 2 and 4,
+    d 64, 128 and 256 (and 16, 32), strided and contiguous layouts, element
+    by element within ``flash_bwd_bound``; each case also reads a planted
+    fault (the kernel's formulas with the softcap's factor left out, or
+    Delta where there is no softcap) and, from S = 64 on with a window
+    other than 1, a second one (``late_rows_wrong``), each of which must
+    fail it. ``embedding_bag_bwd`` against ``zeros`` +
+    ``index_add_``: rows repeated within and across bags (16 rows for 4,800
+    entries), empty bags and batches, NNZ 0, D off the float4 width, sum
+    and mean; integer-valued inputs exactly (mean with counts of 1, 2, 4
+    and 8), normal ones within the atomics' summation bound, each with a
+    planted fault (every bag's last entry left out) that must fail it.
+    Returns the number of cases and the largest readings by kernel and
+    dtype; raises after every case has run if any failed."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    worst, bad = {}, []
+    cases = 0
+
+    def note(key, ratio, control):
+        w = worst.setdefault(key, {"max_ratio": 0.0,
+                                   "min_planted_ratio": float("inf")})
+        w["max_ratio"] = max(w["max_ratio"], ratio)
+        if control is not None:
+            w["min_planted_ratio"] = min(w["min_planted_ratio"], control)
+
+    flash_cases = []   # B, H, Hkv, S, d, window, softcap
+    n = 0
+    for d in (64, 128, 256):
+        for G in (1, 2, 4):
+            for win, cap in ((0, 0.0), (48, 0.0), (0, 30.0), (100, 20.0)):
+                flash_cases.append((1 + n % 2, 2 * G, 2, 67 + 29 * n, d, win,
+                                    cap))
+                n += 1
+    flash_cases += [(1, 4, 2, 130, 16, 0, 0.0), (1, 8, 2, 97, 32, 1, 0.0),
+                    (1, 2, 2, 1, 128, 0, 0.0), (2, 4, 4, 64, 128, 0, 0.0),
+                    (1, 16, 8, 1024, 128, 0, 0.0),     # qwen3 heads
+                    (1, 8, 4, 600, 256, 256, 50.0)]    # gemma2, local layer
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        for i, (B, H, Hkv, S, d, win, cap) in enumerate(flash_cases):
+            cases += 1
+            label = f"flash_attention_bwd {name} {flash_cases[i]}"
+            q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev,
+                                   "bshd" if i % 2 == 0 else "bhsd")
+            if cap > 0:     # scores ~ N(0, (c/2)^2): the cap bites, so its
+                q = q * (cap / 2)     # factor's planted fault shows
+            dout = torch.randn((B, S, H, d), generator=gen, device=dev,
+                               dtype=dtype).transpose(1, 2)
+            lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+            o = flash_attention(q, k, v, window=win, softcap=cap, lse=lse)
+            o_ratio = attn_err(o, ref.mha_reference(q, k, v, True, win, cap),
+                               split_bound(q, k, v, win, cap))[1]
+            note(f"o {name}", o_ratio, None)
+            if not o_ratio <= 1.0:
+                bad.append(f"{label}: the forward's output {o_ratio}x its "
+                           f"tolerance")
+            lse_want = ref.mha_lse_reference(q, k, win, cap)
+            lse_ratio = float(((lse - lse_want).abs()
+                               / (LSE_TOL * lse_want.abs().clamp(min=1.0)))
+                              .max())
+            note(f"lse {name}", lse_ratio, None)
+            if not lse_ratio <= 1.0:
+                bad.append(f"{label}: the forward's lse {lse_ratio}x its "
+                           f"tolerance")
+            got = flash_attention_bwd(q, k, v, o, dout, lse, win, cap)
+            want = ref.flash_attention_backward_reference(q, k, v, dout, win,
+                                                          cap)
+            bound = flash_bwd_bound(q, k, v, o, dout, want, win, cap)
+            err, ratio = bwd_err(got, want, bound)
+            controls = [bwd_err(flash_bwd_math(
+                q, k, v, o, dout, lse, win, cap,
+                "softcap" if cap > 0 else "delta"), want, bound)[1]]
+            if S >= 64 and win != 1:
+                controls.append(bwd_err(late_rows_wrong(got), want,
+                                        bound)[1])
+            note(f"flash_attention_bwd {name}", ratio, min(controls))
+            if not ratio <= 1.0:
+                bad.append(f"{label}: max |kernel - plain| {err}, {ratio}x "
+                           f"the bound")
+            if not min(controls) > 1.0:
+                bad.append(f"{label}: a planted fault is within the bound "
+                           f"({controls})")
+
+    bag_cases = [  # B, F, NNZ, V, D
+        (0, 3, 4, 10, 8), (1, 1, 1, 1, 1), (7, 3, 5, 100, 7),
+        (64, 40, 4, 10_000, 32), (5, 2, 37, 50, 33), (3, 2, 3, 20, 300),
+        (2, 3, 0, 10, 8), (300, 4, 4, 16, 16), (33, 5, 8, 1000, 64)]
+    weights = torch.tensor([0.0, 0.5, 1.0, 2.0], device=dev)
+    dyadic = torch.tensor([0, 1, 2, 4, 8], device=dev)
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        for B, F, NNZ, V, D in bag_cases:
+            ids = torch.randint(0, V, (B, F, NNZ), generator=gen, device=dev,
+                                dtype=torch.int32)
+            mask = weights[torch.randint(0, 4, (B, F, NNZ), generator=gen,
+                                         device=dev)]
+            if B:
+                mask[0, 0] = 0.0                        # an empty bag
+            # counts of 0, 1, 2, 4 or 8 live entries: mean's divide exact
+            allowed = dyadic[dyadic <= NNZ]
+            live = allowed[torch.randint(0, allowed.numel(), (B, F, 1),
+                                         generator=gen, device=dev)]
+            mask01 = (torch.arange(NNZ, device=dev) < live).float()
+            g = torch.randn((B, F, D), generator=gen, device=dev).to(dtype)
+            ig = torch.randint(-8, 9, (B, F, D), generator=gen, device=dev,
+                               dtype=torch.float32).to(dtype)
+            planted = bool(B and NNZ)
+            for combiner in ("mean", "sum"):
+                label = (f"embedding_bag_bwd {name} {combiner} B={B} F={F} "
+                         f"NNZ={NNZ} V={V} D={D}")
+                cases += 1
+                want = ref.embedding_bag_backward_reference(g, ids, mask, V,
+                                                            combiner)
+                bound = _bag_bwd_bound(g, ids, mask, V, combiner)
+                err, ratio = sum_err(
+                    embedding_bag_backward(g, ids, mask, V, combiner), want,
+                    bound)
+                control = (sum_err(ref.embedding_bag_backward_reference(
+                    g, ids, planted_bag(mask), V, combiner), want, bound)[1]
+                    if planted and bool((mask[..., -1] != 0).any())
+                    else None)
+                note(f"embedding_bag_bwd {name}", ratio, control)
+                if not ratio <= 1.0:
+                    bad.append(f"{label}: max |kernel - plain| {err}, "
+                               f"{ratio}x the tolerance")
+                if control is not None and not control > 1.0:
+                    bad.append(f"{label}: a planted fault passes")
+                # integer-valued: g in [-8, 8], weights 0, 1/2, 1, 2 (sum)
+                # or counts of 1, 2, 4, 8 (mean): every addend and partial
+                # sum exact in float32, so any order gives the same bits
+                m = mask if combiner == "sum" else mask01
+                cases += 1
+                iwant = ref.embedding_bag_backward_reference(ig, ids, m, V,
+                                                             combiner)
+                if not torch.equal(embedding_bag_backward(ig, ids, m, V,
+                                                          combiner), iwant):
+                    bad.append(f"{label} integer: sums differ")
+                if planted and bool((m[..., -1] != 0).any()) and torch.equal(
+                        ref.embedding_bag_backward_reference(
+                            ig, ids, planted_bag(m), V, combiner), iwant):
+                    bad.append(f"{label} integer: planted fault passes")
+    _sync(dev)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"cases": cases, **worst}
+
+
+def lm_loss_check(cfg, seed: int, device, ref_device="cpu") -> dict:
+    """One f32 ``lm_loss`` step of ``cfg`` (weights from ``seed``, B = 1,
+    GRAD_CHECK_SEQ tokens) on ``device`` through the kernels (the float32
+    forward writing lse, ``flash_attention_bwd``) against the same weights
+    and tokens on ``ref_device`` (the plain versions): the loss within
+    GRAD_TOL * max(1, |loss|) and every gradient leaf within GRAD_TOL *
+    max |leaf| of the CPU's. On a card the control runs the card side
+    again with TF32 matmuls; ok also needs it outside the tolerance."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models.transformer import init_lm_params, lm_loss
+    from repro_torch.runtime.train_loop import value_and_grad
+    dev = torch.device(device)
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), torch.float32, dev)
+    tokens = _tokens(seed, (1, GRAD_CHECK_SEQ), cfg.vocab, "cpu")
+
+    def grads(p, d):
+        loss, aux, g = value_and_grad(lambda pp, b: lm_loss(cfg, pp, b), p,
+                                      tokens.to(d))
+        return loss.cpu(), [x.cpu() for x in tree.leaves(g)]
+
+    got_loss, got = grads(params, dev)
+    ref_dev = torch.device(ref_device)
+    ref_params = _params_to(params, ref_dev)
+    want_loss, want = grads(ref_params, ref_dev)
+    loss_diff = abs(float(got_loss) - float(want_loss))
+    err, ratio = grad_err(got, want, GRAD_TOL)
+    control = None
+    if dev.type == "cuda":
+        matmul = torch.backends.cuda.matmul
+        tf32, matmul.allow_tf32 = matmul.allow_tf32, True
+        try:
+            control = grad_err(grads(params, dev)[1], want, GRAD_TOL)[1]
+        finally:
+            matmul.allow_tf32 = tf32
+    out = {"layers": cfg.n_layers, "seq": GRAD_CHECK_SEQ,
+           "loss": float(want_loss), "loss_diff": loss_diff,
+           "grad_max_abs_err": err, "grad_ratio": ratio,
+           "tf32_control_ratio": control, "leaves": len(want)}
+    out["ok"] = (bool(torch.isfinite(got_loss)) and all(
+        bool(torch.isfinite(g).all()) for g in got)
+        and loss_diff <= GRAD_TOL * max(1.0, abs(float(want_loss)))
+        and ratio <= 1.0 and (control is None or control > 1.0))
+    return out
+
+
+def checkpoint_check(state: dict, device) -> dict:
+    """``state`` saved twice (steps 1 and 2, the second with every float
+    leaf plus one) under ``build/`` and restored on the card: the latest
+    equal to the second bit for bit; restoring step 1 must differ (the
+    planted fault: a stale checkpoint); a wrong-shape ``like`` raises."""
+    import shutil
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.runtime.checkpoint import (latest_step,
+                                                restore_checkpoint,
+                                                save_checkpoint)
+    d = REPO / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    second = tree.tree_map(lambda x: x + 1 if x.is_floating_point() else x,
+                           state)
+    t0 = time.perf_counter()
+    save_checkpoint(str(d), 1, state)
+    save_checkpoint(str(d), 2, second)
+    t_save = time.perf_counter() - t0
+    like = tree.tree_map(torch.zeros_like, state)
+    t0 = time.perf_counter()
+    step, got = restore_checkpoint(str(d), like, device=device)
+    t_restore = time.perf_counter() - t0
+    same = all(torch.equal(a, b) and a.device.type == torch.device(
+        device).type for a, b in zip(tree.leaves(got), tree.leaves(second)))
+    stale = restore_checkpoint(str(d), like, step=1, device=device)[1]
+    stale_same = all(torch.equal(a, b) for a, b in
+                     zip(tree.leaves(stale), tree.leaves(second)))
+    flat = tree.flatten(like)
+    bad_like = tree.unflatten(like, [torch.zeros(x.numel() + 1) if i == 0
+                                     else x for i, (_, x) in
+                                     enumerate(flat)])
+    try:
+        restore_checkpoint(str(d), bad_like)
+        shape_raises = False
+    except ValueError:
+        shape_raises = True
+    size = sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+    latest = latest_step(str(d))
+    shutil.rmtree(d, ignore_errors=True)
+    out = {"leaves": len(flat), "bytes_on_disk": size, "save_s": t_save,
+           "restore_s": t_restore, "latest": latest, "restored": step,
+           "equal": same, "stale_equal": stale_same,
+           "shape_mismatch_raises": shape_raises}
+    out["ok"] = (same and not stale_same and shape_raises and step == 2
+                 and latest == 2)
+    return out
+
+
+def train_steps(step_fn, params, opt_state, batch, steps: int,
+                device) -> dict:
+    """``steps`` AdamW steps on one repeated batch, each timed to its
+    loss's read (the step's one host sync), launch counts read over them.
+    Returns the losses, step ms, median, peak GB and launches a step."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    _reset_peak(device)
+    losses, ms = [], []
+    reset_launch_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    return {"params": params, "opt_state": opt_state, "losses": losses,
+            "step_ms": ms, "median_ms": statistics.median(ms),
+            "peak_gb": _peak_gb(device),
+            "launches_per_step": {k: v / steps for k, v in launches.items()
+                                  if "/" not in k},
+            "launches": launches}
+
+
+TRAIN_TRACK = ("dkdv_kernel", "dq_kernel", "delta_kernel", "flash_tc",
+               "flash_kernel", "gemm", "nvjet", "elementwise", "reduce")
+
+
+def lm_train(cfg, seed: int, device) -> dict:
+    """qwen3-0.6b at full width and depth, bf16 weights from ``seed``:
+    TRAIN_STEPS AdamW steps of ``lm_loss`` on one batch of TRAIN_BATCH x
+    TRAIN_SEQ tokens (each layer rematted, attention through the forward
+    kernel with lse and ``flash_attention_bwd``), then one step under the
+    profiler. The loss must be finite and fall."""
+    import torch
+    from repro_torch.models.transformer import init_lm_params, lm_loss
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.train_loop import make_train_step
+    dev = torch.device(device)
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), torch.bfloat16, dev)
+    tokens = _tokens(seed, (TRAIN_BATCH, TRAIN_SEQ), cfg.vocab, dev)
+    step = make_train_step(lambda p, b: lm_loss(cfg, p, b),
+                           AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=0))
+    run = train_steps(step, params, adamw_init(params), tokens, TRAIN_STEPS,
+                      dev)
+    prof = device_profile(lambda: step(run["params"], run["opt_state"],
+                                       tokens), TRAIN_TRACK) \
+        if dev.type == "cuda" else None
+    losses = run["losses"]
+    out = {k: run[k] for k in ("losses", "step_ms", "median_ms", "peak_gb",
+                               "launches_per_step")}
+    out["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (run["median_ms"] / 1e3)
+    out["profile"] = prof
+    out["launches"] = run["launches"]
+    out["ok"] = (all(math.isfinite(x) for x in losses)
+                 and losses[-1] < losses[0])
+    return out
+
+
+def recsys_train(cfg, seed: int, device) -> dict:
+    """Wide&Deep at full width (f32 weights from ``seed``): TRAIN_STEPS
+    AdamW steps of ``recsys_loss`` on one ``recsys_batch`` of
+    RECSYS_TRAIN_BATCH samples (bags through ``embedding_bag`` and its
+    backward ``embedding_bag_bwd``: a dense gradient of the 40M-row
+    table), then one step under the profiler. The loss must be finite and
+    fall."""
+    import torch
+    from repro_torch.data.recsys import recsys_batch
+    from repro_torch.models.recsys import init_recsys_params, recsys_loss
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.train_loop import make_train_step
+    dev = torch.device(device)
+    params = init_recsys_params(cfg, torch.Generator(
+        device=dev).manual_seed(seed), dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in recsys_batch(
+        RECSYS_TRAIN_BATCH, n_sparse=cfg.n_sparse, vocab=cfg.vocab_per_field,
+        nnz=cfg.nnz_per_field, n_dense=cfg.n_dense, seed=seed).items()}
+    step = make_train_step(lambda p, b: recsys_loss(cfg, p, b),
+                           AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=0))
+    run = train_steps(step, params, adamw_init(params), batch, TRAIN_STEPS,
+                      dev)
+    prof = device_profile(lambda: step(run["params"], run["opt_state"],
+                                       batch),
+                          ("embedding_bag", "index", "gemm", "nvjet",
+                           "elementwise", "Memset")) \
+        if dev.type == "cuda" else None
+    losses = run["losses"]
+    out = {k: run[k] for k in ("losses", "step_ms", "median_ms", "peak_gb",
+                               "launches_per_step")}
+    out["samples_per_s"] = RECSYS_TRAIN_BATCH / (run["median_ms"] / 1e3)
+    out["profile"] = prof
+    out["launches"] = run["launches"]
+    out["batch"] = batch
+    out["ok"] = (all(math.isfinite(x) for x in losses)
+                 and losses[-1] < losses[0])
+    return out
+
+
+def _sdpa_backward(q, k, v, dout):
+    """The backward of one ``scaled_dot_product_attention`` call (causal,
+    fused backends) through autograd: the yardstick of
+    ``flash_attention_bwd``, never used by the port. ``None`` where no
+    fused backend takes these inputs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    G = q.shape[1] // k.shape[1]
+    for how in ("enable_gqa", "expanded heads"):
+        qq = q.detach().contiguous().requires_grad_()
+        if how == "enable_gqa":
+            kk, vv, kw = k.detach().contiguous(), v.detach().contiguous(), \
+                {"enable_gqa": True}
+        else:
+            kk = k.detach().repeat_interleave(G, 1).contiguous()
+            vv = v.detach().repeat_interleave(G, 1).contiguous()
+            kw = {}
+        kk.requires_grad_()
+        vv.requires_grad_()
+        try:
+            with sdpa_kernel(fused):
+                o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                                   **kw)
+            go = dout.contiguous()
+            torch.autograd.grad(o, (qq, kk, vv), go, retain_graph=True)
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError) as exc:
+            log(f"sdpa backward ({how}) refused: {str(exc)[:120]}")
+            continue
+        return (lambda: torch.autograd.grad(o, (qq, kk, vv), go,
+                                            retain_graph=True)), how
+    return None, None
+
+
+def flash_bwd_row(cfg, launches: dict, hbm: float) -> dict:
+    """``flash_attention_bwd`` at the training step's shape (one layer of
+    ``cfg``: B = TRAIN_BATCH, S = TRAIN_SEQ, bf16, the model's strided
+    layout) against autograd of the plain version on the same card inputs,
+    element by element within ``flash_bwd_bound``, with two planted faults
+    (Delta left out; ``late_rows_wrong``) failing it, after the forward
+    that feeds it (the output within ``attn_err``'s split bound, the row
+    lse within LSE_TOL) is held against the plain version; timed beside
+    its bound (2.5x the forward's operations at the bf16
+    tensor-core rate, or its bytes), the plain version and SDPA's
+    backward."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, torch.bfloat16, dev)
+    dout = torch.randn((B, S, H, d), generator=gen, device=dev,
+                       dtype=torch.bfloat16).transpose(1, 2)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    o = flash_attention(q, k, v, lse=lse)
+    shape = f"B={B} H={H} Hkv={Hkv} S={S} d={d} bf16"
+    o_err, o_ratio = attn_err(o, ref.mha_reference(q, k, v),
+                              split_bound(q, k, v))
+    lse_want = ref.mha_lse_reference(q, k)
+    lse_ratio = float(((lse - lse_want).abs()
+                       / (LSE_TOL * lse_want.abs().clamp(min=1.0))).max())
+    del lse_want
+    if not (o_ratio <= 1.0 and lse_ratio <= 1.0):
+        raise AssertionError(f"flash_attention [{shape}] with lse: output "
+                             f"{o_ratio}x, lse {lse_ratio}x the tolerance")
+
+    def kern():
+        return flash_attention_bwd(q, k, v, o, dout, lse)
+
+    def plain():
+        return ref.flash_attention_backward_reference(q, k, v, dout)
+
+    want = plain()
+    got = kern()
+    bound = flash_bwd_bound(q, k, v, o, dout, want)
+    err, ratio = bwd_err(got, want, bound)
+    controls = {
+        "delta": bwd_err(flash_bwd_math(q, k, v, o, dout, lse,
+                                        fault="delta"), want, bound)[1],
+        "late_rows": bwd_err(late_rows_wrong(got), want, bound)[1]}
+    del want, got, bound
+    torch.cuda.empty_cache()
+    if not ratio <= 1.0:
+        raise AssertionError(f"flash_attention_bwd [{shape}]: {ratio}x the "
+                             f"bound (max abs err {err})")
+    if not min(controls.values()) > 1.0:
+        raise AssertionError(f"flash_attention_bwd [{shape}]: a planted "
+                             f"fault is within the bound ({controls})")
+    pairs = B * H * S * (S + 1) // 2
+    flops = 2.5 * 4 * d * pairs
+    nbytes = 2 * (4 * B * H * S * d + 4 * B * Hkv * S * d) + 4 * B * H * S
+    lib, how = _sdpa_backward(q, k, v, dout)
+    t_bytes, t_ops = nbytes / hbm * 1e3, flops / BF16_OPS_PER_S * 1e3
+    row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": BWD_SOURCE["flash_attention_bwd"],
+        "replaces": BWD_REPLACES["flash_attention_bwd"],
+        "launches": int(launches.get("flash_attention_bwd", 0)),
+        "max_abs_err": err, "ms": time_ms(kern, calls=3, reps=5),
+        "plain_ms": time_ms(plain, calls=1, reps=1),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": time_ms(lib, calls=3, reps=5) if lib else None,
+    }
+    log(f"kernel flash_attention_bwd [{shape}]: kernel_ms={row['ms']} "
+        f"bound_ms={row['bound_ms']} ({row['bound_by']}; {flops} operations,"
+        f" 2.5x the forward's) plain_ms={row['plain_ms']} library_ms="
+        f"{row['library_ms']} (SDPA backward through autograd, {how}) "
+        f"launches={row['launches']} max_abs_err={err} ({ratio}x "
+        f"flash_bwd_bound; planted faults {json.dumps(controls)}); forward "
+        f"with lse: output {o_ratio}x (max abs err {o_err}), lse "
+        f"{lse_ratio}x the tolerance; {flops / row['ms'] / 1e9} TFLOP/s "
+        f"achieved by that count")
+    del q, k, v, o, dout, lse, lib
+    torch.cuda.empty_cache()
+    return row
+
+
+def bag_bwd_row(cfg, batch: dict, launches: dict, hbm: float) -> dict:
+    """``embedding_bag_bwd`` at the Wide&Deep training step's shape (the
+    unified 40M-row table, the batch's field-offset ids and mask, a
+    random output gradient) against ``zeros`` + ``index_add_``: exactly on
+    an integer-valued gradient under ``sum``, within the atomics'
+    summation bound on a normal one under both combiners, each against
+    the planted fault (every bag's last entry left out). Timed beside its
+    bound (its bytes: g, ids and mask read, the dense gradient written
+    once), the plain version and ``index_add_`` into zeros."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward
+    from repro_torch.models.recsys import _field_ids
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    ids = _field_ids(batch["ids"], cfg.vocab_per_field)
+    mask = batch["id_mask"]
+    B, F_, NNZ = ids.shape
+    V, D = cfg.unified_rows, cfg.embed_dim
+    shape = f"B={B} F={F_} NNZ={NNZ} V={V} D={D} f32"
+    checks = {}
+    ig = torch.randint(-8, 9, (B, F_, D), generator=gen, device=dev,
+                       dtype=torch.float32)
+    want = ref.embedding_bag_backward_reference(ig, ids, mask, V, "sum")
+    got = embedding_bag_backward(ig, ids, mask, V, "sum")
+    planted = ref.embedding_bag_backward_reference(ig, ids, planted_bag(mask),
+                                                   V, "sum")
+    checks["exact sum"] = [float((got - want).abs().max()),
+                           float((planted - want).abs().max())]
+    del ig, want, got, planted
+    g = torch.randn((B, F_, D), generator=gen, device=dev)
+    for combiner in ("mean", "sum"):
+        want = ref.embedding_bag_backward_reference(g, ids, mask, V,
+                                                    combiner)
+        bound = _bag_bwd_bound(g, ids, mask, V, combiner)
+        err = sum_err(embedding_bag_backward(g, ids, mask, V, combiner),
+                      want, bound)
+        control = sum_err(ref.embedding_bag_backward_reference(
+            g, ids, planted_bag(mask), V, combiner), want, bound)
+        checks[f"float32 {combiner}"] = [*err, *control]
+        del want, bound
+        torch.cuda.empty_cache()
+    _sync(dev)
+    bad = [k for k, v in checks.items()
+           if (not (v[0] == 0 and v[1] > 0) if k.startswith("exact")
+               else not v[1] <= 1.0 < v[3])]
+    if bad:
+        raise AssertionError(f"embedding_bag_bwd [{shape}]: {bad}: {checks}")
+    m = mask.float()
+    w = m / m.sum(dim=2, keepdim=True).clamp(min=1.0)
+    contrib = (g[:, :, None, :] * w[..., None]).reshape(-1, D)
+    flat = ids.reshape(-1).long()
+
+    def library():
+        return torch.zeros((V, D), device=dev).index_add_(0, flat, contrib)
+
+    n = ids.numel()
+    nbytes = B * F_ * D * 4 + 8 * n + V * D * 4
+    row = {
+        "name": "embedding_bag_bwd", "route": "cuda",
+        "source": BWD_SOURCE["embedding_bag_bwd"],
+        "replaces": BWD_REPLACES["embedding_bag_bwd"],
+        "launches": int(launches.get("embedding_bag_bwd", 0)),
+        "max_abs_err": checks["float32 mean"][0],
+        "ms": time_ms(lambda: embedding_bag_backward(g, ids, mask, V)),
+        "plain_ms": time_ms(lambda: ref.embedding_bag_backward_reference(
+            g, ids, mask, V), calls=1, reps=3),
+        "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes",
+        "library_ms": time_ms(library),
+    }
+    log(f"kernel embedding_bag_bwd [{shape}]: kernel_ms={row['ms']} "
+        f"bound_ms={row['bound_ms']} (bytes: g, ids, mask read, the "
+        f"{V * D * 4} bytes of the dense gradient written once) "
+        f"plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
+        f"(index_add_ into zeros of the weighted rows) launches="
+        f"{row['launches']} checks [max_abs_err, ratio, planted max_abs_err,"
+        f" planted ratio]: {json.dumps(checks)}")
+    del g, contrib, flat
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_phase(args, hbm: float, device) -> tuple[list[dict], dict]:
+    """Training on the card: both backward kernels' edge cases, the f32
+    ``lm_loss`` step card vs CPU at GRAD_CHECK_LAYERS layers of full width
+    with its TF32 control, a checkpoint of that state saved and restored on
+    the card, qwen3-0.6b (full width and depth, bf16) and Wide&Deep (full
+    width, f32) taking TRAIN_STEPS AdamW steps each, then the backward
+    kernels' rows. Launch counts are reset before each model's steps and
+    read after them. Returns the two rows and the launches of every kernel
+    over both models' steps."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs.registry import get_spec
+    from repro_torch.optim.adamw import adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 checks
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = gpu_line()
+    t0 = time.perf_counter()
+    cases = check_backward_cases(device)
+    log(f"train: backward edge cases (flash within flash_bwd_bound: rel "
+        f"{BWD_REL}, sum {BWD_SUM}, delta {BWD_DELTA}; lse within "
+        f"{LSE_TOL}; bags within the summation bound, "
+        f"integer-valued exactly): {json.dumps(cases)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    cfg = get_spec(LM_ARCH).config
+    small = dc.replace(cfg, n_layers=GRAD_CHECK_LAYERS)
+    t0 = time.perf_counter()
+    check = lm_loss_check(small, args.seed, device)
+    log(f"train: lm_loss f32 step card vs CPU ({small.name} at "
+        f"{GRAD_CHECK_LAYERS} layers, full width): {json.dumps(check)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not check["ok"]:
+        raise AssertionError(f"lm_loss card vs CPU: {check}")
+    from repro_torch.models.transformer import init_lm_params
+    params = init_lm_params(small, torch.Generator(device=device).manual_seed(
+        args.seed), torch.float32, device)
+    ck = checkpoint_check({"params": params, "opt": adamw_init(params)},
+                          device)
+    log(f"train: checkpoint on the card: {json.dumps(ck)}")
+    if not ck["ok"]:
+        raise AssertionError(f"checkpoint round trip: {ck}")
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    lm = lm_train(cfg, args.seed, device)
+    prof = lm.pop("profile")
+    launches = lm.pop("launches")
+    log(f"train lm ({cfg.name}, {cfg.n_layers} layers, bf16 params, f32 "
+        f"moments, B={TRAIN_BATCH} S={TRAIN_SEQ}) on {gpu}: "
+        f"{json.dumps(lm)} in {time.perf_counter() - t0:.1f} s")
+    log(f"train lm profile (one step): {json.dumps(prof)}")
+    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"train lm launches {got}, want {want} (each "
+                             f"layer's forward, its recompute and its "
+                             f"backward)")
+    if not lm["ok"]:
+        raise AssertionError(f"train lm: the loss did not fall or is not "
+                             f"finite: {lm['losses']}")
+    torch.cuda.empty_cache()
+    rows = [flash_bwd_row(cfg, launches, hbm)]
+
+    rcfg = get_spec(RECSYS_ARCH).config
+    t0 = time.perf_counter()
+    rs = recsys_train(rcfg, args.seed, device)
+    rprof = rs.pop("profile")
+    rlaunches = rs.pop("launches")
+    batch = rs.pop("batch")
+    log(f"train recsys ({rcfg.name}, {rcfg.unified_rows} x "
+        f"{rcfg.embed_dim} table, f32, B={RECSYS_TRAIN_BATCH}) on {gpu}: "
+        f"{json.dumps(rs)} in {time.perf_counter() - t0:.1f} s")
+    log(f"train recsys profile (one step): {json.dumps(rprof)}")
+    want = {"embedding_bag": TRAIN_STEPS, "embedding_bag_bwd": TRAIN_STEPS}
+    got = {k: rlaunches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"train recsys launches {got}, want {want}")
+    if not rs["ok"]:
+        raise AssertionError(f"train recsys: the loss did not fall or is "
+                             f"not finite: {rs['losses']}")
+    torch.cuda.empty_cache()
+    rows.append(bag_bwd_row(rcfg, batch, rlaunches, hbm))
+    del batch
+    torch.cuda.empty_cache()
+    return rows, {**{k: v for k, v in launches.items() if "/" not in k},
+                  **{k: v for k, v in rlaunches.items() if "/" not in k}}
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4144,6 +4985,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--sparse-only", action="store_true",
                     help="the recsys and GNN phases alone (a short run "
                          "after a sparse kernel edit)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="the training phase alone (a short run after a "
+                         "backward kernel edit)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LM, MoE, recsys and GNN phases' "
                          "weights and inputs")
@@ -4151,8 +4995,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--decode-cache", type=int, default=32768)
     ap.add_argument("--decode-steps", type=int, default=64)
     args = ap.parse_args(argv)
-    if args.lm_only and args.sparse_only:
-        ap.error("--lm-only and --sparse-only exclude each other")
+    if sum((args.lm_only, args.sparse_only, args.train_only)) > 1:
+        ap.error("--lm-only, --sparse-only and --train-only exclude each "
+                 "other")
+    only = args.lm_only or args.sparse_only or args.train_only
 
     import torch
     if not torch.cuda.is_available():
@@ -4178,7 +5024,7 @@ def main(argv: list[str] | None = None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {gpu}")
 
     rows = []
-    if not (args.lm_only or args.sparse_only):
+    if not only:
         t0 = time.perf_counter()
         n_edge = check_edge_cases(dev)
         log(f"edge cases: {n_edge} exact in {time.perf_counter() - t0:.1f} s")
@@ -4205,7 +5051,7 @@ def main(argv: list[str] | None = None) -> int:
         del full
         torch.cuda.empty_cache()
 
-    if not args.sparse_only:
+    if not (args.sparse_only or args.train_only):
         t0 = time.perf_counter()
         rows += lm_phase(args, hbm, dev)
         log(f"lm phase {time.perf_counter() - t0:.1f} s")
@@ -4217,7 +5063,7 @@ def main(argv: list[str] | None = None) -> int:
                                        for arch, got in moe.items()}
         log(f"moe phase {time.perf_counter() - t0:.1f} s")
 
-    if not args.lm_only:
+    if not (args.lm_only or args.train_only):
         t0 = time.perf_counter()
         cases = check_sparse_cases(dev)
         log(f"sparse edge cases within SUM_GROWTH {SUM_GROWTH} and rtol "
@@ -4230,6 +5076,16 @@ def main(argv: list[str] | None = None) -> int:
         log(f"gnn phase {time.perf_counter() - t0:.1f} s")
 
     if not (args.lm_only or args.sparse_only):
+        t0 = time.perf_counter()
+        train_rows, train_launches = train_phase(args, hbm, dev)
+        for row in rows:     # the forward kernels' launches in those steps
+            if row["name"] in ("flash_attention", "embedding_bag"):
+                row["train_launches"] = int(train_launches.get(row["name"],
+                                                               0))
+        rows += train_rows
+        log(f"train phase {time.perf_counter() - t0:.1f} s")
+
+    if not only:
         # the paper's system on the SPARQL phases' stores, last: its long
         # host-bound rounds perturb no earlier phase's measurements
         t0 = time.perf_counter()

@@ -8,7 +8,8 @@ modules it needs are its own copies, and the device layer is torch.
 Layers (ported so far: the SPARQL read and write paths, the paper's
 cloud-edge system with B&B on the R-QAD bound, the serving front end, the
 workload harness, the dense and MoE LM serving paths, Wide&Deep scoring
-and retrieval, GCN, PNA, EGNN and NequIP inference)
+and retrieval, GCN, PNA, EGNN and NequIP inference, LM and Wide&Deep
+training)
 -----------------------------------------------------------------------
 - ``repro_torch.rdf``     : dictionary-encoded triple store + generators
 - ``repro_torch.sparql``  : parser, algebra, matcher, batched engine with
@@ -18,24 +19,31 @@ and retrieval, GCN, PNA, EGNN and NequIP inference)
   subgraphs, placement, the cost model, CRA, the R-QAD relaxation, B&B and
   the baselines
 - ``repro_torch.runtime`` : the offload serving pool, micro-batch admission,
-  the SPARQL-protocol HTTP server
+  the SPARQL-protocol HTTP server; the train loop, checkpoints, fault
+  tolerance
+- ``repro_torch.optim``   : AdamW (float32 moments) and int8 error-feedback
+  compression
+- ``repro_torch.launch``  : the training driver (``python -m
+  repro_torch.launch.train``)
 - ``repro_torch.workload``: witnessed query sampling, traffic schedules,
   replay with verification
 - ``repro_torch.edge``    : edge and cloud servers, rebalancing, and
   ``EdgeCloudSystem`` (history -> placement -> schedule -> execution)
-- ``repro_torch.models``  : dense decoder LM (prefill, KV-cache decode),
-  Wide&Deep (scoring, retrieval), GCN, PNA, EGNN and NequIP (forwards
-  over sorted edges, chunked at node boundaries; energies)
+- ``repro_torch.models``  : dense decoder LM (prefill, KV-cache decode,
+  ``lm_loss``), Wide&Deep (scoring, retrieval, ``recsys_loss``), GCN, PNA,
+  EGNN and NequIP (forwards over sorted edges, chunked at node
+  boundaries; energies)
 - ``repro_torch.data``    : synthetic recsys batches and graphs
 - ``repro_torch.configs`` : the reference's ten archs (dense and MoE LMs,
   PNA, EGNN, GCN, NequIP, Wide&Deep); LM, recsys and GNN shapes
 - ``repro_torch.kernels`` : CUDA kernels (``csrc/rdf_kernels.cu``,
   ``csrc/attention_kernels.cu``, ``csrc/flash_tc.cu``, ``csrc/decode_tc.cu``,
-  ``csrc/sparse_kernels.cu``, ``csrc/qad_kernels.cu``) and their plain
-  torch versions
+  ``csrc/flash_bwd.cu``, ``csrc/sparse_kernels.cu``,
+  ``csrc/qad_kernels.cu``), the autograd Functions of the training path
+  and their plain torch versions
 - ``repro_torch.convert`` : carries a reference store + dictionary, the
-  system's ``SystemParams``, or a reference LM, Wide&Deep or GNN parameter
-  tree, over
+  system's ``SystemParams``, a reference LM, Wide&Deep or GNN parameter
+  tree, or an AdamW state, over
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -107,6 +115,16 @@ _LAZY = {
     "TrafficConfig": ("repro_torch.workload.traffic", "TrafficConfig"),
     "build_schedule": ("repro_torch.workload.traffic", "build_schedule"),
     "replay": ("repro_torch.workload.driver", "replay"),
+    "lm_loss": ("repro_torch.models.transformer", "lm_loss"),
+    "recsys_loss": ("repro_torch.models.recsys", "recsys_loss"),
+    "AdamWConfig": ("repro_torch.optim.adamw", "AdamWConfig"),
+    "TrainLoopConfig": ("repro_torch.runtime.train_loop", "TrainLoopConfig"),
+    "train": ("repro_torch.runtime.train_loop", "train"),
+    "save_checkpoint": ("repro_torch.runtime.checkpoint", "save_checkpoint"),
+    "restore_checkpoint": ("repro_torch.runtime.checkpoint",
+                           "restore_checkpoint"),
+    "adamw_state_from_reference": ("repro_torch.convert",
+                                   "adamw_state_from_reference"),
 }
 
 

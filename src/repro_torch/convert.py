@@ -8,8 +8,9 @@ store and dictionary. :func:`lm_params_from_reference`,
 :func:`recsys_params_from_reference` and :func:`gnn_params_from_reference`
 turn the model zoo's LM (dense and MoE), Wide&Deep and GNN (GCN, PNA,
 EGNN, NequIP) parameter trees, given as numpy arrays, into the port's
-params, and :func:`system_params_from_reference`
-the cloud-edge system's ``SystemParams``. All read plain arrays only, so
+params, :func:`adamw_state_from_reference` an AdamW state (moments and
+step), and :func:`system_params_from_reference` the cloud-edge system's
+``SystemParams``. All read plain arrays only, so
 they import nothing of the JAX package.
 """
 
@@ -104,6 +105,27 @@ def gnn_params_from_reference(tree: dict, device=None) -> dict:
         return _tensor(node, dev)
 
     return carry(tree)
+
+
+def adamw_state_from_reference(state: dict, device=None) -> dict:
+    """The port's AdamW state from the JAX ``adamw_init`` /
+    ``adamw_update`` state ``{"m", "v", "step"}`` with its leaves as numpy
+    arrays: float32 moments of the params' nesting (dicts, lists,
+    tuples), ``step`` a 0-dim int32 tensor, on ``device`` (``cuda`` by
+    default); so both packages can take the same step from the same
+    state."""
+    dev = resolve_device(device)
+
+    def carry(node):
+        if isinstance(node, dict):
+            return {k: carry(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(carry(v) for v in node)
+        return torch.from_numpy(np.array(node, dtype=np.float32)).to(dev)
+
+    return {"m": carry(state["m"]), "v": carry(state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}
 
 
 def system_params_from_reference(ref_params) -> SystemParams:

@@ -150,9 +150,10 @@ struct FlashLayout {
 template <typename T, int D>
 __global__ void __launch_bounds__(kFlashThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides4 qs,
-                 Strides4 ks, Strides4 vs, Strides4 os, int H, int Hkv, int S,
-                 int window, float softcap, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Strides4 qs, Strides4 ks,
+                 Strides4 vs, Strides4 os, int H, int Hkv, int S, int window,
+                 float softcap, float scale) {
   using L = FlashLayout<D>;
   constexpr int C = D / 16;
   extern __shared__ float4 smem_f4[];
@@ -287,6 +288,9 @@ __global__ void __launch_bounds__(kFlashThreads)
 #pragma unroll
     for (int c = 0; c < C; ++c)
       ob[(tx + 16 * c) * os.d] = from_float<T>(acc[i][c] * inv);
+    if (lse != nullptr && tx == 0)   // the row's log-sum-exp, for training
+      lse[(static_cast<int64_t>(b) * H + h) * S + row] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
@@ -482,15 +486,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 template <typename T, int D>
 int launch_flash(const void* q, const void* k, const void* v, void* o,
-                 const int64_t* st, int B, int H, int Hkv, int S, int window,
-                 float softcap, float scale, cudaStream_t stream) {
+                 float* lse, const int64_t* st, int B, int H, int Hkv, int S,
+                 int window, float softcap, float scale,
+                 cudaStream_t stream) {
   const size_t bytes = FlashLayout<D>::bytes;
   cudaError_t err = allow_smem(flash_kernel<T, D>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_kernel<T, D><<<grid, kFlashThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), strides4(st),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, strides4(st),
       strides4(st + 4), strides4(st + 8), strides4(st + 12), H, Hkv, S,
       window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
@@ -526,28 +531,35 @@ int launch_decode(const void* q, const void* kc, const void* vc,
 extern "C" {
 
 // float32 q [B,H,S,D], k/v [B,Hkv,S,D], o [B,H,S,D], any element strides:
-// strides = the four of q, then k, v and o (16 int64, host memory). dtype
-// must be 0: bfloat16 prefill is flash_tc.cu's.
+// strides = the four of q, then k, v and o (16 int64, host memory). lse:
+// null (serving), or float32 [B,H,S] contiguous that receives each row's
+// log-sum-exp of its scaled, capped scores (natural log; the backward's
+// input). dtype must be 0: bfloat16 prefill is flash_tc.cu's.
 int attn_flash_attention(const void* q, const void* k, const void* v,
-                         void* o, const int64_t* strides, int dtype, int B,
-                         int H, int Hkv, int S, int D, int window,
-                         float softcap, float scale, void* stream) {
+                         void* o, void* lse_out, const int64_t* strides,
+                         int dtype, int B, int H, int Hkv, int S, int D,
+                         int window, float softcap, float scale,
+                         void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   switch (D) {
-    case 16: return launch_flash<float, 16>(q, k, v, o, strides, B, H, Hkv,
-                                            S, window, softcap, scale, s);
-    case 32: return launch_flash<float, 32>(q, k, v, o, strides, B, H, Hkv,
-                                            S, window, softcap, scale, s);
-    case 64: return launch_flash<float, 64>(q, k, v, o, strides, B, H, Hkv,
-                                            S, window, softcap, scale, s);
-    case 128: return launch_flash<float, 128>(q, k, v, o, strides, B, H,
-                                              Hkv, S, window, softcap,
-                                              scale, s);
-    case 256: return launch_flash<float, 256>(q, k, v, o, strides, B, H,
-                                              Hkv, S, window, softcap,
-                                              scale, s);
+    case 16:
+      return launch_flash<float, 16>(q, k, v, o, lse, strides, B, H, Hkv, S,
+                                     window, softcap, scale, s);
+    case 32:
+      return launch_flash<float, 32>(q, k, v, o, lse, strides, B, H, Hkv, S,
+                                     window, softcap, scale, s);
+    case 64:
+      return launch_flash<float, 64>(q, k, v, o, lse, strides, B, H, Hkv, S,
+                                     window, softcap, scale, s);
+    case 128:
+      return launch_flash<float, 128>(q, k, v, o, lse, strides, B, H, Hkv, S,
+                                      window, softcap, scale, s);
+    case 256:
+      return launch_flash<float, 256>(q, k, v, o, lse, strides, B, H, Hkv, S,
+                                      window, softcap, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -37,7 +37,8 @@
 //     do) leaves 2^-8. The split costs 1.5x the tensor-core work of a
 //     single rounding;
 //   - the epilogue divides by max(l, 1e-30) and stores through the output's
-//     strides.
+//     strides; given an lse pointer (training), it also writes each row's
+//     log-sum-exp, (m + log2 l) ln 2, for flash_bwd.cu.
 // The consumers hold O (d / 2 floats a thread, d / 4 at d = 256), the
 // scores (BK / 2) and the split P (BK / 4 registers) within 240 registers
 // (setmaxnreg; the producer keeps 24): no accumulator spills at any d.
@@ -94,6 +95,7 @@ struct Plan {
 struct Args {
   __nv_bfloat16* o;
   int64_t ob, oh, os, od;  // output element strides
+  float* lse;              // null, or [B, H, S]: each row's log-sum-exp
   int H, Hkv, S, window;
   float softcap, scale;
 };
@@ -545,6 +547,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         inv[r] = 1.f / fmaxf(l[r], 1e-30f);
       }
+      // the row's log-sum-exp in natural log (m and l are in base 2), once
+      // a row: lane 0 of its quad, warpgroup 0 where both share the rows
+      if (a.lse != nullptr && (lane & 3) == 0 && c0 == 0) {
+        float* lrow = a.lse + (static_cast<int64_t>(b) * a.H + h) * a.S;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row_a + 8 * r;
+          if (row < a.S)
+            lrow[row] = (m[r] + log2f(fmaxf(l[r], 1e-30f))) *
+                        0.6931471805599453f;
+        }
+      }
       __nv_bfloat16* ob = a.o + b * a.ob + h * a.oh;
       const bool pairs = a.od == 1 && a.os % 2 == 0 && a.ob % 2 == 0 &&
                          a.oh % 2 == 0 &&
@@ -635,7 +649,7 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const int64_t* st, int B, int H, int Hkv, int S, int window,
            float softcap, float scale, cudaStream_t stream) {
   using P = Plan<D>;
@@ -651,7 +665,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
       static_cast<int>(P::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{static_cast<__nv_bfloat16*>(o), st[12], st[13], st[14],
-               st[15], H, Hkv, S, window, softcap, scale};
+               st[15], lse, H, Hkv, S, window, softcap, scale};
   const dim3 grid((S + P::BM - 1) / P::BM, H, B);
   flash_tc_kernel<D><<<grid, kThreads, P::SMEM, stream>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
@@ -665,25 +679,28 @@ extern "C" {
 // element strides of q, then k, v and o (16 int64, host memory). q, k and v
 // need d stride 1, the other strides multiples of 8 elements and 16-byte
 // aligned bases (the wrapper copies an operand that has not); o takes any
-// strides. D one of 16, 32, 64, 128, 256.
+// strides. lse: null (serving), or float32 [B,H,S] contiguous that
+// receives each row's log-sum-exp in natural log (the backward's input).
+// D one of 16, 32, 64, 128, 256.
 int flash_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, const int64_t* strides, int B, int H,
-                          int Hkv, int S, int D, int window, float softcap,
-                          float scale, void* stream) {
+                          void* o, void* lse_out, const int64_t* strides,
+                          int B, int H, int Hkv, int S, int D, int window,
+                          float softcap, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || strides[3] != 1 ||
       strides[7] != 1 || strides[11] != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, strides, B, H, Hkv, S, window,
+    case 16: return launch<16>(q, k, v, o, lse, strides, B, H, Hkv, S, window,
                                softcap, scale, s);
-    case 32: return launch<32>(q, k, v, o, strides, B, H, Hkv, S, window,
+    case 32: return launch<32>(q, k, v, o, lse, strides, B, H, Hkv, S, window,
                                softcap, scale, s);
-    case 64: return launch<64>(q, k, v, o, strides, B, H, Hkv, S, window,
+    case 64: return launch<64>(q, k, v, o, lse, strides, B, H, Hkv, S, window,
                                softcap, scale, s);
-    case 128: return launch<128>(q, k, v, o, strides, B, H, Hkv, S, window,
+    case 128: return launch<128>(q, k, v, o, lse, strides, B, H, Hkv, S, window,
                                  softcap, scale, s);
-    case 256: return launch<256>(q, k, v, o, strides, B, H, Hkv, S, window,
+    case 256: return launch<256>(q, k, v, o, lse, strides, B, H, Hkv, S, window,
                                  softcap, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -40,6 +40,18 @@
 // cnt += m in float32 (__fmul_rn, __fadd_rn), mean divides by max(cnt, 1)
 // (__fdiv_rn), and the result is rounded once to the table's dtype.
 //
+// embedding_bag_bwd, the table's gradient of embedding_bag, has no Pallas
+// counterpart: the reference differentiates its plain gather
+// (repro/models/recsys.py:103) in XLA. Bytes bind it: the dense gradient
+// is written once (5.1 GB at Wide&Deep's 40M x 32 float32 table, zeroed
+// by cudaMemsetAsync), the output's gradient, ids and mask are read once,
+// and every entry adds its g * w into its row. A group of lanes takes a
+// bag, holds the bag's g in registers and adds it into each entry's row
+// with atomics (a float4 at once on Hopper where D is a multiple of 4), so
+// rows repeated within and across bags need no sort; the sums' order, and
+// so the last bits of a row read by several entries, change from run to
+// run. bfloat16 tables are summed in a float32 scratch and rounded once.
+//
 // segment_sum_sorted replaces repro/kernels/segment_mp.py:segment_sum_sorted.
 // The TPU kernel multiplies a one-hot [edge chunk, node block] matrix into
 // the messages on the MXU. On Hopper that product would spend D times the
@@ -754,6 +766,84 @@ __global__ void f32_to_bf16_kernel(const float* __restrict__ src,
     dst[i] = __float2bfloat16(src[i]);
 }
 
+// ---------------------------------------------------------------------------
+// embedding_bag_bwd
+// ---------------------------------------------------------------------------
+
+constexpr int kBagBwdThreads = 256;
+constexpr int kBagBwdBlocksPerSm = 8;
+
+// grad [n_rows, D] float32, zeroed by the launcher; g [n_bags, D] in the
+// table's dtype. Group tid / lanes of the grid takes bags group, group +
+// groups, ...; lane `sub` takes columns sub * V + k * lanes * V, holds g's
+// V columns of the bag in registers and adds g * w into the row of each
+// entry whose mask is not 0: w = m / max(cnt, 1) for mean (cnt the bag's
+// mask summed in order, as the forward sums it), m for sum. V = 4 adds a
+// float4 at once (Hopper's vector atomicAdd), V = 1 one float.
+template <typename T, int V>
+__global__ void __launch_bounds__(kBagBwdThreads)
+    embedding_bag_bwd_kernel(const T* __restrict__ g,
+                             const int* __restrict__ ids,
+                             const float* __restrict__ mask,
+                             float* __restrict__ grad, int64_t n_bags,
+                             int nnz, int D, bool mean, int lanes) {
+  const int groups = kBagBwdThreads / lanes;
+  const int sub = threadIdx.x % lanes;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * groups;
+  for (int64_t bag = static_cast<int64_t>(blockIdx.x) * groups +
+                     threadIdx.x / lanes;
+       bag < n_bags; bag += step) {
+    const int* bid = ids + bag * nnz;
+    const float* bm = mask + bag * nnz;
+    float cnt = 0.f;
+    if (mean)
+      for (int z = 0; z < nnz; ++z) cnt = __fadd_rn(cnt, bm[z]);
+    const float denom = fmaxf(cnt, 1.f);
+    for (int c0 = sub * V; c0 < D; c0 += lanes * V) {
+      float gv[V];
+#pragma unroll
+      for (int u = 0; u < V; ++u) gv[u] = to_f32(g[bag * D + c0 + u]);
+      for (int z = 0; z < nnz; ++z) {
+        const float m = bm[z];
+        if (m == 0.f) continue;
+        const float w = mean ? __fdiv_rn(m, denom) : m;
+        float* dst = grad + static_cast<int64_t>(bid[z]) * D + c0;
+        if constexpr (V == 4) {
+          atomicAdd(reinterpret_cast<float4*>(dst),
+                    make_float4(__fmul_rn(gv[0], w), __fmul_rn(gv[1], w),
+                                __fmul_rn(gv[2], w), __fmul_rn(gv[3], w)));
+        } else {
+          atomicAdd(dst, __fmul_rn(gv[0], w));
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_bag_bwd(const void* g, const int* ids, const float* mask,
+                   float* acc, int64_t n_bags, int nnz, int D, bool mean,
+                   cudaStream_t stream) {
+  const bool wide = D % 4 == 0 && reinterpret_cast<uintptr_t>(acc) % 16 == 0;
+  const int V = wide ? 4 : 1;
+  const int cols = (D + V - 1) / V;
+  int lanes = 1;
+  while (lanes < cols && lanes < 32) lanes *= 2;
+  const int64_t groups = kBagBwdThreads / lanes;
+  int64_t blocks = (n_bags + groups - 1) / groups;
+  if (blocks > 132 * kBagBwdBlocksPerSm) blocks = 132 * kBagBwdBlocksPerSm;
+  const auto grid = static_cast<unsigned>(blocks);
+  if (wide)
+    embedding_bag_bwd_kernel<T, 4><<<grid, kBagBwdThreads, 0, stream>>>(
+        static_cast<const T*>(g), ids, mask, acc, n_bags, nnz, D, mean,
+        lanes);
+  else
+    embedding_bag_bwd_kernel<T, 1><<<grid, kBagBwdThreads, 0, stream>>>(
+        static_cast<const T*>(g), ids, mask, acc, n_bags, nnz, D, mean,
+        lanes);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // acc: float32 [n_nodes, D] the kernel sums into (the result itself for a
 // float32 msg, the caller's scratch for bfloat16, converted at the end),
 // zeroed by the caller. `a` is the plan, checked here.
@@ -864,6 +954,50 @@ int sparse_segment_sum_sorted(const void* msg, const void* dst, void* out,
                                                               : 132 * 32),
                          256, 0, st>>>(acc,
                                        static_cast<__nv_bfloat16*>(out),
+                                       n_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The table's gradient of embedding_bag: g [n_bags, D] (the output's
+// gradient, contiguous, in the table's dtype); ids int32 and mask float32
+// [n_bags, nnz] (contiguous, 4-byte aligned); grad [n_rows, D] contiguous
+// in the table's dtype, overwritten: zeroed, then every entry whose mask
+// is not 0 adds g * mask (sum) or g * mask / max(count, 1) (mean) into its
+// row, by atomics. scratch: float32 [n_rows, D] for a bfloat16 table
+// (summed there and converted at the end), null for float32. Ids are not
+// range-checked.
+int sparse_embedding_bag_bwd(const void* g, const void* ids,
+                             const void* mask, void* grad, void* scratch,
+                             int dtype, int64_t n_bags, int nnz, int D,
+                             int64_t n_rows, int mean, void* stream) {
+  if (n_bags < 0 || nnz < 0 || D <= 0 || n_rows < 0 || dtype < 0 ||
+      dtype > 1 || (dtype == 1 && scratch == nullptr) ||
+      (reinterpret_cast<uintptr_t>(ids) | reinterpret_cast<uintptr_t>(mask)) %
+              4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int64_t n_out = n_rows * D;
+  if (n_out == 0) return 0;
+  float* acc = static_cast<float*>(dtype == 0 ? grad : scratch);
+  cudaError_t err = cudaMemsetAsync(acc, 0, n_out * sizeof(float), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_bags > 0 && nnz > 0) {
+    const int* i = static_cast<const int*>(ids);
+    const float* m = static_cast<const float*>(mask);
+    const int rc =
+        dtype == 0
+            ? launch_bag_bwd<float>(g, i, m, acc, n_bags, nnz, D, mean != 0,
+                                    st)
+            : launch_bag_bwd<__nv_bfloat16>(g, i, m, acc, n_bags, nnz, D,
+                                            mean != 0, st);
+    if (rc != 0) return rc;
+  }
+  if (dtype == 1) {
+    const int64_t cvt = (n_out + 255) / 256;
+    f32_to_bf16_kernel<<<static_cast<unsigned>(cvt < 132 * 32 ? cvt
+                                                              : 132 * 32),
+                         256, 0, st>>>(acc, static_cast<__nv_bfloat16*>(grad),
                                        n_out);
   }
   return static_cast<int>(cudaGetLastError());

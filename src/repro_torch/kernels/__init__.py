@@ -1,5 +1,6 @@
-"""Hand-written CUDA kernels of the SPARQL query path, the LM serving path
-and the recsys and GNN serving paths, with their wrappers.
+"""Hand-written CUDA kernels of the SPARQL query path, the LM serving path,
+the recsys and GNN serving paths and the LM and recsys training paths
+(the attention and embedding-bag backward), with their wrappers.
 
 There is no interpret mode and no availability probe: the device of the
 input decides. A CPU tensor runs the plain torch version in :mod:`.ref`;

@@ -6,8 +6,9 @@ library with a plain C interface under ``<repo>/build/`` and loaded with
 ``attention_kernels.cu`` (the float32 LM attention kernels: prefill and
 decode), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
 cores), ``decode_tc.cu`` (bfloat16 decode attention: a TMA ring, scores on
-the tensor cores), ``sparse_kernels.cu`` (the recsys and GNN kernels) and
-``qad_kernels.cu`` (the R-QAD solve behind B&B).
+the tensor cores), ``flash_bwd.cu`` (the attention backward, for
+training), ``sparse_kernels.cu`` (the recsys and GNN kernels, and the
+bag's backward) and ``qad_kernels.cu`` (the R-QAD solve behind B&B).
 A file name carries a hash of its source and flags, so an edited source
 is rebuilt and a stale library is never loaded. Nothing here runs when
 the module is imported: the CPU tests import every module of the
@@ -55,18 +56,26 @@ LIBRARIES = {
                        _P, _P, _P],
     }),
     "attn": ("attention_kernels.cu", {
-        # q, k, v, o, strides, dtype, B, H, Hkv, S, D, window, softcap, scale
-        "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _F, _F],
+        # q, k, v, o, lse, strides, dtype, B, H, Hkv, S, D, window,
+        # softcap, scale
+        "flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _F, _F],
         # q, k, v, lengths, o, part_o, part_ml, strides, dtype, B, H, Hkv,
         # S, D, chunk, window, softcap, scale
         "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _I, _F, _F],
     }),
     "flash": ("flash_tc.cu", {
-        # q, k, v, o, strides, B, H, Hkv, S, D, window, softcap, scale
-        "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                            _F],
+        # q, k, v, o, lse, strides, B, H, Hkv, S, D, window, softcap,
+        # scale
+        "flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _F],
+    }),
+    "bwd": ("flash_bwd.cu", {
+        # q, k, v, o, dout, lse, delta, dq, dk, dv, strides, dtype, B, H,
+        # Hkv, S, D, window, softcap, scale
+        "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _F, _F],
     }),
     "decode": ("decode_tc.cu", {
         # q, k, v, lengths, o, part, tickets, strides, B, H, Hkv, S, D,
@@ -83,6 +92,8 @@ LIBRARIES = {
         # per, chunk, sub, n_sub, cols, stages, ring, blocks
         "segment_sum_sorted": [_P, _P, _P, _P, _I, _L, _I, _I, _L, _I, _I,
                                _I, _I, _I, _I, _I],
+        # g, ids, mask, grad, scratch, dtype, n_bags, nnz, D, n_rows, mean
+        "embedding_bag_bwd": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _I],
     }),
     "qad": ("qad_kernels.cu", {
         # A, b, F, e, fixed_mask, fixed_Ds, out, B, N, K, iters, then the

@@ -14,6 +14,13 @@ card launches the kernel or raises — it never falls back.
 :func:`bag_plan` decides, from the shapes and the table's alignment
 alone, how the kernel cuts the work; the launcher takes its fields as
 they are.
+
+Training (:class:`EmbeddingBag`): the table's gradient is the
+``embedding_bag_bwd`` kernel (``csrc/sparse_kernels.cu``, no Pallas
+counterpart: the reference differentiates its plain gather in XLA), a
+dense [V, D] tensor: zeroed, then each entry of each bag adds ``g * w``
+into its row by atomics (``w`` the entry's mask, over the bag's count
+for ``mean``). Ids and mask take no gradient.
 """
 
 from __future__ import annotations
@@ -120,3 +127,56 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
                int(combiner == "mean"), plan.vec, plan.lanes, plan.chunk,
                plan.blocks, int(plan.ring))
     return out
+
+
+def embedding_bag_backward(g: torch.Tensor, ids: torch.Tensor,
+                           mask: torch.Tensor, n_rows: int,
+                           combiner: str = "mean") -> torch.Tensor:
+    """The table's gradient [n_rows, D] of :func:`embedding_bag` for the
+    output gradient g [B, F, D] (the table's dtype): ids int32 / mask
+    [B, F, NNZ] as the forward took them. The CPU takes the plain version
+    (``zeros`` + ``index_add_``); the card launches ``embedding_bag_bwd``
+    or raises. Ids are not range-checked on the card."""
+    if combiner not in COMBINERS:
+        raise ValueError(f"combiner must be one of {COMBINERS}, got "
+                         f"{combiner!r}")
+    check_float("g", g, 3)
+    check_int32("ids", ids, 3, device=g.device)
+    if not isinstance(mask, torch.Tensor) or mask.shape != ids.shape:
+        raise ValueError(f"mask must be a tensor of ids' shape "
+                         f"{tuple(ids.shape)}")
+    if g.shape[:2] != ids.shape[:2] or mask.device != g.device:
+        raise ValueError(f"g {tuple(g.shape)} and ids {tuple(ids.shape)} "
+                         f"must share [B, F] and a device")
+    if g.device.type == "cpu":
+        return ref.embedding_bag_backward_reference(g, ids, mask, n_rows,
+                                                    combiner)
+    B, F, NNZ = ids.shape
+    D = g.shape[2]
+    mask = mask.to(torch.float32).contiguous()
+    grad = torch.empty((n_rows, D), dtype=g.dtype, device=g.device)
+    scratch = (torch.empty((n_rows, D), dtype=torch.float32, device=g.device)
+               if g.dtype == torch.bfloat16 else None)
+    launch("embedding_bag_bwd", g.device, g.data_ptr(), ids.data_ptr(),
+           mask.data_ptr(), grad.data_ptr(),
+           None if scratch is None else scratch.data_ptr(), DTYPES[g.dtype],
+           B * F, NNZ, D, n_rows, int(combiner == "mean"))
+    return grad
+
+
+class EmbeddingBag(torch.autograd.Function):
+    """:func:`embedding_bag` with the table's gradient
+    (:func:`embedding_bag_backward`); ids and mask take none."""
+
+    @staticmethod
+    def forward(ctx, table, ids, mask, combiner: str = "mean"):
+        ctx.save_for_backward(ids, mask)
+        ctx.n_rows, ctx.combiner = table.shape[0], combiner
+        return embedding_bag(table, ids, mask, combiner)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, mask = ctx.saved_tensors
+        grad = embedding_bag_backward(g.contiguous(), ids, mask, ctx.n_rows,
+                                      ctx.combiner)
+        return grad, None, None, None

@@ -18,6 +18,13 @@ ragged last tile is masked).
 ``out`` takes any strides on both routes. A tensor on the CPU takes the
 plain torch version in :mod:`.ref`; a tensor on the card launches a kernel
 or raises — it never falls back.
+
+Training (:class:`FlashAttention`): the forward runs the same kernels
+and also writes each row's log-sum-exp (``lse=``, float32 [B, H, S]);
+the backward is ``flash_attention_bwd`` (``csrc/flash_bwd.cu``, no Pallas
+counterpart: the reference differentiates its XLA attention), which
+recomputes the probabilities from q, k and the lse and gives dq, dk and
+dv in the inputs' dtype, any strides, float32 sums, no atomics.
 """
 
 from __future__ import annotations
@@ -66,12 +73,15 @@ def strides(*tensors: torch.Tensor) -> ctypes.Array:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
+                    out: torch.Tensor | None = None,
+                    lse: torch.Tensor | None = None) -> torch.Tensor:
     """q [B, H, S, d]; k/v [B, Hkv, S, d] -> [B, H, S, d] in q's dtype.
 
     ``window > 0`` keeps keys ``k > q - window`` on top of causal;
     ``softcap > 0`` caps the scaled scores at ``tanh(s / c) * c``. ``out``
-    (any strides, q's shape and dtype) receives the result in place."""
+    (any strides, q's shape and dtype) receives the result in place;
+    ``lse`` (float32 [B, H, S], contiguous), when given, each row's
+    log-sum-exp of its scaled, capped scores in natural log."""
     if not causal:
         raise NotImplementedError("decoder-only framework: causal attention")
     check_attention("q", q, 4)
@@ -90,22 +100,101 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if out.shape != q.shape:
             raise ValueError(f"out {tuple(out.shape)} must be "
                              f"{tuple(q.shape)}")
+    if lse is not None:
+        check_lse(lse, q)
     window, softcap = max(int(window), 0), float(softcap)
     if q.device.type == "cpu":
+        if lse is not None:
+            lse.copy_(ref.mha_lse_reference(q, k, window, softcap))
         return out.copy_(ref.mha_reference(q, k, v, True, window, softcap))
     if not out.numel():
         return out
+    lse_ptr = None if lse is None else lse.data_ptr()
     if q.dtype == torch.bfloat16:
         q, k, v = (tma_operand(t, flash_attention) for t in (q, k, v))
         launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), out.data_ptr(), strides(q, k, v, out), B, H,
-               Hkv, S, d, window, softcap, d ** -0.5, lib="flash")
+               v.data_ptr(), out.data_ptr(), lse_ptr, strides(q, k, v, out),
+               B, H, Hkv, S, d, window, softcap, d ** -0.5, lib="flash")
     else:
         launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), out.data_ptr(), strides(q, k, v, out),
+               v.data_ptr(), out.data_ptr(), lse_ptr, strides(q, k, v, out),
                DTYPES[q.dtype], B, H, Hkv, S, d, window, softcap,
                d ** -0.5)
     return out
+
+
+def check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
+    """The row log-sum-exp buffer of q [B, H, S, d]: float32 [B, H, S],
+    contiguous, on q's device."""
+    if (not isinstance(lse, torch.Tensor) or lse.dtype != torch.float32
+            or lse.shape != q.shape[:3] or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 tensor of shape "
+                         f"{tuple(q.shape[:3])} on {q.device}")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, window: int = 0,
+                        softcap: float = 0.0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of causal :func:`flash_attention` for the output
+    gradient ``dout``: q, o, dout [B, H, S, d] and k, v [B, Hkv, S, d] of
+    one dtype (any strides), ``o`` and ``lse`` the forward's. Each gradient
+    has its input's shape, dtype and strides. The CPU takes the plain
+    version (autograd through ``mha_reference``; o and lse unused); the
+    card launches ``flash_attention_bwd`` or raises."""
+    check_attention("q", q, 4)
+    for name, t in (("k", k), ("v", v), ("o", o), ("dout", dout)):
+        check_attention(name, t, 4, like=q)
+    B, H, S, d = q.shape
+    Hkv = k.shape[1]
+    if (k.shape != (B, Hkv, S, d) or v.shape != k.shape or H % Hkv
+            or o.shape != q.shape or dout.shape != q.shape):
+        raise ValueError(f"q/o/dout {tuple(q.shape)}/{tuple(o.shape)}/"
+                         f"{tuple(dout.shape)} and k/v {tuple(k.shape)}/"
+                         f"{tuple(v.shape)} must be [B,H,S,d] and "
+                         f"[B,Hkv,S,d] with H a multiple of Hkv")
+    check_lse(lse, q)
+    window, softcap = max(int(window), 0), float(softcap)
+    if q.device.type == "cpu":
+        return ref.flash_attention_backward_reference(q, k, v, dout, window,
+                                                      softcap)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if not dq.numel():
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           strides(q, k, v, o, dout, dq, dk, dv), DTYPES[q.dtype], B, H,
+           Hkv, S, d, window, softcap, d ** -0.5)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal attention with a gradient: the forward kernel (writing each
+    row's lse into a buffer of its own, the output into a new tensor), the
+    backward kernel for dq, dk and dv. Saves q, k, v, o and lse (the
+    model's layer checkpoints free them). ``FlashAttention.apply(q, k, v,
+    window, softcap)`` returns a new [B, H, S, d] output in q's dtype and
+    layout. On the CPU both directions take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int = 0, softcap: float = 0.0):
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        o = flash_attention(q, k, v, True, window, softcap, lse=lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window, ctx.softcap = window, softcap
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, dout, lse, ctx.window,
+                                         ctx.softcap)
+        return dq, dk, dv, None, None
+
 
 
 def tma_operand(t: torch.Tensor, counted) -> torch.Tensor:

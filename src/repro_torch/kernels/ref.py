@@ -5,7 +5,9 @@ for tensors on the CPU, the tests hold them against the JAX package's
 kernels, and ``chip_smoke.py`` holds every CUDA kernel against them on the
 card. The query kernels' results are int32, like the kernels'; the
 attention, segment-sum and embedding-bag results take their input's dtype,
-computed in float32.
+computed in float32. The training kernels' plain versions are here too:
+the attention backward (autograd through :func:`mha_reference`) and the
+bag's table gradient (``zeros`` + ``index_add_``).
 """
 
 from __future__ import annotations
@@ -105,6 +107,47 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def mha_lse_reference(q: torch.Tensor, k: torch.Tensor, window: int = 0,
+                      softcap: float = 0.0) -> torch.Tensor:
+    """The row log-sum-exp [B, H, S] (float32, natural log) of
+    :func:`mha_reference`'s scaled, capped, masked scores: what the
+    forward kernels write for the backward. Chunked over query rows like
+    :func:`mha_reference`."""
+    B, H, S, d = q.shape
+    G = H // k.shape[1]
+    kf = k.float().repeat_interleave(G, dim=1)
+    out = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    step = max(1, _SCORE_ELEMS // max(1, B * H * S))
+    for q0 in range(0, S, step):
+        qc = q[:, :, q0:q0 + step].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * (d ** -0.5)
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        qpos = torch.arange(q0, q0 + qc.shape[2], device=q.device)[:, None]
+        mask = kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        out[:, :, q0:q0 + step] = torch.logsumexp(
+            s.masked_fill(~mask, float("-inf")), dim=-1)
+    return out
+
+
+def flash_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        dout: torch.Tensor, window: int = 0, softcap: float = 0.0
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of causal :func:`mha_reference` for the output
+    gradient ``dout``: autograd through the plain forward in float32 (its
+    inputs cast up, the cotangent too), each gradient rounded once to its
+    input's dtype."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+        o = mha_reference(qf, kf, vf, True, window, softcap)
+        dq, dk, dv = torch.autograd.grad(o, (qf, kf, vf), dout.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor,
                      window: int = 0, softcap: float = 0.0) -> torch.Tensor:
@@ -163,6 +206,26 @@ def embedding_bag_reference(table: torch.Tensor, ids: torch.Tensor,
     if combiner == "mean":
         s = s / m.sum(dim=2).clamp(min=1.0)[..., None]
     return s.to(table.dtype)
+
+
+def embedding_bag_backward_reference(g: torch.Tensor, ids: torch.Tensor,
+                                     mask: torch.Tensor, n_rows: int,
+                                     combiner: str = "mean") -> torch.Tensor:
+    """The table's gradient [n_rows, D] of :func:`embedding_bag_reference`
+    for the output gradient g [B, F, D]: each entry z of a bag adds
+    ``g * w_z`` to row ``ids[z]``, ``w_z = mask[z]`` (sum) or
+    ``mask[z] / max(sum of the bag's mask, 1)`` (mean), in float32 by
+    ``index_add_`` into zeros; the result in g's dtype."""
+    if combiner not in ("mean", "sum"):
+        raise ValueError(f"combiner must be 'mean' or 'sum', got {combiner!r}")
+    m = mask.float()
+    w = m / m.sum(dim=2, keepdim=True).clamp(min=1.0) \
+        if combiner == "mean" else m
+    D = g.shape[-1]
+    contrib = g.float()[:, :, None, :] * w[..., None]        # [B, F, NNZ, D]
+    out = torch.zeros((n_rows, D), dtype=torch.float32, device=g.device)
+    out.index_add_(0, ids.reshape(-1).long(), contrib.reshape(-1, D))
+    return out.to(g.dtype)
 
 
 # ---------------------------------------------------------------------------

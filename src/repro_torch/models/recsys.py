@@ -11,8 +11,14 @@ Names and layouts at the public functions are the JAX module's: a batch is
 n_dense]}`` of tensors on the params' device; params are keyed like the
 JAX tree (``embed``, ``wide``, ``wide_dense``, ``mlp`` a list of ``{w,
 b}``, ``head``, ``bias``, ``candidates``). Where the port differs, by
-design: there is no sharding (``AxisRules``), as it serves from one card;
-``recsys_loss`` and training are not ported yet.
+design: there is no sharding (``AxisRules``), as it serves from one card.
+
+Training: :func:`recsys_loss` is the reference's BCE with logits. Where
+the table requires a gradient (and grad mode is on) the bags go through
+:class:`~repro_torch.kernels.embedding_bag.EmbeddingBag`, whose backward
+is the ``embedding_bag_bwd`` kernel; the wide weights' scalar gather, the
+MLP and the head take autograd's plain torch gradients, as the reference
+leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from dataclasses import dataclass
 import torch
 
 from ..device import resolve_device
+from ..kernels.embedding_bag import EmbeddingBag
 from ..kernels.embedding_bag import embedding_bag as bag_kernel
 from .common import dense_init, normal_init
 
@@ -100,9 +107,12 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
     """ids [B, F, NNZ] per-field local ids (int32); mask [B, F, NNZ].
 
     Returns [B, F, D]: the per-field offset folds all fields into one
-    launch of the ``embedding_bag`` kernel."""
-    return bag_kernel(table, _field_ids(ids, vocab_per_field), mask,
-                      combiner)
+    launch of the ``embedding_bag`` kernel; with a gradient to ``table``
+    (:class:`EmbeddingBag`) when it requires one."""
+    rows = _field_ids(ids, vocab_per_field)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return EmbeddingBag.apply(table, rows, mask, combiner)
+    return bag_kernel(table, rows, mask, combiner)
 
 
 def _deep_input(cfg: RecsysConfig, params: dict, batch: dict
@@ -134,6 +144,20 @@ def wide_deep_logits(cfg: RecsysConfig, params: dict, batch: dict
     deep = (_mlp(params, _deep_input(cfg, params, batch))
             @ params["head"])[:, 0]
     return wide + deep + params["bias"]
+
+
+def recsys_loss(cfg: RecsysConfig, params: dict, batch: dict
+                ) -> tuple[torch.Tensor, dict]:
+    """Binary cross-entropy with logits against ``batch["labels"]`` [B]
+    (the reference's ``recsys_loss``): ``mean(max(z, 0) - z y + log1p(
+    exp(-|z|)))`` on float32 logits z, and the accuracy of ``z > 0``
+    against ``y > 0.5``. Returns (loss, {"bce", "acc"})."""
+    logits = wide_deep_logits(cfg, params, batch).float()
+    y = batch["labels"].float()
+    loss = torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-logits.abs())))
+    acc = ((logits > 0) == (y > 0.5)).float().mean()
+    return loss, {"bce": loss, "acc": acc}
 
 
 def recsys_score(cfg: RecsysConfig, params: dict, batch: dict

@@ -28,6 +28,17 @@ probabilities, as ``lax.top_k``), a stable argsort by expert (earlier
 tokens win a full expert's slots), batched expert GEMMs and the Switch
 load-balance aux loss (see :func:`_moe_core`).
 
+Training: :func:`lm_loss` is the reference's next-token loss on a
+forward that autograd can take. Each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), as the reference remats each
+layer with ``jax.checkpoint``; attention is :class:`FlashAttention` (the
+forward kernel writing the row log-sum-exp, the ``flash_attention_bwd``
+kernel for dq, dk and dv); the serving path's in-place writes (the
+attention ``out=``, the final softcap, the MoE expert GEMM's ``out=`` and
+its combine's ``mul_``) take their out-of-place forms there, while
+serving keeps them. MoE routing is deterministic (stable sorts), so a
+layer's recompute picks the experts its forward picked.
+
 Where the port differs from the reference, by design:
 
 - the KV cache is updated in place (``lm_decode_step`` writes the new
@@ -35,7 +46,6 @@ Where the port differs from the reference, by design:
   writes positions [0, S)), where JAX returns a new cache;
 - the MoE combine sums a token's K expert outputs in float32 and rounds
   once, where JAX scatter-adds them in the activations' dtype;
-- ``lm_loss`` and training are not ported yet;
 - there is no sharding (``AxisRules``): the port serves from one card, so
   the reference's expert-parallel ``shard_map`` path reduces to its
   single-shard core.
@@ -49,10 +59,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels.decode_attention import decode_attention
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import FlashAttention, flash_attention
 from .common import (ACTIVATIONS, apply_rope, dense_init, embed_init,
                      rms_norm, rope_tables)
 
@@ -282,7 +293,8 @@ def _moe_route(cfg: LMConfig, router: torch.Tensor, x: torch.Tensor,
 
 def _moe_core(cfg: LMConfig, router: torch.Tensor, wi_gate: torch.Tensor,
               wi_up: torch.Tensor, wo_ffn: torch.Tensor, x: torch.Tensor,
-              e0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+              e0: int = 0, train: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Group-local sort-based top-k dispatch for the contiguous expert
     slice [e0, e0 + wi_gate.shape[0]) (the reference's ``_moe_core``).
 
@@ -297,7 +309,8 @@ def _moe_core(cfg: LMConfig, router: torch.Tensor, wi_gate: torch.Tensor,
     numerics: the weights are cast to x's dtype, as in the reference, and
     each token's K weighted rows are summed in float32 in a fixed order
     and rounded once (the reference scatter-adds them in x's dtype, which
-    an atomic ``index_add_`` would reorder from run to run)."""
+    an atomic ``index_add_`` would reorder from run to run). ``train``
+    computes the same values out of place, so autograd can take them."""
     G, Tg, D = x.shape
     El = wi_gate.shape[0]
     act = ACTIVATIONS[cfg.act]
@@ -314,26 +327,30 @@ def _moe_core(cfg: LMConfig, router: torch.Tensor, wi_gate: torch.Tensor,
     rows = torch.cat([x.reshape(G * Tg, D), x.new_zeros(1, D)])
     buf = rows[src[:-1]].view(El, G * C, D)          # empty slots: zeros
     h = act(torch.bmm(buf, wi_gate)) * torch.bmm(buf, wi_up)
-    out = x.new_empty(El * G * C + 1, D)             # + a zero dump row
-    torch.bmm(h, wo_ffn, out=out[:-1].view(El, G * C, D))
-    out[-1] = 0
+    if train:
+        out = torch.cat([torch.bmm(h, wo_ffn).view(El * G * C, D),
+                         x.new_zeros(1, D)])
+    else:
+        out = x.new_empty(El * G * C + 1, D)         # + a zero dump row
+        torch.bmm(h, wo_ffn, out=out[:-1].view(El, G * C, D))
+        out[-1] = 0
 
     # back to token order: slot and keep of assignment a = t * K + k
     slot_tok = torch.empty_like(slot).scatter_(1, r.order, slot)
     keep_tok = torch.empty_like(r.keep).scatter_(1, r.order, r.keep)
     w = (r.weights.to(x.dtype) * keep_tok.view(G, Tg, -1)).float()
-    y = out[slot_tok].float()                        # [G, A, D]
-    y = y.view(G, Tg, -1, D).mul_(w[..., None]).sum(dim=2)
+    y = out[slot_tok].float().view(G, Tg, -1, D)     # [G, Tg, K, D]
+    y = (y * w[..., None] if train else y.mul_(w[..., None])).sum(dim=2)
     return y.to(x.dtype), r.aux
 
 
-def moe_ffn(cfg: LMConfig, lp: dict, x: torch.Tensor
+def moe_ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, train: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN on one card: the reference's single-shard branch. Its
     expert-parallel ``shard_map`` path runs :func:`_moe_core` on each
     expert slice and sums the slices, which on one card is the whole."""
     return _moe_core(cfg, lp["router"], lp["wi_gate"], lp["wi_up"],
-                     lp["wo_ffn"], x, 0)
+                     lp["wo_ffn"], x, 0, train)
 
 
 def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -358,7 +375,8 @@ def _qkv(cfg: LMConfig, lp: dict, h: torch.Tensor, rot: tuple):
 
 
 def _residual(cfg: LMConfig, lp: dict, x: torch.Tensor,
-              attn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+              attn: torch.Tensor, train: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Output projection, then the FFN half of the layer: (x, the MoE
     aux loss, None for a dense FFN)."""
     B, S = x.shape[:2]
@@ -368,7 +386,7 @@ def _residual(cfg: LMConfig, lp: dict, x: torch.Tensor,
     x = x + attn
     h = rms_norm(x, lp["ln_mlp"])
     if cfg.moe:
-        out, aux = moe_ffn(cfg, lp, h)
+        out, aux = moe_ffn(cfg, lp, h, train)
     else:
         out, aux = dense_ffn(cfg, lp, h), None
     if cfg.sandwich_norm:
@@ -376,23 +394,33 @@ def _residual(cfg: LMConfig, lp: dict, x: torch.Tensor,
     return x + out, aux
 
 
-def _logits(cfg: LMConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def _logits(cfg: LMConfig, params: dict, x: torch.Tensor,
+            train: bool = False) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head
-    if cfg.final_softcap is not None:    # in place: prefill logits are large
+    if cfg.final_softcap is not None:
         cap = cfg.final_softcap
+        if train:
+            return torch.tanh(logits / cap) * cap
+        # in place when serving: prefill logits are large
         logits.div_(cap).tanh_().mul_(cap)
     return logits
 
 
 def _layer(cfg: LMConfig, lp: dict, x: torch.Tensor, window: int,
-           rot: tuple, kv_out: tuple | None = None
+           rot: tuple, kv_out: tuple | None = None, train: bool = False
            ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One prefill layer, (x, aux) as :func:`_residual`; ``kv_out`` =
     (k_cache, v_cache) [B, S_max, Kh, dh] views of one layer's cache,
-    written at [0, S)."""
+    written at [0, S). ``train``: attention through
+    :class:`FlashAttention` and every op out of place."""
     q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln_attn"]), rot)
+    if train:
+        attn = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), window,
+                                    cfg.attn_softcap or 0.0)
+        return _residual(cfg, lp, x, attn.transpose(1, 2), True)
     if kv_out is not None:
         S = x.shape[1]
         kv_out[0][:, :S] = k
@@ -418,20 +446,39 @@ def lm_forward(cfg: LMConfig, params: dict, tokens: torch.Tensor
 
 
 def _forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
-             cache: dict | None) -> tuple[torch.Tensor, torch.Tensor]:
+             cache: dict | None, train: bool = False
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
     rot = rope_tables(torch.arange(S, device=x.device).expand(B, S),
                       cfg.d_head, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, window in enumerate(cfg.layer_windows().tolist()):
-        kv = None if cache is None else (cache["k"][layer],
-                                         cache["v"][layer])
-        x, aux_l = _layer(cfg, layer_params(params, layer), x, window, rot,
-                          kv)
+        lp = layer_params(params, layer)
+        if train:   # rematted: the backward recomputes the layer
+            x, aux_l = checkpoint(_layer, cfg, lp, x, window, rot, None,
+                                  True, use_reentrant=False)
+        else:
+            kv = None if cache is None else (cache["k"][layer],
+                                             cache["v"][layer])
+            x, aux_l = _layer(cfg, lp, x, window, rot, kv)
         if aux_l is not None:
             aux = aux + aux_l
-    return _logits(cfg, params, x), aux / cfg.n_layers
+    return _logits(cfg, params, x, train), aux / cfg.n_layers
+
+
+def lm_loss(cfg: LMConfig, params: dict, tokens: torch.Tensor
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy over [B, S] tokens (the reference's
+    ``lm_loss``): the mean NLL of tokens 1..S-1 from the float32 logits of
+    positions 0..S-2, plus ``aux_loss_weight`` times the MoE layers' mean
+    aux loss. Returns (loss, {"nll", "aux"}), 0-dim float32 tensors with a
+    gradient to every leaf of ``params`` that requires one."""
+    logits, aux = _forward(cfg, params, tokens, None, train=True)
+    nll = torch.nn.functional.cross_entropy(
+        logits[:, :-1].float().flatten(0, 1), tokens[:, 1:].flatten().long())
+    loss = nll + cfg.aux_loss_weight * aux
+    return loss, {"nll": nll, "aux": aux}
 
 
 @torch.no_grad()

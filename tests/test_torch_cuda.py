@@ -268,3 +268,65 @@ def test_cuda_gnn_zoo_matches_cpu(arch):
     if cfg.model != "pna":
         assert smoke.rotation_check(cfg, 0, dev)["ok"]
         assert not smoke.rotation_check(cfg, 0, dev, planted=True)["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_kernels_match_plain_versions(dtype):
+    """``flash_attention_bwd`` against autograd of the plain attention and
+    ``embedding_bag_bwd`` against ``zeros`` + ``index_add_`` on the card,
+    on ``chip_smoke.check_backward_cases``: ragged S, windows and softcaps
+    on and off, GQA groups of 1, 2 and 4, d 16 to 256, element by element
+    within ``flash_bwd_bound`` (the forward's output and row lse checked
+    too); repeated rows, empty bags, NNZ 0, sum and mean, integer-valued
+    inputs exactly; each case's planted faults fail it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import reset_launch_counts
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launch_counts()
+    cases = smoke.check_backward_cases(torch.device("cuda"), (dtype,))
+    assert cases[f"flash_attention_bwd {dtype}"]["max_ratio"] <= 1.0
+    assert cases[f"flash_attention_bwd {dtype}"]["min_planted_ratio"] > 1.0
+    counts = launch_counts()
+    assert counts["flash_attention_bwd"] > 0
+    assert counts["embedding_bag_bwd"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_lm_loss_step_matches_cpu_and_checkpoints():
+    """One f32 ``lm_loss`` step of qwen3-0.6b at 2 layers of full width on
+    the card against the CPU (``chip_smoke.lm_loss_check``: the loss and
+    every gradient leaf within ``GRAD_TOL``, the TF32 control outside);
+    then that model and its AdamW state saved and restored on the card
+    (``chip_smoke.checkpoint_check``: bit-exact, a stale step differs, a
+    wrong shape raises)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the check compares it with the CPU")
+    import dataclasses
+
+    from repro_torch.configs.registry import get_spec
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.optim.adamw import adamw_init
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_spec(smoke.LM_ARCH).config,
+                              n_layers=smoke.GRAD_CHECK_LAYERS)
+    check = smoke.lm_loss_check(cfg, 0, dev)
+    assert check["ok"], check
+    assert launch_counts()["flash_attention_bwd"] > 0
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            torch.float32, dev)
+    ck = smoke.checkpoint_check({"params": params,
+                                 "opt": adamw_init(params)}, dev)
+    assert ck["ok"], ck

@@ -147,7 +147,12 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.core.qad", "repro_torch.kernels.qad_solve",
             "repro_torch.runtime.serving", "repro_torch.runtime.admission",
             "repro_torch.runtime.http", "repro_torch.workload.sampler",
-            "repro_torch.workload.traffic", "repro_torch.workload.driver"}
+            "repro_torch.workload.traffic", "repro_torch.workload.driver",
+            "repro_torch.tree", "repro_torch.optim.adamw",
+            "repro_torch.optim.compression",
+            "repro_torch.runtime.checkpoint",
+            "repro_torch.runtime.fault_tolerance",
+            "repro_torch.runtime.train_loop", "repro_torch.launch.train"}
     assert want <= set(got["modules"])
 
 
