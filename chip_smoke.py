@@ -87,8 +87,11 @@
    reads and two coalesced INSERT DATA on the ingest system; a sampled
    workload replayed through the admission queue, every answer verified.
 11. Training (also alone under ``--train-only``): ``flash_attention_bwd``
-   (from the forward kernels' new row log-sum-exp) against autograd of
-   the plain version, element by element, and ``embedding_bag_bwd``
+   (from the forward kernels' new row log-sum-exp; bf16 at d <= 128 on the
+   tensor cores, ``csrc/flash_bwd_tc.cu``, the rest on the SIMT kernel of
+   ``csrc/flash_bwd.cu``) against autograd of the plain version, element
+   by element, each case's route read off its launch, and
+   ``embedding_bag_bwd``
    against ``zeros`` + ``index_add_`` on edge cases, each with a planted
    fault; one f32
    ``lm_loss`` step of qwen3-0.6b at 2 layers of full width on the card
@@ -97,9 +100,11 @@
    control); qwen3-0.6b at full width and depth (bf16, B = 8, S = 2,048)
    and Wide&Deep at full width (B = 65,536) taking 5 AdamW steps each on
    one batch, the loss finite and falling, step ms, tokens or samples/s,
-   peak memory and launches a step; both backward kernels at those shapes
-   against their plain versions, timed beside their bounds and the
-   library's (SDPA's backward, ``index_add_``).
+   peak memory and launches a step (qwen3's 140 backward launches all on
+   the tensor-core route, no operand copied); both backward kernels at
+   those shapes against their plain versions, timed beside their bounds
+   and the library's (SDPA's backward, ``index_add_``), the attention
+   backward also beside its SIMT kernel and twice bit-identical.
 
 Fails (non-zero exit, no result line) on any mismatch or exception, and
 when CUDA is not available. The last line is
@@ -4116,7 +4121,7 @@ def log_system(info: dict, gpu: str) -> None:
 # training (card only, under --train-only too)
 # ---------------------------------------------------------------------------
 
-BWD_SOURCE = {"flash_attention_bwd": "src/repro_torch/csrc/flash_bwd.cu",
+BWD_SOURCE = {"flash_attention_bwd": "src/repro_torch/csrc/flash_bwd_tc.cu",
               "embedding_bag_bwd": SPARSE_SOURCE}
 BWD_REPLACES = {
     "flash_attention_bwd": "src/repro/models/transformer.py:223 "
@@ -4275,6 +4280,32 @@ def flash_bwd_math(q, k, v, o, dout, lse, window: int = 0,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def simt_bwd(q, k, v, o, dout, lse, window: int = 0, softcap: float = 0.0):
+    """``flash_attention_bwd``'s SIMT kernel (``csrc/flash_bwd.cu``,
+    library ``"bwd"``, float32 products on the CUDA cores) called on the
+    library directly, in q's dtype: the route that bf16 took before the
+    tensor-core kernel, timed beside it on the same inputs. Not counted as
+    a launch and not on the port's path."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import DTYPES, strides
+    B, H, S, d = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _build.library("bwd").bwd_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            strides(q, k, v, o, dout, dq, dk, dv), DTYPES[q.dtype], B, H,
+            k.shape[1], S, d, window, softcap, d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_attention_bwd (SIMT): CUDA launch failed "
+                           f"({rc})")
+    return dq, dk, dv
+
+
 def _bag_bwd_bound(g, ids, mask, n_rows, combiner):
     """SUM_GROWTH * (entries adding into the row) * sum of |g w| per row
     and column: the order-of-summation bound of the atomics."""
@@ -4293,7 +4324,9 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     lse, themselves checked) against autograd of ``mha_reference``: ragged
     S, windows on and off, softcaps on and off, GQA groups of 1, 2 and 4,
     d 64, 128 and 256 (and 16, 32), strided and contiguous layouts, element
-    by element within ``flash_bwd_bound``; each case also reads a planted
+    by element within ``flash_bwd_bound``, each case on the route
+    ``bwd_route`` names for it (bf16 at d <= 128 the tensor cores, the rest
+    SIMT), read off its one launch; each case also reads a planted
     fault (the kernel's formulas with the softcap's factor left out, or
     Delta where there is no softcap) and, from S = 64 on with a window
     other than 1, a second one (``late_rows_wrong``), each of which must
@@ -4306,13 +4339,15 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     Returns the number of cases and the largest readings by kernel and
     dtype; raises after every case has run if any failed."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import launch_counts, ref
     from repro_torch.kernels.embedding_bag import embedding_bag_backward
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (bwd_route,
+                                                     flash_attention,
                                                      flash_attention_bwd)
 
     gen = torch.Generator(device=dev).manual_seed(17)
     worst, bad = {}, []
+    routes: dict = {}
     cases = 0
 
     def note(key, ratio, control):
@@ -4338,7 +4373,9 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
         dtype = getattr(torch, name)
         for i, (B, H, Hkv, S, d, win, cap) in enumerate(flash_cases):
             cases += 1
-            label = f"flash_attention_bwd {name} {flash_cases[i]}"
+            route = bwd_route(dtype, d)
+            routes[f"{name} {route}"] = routes.get(f"{name} {route}", 0) + 1
+            label = f"flash_attention_bwd {name} {flash_cases[i]} {route}"
             q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev,
                                    "bshd" if i % 2 == 0 else "bhsd")
             if cap > 0:     # scores ~ N(0, (c/2)^2): the cap bites, so its
@@ -4361,7 +4398,11 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
             if not lse_ratio <= 1.0:
                 bad.append(f"{label}: the forward's lse {lse_ratio}x its "
                            f"tolerance")
+            before = launch_counts()
             got = flash_attention_bwd(q, k, v, o, dout, lse, win, cap)
+            key = f"flash_attention_bwd/{route}"
+            if launch_counts().get(key, 0) != before.get(key, 0) + 1:
+                bad.append(f"{label}: not one launch on the {route} route")
             want = ref.flash_attention_backward_reference(q, k, v, dout, win,
                                                           cap)
             bound = flash_bwd_bound(q, k, v, o, dout, want, win, cap)
@@ -4441,7 +4482,7 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     _sync(dev)
     if bad:
         raise AssertionError("; ".join(bad))
-    return {"cases": cases, **worst}
+    return {"cases": cases, "flash_routes": routes, **worst}
 
 
 def lm_loss_check(cfg, seed: int, device, ref_device="cpu") -> dict:
@@ -4564,8 +4605,9 @@ def train_steps(step_fn, params, opt_state, batch, steps: int,
             "launches": launches}
 
 
-TRAIN_TRACK = ("dkdv_kernel", "dq_kernel", "delta_kernel", "flash_tc",
-               "flash_kernel", "gemm", "nvjet", "elementwise", "reduce")
+TRAIN_TRACK = ("dkdv_tc_kernel", "dq_tc_kernel", "rows_tc_kernel",
+               "flash_tc", "flash_kernel", "gemm", "nvjet", "elementwise",
+               "reduce")
 
 
 def lm_train(cfg, seed: int, device) -> dict:
@@ -4685,11 +4727,14 @@ def flash_bwd_row(cfg, launches: dict, hbm: float) -> dict:
     that feeds it (the output within ``attn_err``'s split bound, the row
     lse within LSE_TOL) is held against the plain version; timed beside
     its bound (2.5x the forward's operations at the bf16
-    tensor-core rate, or its bytes), the plain version and SDPA's
-    backward."""
+    tensor-core rate, or its bytes), the plain version, SDPA's backward
+    and the SIMT kernel the bf16 route took before (``simt_bwd``, same
+    inputs, ``simt_ms``). A second launch must give the same bits (the
+    kernels take no atomics)."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (bwd_route,
+                                                     flash_attention,
                                                      flash_attention_bwd)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(19)
@@ -4719,6 +4764,10 @@ def flash_bwd_row(cfg, launches: dict, hbm: float) -> dict:
 
     want = plain()
     got = kern()
+    same = all(torch.equal(a, b) for a, b in zip(got, kern()))
+    if not same:
+        raise AssertionError(f"flash_attention_bwd [{shape}]: two launches "
+                             f"on the same inputs differ")
     bound = flash_bwd_bound(q, k, v, o, dout, want)
     err, ratio = bwd_err(got, want, bound)
     controls = {
@@ -4748,8 +4797,14 @@ def flash_bwd_row(cfg, launches: dict, hbm: float) -> dict:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": time_ms(lib, calls=3, reps=5) if lib else None,
+        "simt_ms": time_ms(lambda: simt_bwd(q, k, v, o, dout, lse),
+                           calls=3, reps=5),
     }
     log(f"kernel flash_attention_bwd [{shape}]: kernel_ms={row['ms']} "
+        f"(route {bwd_route(q.dtype, d)}, "
+        f"{launches.get('flash_attention_bwd/tc', 0)} launches on the "
+        f"tensor-core route; two launches bit-identical) simt_ms="
+        f"{row['simt_ms']} (the SIMT kernel, same inputs) "
         f"bound_ms={row['bound_ms']} ({row['bound_by']}; {flops} operations,"
         f" 2.5x the forward's) plain_ms={row['plain_ms']} library_ms="
         f"{row['library_ms']} (SDPA backward through autograd, {how}) "
@@ -4858,6 +4913,7 @@ def train_phase(args, hbm: float, device) -> tuple[list[dict], dict]:
 
     import torch
     from repro_torch.configs.registry import get_spec
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.optim.adamw import adamw_init
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 checks
@@ -4892,7 +4948,9 @@ def train_phase(args, hbm: float, device) -> tuple[list[dict], dict]:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    copies = flash_attention_bwd.copies
     lm = lm_train(cfg, args.seed, device)
+    lm["bwd_operand_copies"] = flash_attention_bwd.copies - copies
     prof = lm.pop("profile")
     launches = lm.pop("launches")
     log(f"train lm ({cfg.name}, {cfg.n_layers} layers, bf16 params, f32 "
@@ -4900,12 +4958,16 @@ def train_phase(args, hbm: float, device) -> tuple[list[dict], dict]:
         f"{json.dumps(lm)} in {time.perf_counter() - t0:.1f} s")
     log(f"train lm profile (one step): {json.dumps(prof)}")
     want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
-            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd/tc": cfg.n_layers * TRAIN_STEPS}
     got = {k: launches.get(k, 0) for k in want}
     if got != want:
         raise AssertionError(f"train lm launches {got}, want {want} (each "
                              f"layer's forward, its recompute and its "
-                             f"backward)")
+                             f"backward, on the tensor cores)")
+    if lm["bwd_operand_copies"]:
+        raise AssertionError(f"train lm: flash_attention_bwd copied "
+                             f"{lm['bwd_operand_copies']} operands")
     if not lm["ok"]:
         raise AssertionError(f"train lm: the loss did not fall or is not "
                              f"finite: {lm['losses']}")

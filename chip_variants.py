@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time ``embedding_bag``, ``scan_probe``, ``segment_sum_sorted``,
-``probe_sorted_many`` and ``qad_solve`` beside timing-only variants of
-themselves, on one NVIDIA GPU.
+``probe_sorted_many``, ``qad_solve`` and ``flash_attention_bwd`` beside
+timing-only variants of themselves, on one NVIDIA GPU.
 
     python3 chip_variants.py            # from the root of a checkout
     python3 chip_variants.py --kernels segment,probe
-                                        # some of the five sections
+                                        # some of the six sections
 
 A variant is either a plan that the launchers would not pick (ids and mask
 read from device memory instead of through the ring, one element a lane
@@ -53,6 +53,16 @@ device time a launch. Then B&B on a seeded instance of the round's shape
 (21 users, 4 edges) on R-QAD with each route behind the wrapper, and on
 the marginal bound, in turns (same objective and assignment), and the
 device's busy share of one B&B on the shipped route.
+
+``flash_attention_bwd`` (``--kernels bwd``) runs at qwen3-0.6b's training
+shape (B 8, S 2,048, H 16/8, d 128, bf16, the model's strided layout): the
+shipped tensor-core route (``csrc/flash_bwd_tc.cu``) beside the SIMT
+kernel the bf16 route took before (``csrc/flash_bwd.cu``, called on its
+library directly by ``chip_smoke.simt_bwd``), both held to
+``chip_smoke.flash_bwd_bound`` first, the tensor-core route's output to a
+first call's bit for bit; then the profiler's device time of each of its
+three kernels and the library's ``-Xptxas=-v`` lines (registers and
+spills of each instance).
 """
 
 from __future__ import annotations
@@ -238,7 +248,7 @@ VARIANTS = {
     # the register route with an exact projection for the bisection
     "qad_exact": ("qad_kernels.cu", [(_PROJECT, _EXACT_PROJECT)]),
 }
-SECTIONS = ("bag", "scan", "segment", "probe", "qad")
+SECTIONS = ("bag", "scan", "segment", "probe", "qad", "bwd")
 
 
 def log(msg: str) -> None:
@@ -285,7 +295,8 @@ def build_variants(nvcc_flags: list[str], nvcc: str,
 SECTION_VARIANTS = {"bag": ("bag_nohint", "bag_evictlast"),
                     "scan": ("probe_noshortcut",),
                     "segment": ("seg_nocarry",), "probe": ("probe_old",),
-                    "qad": ("qad_noexit", "qad_vote1", "qad_exact")}
+                    "qad": ("qad_noexit", "qad_vote1", "qad_exact"),
+                    "bwd": ()}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -316,7 +327,7 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.sparql.engine import TorchBackend
 
     t0 = time.perf_counter()
-    _build.build("sparse", "rdf", "qad")
+    _build.build("sparse", "rdf", "qad", "flash", "bwd", "bwd_tc")
     libs = build_variants(_build.NVCC_FLAGS, _build._nvcc(),
                           {v for sec in sections
                            for v in SECTION_VARIANTS[sec]})
@@ -734,6 +745,46 @@ def main(argv: list[str] | None = None) -> int:
             f"qad_reg_kernel [ms, launches] "
             f"{prof['tracked']['qad_reg_kernel']}")
         for line in _build.build_log("qad").splitlines():
+            log(f"ptxas: {line.strip()}")
+    # ------------------------------------------------ flash_attention_bwd
+    if "bwd" in sections:
+        from repro_torch.kernels.flash_attention import (flash_attention,
+                                                         flash_attention_bwd)
+        cfg = get_spec(smoke.LM_ARCH).config
+        B, S = smoke.TRAIN_BATCH, smoke.TRAIN_SEQ
+        H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        gen = torch.Generator(device=dev).manual_seed(19)
+        q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.bfloat16,
+                                     dev)
+        dout = torch.randn((B, S, H, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        o = flash_attention(q, k, v, lse=lse)
+        label = f"flash_attention_bwd B={B} H={H}/{Hkv} S={S} d={d} bf16"
+        order = [("tensor-core route",
+                  lambda: flash_attention_bwd(q, k, v, o, dout, lse)),
+                 ("SIMT route",
+                  lambda: smoke.simt_bwd(q, k, v, o, dout, lse))]
+        want = ref.flash_attention_backward_reference(q, k, v, dout)
+        bound = smoke.flash_bwd_bound(q, k, v, o, dout, want)
+        for name, fn in order:
+            err, ratio = smoke.bwd_err(fn(), want, bound)
+            times[f"{label} {name} bound ratio"] = ratio
+            log(f"{label} {name}: max abs err {err}, {ratio}x "
+                f"flash_bwd_bound")
+            if not ratio <= 1.0:
+                raise AssertionError(f"{label} {name}: {ratio}x the bound")
+        del want, bound
+        torch.cuda.empty_cache()
+        # the tensor-core route's output against a first call's, bit for
+        # bit (no atomics), then both routes timed in turns
+        run_in_turns(label, order, order[0][1](), calls=3,
+                     exact=["tensor-core route"])
+        for kernel in ("rows_tc_kernel", "dkdv_tc_kernel", "dq_tc_kernel"):
+            ms, n = smoke.kernel_device_ms(order[0][1], kernel, calls=5)
+            times[f"{label} {kernel} device"] = ms
+            log(f"{label} {kernel} device: {ms} ms ({n} launches recorded)")
+        for line in _build.build_log("bwd_tc").splitlines():
             log(f"ptxas: {line.strip()}")
     print(gpu)
     print(json.dumps({"gpu": gpu, "ms": times}))

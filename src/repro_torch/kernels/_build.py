@@ -7,8 +7,11 @@ library with a plain C interface under ``<repo>/build/`` and loaded with
 decode), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
 cores), ``decode_tc.cu`` (bfloat16 decode attention: a TMA ring, scores on
 the tensor cores), ``flash_bwd.cu`` (the attention backward, for
-training), ``sparse_kernels.cu`` (the recsys and GNN kernels, and the
-bag's backward) and ``qad_kernels.cu`` (the R-QAD solve behind B&B).
+training: float32, and bfloat16 at d = 256, on the CUDA cores),
+``flash_bwd_tc.cu`` (library ``"bwd_tc"``: the bfloat16 attention
+backward at d = 16 to 128 on the tensor cores), ``sparse_kernels.cu``
+(the recsys and GNN kernels, and the bag's backward) and
+``qad_kernels.cu`` (the R-QAD solve behind B&B).
 A file name carries a hash of its source and flags, so an edited source
 is rebuilt and a stale library is never loaded. Nothing here runs when
 the module is imported: the CPU tests import every module of the
@@ -74,6 +77,12 @@ LIBRARIES = {
     "bwd": ("flash_bwd.cu", {
         # q, k, v, o, dout, lse, delta, dq, dk, dv, strides, dtype, B, H,
         # Hkv, S, D, window, softcap, scale
+        "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _F, _F],
+    }),
+    "bwd_tc": ("flash_bwd_tc.cu", {
+        # q, k, v, o, dout, lse, rows, dq, dk, dv, strides, B, H, Hkv, S,
+        # Sp, D, window, softcap, scale
         "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _F, _F],
     }),

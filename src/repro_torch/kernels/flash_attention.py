@@ -21,10 +21,23 @@ or raises — it never falls back.
 
 Training (:class:`FlashAttention`): the forward runs the same kernels
 and also writes each row's log-sum-exp (``lse=``, float32 [B, H, S]);
-the backward is ``flash_attention_bwd`` (``csrc/flash_bwd.cu``, no Pallas
-counterpart: the reference differentiates its XLA attention), which
-recomputes the probabilities from q, k and the lse and gives dq, dk and
-dv in the inputs' dtype, any strides, float32 sums, no atomics.
+the backward is ``flash_attention_bwd`` (no Pallas counterpart: the
+reference differentiates its XLA attention), which recomputes the
+probabilities from q, k and the lse and gives dq, dk and dv in the
+inputs' dtype, any strides, float32 sums, no atomics. Its route is chosen
+by (dtype, d) (:func:`bwd_route`):
+
+- bfloat16 at d = 16, 32, 64 and 128 runs on the tensor cores
+  (``csrc/flash_bwd_tc.cu``, library ``"bwd_tc"``: TMA-fed tiles,
+  ``wgmma`` products, P and dS split into two bf16 parts), with the TMA
+  operand rules above for q, k, v and dout (copies counted in
+  ``flash_attention_bwd.copies``);
+- float32, and bfloat16 at d = 256, run on the CUDA cores
+  (``csrc/flash_bwd.cu``, library ``"bwd"``, float32 products).
+
+Neither falls back to the other: a failed build or launch raises. The
+tensor-core route's arithmetic is emulated on the CPU by
+``tests/test_torch_flash_bwd_split.py``.
 """
 
 from __future__ import annotations
@@ -38,6 +51,10 @@ from ._build import launch
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the bfloat16 head dims whose backward runs on the tensor cores; d = 256
+# would need dK and dV's 256 accumulators a thread, so it stays SIMT
+TC_BWD_HEAD_DIMS = (16, 32, 64, 128)
+ROW_PAD = 128   # the tensor-core backward's lse/Delta rows: S rounded up
 
 
 def check_attention(name: str, t: torch.Tensor, ndim: int,
@@ -143,7 +160,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one dtype (any strides), ``o`` and ``lse`` the forward's. Each gradient
     has its input's shape, dtype and strides. The CPU takes the plain
     version (autograd through ``mha_reference``; o and lse unused); the
-    card launches ``flash_attention_bwd`` or raises."""
+    card launches ``flash_attention_bwd`` on the route :func:`bwd_route`
+    names (counted as ``flash_attention_bwd/tc`` or ``/simt``) or raises.
+    The tensor-core route reads q, k, v and dout through TMA tensor maps,
+    so an operand without d stride 1, 16-byte strides and base is copied
+    first (counted in ``flash_attention_bwd.copies``); o and the
+    gradients take any strides."""
     check_attention("q", q, 4)
     for name, t in (("k", k), ("v", v), ("o", o), ("dout", dout)):
         check_attention(name, t, 4, like=q)
@@ -163,13 +185,35 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if not dq.numel():
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
-           v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-           strides(q, k, v, o, dout, dq, dk, dv), DTYPES[q.dtype], B, H,
-           Hkv, S, d, window, softcap, d ** -0.5)
+    if bwd_route(q.dtype, d) == "tc":
+        q, k, v, dout = (tma_operand(t, flash_attention_bwd)
+                         for t in (q, k, v, dout))
+        Sp = -(-S // ROW_PAD) * ROW_PAD
+        rows = torch.empty((2, B, H, Sp), dtype=torch.float32,
+                           device=q.device)
+        launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+               rows.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               strides(q, k, v, o, dout, dq, dk, dv), B, H, Hkv, S, Sp, d,
+               window, softcap, d ** -0.5, lib="bwd_tc", route="tc")
+    else:
+        delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+               delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+               dv.data_ptr(), strides(q, k, v, o, dout, dq, dk, dv),
+               DTYPES[q.dtype], B, H, Hkv, S, d, window, softcap, d ** -0.5,
+               lib="bwd", route="simt")
     return dq, dk, dv
+
+
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The route of :func:`flash_attention_bwd` on the card, by dtype and
+    head dim: ``"tc"`` (``csrc/flash_bwd_tc.cu``, the tensor cores) for
+    bfloat16 at d in ``TC_BWD_HEAD_DIMS``, else ``"simt"``
+    (``csrc/flash_bwd.cu``, float32 products on the CUDA cores)."""
+    return "tc" if dtype == torch.bfloat16 and d in TC_BWD_HEAD_DIMS \
+        else "simt"
 
 
 class FlashAttention(torch.autograd.Function):
@@ -212,3 +256,4 @@ def tma_operand(t: torch.Tensor, counted) -> torch.Tensor:
 
 
 flash_attention.copies = 0
+flash_attention_bwd.copies = 0

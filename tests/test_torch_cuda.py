@@ -155,6 +155,47 @@ def test_cuda_flash_bf16_serving_layout_launches_tensor_core_kernel():
 
 
 @pytest.mark.cuda
+def test_cuda_flash_bwd_bf16_training_layout_launches_tensor_core_kernel():
+    """A bf16 d = 128 backward in the training layout ([B, S, H, d]
+    transposed views, qwen3 heads, a ragged S) launches
+    ``flash_attention_bwd`` once on the tensor-core route
+    (``csrc/flash_bwd_tc.cu``), copies no operand, is within
+    ``chip_smoke.flash_bwd_bound`` of autograd of the plain version and
+    gives the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, H, Hkv, S, d = 2, 16, 8, 1000, 128
+    q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.bfloat16, dev)
+    dout = torch.randn((B, S, H, d), generator=gen, device=dev,
+                       dtype=torch.bfloat16).transpose(1, 2)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    o = flash_attention(q, k, v, lse=lse)
+    copies = flash_attention_bwd.copies
+    reset_launch_counts()
+    got = flash_attention_bwd(q, k, v, o, dout, lse)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts.get("flash_attention_bwd", 0) == 1
+    assert counts.get("flash_attention_bwd/tc", 0) == 1
+    assert flash_attention_bwd.copies == copies
+    again = flash_attention_bwd(q, k, v, o, dout, lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.flash_attention_backward_reference(q, k, v, dout)
+    bound = smoke.flash_bwd_bound(q, k, v, o, dout, want)
+    assert smoke.bwd_err(got, want, bound)[1] <= 1.0
+
+
+@pytest.mark.cuda
 def test_cuda_decode_bf16_serving_layout_launches_ring_kernel():
     """A bf16 call in the model's layout ([B, S, Hkv, d] caches as
     transposed views, qwen3 heads, lengths at the kernel's tile and chunk
