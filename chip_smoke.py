@@ -104,7 +104,19 @@
    the tensor-core route, no operand copied); both backward kernels at
    those shapes against their plain versions, timed beside their bounds
    and the library's (SDPA's backward, ``index_add_``), the attention
-   backward also beside its SIMT kernel and twice bit-identical.
+   backward also beside its SIMT kernel and twice bit-identical. Then GNN
+   training: one f32 ``gnn_loss`` step of each of GCN, PNA (full_graph_sm)
+   and EGNN, NequIP (molecule shape) at full width and depth on the card
+   against the CPU, every gradient leaf within ``GRAD_TOL``, the graphs
+   cut into several chunks, each against planted faults (the backward's
+   gather dropping each run's first edge, the last chunk's rows left out
+   of the join, PNA's max with the mesh route's tie rule); AdamW steps of
+   GCN (5) and PNA (2) on a labelled graph of ogb_products' size drawn on
+   the card, EGNN and NequIP on molecule batches (5 each) and on that
+   graph as one molecule (1 each), the loss finite and falling, step ms,
+   edges/s, peak memory, ``segment_sum_sorted`` launches a step against
+   the checkpoints' count, one profiled step each; the backward's gather
+   at D = 16 and 75 timed beside its bound and ``index_select``.
 
 Fails (non-zero exit, no result line) on any mismatch or exception, and
 when CUDA is not available. The last line is
@@ -2490,21 +2502,26 @@ def check_shape(cfg) -> str:
     return "full_graph_sm" if cfg.model in ("gcn", "pna") else "molecule"
 
 
-def gnn_inputs(cfg, seed: int) -> dict:
-    """numpy inputs at ``check_shape``: ``cora_like`` (edges as generated,
-    unsorted) or ``molecule_batch`` (edges unsorted, graph ids
-    ascending)."""
+def gnn_batch(cfg, seed: int) -> dict:
+    """A numpy batch of ``gnn_loss``'s keys at ``check_shape``:
+    ``cora_like`` (edges as generated, unsorted, with repeats; labels and
+    a label mask) or ``molecule_batch`` (edges unsorted, graph ids
+    ascending, energies)."""
     from repro_torch.configs.registry import GNN_SHAPES
     from repro_torch.data.graphs import cora_like, molecule_batch
     sh = GNN_SHAPES[check_shape(cfg)]
     if cfg.model in ("gcn", "pna"):
-        data = cora_like(sh["n_nodes"], sh["n_edges"], cfg.d_feat,
+        return cora_like(sh["n_nodes"], sh["n_edges"], cfg.d_feat,
                          cfg.n_classes, seed=seed)
-        return {k: data[k] for k in ("feat", "edge_index")}
-    data = molecule_batch(sh["n_graphs"], sh["nodes_per"], sh["edges_per"],
+    return molecule_batch(sh["n_graphs"], sh["nodes_per"], sh["edges_per"],
                           cfg.n_species, seed=seed)
-    return {k: data[k] for k in ("species", "coords", "edge_index",
-                                 "graph_ids", "energy")}
+
+
+def gnn_inputs(cfg, seed: int) -> dict:
+    """The forwards' numpy inputs at ``check_shape``: ``gnn_batch``
+    without GCN's and PNA's labels."""
+    return {k: v for k, v in gnn_batch(cfg, seed).items()
+            if k not in ("labels", "label_mask")}
 
 
 def gnn_outputs(cfg, params, data: dict, device) -> dict:
@@ -4681,6 +4698,336 @@ def recsys_train(cfg, seed: int, device) -> dict:
     return out
 
 
+# GNN training: gnn_loss's gradient on the card against the CPU with its
+# planted faults, then each model's AdamW steps at full width
+GNN_CHECK_CHUNK = 4096       # the check's chunk cap: 3 chunks at
+                             # full_graph_sm, 2 at the molecule shape
+REORDER_FACTOR = 4           # the check's tolerance: GRAD_TOL plus this
+                             # many times the CPU's own reorder spread
+GNN_TRAIN = (("gcn-cora", "ogb_products", 5), ("pna", "ogb_products", 2),
+             ("egnn", "molecule", 5), ("nequip", "molecule", 5),
+             ("egnn", "ogb_products", 1), ("nequip", "ogb_products", 1))
+GNN_TRAIN_TRACK = ("segment_sum", "scatter", "index", "gemm", "gemv",
+                   "elementwise", "reduce", "Sort")
+GATHER_WIDTHS = (16, 75)     # the backward gather: GCN's and PNA's widths
+GNN_TRAIN_LR = 1e-4          # EGNN's loss swings at 3e-4 and above from a
+                             # random init (10 seeds on the CPU fall at 1e-4)
+
+
+def _mesh_tie_max(seg_max):
+    """``gnn.seg_max`` with a planted fault: the reference's mesh-route
+    backward (``repro/models/gnn.py:113-127``), which gives every element
+    tied at a row's max the row's whole cotangent where one device splits
+    it evenly."""
+    import torch
+
+    class MeshMax(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, idx, n):
+            y = seg_max(x, idx, n)
+            ctx.save_for_backward(x, idx, y)
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            x, idx, y = ctx.saved_tensors
+            i = idx.long()
+            return torch.where(x == y[i], g[i], 0.0), None, None
+
+    def faulty(x, idx, n, out=None):
+        if torch.is_grad_enabled() and x.requires_grad:
+            return MeshMax.apply(x, idx, n)
+        return seg_max(x, idx, n, out)
+    return faulty
+
+
+def _drop_run_starts_bwd(backward):
+    """``segment_sum_backward`` with a planted fault: the first edge of
+    every destination's run gets no gradient."""
+    import torch
+
+    def faulty(grad, dst, n_nodes):
+        first = torch.ones(dst.shape, dtype=torch.bool, device=dst.device)
+        first[1:] = dst[1:] != dst[:-1]
+        return backward(grad, dst, n_nodes) * (~first)[:, None].to(
+            grad.dtype)
+    return faulty
+
+
+def _last_chunk_left_out(join):
+    """``gnn._join`` with a planted fault: the last chunk's node rows left
+    out of the join (zeros in their place)."""
+    import torch
+
+    def faulty(rows):
+        return join(rows[:-1] + [torch.zeros_like(rows[-1])])
+    return faulty
+
+
+def gnn_loss_check(cfg, seed: int, device, ref_device="cpu") -> dict:
+    """One f32 ``gnn_loss`` step of ``cfg`` (weights from ``seed``) on
+    ``gnn_batch``'s graph, cut into chunks of at most GNN_CHECK_CHUNK
+    edges, on ``device`` (the kernel forward, the gather backward) against
+    the same weights on ``ref_device`` (the plain versions): the loss
+    within GRAD_TOL * max(1, |loss|) and every gradient leaf within
+    ``tol`` * max |leaf| of the CPU's, ``tol`` = GRAD_TOL + REORDER_FACTOR
+    * ``reorder_spread``: the largest move, relative to its leaf's max
+    |g|, of the CPU's own gradient when the edges come in another order
+    (float32 sums reordered). That spread is ~1e-7 for GCN, EGNN and
+    NequIP and 8e-4 to 3.2e-3 for PNA (seeds 0 and 1): its std,
+    sqrt(max(E[m^2] - E[m]^2, 0) + 1e-9), has a slope of 1.6e4 where a
+    node's messages nearly agree, and there the one-pass variance's
+    rounding is a tenth of the 1e-9; near-ties of max and min may also
+    fall to other edges. ok also needs each planted fault outside ``tol``:
+    the backward's gather leaving each run's first edge out; for PNA,
+    EGNN and NequIP the last chunk's rows left out of the join; for PNA
+    the mesh route's tie rule (cora_like's repeated edges tie by
+    construction)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.kernels import segment_mp
+    from repro_torch.models import gnn
+    from repro_torch.runtime.train_loop import value_and_grad
+    data = gnn_batch(cfg, seed)
+    dev, ref_dev = torch.device(device), torch.device(ref_device)
+    params = gnn.gnn_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          dev)
+    ref_params = _params_to(params, ref_dev)
+
+    def grads(p, d, order=None):
+        batch = {k: torch.from_numpy(v).to(d) for k, v in data.items()}
+        if order is not None:
+            batch["edge_index"] = batch["edge_index"][order]
+        loss, _, g = value_and_grad(
+            lambda pp, b: gnn.gnn_loss(cfg, pp, b), p, batch)
+        return loss.cpu(), [x.cpu() for x in tree.leaves(g)]
+
+    faults = [("first_edge_no_grad", segment_mp, "segment_sum_backward",
+               _drop_run_starts_bwd)]
+    if cfg.model != "gcn":
+        faults.append(("last_chunk_left_out", gnn, "_join",
+                       _last_chunk_left_out))
+    if cfg.model == "pna":
+        faults.append(("mesh_tie_rule", gnn, "seg_max", _mesh_tie_max))
+    with patched(gnn, "EDGE_CHUNK", lambda _: GNN_CHECK_CHUNK):
+        got_loss, got = grads(params, dev)
+        want_loss, want = grads(ref_params, ref_dev)
+        moved = grads(ref_params, ref_dev, torch.from_numpy(
+            np.random.default_rng(seed).permutation(len(data["edge_index"])))
+        )[1]
+        spread = max(float((m - w).abs().max() / w.abs().max())
+                     for m, w in zip(moved, want) if w.abs().max() > 0)
+        tol = GRAD_TOL + REORDER_FACTOR * spread
+        controls = {}
+        for name, module, attr, fault in faults:
+            with patched(module, attr, fault):
+                controls[name] = grad_err(grads(params, dev)[1], want,
+                                          tol)[1]
+        edges = torch.from_numpy(data["edge_index"])
+        n = len(data["feat" if "feat" in data else "species"])
+        chunks = len(gnn.edge_chunks(gnn.sort_by_dst(edges)[:, 1]
+                                     .contiguous(), n))
+    loss_diff = abs(float(got_loss) - float(want_loss))
+    err, ratio = grad_err(got, want, tol)
+    out = {"model": cfg.model, "shape": check_shape(cfg), "nodes": n,
+           "edges": len(edges), "repeated_edges": len(edges) - len(
+               np.unique(data["edge_index"], axis=0)),
+           "chunks": chunks, "reorder_spread": spread, "tol": tol,
+           "loss": float(want_loss),
+           "loss_diff": loss_diff, "grad_max_abs_err": err,
+           "grad_ratio": ratio, "controls": controls, "leaves": len(want)}
+    out["ok"] = (bool(torch.isfinite(got_loss)) and all(
+        bool(torch.isfinite(g).all()) for g in got)
+        and loss_diff <= GRAD_TOL * max(1.0, abs(float(want_loss)))
+        and ratio <= 1.0 and all(c > 1.0 for c in controls.values()))
+    return out
+
+
+def gnn_train_batch(cfg, shape: str, graph: dict | None, seed: int,
+                    device) -> dict:
+    """The batch of a training run: at ``molecule`` ``molecule_batch(128,
+    30, 64)`` from ``seed``; at ``ogb_products`` the drawn ``graph``
+    (``gnn_graph``, sorted on the card) with, for GCN and PNA, labels in
+    [0, n_classes) and a label mask on 1/20 of the nodes, for EGNN and
+    NequIP the graph as one molecule (G = 1, as the reference's cells take
+    it) and one energy, drawn on the card from ``seed``."""
+    import torch
+    if shape == "molecule":
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in gnn_batch(cfg, seed).items()}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = graph["feat"].shape[0]
+    if cfg.model in ("gcn", "pna"):
+        mask = torch.zeros(n, device=device)
+        mask[torch.randperm(n, generator=gen, device=device)[:n // 20]] = 1.0
+        return {"feat": graph["feat"], "edge_index": graph["edges"],
+                "label_mask": mask,
+                "labels": torch.randint(0, cfg.n_classes, (n,),
+                                        generator=gen, device=device,
+                                        dtype=torch.int32)}
+    return {"species": graph["species"], "coords": graph["coords"],
+            "edge_index": graph["edges"],
+            "graph_ids": torch.zeros(n, dtype=torch.int32, device=device),
+            "energy": torch.randn(1, generator=gen, device=device)}
+
+
+def gnn_train_launches(cfg, n_chunks: int) -> int:
+    """``segment_sum_sorted`` launches of one training step: the
+    forward's (``expected_widths``) with every layer's run again by its
+    checkpoint in the backward and each chunk's a third time by its own
+    (GCN has no chunks: twice); the degrees (D = 1) once; EGNN's and
+    NequIP's per-graph energy sum once."""
+    runs = 2 if cfg.model == "gcn" else 3
+    want = expected_widths(cfg, 1 if cfg.model == "gcn" else n_chunks)
+    return (sum(k * (1 if d == 1 else runs) for d, k in want.items())
+            + (cfg.model in ("egnn", "nequip")))
+
+
+def gnn_train(cfg, batch: dict, steps: int, seed: int, device) -> dict:
+    """``steps`` AdamW steps (GNN_TRAIN_LR) of ``gnn_loss`` on ``batch``
+    (f32 weights of ``cfg`` from ``seed``), the last of them under the
+    profiler on a card (device time alone), launch counts read over them
+    all. Returns the losses, the unprofiled steps' ms and their median
+    (the profiled step's wall ms where it is the only one), edges/s, peak
+    GB, chunks, launches a step and the profiler's own seconds past the
+    profiled step. ok: the losses finite and, over more than one step, the
+    last below the first."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import gnn
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.train_loop import make_train_step
+    dev = torch.device(device)
+    params = gnn.gnn_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          dev)
+    step = make_train_step(lambda p, b: gnn.gnn_loss(cfg, p, b),
+                           AdamWConfig(peak_lr=GNN_TRAIN_LR, warmup_steps=0))
+    state = {"params": params, "opt": adamw_init(params)}
+
+    def one():
+        state["params"], state["opt"], metrics = step(
+            state["params"], state["opt"], batch)
+        state["loss"] = float(metrics["loss"])
+
+    edges = batch["edge_index"]
+    n = (batch["feat"] if "feat" in batch else batch["species"]).shape[0]
+    chunks = len(gnn.edge_chunks(gnn.sort_by_dst(edges)[:, 1].contiguous(),
+                                 n))
+    losses, ms, prof, overhead = [], [], None, None
+    _reset_peak(dev)
+    reset_launch_counts()
+    for i in range(steps):
+        if i == steps - 1 and dev.type == "cuda":
+            t0 = time.perf_counter()
+            prof = device_profile(one, GNN_TRAIN_TRACK, cpu=False)
+            overhead = time.perf_counter() - t0 - prof["wall_ms"] / 1e3
+        else:
+            t0 = time.perf_counter()
+            one()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(state["loss"])
+    launches = launch_counts()
+    median = statistics.median(ms) if ms else prof["wall_ms"]
+    out = {"model": cfg.name, "nodes": n, "edges": int(edges.shape[0]),
+           "chunks": chunks, "steps": steps, "losses": losses,
+           "step_ms": ms, "median_ms": median,
+           "profiler_overhead_s": overhead,
+           "edges_per_s": int(edges.shape[0]) / (median / 1e3),
+           "peak_gb": _peak_gb(dev),
+           "launches_per_step": {k: v / steps for k, v in launches.items()
+                                 if "/" not in k},
+           "profile": prof, "launches": launches}
+    out["ok"] = (all(math.isfinite(x) for x in losses)
+                 and (steps == 1 or losses[-1] < losses[0]))
+    return out
+
+
+def gather_row(dst, n_nodes: int, d: int, hbm: float) -> dict:
+    """``segment_sum_backward`` (the cotangent [n_nodes, d] gathered by
+    destination-sorted ``dst``) at ogb_products' shape: equal to
+    ``index_select`` (exact: a gather), timed beside it and beside its
+    bound, E·d·4 bytes read and written plus E·4 of indices."""
+    import torch
+    from repro_torch.kernels.segment_mp import segment_sum_backward
+    gen = torch.Generator(device=dst.device).manual_seed(19)
+    g = torch.randn((n_nodes, d), generator=gen, device=dst.device)
+    E = dst.shape[0]
+    exact = torch.equal(segment_sum_backward(g, dst, n_nodes),
+                        g.index_select(0, dst))
+    ms = time_ms(lambda: segment_sum_backward(g, dst, n_nodes))
+    lib = time_ms(lambda: g.index_select(0, dst))
+    nbytes = 2 * E * d * 4 + E * 4
+    del g
+    torch.cuda.empty_cache()
+    return {"E": E, "N": n_nodes, "D": d, "exact": exact, "ms": ms,
+            "index_select_ms": lib, "bound_ms": nbytes / hbm * 1e3,
+            "bound_by": "bytes"}
+
+
+def gnn_train_phase(args, hbm: float, device) -> dict:
+    """GNN training on the card: ``gnn_loss_check`` for the four models;
+    the runs of GNN_TRAIN (GCN and PNA labelled on a graph of
+    ogb_products' size drawn and sorted on the card, EGNN and NequIP on
+    molecule batches and on that graph as one molecule), each's
+    ``segment_sum_sorted`` launches a step checked against
+    ``gnn_train_launches``; the backward gather at GATHER_WIDTHS. Returns
+    the launches of every kernel over the runs."""
+    import torch
+    from repro_torch.configs.registry import GNN_SHAPES
+    gpu = gpu_line()
+    for arch in (GNN_ARCH,) + GNN_ZOO:
+        cfg = gnn_config(arch, "full_graph_sm")
+        t0 = time.perf_counter()
+        check = gnn_loss_check(cfg, args.seed, device)
+        log(f"train gnn {cfg.name}: gnn_loss f32 step card vs CPU "
+            f"({check_shape(cfg)}, GRAD_TOL {GRAD_TOL}, REORDER_FACTOR "
+            f"{REORDER_FACTOR}): "
+            f"{json.dumps(check)} in {time.perf_counter() - t0:.1f} s")
+        if not check["ok"]:
+            raise AssertionError(f"{cfg.name} gnn_loss card vs CPU: {check}")
+
+    shape = GNN_SHAPES["ogb_products"]
+    graph = gnn_graph(shape["n_nodes"], shape["n_edges"], shape["d_feat"],
+                      args.seed, device)
+    total: dict[str, int] = {}
+    for arch, where, steps in GNN_TRAIN:
+        cfg = gnn_config(arch, where)
+        batch = gnn_train_batch(cfg, where, graph, args.seed, device)
+        t0 = time.perf_counter()
+        run = gnn_train(cfg, batch, steps, args.seed, device)
+        del batch
+        prof = run.pop("profile")
+        launches = run.pop("launches")
+        log(f"train gnn {cfg.name} at {where} ({cfg.n_layers} layers, "
+            f"hidden {cfg.d_hidden}, f32, AdamW) on {gpu}: "
+            f"{json.dumps(run)} in {time.perf_counter() - t0:.1f} s")
+        log(f"train gnn {cfg.name} at {where} profile (one step): "
+            f"{json.dumps(prof)}")
+        want = gnn_train_launches(cfg, run["chunks"]) * steps
+        if launches.get("segment_sum_sorted", 0) != want:
+            raise AssertionError(f"train gnn {cfg.name} at {where}: "
+                                 f"segment_sum_sorted launches {launches}, "
+                                 f"want {want}")
+        if not run["ok"]:
+            raise AssertionError(f"train gnn {cfg.name} at {where}: the "
+                                 f"loss did not fall or is not finite: "
+                                 f"{run['losses']}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        torch.cuda.empty_cache()
+    dst = graph["edges"][:, 1].contiguous()
+    del graph
+    torch.cuda.empty_cache()
+    for d in GATHER_WIDTHS:
+        row = gather_row(dst, shape["n_nodes"], d, hbm)
+        log(f"train gnn backward gather (segment_sum_backward) on {gpu}: "
+            f"{json.dumps(row)}")
+        if not row["exact"]:
+            raise AssertionError(f"segment_sum_backward differs from "
+                                 f"index_select: {row}")
+    return total
+
+
 def _sdpa_backward(q, k, v, dout):
     """The backward of one ``scaled_dot_product_attention`` call (causal,
     fused backends) through autograd: the yardstick of
@@ -4906,9 +5253,9 @@ def train_phase(args, hbm: float, device) -> tuple[list[dict], dict]:
     with its TF32 control, a checkpoint of that state saved and restored on
     the card, qwen3-0.6b (full width and depth, bf16) and Wide&Deep (full
     width, f32) taking TRAIN_STEPS AdamW steps each, then the backward
-    kernels' rows. Launch counts are reset before each model's steps and
-    read after them. Returns the two rows and the launches of every kernel
-    over both models' steps."""
+    kernels' rows, then GNN training (``gnn_train_phase``). Launch counts
+    are reset before each model's steps and read after them. Returns the
+    two rows and the launches of every kernel over all models' steps."""
     import dataclasses as dc
 
     import torch
@@ -4995,8 +5342,12 @@ def train_phase(args, hbm: float, device) -> tuple[list[dict], dict]:
     rows.append(bag_bwd_row(rcfg, batch, rlaunches, hbm))
     del batch
     torch.cuda.empty_cache()
-    return rows, {**{k: v for k, v in launches.items() if "/" not in k},
-                  **{k: v for k, v in rlaunches.items() if "/" not in k}}
+
+    t0 = time.perf_counter()
+    glaunches = gnn_train_phase(args, hbm, device)
+    log(f"train gnn {time.perf_counter() - t0:.1f} s")
+    return rows, {k: v for got in (launches, rlaunches, glaunches)
+                  for k, v in got.items() if "/" not in k}
 
 
 def gpu_line() -> str:
@@ -5141,7 +5492,8 @@ def main(argv: list[str] | None = None) -> int:
         t0 = time.perf_counter()
         train_rows, train_launches = train_phase(args, hbm, dev)
         for row in rows:     # the forward kernels' launches in those steps
-            if row["name"] in ("flash_attention", "embedding_bag"):
+            if row["name"] in ("flash_attention", "embedding_bag",
+                               "segment_sum_sorted"):
                 row["train_launches"] = int(train_launches.get(row["name"],
                                                                0))
         rows += train_rows

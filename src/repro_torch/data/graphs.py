@@ -1,15 +1,33 @@
-"""Synthetic graphs of the GNN serving path (copies of ``random_graph``,
-``cora_like`` and ``molecule_batch`` from ``repro/data/graphs.py``, numpy
-only), and :func:`power_law_graph`, the same degree law drawn on the device
-for graphs too large to draw on the host quickly. The reference's CSR
-graph and neighbour sampler (``CSRGraph``, ``sample_neighbors``,
-``pad_subgraph``, for the ``minibatch_lg`` shape) are not ported (ROADMAP
-Queue 1 item 11)."""
+"""Graph datasets and neighbour sampling for GNN serving and training
+(copies of ``repro/data/graphs.py``, numpy only): the synthetic generators
+``random_graph``, ``cora_like`` and ``molecule_batch``; the CSR adjacency
+:class:`CSRGraph` and the uniform fanout neighbour sampler
+(:func:`sample_neighbors`, GraphSAGE style, the ``minibatch_lg`` shape's
+data side) with :func:`pad_subgraph` to static shapes; and
+:func:`power_law_graph`, ``random_graph``'s degree law drawn on the device
+for graphs too large to draw on the host quickly."""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
+
+
+@dataclass
+class CSRGraph:
+    indptr: np.ndarray      # [N+1]
+    indices: np.ndarray     # [E] neighbor ids (outgoing)
+    n_nodes: int
+
+    @classmethod
+    def from_edges(cls, edge_index: np.ndarray, n_nodes: int) -> "CSRGraph":
+        src, dst = edge_index[:, 0], edge_index[:, 1]
+        order = np.argsort(src, kind="stable")
+        src_s, dst_s = src[order], dst[order]
+        indptr = np.searchsorted(src_s, np.arange(n_nodes + 1))
+        return cls(indptr=indptr, indices=dst_s, n_nodes=n_nodes)
 
 
 def random_graph(n_nodes: int, n_edges: int, seed: int = 0,
@@ -57,6 +75,74 @@ def molecule_batch(batch: int = 128, n_nodes: int = 30, n_edges: int = 64,
     energy = rng.normal(0, 1, batch).astype(np.float32)
     return {"species": species, "coords": coords, "edge_index": edge_index,
             "graph_ids": graph_ids, "energy": energy}
+
+
+# ---------------------------------------------------------------------------
+# neighbor sampler (GraphSAGE fanout sampling)
+# ---------------------------------------------------------------------------
+
+def sample_neighbors(g: CSRGraph, seeds: np.ndarray, fanouts: list[int],
+                     rng: np.random.Generator) -> dict:
+    """K-hop uniform neighbor sampling.
+
+    Returns a node-induced sampled subgraph with *local* ids:
+    {nodes (global ids, seeds first), edge_index (local), seed_count}.
+    """
+    nodes = list(seeds.tolist())
+    local = {int(v): i for i, v in enumerate(nodes)}
+    edges_src: list[int] = []
+    edges_dst: list[int] = []
+    frontier = list(seeds.tolist())
+    for fanout in fanouts:
+        nxt: list[int] = []
+        for v in frontier:
+            lo, hi = g.indptr[v], g.indptr[v + 1]
+            deg = hi - lo
+            if deg == 0:
+                continue
+            take = min(fanout, deg)
+            picks = rng.choice(deg, size=take, replace=False)
+            for nb in g.indices[lo + picks]:
+                nb = int(nb)
+                if nb not in local:
+                    local[nb] = len(nodes)
+                    nodes.append(nb)
+                    nxt.append(nb)
+                # message flows neighbor -> seed side (dst = v)
+                edges_src.append(local[nb])
+                edges_dst.append(local[v])
+        frontier = nxt
+    edge_index = (np.stack([np.asarray(edges_src), np.asarray(edges_dst)],
+                           axis=1).astype(np.int32)
+                  if edges_src else np.zeros((0, 2), np.int32))
+    return {"nodes": np.asarray(nodes, dtype=np.int64),
+            "edge_index": edge_index,
+            "seed_count": len(seeds)}
+
+
+def pad_subgraph(sub: dict, n_nodes_pad: int, n_edges_pad: int) -> dict:
+    """Pad a sampled subgraph to static shapes.
+
+    Padding edges are self-loops on a dummy last node, so segment ops stay
+    correct; ``node_mask``/``edge_mask`` mark real entries.
+    """
+    nodes = sub["nodes"]
+    ei = sub["edge_index"]
+    n, e = len(nodes), len(ei)
+    if n > n_nodes_pad or e > n_edges_pad:
+        raise ValueError(f"subgraph ({n} nodes, {e} edges) exceeds padding "
+                         f"({n_nodes_pad}, {n_edges_pad})")
+    nodes_p = np.zeros(n_nodes_pad, dtype=np.int64)
+    nodes_p[:n] = nodes
+    ei_p = np.full((n_edges_pad, 2), n_nodes_pad - 1, dtype=np.int32)
+    ei_p[:e] = ei
+    node_mask = np.zeros(n_nodes_pad, np.float32)
+    node_mask[:n] = 1.0
+    edge_mask = np.zeros(n_edges_pad, np.float32)
+    edge_mask[:e] = 1.0
+    return {"nodes": nodes_p, "edge_index": ei_p, "node_mask": node_mask,
+            "edge_mask": edge_mask, "seed_count": sub["seed_count"]}
+
 
 def power_law_graph(n_nodes: int, n_edges: int, generator: torch.Generator,
                     power: float = 0.8) -> torch.Tensor:

@@ -12,6 +12,13 @@ destinations give wrong sums. A tensor on the CPU takes the plain torch
 version in :mod:`.ref`; a tensor on the card launches the kernel or raises
 — it never falls back.
 
+Under autograd (grad mode on and ``msg`` requiring grad) the sum is a
+:class:`SegmentSum` Function: the same forward, and a backward that
+gathers the output's gradient by ``dst`` (:func:`segment_sum_backward`,
+zeros for dropped edges), as XLA differentiates ``jax.ops.segment_sum``
+in the reference; that gather is plain torch on both devices. ``out=``
+writes in place and so is for serving only: it raises under autograd.
+
 :func:`segment_plan` decides, from the shapes and the pointers' alignment
 alone, how the kernel cuts the edges; the launcher takes its fields as
 they are and refuses a plan it cannot run.
@@ -141,7 +148,49 @@ def segment_sum_sorted(msg: torch.Tensor, dst: torch.Tensor, n_nodes: int,
                        out: torch.Tensor | None = None) -> torch.Tensor:
     """msg [E, D]; dst [E] int32 sorted ascending -> [n_nodes, D] in msg's
     dtype. ``out`` (contiguous, that shape and dtype) receives the result
-    in place."""
+    in place; under autograd it raises ``ValueError`` (an in-place write
+    would detach the sum from the graph)."""
+    if torch.is_grad_enabled() and msg.requires_grad:
+        if out is not None:
+            raise ValueError("segment_sum_sorted: out= writes in place and "
+                             "takes no gradient; call it without out= "
+                             "when msg requires grad")
+        return SegmentSum.apply(msg, dst, n_nodes)
+    return _segment_sum(msg, dst, n_nodes, out)
+
+
+def segment_sum_backward(grad: torch.Tensor, dst: torch.Tensor,
+                         n_nodes: int) -> torch.Tensor:
+    """The gradient of the messages: ``grad`` [n_nodes, D] gathered by
+    ``dst`` [E] -> [E, D], zero for an edge whose dst lies outside [0,
+    n_nodes) (its message was dropped). Row ``n_nodes`` of a zero-padded
+    copy of ``grad`` takes those edges, so no host sync is needed."""
+    D = grad.shape[1]
+    padded = torch.cat((grad, grad.new_zeros((1, D))))
+    idx = torch.where((dst >= 0) & (dst < n_nodes), dst, n_nodes)
+    return padded.index_select(0, idx)
+
+
+class SegmentSum(torch.autograd.Function):
+    """``segment_sum_sorted`` with a gradient: forward the kernel (the
+    plain version on the CPU), backward :func:`segment_sum_backward`."""
+
+    @staticmethod
+    def forward(ctx, msg, dst, n_nodes):
+        ctx.save_for_backward(dst)
+        ctx.n_nodes = int(n_nodes)
+        return _segment_sum(msg, dst, n_nodes, None)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dst, = ctx.saved_tensors
+        return segment_sum_backward(grad, dst, ctx.n_nodes), None, None
+
+
+def _segment_sum(msg: torch.Tensor, dst: torch.Tensor, n_nodes: int,
+                 out: torch.Tensor | None) -> torch.Tensor:
+    """The dispatch: the kernel on the card, the plain version on the
+    CPU."""
     check_float("msg", msg, 2)
     check_int32("dst", dst, 1, device=msg.device)
     n_nodes = int(n_nodes)

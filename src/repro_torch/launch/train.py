@@ -5,11 +5,10 @@ monitoring, on ``cuda`` unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --preset smoke --steps 50 --ckpt-dir /tmp/ck [--device cpu]
 
-The LM and recsys families train; a GNN arch raises
-``NotImplementedError`` (its loss needs a ``segment_sum_sorted``
-backward: ROADMAP Queue 1 item 10). Weights come from ``--seed`` (a
-``torch.Generator``, not JAX's PRNG); the batches are the reference's
-numpy stream, so a seed gives the reference's tokens and recsys batches.
+Every family trains: the LMs, Wide&Deep and the four GNNs. Weights come
+from ``--seed`` (a ``torch.Generator``, not JAX's PRNG); the batches are
+the reference's numpy stream, so a seed gives the reference's tokens,
+recsys batches and graphs.
 """
 
 from __future__ import annotations
@@ -22,16 +21,14 @@ import torch
 
 from .. import tree
 from ..configs.registry import get_spec
+from ..data.graphs import cora_like, molecule_batch
 from ..data.recsys import recsys_batch
 from ..device import resolve_device
+from ..models.gnn import gnn_init, gnn_loss
 from ..models.recsys import init_recsys_params, recsys_loss
 from ..models.transformer import init_lm_params, lm_loss
 from ..optim.adamw import AdamWConfig
 from ..runtime.train_loop import TrainLoopConfig, train
-
-GNN_TODO = ("GNN training is not ported yet: gnn_loss needs a backward of "
-            "segment_sum_sorted (ROADMAP Queue 1 item 10)")
-
 
 def reduce_config(spec):
     """Shrink a full config to smoke scale (same family/topology)."""
@@ -56,10 +53,23 @@ def make_batch_iter(spec, cfg, batch_size: int, seed: int = 0,
     """The reference's batches as tensors on ``device`` (``cuda`` by
     default): LM tokens int32 [batch_size, 128] from
     ``np.random.default_rng(seed)``, recsys batches from ``recsys_batch``
-    with seeds ``seed``, ``seed + 1``, ..."""
+    with seeds ``seed``, ``seed + 1``, ...; for a GNN one graph, yielded
+    every step: ``cora_like(256 nodes, 1,024 edges)`` for GCN and PNA,
+    ``molecule_batch(8 molecules of 12 atoms, 32 edges)`` for EGNN and
+    NequIP, from ``seed`` (``batch_size`` unused, as in the reference)."""
     dev = resolve_device(device)
     if spec.family == "gnn":
-        raise NotImplementedError(GNN_TODO)
+        if cfg.model in ("gcn", "pna"):
+            data = cora_like(n_nodes=256, n_edges=1024, d_feat=cfg.d_feat,
+                             n_classes=cfg.n_classes, seed=seed)
+        else:
+            data = molecule_batch(batch=8, n_nodes=12, n_edges=32, seed=seed)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+
+        def graphs():
+            while True:
+                yield batch
+        return graphs()
     rng = np.random.default_rng(seed)
     if spec.family == "lm":
         def it():
@@ -95,8 +105,6 @@ def main(argv: list[str] | None = None):
     args = ap.parse_args(argv)
 
     spec = get_spec(args.arch)
-    if spec.family == "gnn":
-        raise NotImplementedError(GNN_TODO)
     cfg = spec.config if args.preset == "full" else reduce_config(spec)
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -104,6 +112,9 @@ def main(argv: list[str] | None = None):
     if spec.family == "lm":
         params = init_lm_params(cfg, gen, device=dev)
         loss_fn = lambda p, b: lm_loss(cfg, p, b)             # noqa: E731
+    elif spec.family == "gnn":
+        params = gnn_init(cfg, gen, device=dev)
+        loss_fn = lambda p, b: gnn_loss(cfg, p, b)            # noqa: E731
     else:
         params = init_recsys_params(cfg, gen, device=dev)
         loss_fn = lambda p, b: recsys_loss(cfg, p, b)         # noqa: E731
@@ -116,7 +127,9 @@ def main(argv: list[str] | None = None):
         make_batch_iter(spec, cfg, args.batch, args.seed, dev),
         AdamWConfig(peak_lr=args.lr, warmup_steps=5,
                     total_steps=args.steps),
-        TrainLoopConfig(total_steps=args.steps, log_every=10,
+        # every 10 steps, and a run shorter than 11 steps logs its last
+        TrainLoopConfig(total_steps=args.steps,
+                        log_every=min(10, max(1, args.steps - 1)),
                         ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir))
     first = result.history[0]["loss"] if result.history else float("nan")
     last = result.history[-1]["loss"] if result.history else float("nan")

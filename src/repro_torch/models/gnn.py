@@ -1,10 +1,11 @@
-"""GNN inference over destination-sorted edges (port of
-``repro/models/gnn.py``): GCN, PNA, EGNN and NequIP.
+"""GNN inference and training over destination-sorted edges (port of
+``repro/models/gnn.py``): GCN, PNA, EGNN and NequIP, and their loss
+:func:`gnn_loss`.
 
 Every sum over edges runs through the ``segment_sum_sorted`` kernel, which
 takes edges sorted by destination: :func:`sort_by_dst` sorts a graph once
 (stable), and each forward sorts edges it is handed unsorted. PNA's max and
-min are ``scatter_reduce_`` (:func:`seg_max`), as they are XLA's
+min are ``scatter_reduce`` (:func:`seg_max`), as they are XLA's
 ``segment_max`` in the reference, not a Pallas kernel.
 
 PNA, EGNN and NequIP compute their messages chunk by chunk: a graph of
@@ -15,6 +16,20 @@ ogb_products' size one [E, D] message tensor would not fit the card
 (NequIP's l2 messages alone are [61.86M, 576] float32, 142 GB). Below the
 cap a forward takes one chunk, the whole graph.
 
+Serving and training share the forwards. Serving (no tensor requiring
+grad) writes each chunk's sums in place into its rows of a preallocated
+[N, D] tensor. Training (:func:`gnn_loss` under autograd) runs each layer
+under a non-reentrant ``torch.utils.checkpoint``, as the reference remats
+each layer with ``jax.checkpoint``, and each chunk's message-and-aggregate
+under a checkpoint of its own, as the reference remats its fused NequIP
+chunks: the backward holds one chunk's edge state at a time, and the
+chunks' node rows are joined by ``torch.cat`` (they cover [0, N) in
+order). ``segment_sum_sorted``'s gradient gathers the output's gradient by
+``dst``; max and min take ``scatter_reduce``'s gradient, which splits the
+cotangent evenly among tied elements, as ``jax.ops.segment_max``'s
+derivative does on one device (the reference's mesh route gives each tie
+the whole cotangent; it needs a mesh, which the port has not).
+
 Names and layouts at the public functions are the JAX module's: features
 [N, F], ``edge_index`` int32 [E, 2] (src, dst), species [N] int, coords
 [N, 3], params as nested dicts and lists with ``(w, b)`` tuples for MLP
@@ -23,8 +38,7 @@ layers. Where the port differs, by design: there is no sharding
 shard_map NequIP path (``_nequip_aggregate_fused``) becomes the chunk loop
 above; GCN computes the symmetric edge norms once for all layers (the JAX
 module recomputes them per layer, with the same operations) and scales
-the gathered messages in place; ``gnn_loss`` is not ported yet (ROADMAP
-Queue 1 item 10).
+the gathered messages in place.
 """
 
 from __future__ import annotations
@@ -35,7 +49,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from .. import tree
 from ..device import resolve_device
 from ..kernels.segment_mp import segment_sum_sorted
 from .common import dense_init
@@ -146,10 +162,52 @@ def _chunks(src: torch.Tensor, dst: torch.Tensor, n: int) -> list[_Chunk]:
                    c.lo, c.hi) for c in plan]
 
 
-def _sum_into(acc: torch.Tensor, msg: torch.Tensor, ch: _Chunk) -> None:
-    """Sum a chunk's messages into its node rows ``acc[lo:hi]`` (the kernel
-    zeroes exactly those rows first)."""
-    segment_sum_sorted(msg, ch.local, ch.hi - ch.lo, out=acc[ch.lo:ch.hi])
+def _training(*trees) -> bool:
+    """Whether a forward takes a gradient: grad mode is on and a tensor of
+    ``trees`` (params, inputs) requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for t in tree.leaves(trees))
+
+
+def _remat(train: bool, fn, *args):
+    """``fn(*args)``, under a non-reentrant checkpoint when training (its
+    activations recomputed in the backward)."""
+    if train:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _join(rows: list[torch.Tensor]) -> torch.Tensor:
+    """The chunks' node rows, in chunk order, as one [N, D] tensor."""
+    return rows[0] if len(rows) == 1 else torch.cat(rows)
+
+
+def _chunked(body, chunks: list[_Chunk], n: int, widths, like: torch.Tensor,
+             train: bool) -> list[torch.Tensor]:
+    """A chunk loop's node sums, one [n, D] tensor a width of ``widths``.
+    ``body(i, outs)`` aggregates chunk ``i``'s edges into its node rows
+    [hi - lo, D], a tensor a width, written into ``outs`` (row slices)
+    where given. Serving writes every chunk in place into [n, D] tensors
+    like ``like``; training runs each chunk under a checkpoint of its own
+    and joins the rows (:func:`_join`); so the tensors ``body`` reads
+    from its closure must not be rebound before the backward."""
+    if not train:
+        accs = [like.new_empty((n, w)) for w in widths]
+        for i, ch in enumerate(chunks):
+            body(i, [a[ch.lo:ch.hi] for a in accs])
+        return accs
+    rows = [checkpoint(body, i, None, use_reentrant=False)
+            for i in range(len(chunks))]
+    return [_join(list(r)) for r in zip(*rows)]
+
+
+def _sum(msg: torch.Tensor, ch: _Chunk,
+         out: torch.Tensor | None) -> torch.Tensor:
+    """A chunk's messages summed into its node rows [hi - lo, D] (into
+    ``out`` in place where given; the kernel zeroes exactly those rows
+    first)."""
+    return segment_sum_sorted(msg, ch.local, ch.hi - ch.lo, out=out)
 
 
 def seg_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -162,16 +220,34 @@ def seg_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
 def seg_max(x: torch.Tensor, idx: torch.Tensor, n: int,
             out: torch.Tensor | None = None) -> torch.Tensor:
     """Segment max of x [E, D] over ``idx`` [E] (any order), empty segments
-    0 (not -inf); ``out`` [n, D] receives it in place."""
+    0 (not -inf); ``out`` [n, D] receives it in place. Under autograd it
+    works out of place (``out`` raises ``ValueError``), and its gradient
+    splits each row's cotangent evenly among the elements tied at the
+    max, as ``jax.ops.segment_max``'s does. That route starts the rows at
+    -inf and zeroes the empty ones after, as the reference does: the
+    backward of ``scatter_reduce(..., include_self=False)`` counts the
+    untouched start value among the ties, so a max of exactly 0 over
+    zero rows would get half its cotangent."""
+    index = idx.long()[:, None].expand_as(x)
+    if torch.is_grad_enabled() and x.requires_grad:
+        if out is not None:
+            raise ValueError("seg_max: out= writes in place and takes no "
+                             "gradient")
+        raw = x.new_full((n, x.shape[1]), -math.inf).scatter_reduce(
+            0, index, x, "amax")
+        has = torch.zeros((n, 1), dtype=torch.bool,
+                          device=x.device).index_fill_(0, idx.long(), True)
+        return torch.where(has, raw, 0.0)
     out = x.new_zeros((n, x.shape[1])) if out is None else out.zero_()
-    return out.scatter_reduce_(0, idx.long()[:, None].expand_as(x), x,
-                               "amax", include_self=False)
+    return out.scatter_reduce_(0, index, x, "amax", include_self=False)
 
 
 def seg_min(x: torch.Tensor, idx: torch.Tensor, n: int,
             out: torch.Tensor | None = None) -> torch.Tensor:
-    """-seg_max(-x), as the reference takes it."""
-    return seg_max(-x, idx, n, out).neg_()
+    """-seg_max(-x), as the reference takes it (negated in place when no
+    gradient is taken)."""
+    y = seg_max(-x, idx, n, out)
+    return y.neg() if y.requires_grad else y.neg_()
 
 
 def seg_mean(x: torch.Tensor, idx: torch.Tensor, n: int,
@@ -266,14 +342,18 @@ def gcn_forward(cfg: GNNConfig, params: dict, feat: torch.Tensor,
     inv_sqrt = torch.rsqrt(deg)
     norm = (inv_sqrt[src] * inv_sqrt[dst])[:, None]
     self_norm = (inv_sqrt * inv_sqrt)[:, None]
-    x = feat
-    last = len(params["w"]) - 1
-    for i, w in enumerate(params["w"]):
+
+    def layer(x, w, last):
         x = x @ w
         msg = x[src].mul_(norm)
         agg = mp_aggregate(msg, dst, n) + x * self_norm
         del msg
-        x = agg if i == last else torch.relu(agg)
+        return agg if last else torch.relu(agg)
+
+    train = _training(params, feat)
+    x = feat
+    for i, w in enumerate(params["w"]):
+        x = _remat(train, layer, x, w, i == len(params["w"]) - 1)
     return x
 
 
@@ -293,6 +373,22 @@ def pna_init(cfg: GNNConfig, generator: torch.Generator,
                    for _ in range(cfg.n_layers)],
         "decode": _mlp_init(generator, [h, h, cfg.n_classes], dev),
     }
+
+
+def _scaled_concat(aggs: list, scales: list,
+                   x: torch.Tensor) -> torch.Tensor:
+    """PNA's post-MLP input [N, len(scales) * len(aggs) * H + H]: each
+    aggregate times each scaler, then ``x``, each written into its columns
+    of one buffer (autograd follows the slice writes)."""
+    H = x.shape[1]
+    h = x.new_empty((x.shape[0], (len(scales) * len(aggs) + 1) * H))
+    k = 0
+    for sc in scales:
+        for a in aggs:
+            h[:, k:k + H] = a * sc
+            k += H
+    h[:, k:] = x
+    return h
 
 
 def pna_forward(cfg: GNNConfig, params: dict, feat: torch.Tensor,
@@ -319,23 +415,27 @@ def pna_forward(cfg: GNNConfig, params: dict, feat: torch.Tensor,
         # deg-0 rows aggregate to zero anyway; clamp keeps the scaler finite
         "attenuation": delta / logd.clamp(min=math.log(2.0)),
     }
-    x = _mlp(params["encode"], feat)
-    H = x.shape[1]
-    for lp in params["layers"]:
-        total = x.new_empty((n, H))
-        parts = {a: x.new_empty((n, H)) for a in cfg.aggregators
-                 if a != "mean"}
-        for ch in chunks:
+    scales = [scaler_map[sc][:, None] for sc in cfg.scalers]
+    parts = [a for a in cfg.aggregators if a != "mean"]
+
+    def layer(x, lp):
+        def body(i, outs):
+            ch = chunks[i]
+            outs = outs or [None] * (1 + len(parts))
             m = _mlp(lp["msg"], torch.cat([x[ch.dst], x[ch.src]], dim=-1))
-            _sum_into(total, m, ch)
-            rows = slice(ch.lo, ch.hi)
-            if "std" in parts:
-                _sum_into(parts["std"], m * m, ch)
-            if "max" in parts:
-                seg_max(m, ch.local, ch.hi - ch.lo, out=parts["max"][rows])
-            if "min" in parts:
-                seg_min(m, ch.local, ch.hi - ch.lo, out=parts["min"][rows])
-            del m
+            rows = [_sum(m, ch, outs[0])]
+            for a, out in zip(parts, outs[1:]):
+                if a == "std":
+                    rows.append(_sum(m * m, ch, out))
+                else:
+                    agg = seg_max if a == "max" else seg_min
+                    rows.append(agg(m, ch.local, ch.hi - ch.lo, out=out))
+            return rows
+
+        total, *sums = _chunked(body, chunks, n, [x.shape[1]] * (1 + len(
+            parts)), x, train)
+        got = dict(zip(parts, sums))
+        del sums
         mean = total / safe_cnt
         del total
         aggs = []
@@ -343,22 +443,23 @@ def pna_forward(cfg: GNNConfig, params: dict, feat: torch.Tensor,
             if a == "mean":
                 aggs.append(mean)
             elif a == "std":
-                sq = parts["std"] / safe_cnt
-                aggs.append(torch.sqrt(torch.clamp(sq - mean * mean, min=0.0)
+                sq = got["std"] / safe_cnt
+                # maximum, not clamp: its gradient at 0 (a node of one
+                # edge) is the reference's jnp.maximum's
+                aggs.append(torch.sqrt(torch.maximum(sq - mean * mean,
+                                                     sq.new_zeros(()))
                                        + 1e-9))
             else:
-                aggs.append(parts[a])
-        del parts
-        h = x.new_empty((n, len(cfg.scalers) * len(aggs) * H + H))
-        k = 0
-        for s in cfg.scalers:
-            scale = scaler_map[s][:, None]
-            for a in aggs:
-                torch.mul(a, scale, out=h[:, k:k + H])
-                k += H
-        h[:, k:] = x
-        del aggs, mean
-        x = x + _mlp(lp["post"], h)
+                aggs.append(got[a])
+        del got, mean
+        h = _scaled_concat(aggs, scales, x)
+        del aggs
+        return x + _mlp(lp["post"], h)
+
+    train = _training(params, feat)
+    x = _mlp(params["encode"], feat)
+    for lp in params["layers"]:
+        x = _remat(train, layer, x, lp)
     return _mlp(params["decode"], x)
 
 
@@ -389,12 +490,11 @@ def egnn_forward(cfg: GNNConfig, params: dict, species: torch.Tensor,
     src, dst = _src_dst(edge_index)
     chunks = _chunks(src, dst, n)
     safe_cnt = degrees(dst, n)[:, None].clamp(min=1.0)
-    h = params["embed"][species]
-    x = coords
-    for lp in params["layers"]:
-        upd = x.new_empty((n, 3))
-        magg = h.new_empty(h.shape)
-        for ch in chunks:
+
+    def layer(h, x, lp):
+        def body(i, outs):
+            ch = chunks[i]
+            outs = outs or [None, None]
             rel = _rel(x, ch.dst, ch.src)
             d2 = torch.sum(rel * rel, dim=-1, keepdim=True)
             m = _mlp(lp["phi_e"], torch.cat([h[ch.dst], h[ch.src], d2],
@@ -403,11 +503,19 @@ def egnn_forward(cfg: GNNConfig, params: dict, species: torch.Tensor,
             # variant: unit-ish direction + bounded coefficient keeps |x|
             # from blowing up)
             coef = torch.tanh(_mlp(lp["phi_x"], m))
-            _sum_into(upd, rel / (torch.sqrt(d2) + 1.0) * coef, ch)
-            _sum_into(magg, m, ch)
-            del rel, d2, m, coef
-        x = x + upd / safe_cnt
-        h = h + _mlp(lp["phi_h"], torch.cat([h, magg], dim=-1))
+            return [_sum(rel / (torch.sqrt(d2) + 1.0) * coef, ch, outs[0]),
+                    _sum(m, ch, outs[1])]
+
+        upd, magg = _chunked(body, chunks, n, (3, h.shape[1]), h, train)
+        # h and x are not rebound: a chunk's checkpoint reads them again
+        return (h + _mlp(lp["phi_h"], torch.cat([h, magg], dim=-1)),
+                x + upd / safe_cnt)
+
+    train = _training(params, coords)
+    h = params["embed"][species]
+    x = coords
+    for lp in params["layers"]:
+        h, x = _remat(train, layer, h, x, lp)
     return h, x
 
 
@@ -518,20 +626,18 @@ def nequip_forward(cfg: GNNConfig, params: dict, species: torch.Tensor,
     chunks = _chunks(src, dst, n)
     geometry = [_nequip_geometry(cfg, coords, ch.src, ch.dst)
                 for ch in chunks]
-    h0 = params["embed"][species]                      # [N, C]
-    h1 = coords.new_zeros((n, C, 3))
-    h2 = coords.new_zeros((n, C, 3, 3))
-    for lp in params["layers"]:
-        a0 = h0.new_empty((n, 2 * C))
-        a1 = h0.new_empty((n, 3 * C * 3))
-        a2 = h0.new_empty((n, 2 * C * 9))
-        for ch, (rbf, Y1, Y2) in zip(chunks, geometry):
-            m0, m1, m2 = _nequip_messages(cfg, lp["radial"], rbf, Y1, Y2,
+
+    def layer(h0, h1, h2, lp):
+        def body(i, outs):
+            ch = chunks[i]
+            outs = outs or [None] * 3
+            m0, m1, m2 = _nequip_messages(cfg, lp["radial"], *geometry[i],
                                           h0[ch.src], h1[ch.src], h2[ch.src])
-            _sum_into(a0, m0, ch)
-            _sum_into(a1, m1, ch)
-            _sum_into(a2, m2, ch)
-            del m0, m1, m2
+            return [_sum(m0, ch, outs[0]), _sum(m1, ch, outs[1]),
+                    _sum(m2, ch, outs[2])]
+
+        a0, a1, a2 = _chunked(body, chunks, n, (2 * C, 9 * C, 18 * C), h0,
+                              train)
 
         # channel mixing + self-interaction
         n0 = a0 @ lp["mix0"] + h0 @ lp["self0"]
@@ -545,9 +651,15 @@ def nequip_forward(cfg: GNNConfig, params: dict, species: torch.Tensor,
 
         # gated nonlinearity: scalars via silu; l>0 gated by sigmoids of l0
         g1, g2 = torch.sigmoid(_mlp(lp["gate"], n0)).chunk(2, dim=-1)
-        h0 = h0 + F.silu(n0)
-        h1 = h1 + n1 * g1[..., None]
-        h2 = h2 + n2 * g2[..., None, None]
+        return (h0 + F.silu(n0), h1 + n1 * g1[..., None],
+                h2 + n2 * g2[..., None, None])
+
+    train = _training(params, coords)
+    h0 = params["embed"][species]                      # [N, C]
+    h1 = coords.new_zeros((n, C, 3))
+    h2 = coords.new_zeros((n, C, 3, 3))
+    for lp in params["layers"]:
+        h0, h1, h2 = _remat(train, layer, h0, h1, h2, lp)
     return {"l0": h0, "l1": h1, "l2": h2}
 
 
@@ -576,3 +688,28 @@ def gnn_init(cfg: GNNConfig, generator: torch.Generator,
         raise ValueError(f"unknown GNN model {cfg.model!r}; "
                          f"one of {sorted(_INIT)}")
     return _INIT[cfg.model](cfg, generator, device)
+
+
+def gnn_loss(cfg: GNNConfig, params: dict, batch: dict
+             ) -> tuple[torch.Tensor, dict]:
+    """The family's loss, the reference's batch keys.
+
+    GCN and PNA: feat [N, F], edge_index [E, 2], labels [N] int,
+    label_mask [N] float -> the masked mean NLL of the float32 logits,
+    ``nll.sum() / max(label_mask.sum(), 1)``, aux ``{"nll": loss}``.
+    EGNN and NequIP: species [N], coords [N, 3], edge_index, graph_ids
+    [N], energy [G] -> the mean squared error of the per-graph energies,
+    aux ``{"mse": loss}``."""
+    if cfg.model in ("gcn", "pna"):
+        fwd = gcn_forward if cfg.model == "gcn" else pna_forward
+        logits = fwd(cfg, params, batch["feat"], batch["edge_index"]).float()
+        nll = F.cross_entropy(logits, batch["labels"].long(),
+                              reduction="none") * batch["label_mask"]
+        loss = nll.sum() / batch["label_mask"].sum().clamp(min=1.0)
+        return loss, {"nll": loss}
+    energy_fn = egnn_energy if cfg.model == "egnn" else nequip_energy
+    pred = energy_fn(cfg, params, batch["species"], batch["coords"],
+                     batch["edge_index"], batch["graph_ids"],
+                     batch["energy"].shape[0])
+    loss = torch.mean((pred - batch["energy"]) ** 2)
+    return loss, {"mse": loss}

@@ -371,3 +371,58 @@ def test_cuda_lm_loss_step_matches_cpu_and_checkpoints():
     ck = smoke.checkpoint_check({"params": params,
                                  "opt": adamw_init(params)}, dev)
     assert ck["ok"], ck
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gcn-cora", "pna", "egnn", "nequip"])
+def test_cuda_gnn_loss_step_matches_cpu(arch):
+    """One f32 ``gnn_loss`` step at full width and depth on the card
+    against the CPU (``chip_smoke.gnn_loss_check``: GCN and PNA at
+    full_graph_sm, EGNN and NequIP at the molecule shape, in several
+    chunks; the loss and every gradient leaf within ``GRAD_TOL``, PNA's
+    max and min on the card's subgradient; each planted fault outside),
+    through the ``segment_sum_sorted`` kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the check compares it with the CPU")
+    from repro_torch.kernels import reset_launch_counts
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launch_counts()
+    check = smoke.gnn_loss_check(smoke.gnn_config(arch, "full_graph_sm"), 0,
+                                 torch.device("cuda"))
+    assert check["ok"], check
+    assert launch_counts()["segment_sum_sorted"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sum_gradient_is_the_gather():
+    """``segment_sum_sorted`` under autograd on the card: the kernel's
+    forward (one launch), the message gradient equal to the cotangent
+    gathered by dst with zeros for dst outside [0, N), as on the CPU;
+    ``out=`` raises under autograd."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.segment_mp import segment_sum_sorted
+    rng = np.random.default_rng(4)
+    n, E, D = 300, 5000, 75
+    dst = np.sort(rng.integers(-3, n + 3, E)).astype(np.int32)
+    msg = rng.standard_normal((E, D)).astype(np.float32)
+    cot = rng.standard_normal((n, D)).astype(np.float32)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        m = torch.from_numpy(msg).to(dev).requires_grad_()
+        reset_launch_counts()
+        out = segment_sum_sorted(m, _t(dst).to(dev), n)
+        assert launch_counts().get("segment_sum_sorted", 0) == \
+            (dev == "cuda")
+        grads.append(torch.autograd.grad(out, m, torch.from_numpy(cot).to(
+            dev))[0].cpu())
+        with pytest.raises(ValueError, match="out="):
+            segment_sum_sorted(m, _t(dst).to(dev), n,
+                               out=torch.empty((n, D), device=dev))
+    assert torch.equal(grads[0], grads[1])

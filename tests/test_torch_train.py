@@ -2,8 +2,10 @@
 checkpoints, fault tolerance, the train loop and launcher
 (``repro_torch.optim``, ``repro_torch.runtime``,
 ``repro_torch.launch.train``), the matrices of ``tests/test_runtime.py``
-held against the reference where both can take the same inputs; and
-``recsys_loss`` and ``EmbeddingBag`` against the JAX package.
+held against the reference where both can take the same inputs (the
+launcher's LM, recsys and GNN batches equal to the reference's stream, and
+a smoke run of every family); and ``recsys_loss`` and ``EmbeddingBag``
+against the JAX package.
 
 Tolerances (float32): ten AdamW updates within 1e-6 of the reference's;
 EF compression's int8 values and scales equal; checkpoints bit-exact in
@@ -545,7 +547,8 @@ def test_recsys_serving_path_takes_no_gradient():
 
 # -- the launcher -------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "wide-deep"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "wide-deep", "gcn-cora",
+                                  "pna", "egnn", "nequip"])
 def test_launch_train_smoke_on_cpu(arch, tmp_path, capsys):
     res = ltrain.main(["--arch", arch, "--preset", "smoke", "--steps", "12",
                        "--batch", "4", "--device", "cpu", "--ckpt-dir",
@@ -555,6 +558,8 @@ def test_launch_train_smoke_on_cpu(arch, tmp_path, capsys):
     assert [h["step"] for h in res.history] == [0, 10]
     assert all(np.isfinite(h["loss"]) for h in res.history)
     assert latest_step(str(tmp_path / "ck")) == 12
+    if get_spec(arch).family == "gnn":      # one graph, every step
+        assert res.history[-1]["loss"] < res.history[0]["loss"]
 
 
 def test_launch_batches_are_the_reference_stream():
@@ -574,12 +579,22 @@ def test_launch_batches_are_the_reference_stream():
                 assert np.array_equal(got.numpy(), np.asarray(want))
 
 
-def test_launch_gnn_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ltrain.main(["--arch", "gcn-cora", "--device", "cpu"])
-    spec = get_spec("gcn-cora")
-    with pytest.raises(NotImplementedError):
-        ltrain.make_batch_iter(spec, spec.config, 4, device="cpu")
+def test_launch_gnn_batches_are_the_reference_stream():
+    """Each GNN arch's batches equal the reference's ``make_batch_iter``
+    stream (cora_like for GCN and PNA, molecule_batch for EGNN and NequIP,
+    the same graph every step), key by key and dtype by dtype."""
+    for arch in ("gcn-cora", "pna", "egnn", "nequip"):
+        spec, jspec = get_spec(arch), j_get_spec(arch)
+        cfg, jcfg = ltrain.reduce_config(spec), j_reduce(jspec)
+        it = ltrain.make_batch_iter(spec, cfg, 4, seed=5, device="cpu")
+        jit_ = j_make_batch_iter(jspec, jcfg, 4, seed=5)
+        for _ in range(2):
+            got, want = next(it), next(jit_)
+            assert set(got) == set(want)
+            for k in want:
+                w = np.asarray(want[k])
+                assert got[k].numpy().dtype == w.dtype, (arch, k)
+                assert np.array_equal(got[k].numpy(), w), (arch, k)
 
 
 def test_train_entry_points_default_to_cuda():
@@ -587,6 +602,11 @@ def test_train_entry_points_default_to_cuda():
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ltrain.main(["--arch", "wide-deep"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ltrain.main(["--arch", "gcn-cora"])
+    spec = get_spec("pna")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        next(ltrain.make_batch_iter(spec, spec.config, 4))
 
 
 # -- chip_smoke.py's train phase, rehearsed on the CPU ------------------------
