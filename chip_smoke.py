@@ -9,6 +9,8 @@
                                      # recsys and GNN phases alone
     python3 chip_smoke.py --train-only
                                      # the training phase alone
+    python3 chip_smoke.py --cells-only
+                                     # the cells phase alone
 
 1. Builds the CUDA kernels of ``src/repro_torch/csrc`` with ``nvcc``, one
    process per source, all started together.
@@ -117,6 +119,27 @@
    edges/s, peak memory, ``segment_sum_sorted`` launches a step against
    the checkpoints' count, one profiled step each; the backward's gather
    at D = 16 and 75 timed beside its bound and ``index_select``.
+12. The registry's cells (also alone under ``--cells-only``): the cells
+   that fit one H100 run on the card through ``cell.fn`` with arguments
+   drawn from ``--seed``, then all 36 dry-run on the meta device
+   (``repro_torch.launch.dryrun``) in spawned processes, one line each
+   (argument, output and peak GB, GFLOPs, whether the peak fits the
+   card). On the card: gemma2-2b ``long_500k`` uncut (a 524,288-position
+   bf16 cache filled a layer at a time, 4 decode steps at its last
+   positions, timed beside the bytes they must read, and again with the
+   GC's objects frozen and after a profiler session; one global layer's
+   ``decode_attention`` at that shape against the plain version, a lost
+   chunk of keys planted, beside SDPA); qwen3-1.7b ``prefill_32k`` cut
+   to B = 1; gemma2-2b ``train_4k`` cut to B = 4 (3 AdamW steps, the
+   loss falling; ``flash_attention_bwd`` at d = 256 against autograd of
+   the plain version, beside its bound and SDPA's backward); gcn-cora,
+   PNA, EGNN and NequIP at ``minibatch_lg`` uncut (3 steps each on a
+   subgraph the port's sampler draws from a Reddit-sized graph, the
+   padding left out of the loss; every loss and gradient norm finite,
+   the loss falling). Each uncut cell's peak memory within 25% of its
+   dry run's; ``compressed_psum`` on a (1, 1) NCCL mesh equal bit for
+   bit to the dequantized ``ef_compress``, the residual left out
+   failing.
 
 Fails (non-zero exit, no result line) on any mismatch or exception, and
 when CUDA is not available. The last line is
@@ -128,12 +151,15 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -432,14 +458,44 @@ def serve(store, dictionary, texts: list[str], capacity_text: str,
     }
 
 
+def device_events(prof) -> dict[str, list]:
+    """{name: [ms, count]} of the device's kernels, copies and sets in a
+    finished ``torch.profiler`` session, summed from the raw kineto
+    events: ``key_averages()`` first builds the profiler's Python event
+    tree, which cost 23-45 s a profiled GNN training step at 10^5
+    launches."""
+    out: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if (not str(e.device_type()).endswith("CUDA")
+                or e.is_user_annotation()):
+            continue
+        item = out.setdefault(e.name(), [0.0, 0])
+        item[0] += e.duration_ns() / 1e6
+        item[1] += 1
+    return out
+
+
+def key_average_events(prof) -> dict[str, list]:
+    """{name: [ms, count]} of the device's items in a finished
+    ``torch.profiler`` session, read through ``key_averages()`` (each
+    key's ``self_device_time_total`` and ``count``): the reading the
+    profiles took before ``device_events``, kept to compare the two."""
+    return {e.key: [e.self_device_time_total / 1e3, e.count]
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")}
+
+
 def device_profile(fn, track: tuple[str, ...] = (),
-                   cpu: bool = True) -> dict:
+                   cpu: bool = True, compare: bool = False) -> dict:
     """Device time of one ``fn()`` under ``torch.profiler``: the sum over
     kernels and copies, its share of the call's wall time (which the
     profiler itself inflates), the largest items, and [ms, launches] of
     the kernels whose names contain a string of ``track``. ``cpu=False``
     traces the device alone (a long host-bound call's CPU trace would
-    hold millions of events)."""
+    hold millions of events). ``compare`` also reads the session through
+    ``key_averages()`` and adds, under ``"sources"``, the names found by
+    each reading, whether every name's count is equal, and the largest
+    difference of a name's ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -449,17 +505,30 @@ def device_profile(fn, track: tuple[str, ...] = (),
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    items = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
-                    for e in prof.key_averages()
-                    if str(e.device_type).endswith("CUDA")), reverse=True)
+    raw = device_events(prof)
+    items = sorted(((ms, key, n) for key, (ms, n) in raw.items()),
+                   reverse=True)
     device_ms = sum(ms for ms, _, _ in items)
     tracked = {t: [sum(ms for ms, key, _ in items if t in key),
                    sum(n for _, key, n in items if t in key)]
                for t in track}
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "busy_share": device_ms / wall_ms,
-            "top": [[key[:60], ms, n] for ms, key, n in items[:8]],
-            "tracked": tracked}
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "busy_share": device_ms / wall_ms,
+           "top": [[key[:60], ms, n] for ms, key, n in items[:8]],
+           "tracked": tracked}
+    if compare:
+        avg = key_average_events(prof)
+        names = set(raw) | set(avg)
+        missing = [0.0, 0]
+        out["sources"] = {
+            "raw_names": len(raw), "key_averages_names": len(avg),
+            "counts_equal": all(raw.get(k, missing)[1]
+                                == avg.get(k, missing)[1] for k in names),
+            "max_ms_diff": max((abs(raw.get(k, missing)[0]
+                                    - avg.get(k, missing)[0])
+                                for k in names), default=0.0),
+            "key_averages_device_ms": sum(ms for ms, _ in avg.values())}
+    return out
 
 
 def kernel_device_ms(fn, kernel: str, calls: int = 20) -> tuple[float, int]:
@@ -482,11 +551,11 @@ def kernel_device_ms(fn, kernel: str, calls: int = 20) -> tuple[float, int]:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if kernel in e.key
-                and str(e.device_type).endswith("CUDA")]
-        n = sum(e.count for e in hits)
+        hits = [item for key, item in device_events(prof).items()
+                if kernel in key]
+        n = sum(count for _, count in hits)
         if n:
-            return sum(e.self_device_time_total for e in hits) / n / 1e3, n
+            return sum(ms for ms, _ in hits) / n, n
     raise AssertionError(f"the profiler recorded no {kernel} launch in "
                          f"{PROFILE_TRIES} sessions")
 
@@ -2485,15 +2554,11 @@ def _permuted_rel(rel):
 
 
 def gnn_config(arch: str, shape: str):
-    """The registry's config of ``arch`` at GNN shape ``shape``: GCN and
-    PNA take the shape's d_feat (1,433 at full_graph_sm, 100 at
-    ogb_products), as the reference's cells pin it."""
-    from repro_torch.configs.registry import get_spec
-    spec = get_spec(arch)
-    cfg = spec.config
-    if cfg.model in ("gcn", "pna") and "d_feat" in spec.shapes[shape]:
-        cfg = dataclasses.replace(cfg, d_feat=spec.shapes[shape]["d_feat"])
-    return cfg
+    """The registry's config of ``arch`` at GNN shape ``shape``
+    (``gnn_cell_config``): GCN and PNA take the shape's d_feat (1,433 at
+    full_graph_sm, 100 at ogb_products), as the cells pin it."""
+    from repro_torch.configs.registry import get_spec, gnn_cell_config
+    return gnn_cell_config(get_spec(arch).config, shape)[0]
 
 
 def check_shape(cfg) -> str:
@@ -5065,19 +5130,22 @@ def _sdpa_backward(q, k, v, dout):
     return None, None
 
 
-def flash_bwd_row(cfg, launches: dict, hbm: float) -> dict:
-    """``flash_attention_bwd`` at the training step's shape (one layer of
-    ``cfg``: B = TRAIN_BATCH, S = TRAIN_SEQ, bf16, the model's strided
-    layout) against autograd of the plain version on the same card inputs,
+def flash_bwd_row(cfg, launches: dict, hbm: float, B: int = TRAIN_BATCH,
+                  S: int = TRAIN_SEQ, softcap: float = 0.0) -> dict:
+    """``flash_attention_bwd`` at a training step's shape (one layer of
+    ``cfg``: B sequences of S tokens, bf16, the model's strided layout,
+    global attention with ``softcap``) against autograd of the plain
+    version on the same card inputs,
     element by element within ``flash_bwd_bound``, with two planted faults
     (Delta left out; ``late_rows_wrong``) failing it, after the forward
     that feeds it (the output within ``attn_err``'s split bound, the row
     lse within LSE_TOL) is held against the plain version; timed beside
     its bound (2.5x the forward's operations at the bf16
     tensor-core rate, or its bytes), the plain version, SDPA's backward
-    and the SIMT kernel the bf16 route took before (``simt_bwd``, same
-    inputs, ``simt_ms``). A second launch must give the same bits (the
-    kernels take no atomics)."""
+    (no softcap: a timing yardstick where ``softcap`` is set) and, where
+    the tensor cores take the shape, the SIMT kernel the bf16 route took
+    before (``simt_bwd``, same inputs, ``simt_ms``; else None). A second
+    launch must give the same bits (the kernels take no atomics)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (bwd_route,
@@ -5085,17 +5153,17 @@ def flash_bwd_row(cfg, launches: dict, hbm: float) -> dict:
                                                      flash_attention_bwd)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(19)
-    B, S = TRAIN_BATCH, TRAIN_SEQ
     H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, torch.bfloat16, dev)
     dout = torch.randn((B, S, H, d), generator=gen, device=dev,
                        dtype=torch.bfloat16).transpose(1, 2)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    o = flash_attention(q, k, v, lse=lse)
-    shape = f"B={B} H={H} Hkv={Hkv} S={S} d={d} bf16"
-    o_err, o_ratio = attn_err(o, ref.mha_reference(q, k, v),
-                              split_bound(q, k, v))
-    lse_want = ref.mha_lse_reference(q, k)
+    o = flash_attention(q, k, v, softcap=softcap, lse=lse)
+    shape = f"B={B} H={H} Hkv={Hkv} S={S} d={d} softcap={softcap} bf16"
+    o_err, o_ratio = attn_err(
+        o, ref.mha_reference(q, k, v, True, 0, softcap),
+        split_bound(q, k, v, 0, softcap))
+    lse_want = ref.mha_lse_reference(q, k, 0, softcap)
     lse_ratio = float(((lse - lse_want).abs()
                        / (LSE_TOL * lse_want.abs().clamp(min=1.0))).max())
     del lse_want
@@ -5104,10 +5172,11 @@ def flash_bwd_row(cfg, launches: dict, hbm: float) -> dict:
                              f"{o_ratio}x, lse {lse_ratio}x the tolerance")
 
     def kern():
-        return flash_attention_bwd(q, k, v, o, dout, lse)
+        return flash_attention_bwd(q, k, v, o, dout, lse, 0, softcap)
 
     def plain():
-        return ref.flash_attention_backward_reference(q, k, v, dout)
+        return ref.flash_attention_backward_reference(q, k, v, dout, 0,
+                                                      softcap)
 
     want = plain()
     got = kern()
@@ -5115,10 +5184,10 @@ def flash_bwd_row(cfg, launches: dict, hbm: float) -> dict:
     if not same:
         raise AssertionError(f"flash_attention_bwd [{shape}]: two launches "
                              f"on the same inputs differ")
-    bound = flash_bwd_bound(q, k, v, o, dout, want)
+    bound = flash_bwd_bound(q, k, v, o, dout, want, 0, softcap)
     err, ratio = bwd_err(got, want, bound)
     controls = {
-        "delta": bwd_err(flash_bwd_math(q, k, v, o, dout, lse,
+        "delta": bwd_err(flash_bwd_math(q, k, v, o, dout, lse, 0, softcap,
                                         fault="delta"), want, bound)[1],
         "late_rows": bwd_err(late_rows_wrong(got), want, bound)[1]}
     del want, got, bound
@@ -5144,8 +5213,9 @@ def flash_bwd_row(cfg, launches: dict, hbm: float) -> dict:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": time_ms(lib, calls=3, reps=5) if lib else None,
-        "simt_ms": time_ms(lambda: simt_bwd(q, k, v, o, dout, lse),
-                           calls=3, reps=5),
+        "simt_ms": time_ms(
+            lambda: simt_bwd(q, k, v, o, dout, lse, 0, softcap), calls=3,
+            reps=5) if bwd_route(q.dtype, d) == "tc" else None,
     }
     log(f"kernel flash_attention_bwd [{shape}]: kernel_ms={row['ms']} "
         f"(route {bwd_route(q.dtype, d)}, "
@@ -5350,6 +5420,617 @@ def train_phase(args, hbm: float, device) -> tuple[list[dict], dict]:
                   for k, v in got.items() if "/" not in k}
 
 
+# ---------------------------------------------------------------------------
+# the registry's cells (card and dry run)
+# ---------------------------------------------------------------------------
+
+CELL_STEPS = 3               # AdamW steps of each training cell
+LONG_STEPS = 4               # decode steps of long_500k, at its last
+                             # positions
+PEAK_FACTOR = 0.25           # a measured peak within +-25% of the dry run's
+DRY_WORKERS = 7              # processes of the dry run (the card's host has 8
+                             # cores; the main process waits for them)
+# the cells that fit one H100, run through cell.fn: (arch, shape, batch
+# cut to, why); None keeps the cell's batch
+CARD_CELLS = (
+    ("gemma2-2b", "long_500k", None, None),
+    ("qwen3-1.7b", "prefill_32k", 1, "32 sequences' logits are 319 GB"),
+    ("gemma2-2b", "train_4k", 4, "256 sequences' activations and logits "
+                                 "do not fit 80 GB; one a microbatch"),
+    ("gcn-cora", "minibatch_lg", None, None),
+    ("pna", "minibatch_lg", None, None),
+    ("egnn", "minibatch_lg", None, None),
+    ("nequip", "minibatch_lg", None, None),
+)
+# the minibatch_lg cells' parent graph: Reddit's nodes (GraphSAGE's
+# dataset, whose d_feat 602 the shape takes) at its mean out-degree,
+# 114,615,892 edges / 232,965 nodes, each node's neighbours uniform
+REDDIT_NODES = 232_965
+REDDIT_DEGREE = 492
+PSUM_ELEMS = 1 << 26         # floats of the compressed_psum check
+
+
+def _dry_cell(arch: str, shape: str, batch: int | None = None) -> dict:
+    """The dry run's record of one cell (``launch.dryrun.run_cell``), or
+    with ``batch`` the record of the cell cut to that batch (the tokens'
+    leading dims); runs in a worker process, on the meta device."""
+    from repro_torch.launch import dryrun
+    if batch is None:
+        return dryrun.run_cell(arch, shape, log=lambda *_: None)
+    return dryrun.analyze(cut_cell(arch, shape, batch))
+
+
+def cut_cell(arch: str, shape: str, batch: int):
+    """The LM cell ``arch`` x ``shape`` with its tokens cut to ``batch``
+    sequences (a train cell keeps its microbatches)."""
+    import torch
+    from repro_torch.configs.registry import build_cell, get_spec
+    spec = get_spec(arch)
+    cell = build_cell(spec, shape)
+    *rest, tokens = cell.abstract_args
+    shape_ = ((spec.microbatches, batch // spec.microbatches)
+              if tokens.dim() == 3 else (batch,)) + tuple(tokens.shape[-1:])
+    return dataclasses.replace(cell, abstract_args=(*rest, torch.empty(
+        shape_, dtype=tokens.dtype, device="meta")))
+
+
+def start_dry_run(workers: int):
+    """All cells of the registry, and the CARD_CELLS cuts, dry-run in
+    ``workers`` spawned processes, the slowest first (the GNNs at
+    ogb_products' size, then training). Returns (pool, {key: future})."""
+    import concurrent.futures as cf
+    from repro_torch.configs.registry import all_cells
+    jobs = [(a, s, None) for a, s in all_cells()]
+    jobs.sort(key=lambda j: (j[1] != "ogb_products", "train" not in j[1]))
+    jobs += [(a, s, b) for a, s, b, _ in CARD_CELLS if b is not None]
+    pool = cf.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {job: pool.submit(_dry_cell, *job) for job in jobs}
+
+
+def _same_struct(label: str, got, want) -> None:
+    """Real arguments of a cell against its abstract ones, leaf by leaf."""
+    from repro_torch import tree
+    g, w = tree.flatten(got), tree.flatten(want)
+    bad = [(tree.path_key(p), tuple(a.shape), a.dtype, tuple(b.shape),
+            b.dtype) for (p, a), (_, b) in zip(g, w)
+           if a.shape != b.shape or a.dtype != b.dtype]
+    if len(g) != len(w) or bad:
+        raise AssertionError(f"{label}: arguments differ from the cell's: "
+                             f"{len(g)} vs {len(w)} leaves, {bad[:4]}")
+
+
+def all_finite(t) -> bool:
+    """Whether every element of ``t`` is finite, read 2^24 elements at a
+    time (``torch.isfinite`` of a whole 10-GB logits tensor would take
+    twice its size in temporaries)."""
+    import torch
+    flat = t.reshape(-1)
+    return all(bool(torch.isfinite(flat[i:i + (1 << 24)]).all())
+               for i in range(0, flat.numel(), 1 << 24))
+
+
+def _cpu_model() -> str:
+    """The host CPU's model name from ``/proc/cpuinfo``, else its
+    architecture, and its number of cores."""
+    import platform
+    with open("/proc/cpuinfo") as f:
+        name = next((line.split(":", 1)[1].strip() for line in f
+                     if line.startswith("model name")), platform.machine())
+    return f"{name}, {os.cpu_count()} cores"
+
+
+def _cell_peak(base: int) -> int:
+    """Bytes the cell held at its peak: the card's peak since the last
+    reset, less what was allocated before the cell's arguments."""
+    import torch
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def long_decode_cell(seed: int, hbm: float, device) -> dict:
+    """gemma2-2b ``long_500k`` uncut: bf16 weights from ``seed``, the
+    524,288-position cache filled in place a layer at a time
+    (``normal_`` on each bf16 layer: no float32 staging), LONG_STEPS
+    steps of ``cell.fn`` at the cache's last positions, each timed and
+    its logits finite, then one more under the profiler (device time,
+    busy share; the session also read through ``key_averages()``); the
+    step's bound: every weight and the visible cache rows read once at
+    the card's rate. Under ``host``, what the step's host time depends
+    on: the host's CPU, the process's threads, the objects the GC
+    tracks, the load, the host time of a one-element launch (before the
+    steps, after them and after the profiler session), and the steps
+    timed again with the GC's objects frozen and after the profiler
+    session. Then one global
+    layer's ``decode_attention`` at that shape
+    (``long_decode_kernel``)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.registry import build_cell, get_spec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_lm_params
+    dev = torch.device(device)
+    spec = get_spec("gemma2-2b")
+    cfg = spec.config
+    cell = build_cell(spec, "long_500k")
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_lm_params(cfg, gen, device=dev)
+    cache = {k: torch.empty(t.shape, dtype=t.dtype, device=dev)
+             for k, t in cell.abstract_args[1].items()}
+    for layer in range(cfg.n_layers):
+        cache["k"][layer].normal_(generator=gen)
+        cache["v"][layer].normal_(generator=gen)
+    S = cache["k"].shape[2]
+    tokens = [_tokens(seed + i, (1, 1), cfg.vocab, dev).int()
+              for i in range(LONG_STEPS)]
+    pos = [torch.tensor(S - LONG_STEPS + i, dtype=torch.int32, device=dev)
+           for i in range(LONG_STEPS)]
+    args = (params, cache, tokens[0], pos[0])
+    _same_struct("long_500k", args, cell.abstract_args)
+    _reset_peak(dev)
+    reset_launch_counts()
+    finite = True
+
+    def steps() -> list[float]:
+        nonlocal finite, logits
+        ms = []
+        for tok, p in zip(tokens, pos):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            logits, _ = cell.fn(params, cache, tok, p)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            finite &= all_finite(logits)
+        return ms
+
+    def launch_us() -> float:
+        return host_us_per_call(lambda: pos[0].add(1), 500)
+
+    logits = None
+    host = {"cpu": _cpu_model(), "threads": threading.active_count(),
+            "gc_objects": len(gc.get_objects()),
+            "loadavg_1min": os.getloadavg()[0], "launch_us": [launch_us()]}
+    ms = steps()
+    peak = _cell_peak(base)
+    launches = launch_counts()
+    host["launch_us"].append(launch_us())
+    gc.freeze()                 # the host's state, taken apart: the GC,
+    try:                        # then a profiler session before
+        host["step_ms_gc_frozen"] = steps()
+    finally:
+        gc.unfreeze()
+    prof = device_profile(lambda: cell.fn(params, cache, tokens[-1],
+                                          pos[-1]), ("decode_tc", "gemv",
+                                                     "gemm", "nvjet"),
+                          compare=True)
+    host["launch_us"].append(launch_us())
+    host["step_ms_after_profile"] = steps()
+    weights = sum(t.nbytes for t in tree.leaves(params))
+    windows = cfg.layer_windows()
+    row_bytes = 2 * cfg.n_kv_heads * cfg.d_head * 2          # K and V
+    kv = sum(min(S, int(w)) if w else S for w in windows) * row_bytes
+    out = {"S": S, "positions": [S - LONG_STEPS, S - 1], "step_ms": ms,
+           "median_ms": statistics.median(ms[1:]),
+           "bound_ms": (weights + kv) / hbm * 1e3, "bound_by": "bytes",
+           "weight_bytes": weights, "cache_bytes_read": kv,
+           "finite": finite, "peak_bytes": peak,
+           "args_bytes": sum(t.nbytes for t in tree.leaves(args)),
+           "launches": launches, "host": host, "profile": prof}
+    out["kernel"] = long_decode_kernel(cfg, cache, int(windows.argmin()),
+                                       hbm, gen)
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_decode_kernel(cfg, cache: dict, layer: int, hbm: float,
+                       gen) -> dict:
+    """``decode_attention`` at one global layer of the long_500k cache
+    (all S positions visible, gemma2's softcap) against the plain
+    version; the planted fault leaves out the kernel's first chunk of
+    keys (a lost chunk in the merge) and must fail; timed beside its
+    bound (the layer's K and V read once), the plain version and SDPA
+    (which has no softcap: a timing yardstick only)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      split_plan)
+    k = cache["k"][layer].transpose(1, 2)            # [1, Hkv, S, d]
+    v = cache["v"][layer].transpose(1, 2)
+    B, Hkv, S, d = k.shape
+    H = cfg.n_heads
+    q = torch.randn((B, H, d), generator=gen, device=k.device,
+                    dtype=k.dtype)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=k.device)
+    cap = cfg.attn_softcap or 0.0
+    chunk, n_split = split_plan(B, Hkv, S, d)
+
+    def kern():
+        return decode_attention(q, k, v, lengths, 0, cap)
+
+    def plain():
+        return ref.decode_reference(q, k, v, lengths, 0, cap)
+
+    want = plain()
+    err, ratio = attn_err(kern(), want)
+    control = attn_err(ref.decode_reference(q, k, v, lengths, S - chunk,
+                                            cap), want)[1]
+    del want
+    torch.cuda.empty_cache()
+    if not ratio <= 1.0:
+        raise AssertionError(f"decode_attention at S={S}: {ratio}x the "
+                             f"tolerance (max abs err {err})")
+    if not control > 1.0:
+        raise AssertionError(f"decode_attention at S={S}: a lost chunk is "
+                             f"within tolerance ({control}x)")
+    nbytes = 2 * (2 * B * Hkv * S * d + 2 * B * H * d)
+    flops = 4 * B * H * d * S
+    t_bytes, t_ops = nbytes / hbm * 1e3, flops / BF16_OPS_PER_S * 1e3
+    lib, how = _sdpa(q[:, :, None], k, v, False)
+    out = {"shape": f"B={B} H={H} Hkv={Hkv} S={S} d={d} softcap={cap} "
+                    f"bf16", "chunk": chunk, "n_split": n_split,
+           "max_abs_err": err, "tolerance_ratio": ratio,
+           "planted_ratio": control, "ms": time_ms(kern, calls=5, reps=7),
+           "plain_ms": time_ms(plain, calls=1, reps=1),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": time_ms(lib, calls=5, reps=7) if lib else None,
+           "library": how}
+    del q, k, v, lib
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefill_cell(seed: int, batch: int, device) -> dict:
+    """qwen3-1.7b ``prefill_32k`` cut to ``batch`` sequences: bf16
+    weights from ``seed``, ``cell.fn`` twice (the first warms up), the
+    second timed, logits finite."""
+    import torch
+    from repro_torch.configs.registry import get_spec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_lm_params
+    dev = torch.device(device)
+    cfg = get_spec("qwen3-1.7b").config
+    cell = cut_cell("qwen3-1.7b", "prefill_32k", batch)
+    base = torch.cuda.memory_allocated()
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    S = cell.abstract_args[1].shape[1]
+    tokens = _tokens(seed, (batch, S), cfg.vocab, dev).int()
+    _same_struct("prefill_32k", (params, tokens), cell.abstract_args)
+    _reset_peak(dev)
+    logits = cell.fn(params, tokens)
+    del logits
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = cell.fn(params, tokens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"B": batch, "S": S, "ms": ms, "tokens_per_s": batch * S / ms * 1e3,
+           "peak_bytes": _cell_peak(base), "finite": all_finite(logits),
+           "launches": launch_counts()}
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_cell(seed: int, batch: int, hbm: float, device) -> dict:
+    """gemma2-2b ``train_4k`` cut to ``batch`` sequences (its 4
+    microbatches kept, so one sequence a microbatch at S = 4,096): bf16
+    weights from ``seed`` and AdamW state at the schedule's warm-up end
+    (zero moments, step ``warmup_steps``: at the warm-up's first rates,
+    3e-6 to 9e-6, a bf16 weight of 0.02 does not move), CELL_STEPS
+    steps of ``cell.fn`` on one batch, the loss finite and falling. Then
+    ``flash_attention_bwd`` at one microbatch's layer shape (d = 256, the
+    SIMT route; ``flash_bwd_row``)."""
+    import torch
+    from repro_torch.configs.registry import _opt_cfg, get_spec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.optim.adamw import adamw_init
+    dev = torch.device(device)
+    spec = get_spec("gemma2-2b")
+    cfg = spec.config
+    cell = cut_cell("gemma2-2b", "train_4k", batch)
+    base = torch.cuda.memory_allocated()
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    opt = adamw_init(params)
+    opt["step"].fill_(_opt_cfg().warmup_steps)
+    tokens = _tokens(seed, tuple(cell.abstract_args[2].shape), cfg.vocab,
+                     dev).int()
+    _same_struct("train_4k", (params, opt, tokens), cell.abstract_args)
+    _reset_peak(dev)
+    reset_launch_counts()
+    losses, ms = [], []
+    for _ in range(CELL_STEPS):
+        t0 = time.perf_counter()
+        params, opt, metrics = cell.fn(params, opt, tokens)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    S = tokens.shape[-1]
+    out = {"B": batch, "S": S, "microbatches": spec.microbatches,
+           "losses": losses, "step_ms": ms,
+           "median_ms": statistics.median(ms),
+           "tokens_per_s": batch * S / (statistics.median(ms) / 1e3),
+           "peak_bytes": _cell_peak(base), "launches": launch_counts(),
+           "ok": (all(math.isfinite(x) for x in losses)
+                  and losses[-1] < losses[0])}
+    del params, opt, metrics
+    torch.cuda.empty_cache()
+    out["bwd"] = flash_bwd_row(cfg, out["launches"], hbm,
+                               B=batch // spec.microbatches, S=S,
+                               softcap=cfg.attn_softcap or 0.0)
+    return out
+
+
+def reddit_like(seed: int):
+    """The minibatch_lg cells' parent graph: REDDIT_NODES nodes of
+    REDDIT_DEGREE out-neighbours each, drawn uniformly among the other
+    nodes (int32, no self-loop), as a ``CSRGraph``."""
+    from repro_torch.data.graphs import CSRGraph
+    rng = np.random.default_rng(seed)
+    n = REDDIT_NODES
+    indices = rng.integers(0, n - 1, n * REDDIT_DEGREE, dtype=np.int32)
+    indices += indices >= np.repeat(np.arange(n, dtype=np.int32),
+                                    REDDIT_DEGREE)
+    return CSRGraph(indptr=np.arange(n + 1, dtype=np.int64) * REDDIT_DEGREE,
+                    indices=indices, n_nodes=n)
+
+
+def minibatch(parent, seed: int) -> dict:
+    """One ``minibatch_lg`` subgraph of ``parent``: GNN_SHAPES' seeds and
+    fanout through ``sample_neighbors`` (destinations come out sorted),
+    padded by ``pad_subgraph`` to its node and edge counts (``_pad_to``'s
+    multiples of 512, as the cells take them)."""
+    from repro_torch.configs.registry import GNN_SHAPES, _pad_to
+    from repro_torch.data.graphs import pad_subgraph, sample_neighbors
+    sh = GNN_SHAPES["minibatch_lg"]
+    rng = np.random.default_rng(seed)
+    seeds = rng.choice(parent.n_nodes, sh["batch_nodes"], replace=False)
+    sub = sample_neighbors(parent, seeds, list(sh["fanout"]), rng)
+    padded = pad_subgraph(sub, _pad_to(sh["n_nodes"]),
+                          _pad_to(sh["n_edges"]))
+    padded["real"] = (len(sub["nodes"]), len(sub["edge_index"]))
+    return padded
+
+
+def minibatch_batch(cfg, sub: dict, d_feat: int, seed: int, device) -> dict:
+    """``gnn_loss``'s batch of ``_gnn_batch_struct``'s keys on the sampled
+    subgraph: GCN and PNA features [N, d_feat] and labels drawn from
+    ``seed``, the seeds labelled; EGNN and NequIP species, coordinates
+    (N(0, 1.5), as ``molecule_batch``), one graph of the real nodes and
+    its energy: one per-atom energy drawn N(0, 1) times the real nodes'
+    count (a total energy is extensive; ``molecule_batch``'s N(0, 1) a
+    graph, for 10^5 atoms, lies within a few of AdamW's warm-up steps of
+    the summed prediction, which then overshoots it). The padding nodes
+    get graph id 1 (= G, out of range, so the energy leaves them out, as
+    ``label_mask`` does for GCN and PNA), and for EGNN and NequIP the
+    padding edges run from the second-last node to the last instead of
+    being ``pad_subgraph``'s self-loops: at a self-loop EGNN's ``rel /
+    (sqrt(d2) + 1)`` has d2 = 0 and its gradient is 0 times inf, NaN, in
+    the reference as in the port. A real self-loop raises."""
+    import torch
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = len(sub["nodes"])
+    edges = sub["edge_index"]
+    if cfg.model in ("gcn", "pna"):
+        mask = torch.zeros(n, device=dev)
+        mask[:sub["seed_count"]] = 1.0
+        batch = {"feat": torch.randn((n, d_feat), generator=gen, device=dev),
+                 "labels": torch.randint(0, cfg.n_classes, (n,),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32),
+                 "label_mask": mask}
+    else:
+        real = sub["edge_mask"] > 0
+        if (sub["node_mask"][-2:] > 0).any() or (
+                edges[real, 0] == edges[real, 1]).any():
+            raise ValueError("minibatch: a real self-loop, or fewer than "
+                             "two padding nodes")
+        edges = edges.copy()
+        edges[~real, 0] = n - 2
+        batch = {"species": torch.randint(0, cfg.n_species, (n,),
+                                          generator=gen, device=dev,
+                                          dtype=torch.int32),
+                 "coords": torch.randn((n, 3), generator=gen,
+                                       device=dev) * 1.5,
+                 "graph_ids": torch.from_numpy(
+                     (sub["node_mask"] == 0).astype(np.int32)).to(dev),
+                 "energy": torch.randn(1, generator=gen, device=dev)
+                 * float(sub["node_mask"].sum())}
+    batch["edge_index"] = torch.from_numpy(edges).to(dev)
+    return batch
+
+
+def gnn_cell(arch: str, sub: dict, seed: int, device) -> dict:
+    """``arch`` at ``minibatch_lg`` uncut: f32 weights from ``seed`` and
+    ``adamw_init``'s state, the batch of ``minibatch_batch``, CELL_STEPS
+    steps of ``cell.fn``. ok: every loss and gradient norm finite, and
+    the loss falling."""
+    import torch
+    from repro_torch.configs.registry import (build_cell, get_spec,
+                                              gnn_cell_config)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.gnn import gnn_init
+    from repro_torch.optim.adamw import adamw_init
+    dev = torch.device(device)
+    spec = get_spec(arch)
+    cfg, sh = gnn_cell_config(spec.config, "minibatch_lg")
+    cell = build_cell(spec, "minibatch_lg")
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    params = gnn_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                      dev)
+    opt = adamw_init(params)
+    batch = minibatch_batch(cfg, sub, sh["d_feat"], seed, dev)
+    _same_struct(f"{arch} minibatch_lg", (params, opt, batch),
+                 cell.abstract_args)
+    _reset_peak(dev)
+    reset_launch_counts()
+    losses, norms, ms = [], [], []
+    for _ in range(CELL_STEPS):
+        t0 = time.perf_counter()
+        params, opt, metrics = cell.fn(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ok = (all(math.isfinite(x) for x in losses + norms)
+          and losses[-1] < losses[0])
+    out = {"model": cfg.name, "nodes": [len(sub["nodes"]), sub["real"][0]],
+           "edges": [len(sub["edge_index"]), sub["real"][1]],
+           "losses": losses, "grad_norms": norms, "step_ms": ms,
+           "median_ms": statistics.median(ms),
+           "peak_bytes": _cell_peak(base) if dev.type == "cuda" else None,
+           "launches": launch_counts(), "ok": ok}
+    del params, opt, batch, metrics
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def psum_check(seed: int, device) -> dict:
+    """``compressed_psum`` over the data axis of a (1, 1) mesh (NCCL on
+    the card, a world of one): on PSUM_ELEMS seeded floats and a
+    residual, equal bit for bit to ``dequantize_int8`` of ``ef_compress``
+    and its residual; the planted fault (the residual left out) must
+    differ. The process group is destroyed after."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_compat_mesh
+    from repro_torch.optim.compression import (compressed_psum,
+                                               dequantize_int8, ef_compress)
+    dev = torch.device(device)
+    mesh = make_compat_mesh((1, 1), ("data", "model"), dev)
+    try:
+        group = mesh.get_group("data")
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(PSUM_ELEMS, generator=gen, device=dev)
+        r = torch.randn(PSUM_ELEMS, generator=gen, device=dev) * 0.01
+        got, res = compressed_psum(x, r, group)
+        q, scale, want_res = ef_compress(x, r)
+        exact = (torch.equal(got, dequantize_int8(q, scale))
+                 and torch.equal(res, want_res))
+        planted = torch.equal(compressed_psum(x, torch.zeros_like(r),
+                                              group)[0],
+                              dequantize_int8(q, scale))
+        ms = (time_ms(lambda: compressed_psum(x, r, group), calls=3, reps=5)
+              if dev.type == "cuda" else None)
+        out = {"elements": PSUM_ELEMS, "backend": dist.get_backend(),
+               "mesh": list(mesh.shape), "exact": exact,
+               "planted_equal": planted, "ms": ms}
+    finally:
+        dist.destroy_process_group()
+    if not exact or planted:
+        raise AssertionError(f"compressed_psum: {out}")
+    return out
+
+
+def cells_phase(args, hbm: float, device) -> dict:
+    """The registry's cells: every cell dry-run on the meta device in
+    DRY_WORKERS processes (one line each: argument, output and peak GB,
+    GFLOPs, whether the peak fits the card), after the CARD_CELLS have
+    run on the card through ``cell.fn`` on a quiet host;
+    each uncut cell's measured peak within PEAK_FACTOR of its dry run's,
+    each cut cell's beside the dry run of its cut; ``compressed_psum`` on
+    NCCL. Returns the launches of every kernel over the card cells."""
+    import torch
+    from repro_torch.configs.registry import get_spec
+    gpu = gpu_line()
+    total = torch.cuda.mem_get_info(device)[1]
+    runs: dict = {}
+    t0 = time.perf_counter()
+    runs[CARD_CELLS[0][:2]] = long_decode_cell(args.seed, hbm, device)
+    runs[CARD_CELLS[1][:2]] = prefill_cell(args.seed, CARD_CELLS[1][2],
+                                           device)
+    runs[CARD_CELLS[2][:2]] = lm_train_cell(args.seed, CARD_CELLS[2][2],
+                                            hbm, device)
+    parent = reddit_like(args.seed)
+    sub = minibatch(parent, args.seed)
+    del parent
+    for arch, shape, _, _ in CARD_CELLS[3:]:
+        runs[arch, shape] = gnn_cell(arch, sub, args.seed, device)
+    psum = psum_check(args.seed, device)
+    log(f"cells on the card ({time.perf_counter() - t0:.1f} s)")
+    # the dry run after the timed cells: its processes load the host
+    t0 = time.perf_counter()
+    pool, futures = start_dry_run(DRY_WORKERS)
+    try:
+        records = {job: f.result() for job, f in futures.items()}
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    log(f"cells dry run of {len(records)} cells and cuts "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    failed = []
+    for (arch, shape, cut), rec in records.items():
+        if cut is not None:
+            continue
+        if not rec["ok"]:
+            failed.append(f"{arch} {shape}: {rec['error']}")
+            log(f"cells dry {arch} {shape}: FAIL {rec['error']}")
+            continue
+        plan = rec.get("chunk_plan")
+        log(f"cells dry {arch} {shape} ({rec['description']}): argument "
+            f"{rec['argument_bytes'] / 1e9} GB, output "
+            f"{rec['output_bytes'] / 1e9} GB, peak {rec['peak_bytes'] / 1e9}"
+            f" GB (fits {total / 1e9} GB: {rec['peak_bytes'] <= total}), "
+            f"{rec['flops'] / 1e9} GFLOPs {json.dumps(rec['flops_by'])}"
+            f"{f', {plan} chunks' if plan else ''} in {rec['seconds']} s")
+    if failed:
+        raise AssertionError(f"cells: dry run failed: {failed}")
+
+    launches: dict[str, int] = {}
+    for arch, shape, cut, why in CARD_CELLS:
+        run = runs[arch, shape]
+        rec = records[arch, shape, cut]
+        pred = rec["peak_bytes"]
+        ratio = run["peak_bytes"] / pred
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        shown = {k: v for k, v in run.items()
+                 if k not in ("kernel", "bwd", "profile")}
+        log(f"cells card {arch} {shape}"
+            f"{f' cut to B={cut} ({why})' if cut else ' uncut'} on {gpu}: "
+            f"{json.dumps(shown)}; measured peak / dry run's "
+            f"{run['peak_bytes']} / {pred} = {ratio}")
+        if cut is None and not abs(ratio - 1) <= PEAK_FACTOR:
+            raise AssertionError(f"cells {arch} {shape}: measured peak "
+                                 f"{run['peak_bytes']} vs the dry run's "
+                                 f"{pred} ({ratio}x)")
+    long_, pre, train = (runs[c[:2]] for c in CARD_CELLS[:3])
+    log(f"cells gemma2-2b long_500k profile (one step): "
+        f"{json.dumps(long_['profile'])}")
+    log(f"cells decode_attention at long_500k's global layer on {gpu}: "
+        f"{json.dumps(long_['kernel'])}")
+    gemma = get_spec("gemma2-2b")
+    L, mb = gemma.config.n_layers, gemma.microbatches
+    checks = {
+        "long_500k finite logits": long_["finite"],
+        "long_500k decode_attention launches": long_["launches"].get(
+            "decode_attention", 0) == LONG_STEPS * L,
+        "prefill finite logits": pre["finite"],
+        "prefill flash_attention launches": pre["launches"].get(
+            "flash_attention", 0) == get_spec("qwen3-1.7b").config.n_layers,
+        "train_4k loss finite and falling": train["ok"],
+        "train_4k flash_attention_bwd/simt launches": train["launches"].get(
+            "flash_attention_bwd/simt", 0) == CELL_STEPS * mb * L,
+    }
+    for arch, shape, _, _ in CARD_CELLS[3:]:
+        run = runs[arch, shape]
+        checks[f"{arch} loss finite and falling"] = run["ok"]
+        checks[f"{arch} segment_sum_sorted launched"] = run["launches"].get(
+            "segment_sum_sorted", 0) > 0
+    log(f"cells compressed_psum on {gpu}: {json.dumps(psum)}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"cells: {bad}")
+    return launches
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5401,6 +6082,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="the training phase alone (a short run after a "
                          "backward kernel edit)")
+    ap.add_argument("--cells-only", action="store_true",
+                    help="the cells phase alone (the registry's cells: "
+                         "the dry run, the cells that fit the card, "
+                         "compressed_psum)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LM, MoE, recsys and GNN phases' "
                          "weights and inputs")
@@ -5408,10 +6093,12 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--decode-cache", type=int, default=32768)
     ap.add_argument("--decode-steps", type=int, default=64)
     args = ap.parse_args(argv)
-    if sum((args.lm_only, args.sparse_only, args.train_only)) > 1:
-        ap.error("--lm-only, --sparse-only and --train-only exclude each "
-                 "other")
-    only = args.lm_only or args.sparse_only or args.train_only
+    if sum((args.lm_only, args.sparse_only, args.train_only,
+            args.cells_only)) > 1:
+        ap.error("--lm-only, --sparse-only, --train-only and --cells-only "
+                 "exclude each other")
+    only = (args.lm_only or args.sparse_only or args.train_only
+            or args.cells_only)
 
     import torch
     if not torch.cuda.is_available():
@@ -5464,7 +6151,7 @@ def main(argv: list[str] | None = None) -> int:
         del full
         torch.cuda.empty_cache()
 
-    if not (args.sparse_only or args.train_only):
+    if not (args.sparse_only or args.train_only or args.cells_only):
         t0 = time.perf_counter()
         rows += lm_phase(args, hbm, dev)
         log(f"lm phase {time.perf_counter() - t0:.1f} s")
@@ -5476,7 +6163,7 @@ def main(argv: list[str] | None = None) -> int:
                                        for arch, got in moe.items()}
         log(f"moe phase {time.perf_counter() - t0:.1f} s")
 
-    if not (args.lm_only or args.train_only):
+    if not (args.lm_only or args.train_only or args.cells_only):
         t0 = time.perf_counter()
         cases = check_sparse_cases(dev)
         log(f"sparse edge cases within SUM_GROWTH {SUM_GROWTH} and rtol "
@@ -5488,7 +6175,7 @@ def main(argv: list[str] | None = None) -> int:
         rows += gnn_phase(args, hbm, dev)
         log(f"gnn phase {time.perf_counter() - t0:.1f} s")
 
-    if not (args.lm_only or args.sparse_only):
+    if not (args.lm_only or args.sparse_only or args.cells_only):
         t0 = time.perf_counter()
         train_rows, train_launches = train_phase(args, hbm, dev)
         for row in rows:     # the forward kernels' launches in those steps
@@ -5498,6 +6185,14 @@ def main(argv: list[str] | None = None) -> int:
                                                                0))
         rows += train_rows
         log(f"train phase {time.perf_counter() - t0:.1f} s")
+
+    if not (args.lm_only or args.sparse_only or args.train_only):
+        t0 = time.perf_counter()
+        cell_launches = cells_phase(args, hbm, dev)
+        for row in rows:     # the kernels' launches in the card cells
+            if row["name"] in cell_launches:
+                row["cells_launches"] = int(cell_launches[row["name"]])
+        log(f"cells phase {time.perf_counter() - t0:.1f} s")
 
     if not only:
         # the paper's system on the SPARQL phases' stores, last: its long

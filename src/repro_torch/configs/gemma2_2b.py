@@ -21,4 +21,5 @@ def spec() -> ArchSpec:
         scale_embed=True, act="gelu", tie_embeddings=True,
     )
     return ArchSpec(arch_id="gemma2-2b", family="lm", config=cfg,
-                    source="arXiv:2408.00118")
+                    source="arXiv:2408.00118",
+                    microbatches=4)

@@ -19,4 +19,5 @@ def spec() -> ArchSpec:
         arch_id="phi3.5-moe-42b-a6.6b", family="lm", config=cfg,
         skip_shapes={"long_500k": "pure full-attention arch; 512k decode "
                                   "requires sub-quadratic attention state"},
-        source="hf:microsoft/Phi-3.5-MoE-instruct")
+        source="hf:microsoft/Phi-3.5-MoE-instruct",
+        microbatches=4)

@@ -19,4 +19,5 @@ def spec() -> ArchSpec:
         arch_id="qwen3-1.7b", family="lm", config=cfg,
         skip_shapes={"long_500k": "pure full-attention arch; 512k decode "
                                   "requires sub-quadratic attention state"},
-        source="hf:Qwen/Qwen3-8B")
+        source="hf:Qwen/Qwen3-8B",
+        microbatches=2)

@@ -1,17 +1,39 @@
-"""Architecture lookup and serving shapes (port of the registry's archs
-and shape tables, ``repro/configs/registry.py``).
+"""Architecture registry (port of ``repro/configs/registry.py``): 10
+archs x their shape grids, and the *cells* built from them.
 
 Each arch module exposes ``spec() -> ArchSpec``. The port serves all ten
 of the reference's archs: the dense and MoE LMs (qwen3, gemma2,
 granite-moe, phi3.5-moe), the GNNs (PNA, EGNN, GCN, NequIP) and
-Wide&Deep. The JAX registry's cell construction (abstract inputs and
-shardings for the TPU dry run) is not ported (ROADMAP Queue 1 item 8).
+Wide&Deep. A cell is an (arch x shape) unit: the port's step function and
+its abstract arguments, tensors on the ``meta`` device (shapes and
+dtypes, no storage) in the reference's tree order, consumed by the dry
+run (:mod:`repro_torch.launch.dryrun`) and by ``chip_smoke.py``'s cells
+phase, which makes real arguments of the same shapes.
+
+Where the port differs: a :class:`Cell` has no shardings, since the
+port's models have no sharded paths yet, so :func:`build_cell` takes no
+mesh but ``None`` or a one-device mesh. It has no ``probe`` either: the
+reference's single-layer probe corrects XLA's cost analysis, which counts
+a scan body once (``repro/launch/dryrun.py``); the port runs eagerly, and
+its counters see every layer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from dataclasses import dataclass, field
+from typing import Callable
+
+import torch
+
+from ..models.gnn import GNNConfig, gnn_init, gnn_loss
+from ..models.recsys import (RecsysConfig, init_recsys_params, recsys_loss,
+                             recsys_score, retrieval_topk)
+from ..models.transformer import (LMConfig, init_kv_cache, init_lm_params,
+                                  lm_decode_step, lm_forward, lm_loss)
+from ..optim.adamw import AdamWConfig, adamw_init
+from ..runtime.train_loop import make_train_step
 
 ARCH_IDS = [
     "phi3.5-moe-42b-a6.6b", "granite-moe-1b-a400m", "qwen3-0.6b",
@@ -66,6 +88,7 @@ class ArchSpec:
     config: object
     skip_shapes: dict[str, str] = field(default_factory=dict)
     source: str = ""
+    microbatches: int = 1            # grad-accumulation factor for train cells
 
     @property
     def shapes(self) -> dict:
@@ -81,3 +104,179 @@ def get_spec(arch_id: str) -> ArchSpec:
     mod = importlib.import_module(
         f"repro_torch.configs.{_MODULE_OF[arch_id]}")
     return mod.spec()
+
+
+def all_cells() -> list[tuple[str, str]]:
+    cells = []
+    for a in ARCH_IDS:
+        s = get_spec(a)
+        cells.extend((a, shape) for shape in s.shapes)
+    return cells
+
+
+def skipped_cells() -> list[tuple[str, str, str]]:
+    out = []
+    for a in ARCH_IDS:
+        s = get_spec(a)
+        out.extend((a, shape, why) for shape, why in s.skip_shapes.items())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# cell construction (the dry run and the chip script's cells phase)
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+@dataclass
+class Cell:
+    fn: Callable                # the port's step
+    abstract_args: tuple        # meta tensors (params, opt, batch, ...)
+    description: str = ""
+    # grad-accumulation factor (== microbatches), as the reference's
+    # roofline totals scale by it
+    cost_multiplier: int = 1
+
+
+def _pad_to(n: int, m: int = 512) -> int:
+    """The reference pipeline's padding: leading dims divisible by the
+    batch-axis product of its meshes (the shapes stay the reference's)."""
+    return ((n + m - 1) // m) * m
+
+
+def _opt_cfg() -> AdamWConfig:
+    return AdamWConfig(peak_lr=3e-4, warmup_steps=100, total_steps=10_000)
+
+
+def _meta(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def build_cell(spec: ArchSpec, shape_name: str, mesh=None) -> Cell:
+    """The cell of ``spec`` at ``shape_name``. ``mesh``: ``None`` or a
+    mesh of one device (:mod:`repro_torch.launch.mesh`); a larger mesh
+    raises ``ValueError``, as the port's models have no sharded paths."""
+    if mesh is not None and mesh.size() != 1:
+        raise ValueError(f"the port's cells run on one device; got a mesh "
+                         f"of {mesh.size()}")
+    if spec.family == "lm":
+        return _lm_cell(spec, shape_name)
+    if spec.family == "gnn":
+        return _gnn_cell(spec, shape_name)
+    return _recsys_cell(spec, shape_name)
+
+
+# -- LM ----------------------------------------------------------------------
+
+def _lm_cell(spec: ArchSpec, shape_name: str) -> Cell:
+    cfg: LMConfig = spec.config
+    sh = LM_SHAPES[shape_name]
+    B, S = sh["batch"], sh["seq"]
+    params = init_lm_params(cfg, torch.Generator(), device=META)
+
+    if sh["kind"] == "train":
+        mb = spec.microbatches
+        step = make_train_step(lambda p, t: lm_loss(cfg, p, t), _opt_cfg(),
+                               microbatches=mb)
+        tokens = _meta((mb, B // mb, S) if mb > 1 else (B, S), torch.int32)
+        return Cell(fn=step, abstract_args=(params, adamw_init(params),
+                                            tokens),
+                    description=f"train_step B={B} S={S} mb={mb}",
+                    cost_multiplier=mb)
+
+    if sh["kind"] == "prefill":
+        def fwd(params, tokens):
+            return lm_forward(cfg, params, tokens)[0]
+        return Cell(fn=fwd, abstract_args=(params, _meta((B, S),
+                                                         torch.int32)),
+                    description=f"prefill B={B} S={S}")
+
+    def decode(params, cache, tokens, pos):
+        return lm_decode_step(cfg, params, cache, tokens, pos)
+
+    cache = init_kv_cache(cfg, B, S, device=META)
+    return Cell(fn=decode,
+                abstract_args=(params, cache, _meta((B, 1), torch.int32),
+                               _meta((), torch.int32)),
+                description=f"serve_step B={B} cache={S}")
+
+
+# -- GNN ----------------------------------------------------------------------
+
+def _gnn_batch_struct(cfg: GNNConfig, sh: dict) -> dict:
+    """The batch of a GNN cell, meta tensors with the reference's keys."""
+    if sh["kind"] == "molecule":
+        N = sh["n_graphs"] * sh["nodes_per"]
+        E = sh["n_graphs"] * sh["edges_per"]
+        G = sh["n_graphs"]
+    else:
+        N, E, G = sh["n_nodes"], sh["n_edges"], 1
+    N, E = _pad_to(N), _pad_to(E)   # pipeline pads to shardable sizes
+    ei = _meta((E, 2), torch.int32)
+    if cfg.model in ("gcn", "pna"):
+        d_feat = sh.get("d_feat", cfg.d_feat)
+        return {
+            "feat": _meta((N, d_feat), torch.float32),
+            "edge_index": ei,
+            "labels": _meta((N,), torch.int32),
+            "label_mask": _meta((N,), torch.float32),
+        }
+    return {
+        "species": _meta((N,), torch.int32),
+        "coords": _meta((N, 3), torch.float32),
+        "edge_index": ei,
+        "graph_ids": _meta((N,), torch.int32),
+        "energy": _meta((G,), torch.float32),
+    }
+
+
+def gnn_cell_config(cfg: GNNConfig, shape_name: str) -> tuple[GNNConfig,
+                                                              dict]:
+    """(the config a GNN cell trains, its shape): GCN and PNA take the
+    shape's d_feat (one-hot species at the molecule shape)."""
+    sh = dict(GNN_SHAPES[shape_name])
+    if cfg.model in ("gcn", "pna") and sh["kind"] == "molecule":
+        sh["d_feat"] = cfg.n_species      # one-hot species as features
+    if cfg.model in ("gcn", "pna"):
+        cfg = dataclasses.replace(cfg, d_feat=sh.get("d_feat", cfg.d_feat))
+    return cfg, sh
+
+
+def _gnn_cell(spec: ArchSpec, shape_name: str) -> Cell:
+    dcfg, sh = gnn_cell_config(spec.config, shape_name)
+    params = gnn_init(dcfg, torch.Generator(), device=META)
+    step = make_train_step(lambda p, b: gnn_loss(dcfg, p, b), _opt_cfg())
+    return Cell(fn=step, abstract_args=(params, adamw_init(params),
+                                        _gnn_batch_struct(dcfg, sh)),
+                description=f"gnn train {shape_name}")
+
+
+# -- recsys ------------------------------------------------------------------
+
+def _recsys_cell(spec: ArchSpec, shape_name: str) -> Cell:
+    cfg: RecsysConfig = spec.config
+    sh = RECSYS_SHAPES[shape_name]
+    B = sh["batch"]
+    params = init_recsys_params(cfg, torch.Generator(), device=META)
+    bag = (B, cfg.n_sparse, cfg.nnz_per_field)
+    batch = {"ids": _meta(bag, torch.int32),
+             "id_mask": _meta(bag, torch.float32),
+             "dense": _meta((B, cfg.n_dense), torch.float32)}
+    if sh["kind"] == "train":
+        batch["labels"] = _meta((B,), torch.float32)
+        step = make_train_step(lambda p, b: recsys_loss(cfg, p, b),
+                               _opt_cfg())
+        return Cell(fn=step, abstract_args=(params, adamw_init(params),
+                                            batch),
+                    description=f"recsys train B={B}")
+    if sh["kind"] == "score":
+        def fn(params, batch):
+            return recsys_score(cfg, params, batch)
+        return Cell(fn=fn, abstract_args=(params, batch),
+                    description=f"recsys score B={B}")
+
+    def fn(params, batch):
+        return retrieval_topk(cfg, params, batch, k=100)
+    return Cell(fn=fn, abstract_args=(params, batch),
+                description=f"retrieval B={B} C={cfg.n_candidates}")

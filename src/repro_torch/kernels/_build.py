@@ -19,7 +19,10 @@ package.
 
 Each launch goes through :func:`launch`, which raises on a non-zero CUDA
 status and adds one to that kernel's launch count — the count a run reads
-to show that its main path went through the kernels.
+to show that its main path went through the kernels. On the ``meta``
+device (the dry run) a wrapper launches nothing: it returns meta tensors
+of its outputs and workspaces and reports the kernel's operation count to
+:func:`tally`, which the dry run reads with :func:`meta_ops`.
 """
 
 from __future__ import annotations
@@ -123,6 +126,7 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _build_logs: dict[str, str] = {}
 _launches: Counter = Counter()
+_meta_ops: Counter = Counter()
 
 
 def _nvcc() -> str:
@@ -237,6 +241,25 @@ def reset_launch_counts() -> None:
         _launches.clear()
 
 
+def tally(kernel: str, ops: int) -> None:
+    """A meta call of ``kernel`` (no launch): add the operations the
+    kernel would do, the count its bound uses, to the dry run's tally."""
+    with _lock:
+        _meta_ops[kernel] += int(ops)
+
+
+def meta_ops() -> dict[str, int]:
+    """Operations of the kernels' meta calls since the last
+    :func:`reset_meta_ops`, by kernel."""
+    with _lock:
+        return dict(_meta_ops)
+
+
+def reset_meta_ops() -> None:
+    with _lock:
+        _meta_ops.clear()
+
+
 def check_int32(name: str, t: torch.Tensor, ndim: int,
                 device: torch.device | None = None) -> None:
     """Validate one kernel argument before its pointer is handed over."""
@@ -248,7 +271,7 @@ def check_int32(name: str, t: torch.Tensor, ndim: int,
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if device is not None and t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {t.device}")
     if t.device.type == "cuda" and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

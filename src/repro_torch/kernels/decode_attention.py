@@ -22,7 +22,10 @@ chunk of a (sequence, kv head), and read only the visible rows.
 
 q and ``out`` take any strides on both routes. A tensor on the CPU takes
 the plain torch version in :mod:`.ref`; a tensor on the card launches a
-kernel or raises — it never falls back.
+kernel or raises — it never falls back. A meta tensor (the dry run) gets
+a meta output and the route's partial-result workspace, and
+:func:`decode_ops` at the whole cache (the lengths are data) goes to the
+dry run's tally.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from ._build import check_int32, launch
+from ._build import check_int32, launch, tally
 from .flash_attention import DTYPES, check_attention, strides, tma_operand
 
 MAX_GROUP = 16         # query heads per kv head the kernels take
@@ -61,6 +64,12 @@ def split_plan(B: int, Hkv: int, S: int, d: int) -> tuple[int, int]:
     n = 1 << (want.bit_length() - 1)
     chunk = max(MIN_TILES, -(-S // (n * tile))) * tile
     return chunk, max(1, -(-S // chunk))
+
+
+def decode_ops(B: int, H: int, keys: int, d: int) -> int:
+    """Operations of one call, the count its bound uses: two products of
+    d multiply-adds for each of B * H query heads and each visible key."""
+    return 4 * B * H * d * keys
 
 
 def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -112,6 +121,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         chunk, n_split = split_plan(B, Hkv, S, d)
         part = torch.empty(B * H * n_split * (d + 2), dtype=torch.float32,
                            device=q.device)
+        if q.device.type == "meta":
+            return _tallied(out, B, H, S, d, window)
         launch("decode_attention", q.device, q.data_ptr(),
                k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
                out.data_ptr(), part.data_ptr(),
@@ -124,11 +135,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                              device=q.device)
         part_ml = torch.empty((B, H, n_split, 2), dtype=torch.float32,
                               device=q.device)
+        if q.device.type == "meta":
+            return _tallied(out, B, H, S, d, window)
         launch("decode_attention", q.device, q.data_ptr(),
                k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
                out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
                strides(q, k_cache, v_cache, out), DTYPES[q.dtype], B, H,
                Hkv, S, d, F32_CHUNK, window, softcap, d ** -0.5)
+    return out
+
+
+def _tallied(out: torch.Tensor, B: int, H: int, S: int, d: int,
+             window: int) -> torch.Tensor:
+    """A meta call's end, after the route's workspace: its operations to
+    the dry run's tally, ``out`` returned."""
+    tally("decode_attention", decode_ops(B, H, min(S, window) if window
+                                         else S, d))
     return out
 
 

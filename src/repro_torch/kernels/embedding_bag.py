@@ -9,7 +9,9 @@ over ``max(sum_z mask[z], 1)``. Every addressed row is read, masked or not.
 Ids are not range-checked on the device (a host sync per call would
 serialise serving): an id outside [0, V) reads outside the table. A tensor
 on the CPU takes the plain torch version in :mod:`.ref`; a tensor on the
-card launches the kernel or raises — it never falls back.
+card launches the kernel or raises — it never falls back. A meta tensor
+(the dry run) gets meta outputs, and :func:`bag_ops` goes to the dry
+run's tally.
 
 :func:`bag_plan` decides, from the shapes and the table's alignment
 alone, how the kernel cuts the work; the launcher takes its fields as
@@ -30,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from . import ref
-from ._build import check_int32, launch
+from ._build import check_int32, launch, tally
 from .decode_attention import SMS
 from .flash_attention import DTYPES
 from .segment_mp import check_float
@@ -99,6 +101,12 @@ def bag_plan(n_bags: int, nnz: int, D: int, elem_bytes: int,
     return BagPlan(vec, lanes, groups, chunk, n_chunks, blocks, ring, smem)
 
 
+def bag_ops(B: int, F: int, NNZ: int, D: int) -> int:
+    """Operations of a forward or a backward call, the count its bound
+    uses: a multiply and an add for each element of each addressed row."""
+    return 2 * B * F * NNZ * D
+
+
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
                   combiner: str = "mean") -> torch.Tensor:
     """table [V, D]; ids int32 / mask [B, F, NNZ] -> bags [B, F, D]."""
@@ -118,6 +126,9 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
     D = table.shape[1]
     mask = mask.to(torch.float32).contiguous()
     out = torch.empty((B, F, D), dtype=table.dtype, device=table.device)
+    if table.device.type == "meta":
+        tally("embedding_bag", bag_ops(B, F, NNZ, D))
+        return out
     if out.numel():
         plan = bag_plan(B * F, NNZ, D, table.element_size(),
                         table.data_ptr() % 16 == 0)
@@ -157,6 +168,9 @@ def embedding_bag_backward(g: torch.Tensor, ids: torch.Tensor,
     grad = torch.empty((n_rows, D), dtype=g.dtype, device=g.device)
     scratch = (torch.empty((n_rows, D), dtype=torch.float32, device=g.device)
                if g.dtype == torch.bfloat16 else None)
+    if g.device.type == "meta":
+        tally("embedding_bag_bwd", bag_ops(B, F, NNZ, D))
+        return grad
     launch("embedding_bag_bwd", g.device, g.data_ptr(), ids.data_ptr(),
            mask.data_ptr(), grad.data_ptr(),
            None if scratch is None else scratch.data_ptr(), DTYPES[g.dtype],

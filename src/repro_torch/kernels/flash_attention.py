@@ -17,7 +17,9 @@ ragged last tile is masked).
 
 ``out`` takes any strides on both routes. A tensor on the CPU takes the
 plain torch version in :mod:`.ref`; a tensor on the card launches a kernel
-or raises — it never falls back.
+or raises — it never falls back. A meta tensor (the dry run) gets meta
+outputs, and the kernel's operations (:func:`attention_ops`) go to the
+dry run's tally.
 
 Training (:class:`FlashAttention`): the forward runs the same kernels
 and also writes each row's log-sum-exp (``lse=``, float32 [B, H, S]);
@@ -47,7 +49,7 @@ import ctypes
 import torch
 
 from . import ref
-from ._build import launch
+from ._build import launch, tally
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,6 +57,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # would need dK and dV's 256 accumulators a thread, so it stays SIMT
 TC_BWD_HEAD_DIMS = (16, 32, 64, 128)
 ROW_PAD = 128   # the tensor-core backward's lse/Delta rows: S rounded up
+BWD_OPS = 5     # the backward's operations, in halves of the forward's:
+                # five products of a pair (s, dP, dV, dQ, dK) to its two
 
 
 def check_attention(name: str, t: torch.Tensor, ndim: int,
@@ -64,7 +68,7 @@ def check_attention(name: str, t: torch.Tensor, ndim: int,
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {t.device}")
     if like is not None:
         if t.device != like.device:
@@ -79,6 +83,20 @@ def check_attention(name: str, t: torch.Tensor, ndim: int,
         if t.shape[-1] not in HEAD_DIMS:
             raise ValueError(f"{name}: head dim {t.shape[-1]} not compiled "
                              f"(one of {HEAD_DIMS})")
+
+
+def causal_pairs(S: int, window: int = 0) -> int:
+    """(query, key) pairs a causal pass over S positions visits: row i
+    sees min(i + 1, window) keys (all i + 1 without a window)."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def attention_ops(B: int, H: int, S: int, d: int, window: int = 0) -> int:
+    """Operations of the causal forward, the count its bound uses: two
+    products of d multiply-adds each a visited pair, 4 d a pair."""
+    return 4 * d * B * H * causal_pairs(S, window)
 
 
 def strides(*tensors: torch.Tensor) -> ctypes.Array:
@@ -124,6 +142,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if lse is not None:
             lse.copy_(ref.mha_lse_reference(q, k, window, softcap))
         return out.copy_(ref.mha_reference(q, k, v, True, window, softcap))
+    if q.device.type == "meta":
+        tally("flash_attention", attention_ops(B, H, S, d, window))
+        return out
     if not out.numel():
         return out
     lse_ptr = None if lse is None else lse.data_ptr()
@@ -191,6 +212,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         Sp = -(-S // ROW_PAD) * ROW_PAD
         rows = torch.empty((2, B, H, Sp), dtype=torch.float32,
                            device=q.device)
+        if q.device.type == "meta":
+            return _bwd_tallied(dq, dk, dv, window)
         launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                rows.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -198,12 +221,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                window, softcap, d ** -0.5, lib="bwd_tc", route="tc")
     else:
         delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        if q.device.type == "meta":
+            return _bwd_tallied(dq, dk, dv, window)
         launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                dv.data_ptr(), strides(q, k, v, o, dout, dq, dk, dv),
                DTYPES[q.dtype], B, H, Hkv, S, d, window, softcap, d ** -0.5,
                lib="bwd", route="simt")
+    return dq, dk, dv
+
+
+def _bwd_tallied(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
+                 window: int) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """A meta call's end, after the route's workspace: its operations to
+    the dry run's tally, the gradients returned."""
+    B, H, S, d = dq.shape
+    tally("flash_attention_bwd", BWD_OPS * attention_ops(B, H, S, d,
+                                                         window) // 2)
     return dq, dk, dv
 
 

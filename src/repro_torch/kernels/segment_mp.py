@@ -10,7 +10,9 @@ n_nodes) are dropped. The sort is the caller's, once per graph
 the device, since that would cost a host sync per call, and unsorted
 destinations give wrong sums. A tensor on the CPU takes the plain torch
 version in :mod:`.ref`; a tensor on the card launches the kernel or raises
-— it never falls back.
+— it never falls back. A meta tensor (the dry run) gets a meta output
+(and the bfloat16 route's float32 scratch), and the E * D additions go
+to the dry run's tally.
 
 Under autograd (grad mode on and ``msg`` requiring grad) the sum is a
 :class:`SegmentSum` Function: the same forward, and a backward that
@@ -31,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from . import ref
-from ._build import check_int32, launch
+from ._build import check_int32, launch, tally
 from .decode_attention import SMS
 from .flash_attention import DTYPES
 
@@ -134,7 +136,7 @@ def check_float(name: str, t: torch.Tensor, ndim: int) -> None:
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {t.device}")
     if t.device.type == "cuda":
         if t.dtype not in DTYPES:
@@ -215,6 +217,9 @@ def _segment_sum(msg: torch.Tensor, dst: torch.Tensor, n_nodes: int,
         if msg.dtype != torch.float32:
             scratch = torch.empty((n_nodes, D), dtype=torch.float32,
                                   device=msg.device)
+        if msg.device.type == "meta":
+            tally("segment_sum_sorted", E * D)
+            return out
         plan = segment_plan(E, D, msg.element_size(),
                             (msg.data_ptr() | dst.data_ptr()) % 16 == 0)
         launch("segment_sum_sorted", msg.device, msg.data_ptr(),

@@ -1,1 +1,3 @@
-"""The training driver (port of ``repro/launch/train.py``)."""
+"""Launchers (ports of ``repro/launch``): the training launcher
+(:mod:`.train`), device meshes on ``torch.distributed`` (:mod:`.mesh`) and
+the dry run of the registry's cells on the meta device (:mod:`.dryrun`)."""

@@ -95,7 +95,12 @@ def sort_by_dst(edge_index: torch.Tensor) -> torch.Tensor:
 
 
 def is_sorted_by_dst(edge_index: torch.Tensor) -> bool:
-    """Whether dst is ascending (one device reduction, one host sync)."""
+    """Whether dst is ascending (one device reduction, one host sync). On
+    ``meta`` (the dry run) there is no data to read, and the edges are
+    taken as sorted, as the data pipeline hands them over (``sort_by_dst``
+    once a graph; the sampler's edges come sorted)."""
+    if edge_index.device.type == "meta":
+        return True
     dst = edge_index[:, 1]
     return bool((dst[1:] >= dst[:-1]).all())
 
@@ -123,11 +128,17 @@ def edge_chunks(dst: torch.Tensor, n: int,
     contiguous from 0 to ``n``. A node whose run passes the cap is a chunk
     of its own; runs are never split. One chunk, the whole graph, when E
     <= cap; else two host reads per chunk (a run start by
-    ``torch.searchsorted``)."""
+    ``torch.searchsorted``).
+
+    On ``meta`` (the dry run) the runs cannot be read: [0, E) is cut into
+    ceil(E / cap) equal spans and [0, n) into as many proportional node
+    ranges (:func:`uniform_chunks`)."""
     cap = EDGE_CHUNK if cap is None else int(cap)
     if cap <= 0:
         raise ValueError(f"cap must be positive, got {cap}")
     E = int(dst.shape[0])
+    if dst.device.type == "meta":
+        return uniform_chunks(E, n, cap)
     chunks: list[EdgeChunk] = []
     e0 = lo = 0
     while E - e0 > cap:
@@ -142,6 +153,14 @@ def edge_chunks(dst: torch.Tensor, n: int,
     if lo < n or not chunks:
         chunks.append(EdgeChunk(e0, E, lo, n))
     return chunks
+
+
+def uniform_chunks(E: int, n: int, cap: int) -> list[EdgeChunk]:
+    """The dry run's chunk plan: ceil(E / cap) spans of [0, E) as equal as
+    integers allow, each with the proportional share of [0, n)."""
+    k = max(1, -(-E // cap))
+    return [EdgeChunk(i * E // k, (i + 1) * E // k, i * n // k,
+                      (i + 1) * n // k) for i in range(k)]
 
 
 class _Chunk(NamedTuple):
@@ -309,8 +328,9 @@ def _graph_sum(e_atom: torch.Tensor, graph_ids: torch.Tensor,
     """Per-graph sum of atom energies [N] over ``graph_ids`` [N] int32, one
     kernel launch at D = 1. ``molecule_batch`` emits the ids ascending
     (``np.repeat``), as the kernel takes them; unsorted ids are sorted here
-    first (stable)."""
-    if not bool((graph_ids[1:] >= graph_ids[:-1]).all()):
+    first (stable). On ``meta`` they are taken as sorted."""
+    if graph_ids.device.type != "meta" and not bool(
+            (graph_ids[1:] >= graph_ids[:-1]).all()):
         order = torch.sort(graph_ids, stable=True).indices
         graph_ids, e_atom = graph_ids[order], e_atom[order]
     return seg_sum(e_atom.contiguous(), graph_ids, n_graphs)
@@ -699,7 +719,12 @@ def gnn_loss(cfg: GNNConfig, params: dict, batch: dict
     ``nll.sum() / max(label_mask.sum(), 1)``, aux ``{"nll": loss}``.
     EGNN and NequIP: species [N], coords [N, 3], edge_index, graph_ids
     [N], energy [G] -> the mean squared error of the per-graph energies,
-    aux ``{"mse": loss}``."""
+    aux ``{"mse": loss}``.
+
+    Where the port differs: a label outside ``[0, n_classes)`` makes
+    ``F.cross_entropy`` raise ``IndexError`` (on the CPU; a device-side
+    assert on the card), where the reference's ``take_along_axis`` gives a
+    NaN loss."""
     if cfg.model in ("gcn", "pna"):
         fwd = gcn_forward if cfg.model == "gcn" else pna_forward
         logits = fwd(cfg, params, batch["feat"], batch["edge_index"]).float()

@@ -2,15 +2,17 @@
 ``repro/optim/compression.py``).
 
 Quantize (grad + residual) to int8 with a per-tensor scale, keep the
-quantization error as the residual for the next step (EF-SGD). The
-reference's ``compressed_psum`` (an all-reduce inside ``shard_map``)
-waits for the port's ``launch/mesh.py`` (ROADMAP Queue 1 item 8).
-``torch.round`` rounds half to even, as ``jnp.round`` does.
+quantization error as the residual for the next step (EF-SGD), and
+all-reduce the dequantized shards over a mesh axis
+(:func:`compressed_psum`, on ``torch.distributed``: the reference's
+``psum`` inside ``shard_map``). ``torch.round`` rounds half to even, as
+``jnp.round`` does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from .. import tree
 
@@ -51,3 +53,16 @@ def ef_decompress_tree(qtree, stree):
 def init_residuals(params):
     return tree.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
+
+
+def compressed_psum(x: torch.Tensor, residual: torch.Tensor, group
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Int8-compress ``x`` locally with error feedback, all-reduce the
+    dequantized shard ``q * scale`` over ``group`` (a mesh axis's process
+    group, ``mesh.get_group(axis)``) and return (the mean over the group's
+    ranks, the new residual). The reference's wire format: a float32 sum
+    of dequantized shards."""
+    q, scale, new_res = ef_compress(x, residual)
+    summed = q.float() * scale
+    dist.all_reduce(summed, group=group)
+    return summed / float(dist.get_world_size(group)), new_res

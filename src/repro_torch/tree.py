@@ -14,19 +14,22 @@ from typing import Any, Callable
 def flatten(tree) -> list[tuple[tuple, Any]]:
     """(path, leaf) pairs of ``tree`` in JAX's leaf order."""
     out: list[tuple[tuple, Any]] = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for key in sorted(node):
-                walk(node[key], path + (key,))
-        elif isinstance(node, (list, tuple)):
-            for i, child in enumerate(node):
-                walk(child, path + (i,))
-        else:
-            out.append((path, node))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
+
+
+def _walk(node, path: tuple, out: list) -> None:
+    # a module-level function: a nested one that calls itself is a
+    # reference cycle holding ``out``, and so every leaf, until the GC
+    # runs
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _walk(node[key], path + (key,), out)
+    elif isinstance(node, (list, tuple)):
+        for i, child in enumerate(node):
+            _walk(child, path + (i,), out)
+    else:
+        out.append((path, node))
 
 
 def path_key(path: tuple) -> str:
@@ -43,19 +46,19 @@ def unflatten(like, new_leaves: list):
     """A tree of ``like``'s structure holding ``new_leaves`` (in
     :func:`flatten`'s order)."""
     it = iter(new_leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            built = {key: build(node[key]) for key in sorted(node)}
-            return {key: built[key] for key in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(child) for child in node)
-        return next(it)
-
-    out = build(like)
+    out = _build(like, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out
+
+
+def _build(node, it):
+    if isinstance(node, dict):
+        built = {key: _build(node[key], it) for key in sorted(node)}
+        return {key: built[key] for key in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(child, it) for child in node)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -426,3 +426,78 @@ def test_cuda_segment_sum_gradient_is_the_gather():
             segment_sum_sorted(m, _t(dst).to(dev), n,
                                out=torch.empty((n, D), device=dev))
     assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_cuda_meta_branches_match_the_card():
+    """Each kernel wrapper on meta tensors (the dry run) returns the
+    shapes and dtypes its launch returns on the card, forward and
+    backward, and launches nothing; on the card each launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the comparison is with a launch")
+    from repro_torch.kernels import meta_ops, reset_launch_counts, \
+        reset_meta_ops
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.embedding_bag import EmbeddingBag
+    from repro_torch.kernels.flash_attention import FlashAttention
+    from repro_torch.kernels.segment_mp import segment_sum_sorted
+
+    def calls(dev):
+        gen = torch.Generator().manual_seed(5)
+
+        def rnd(*shape, dtype=torch.bfloat16):
+            return torch.randn(shape, generator=gen).to(dev, dtype)
+        q = rnd(2, 8, 300, 256).requires_grad_()
+        k, v = (rnd(2, 4, 300, 256).requires_grad_() for _ in range(2))
+        o = FlashAttention.apply(q, k, v, 0, 50.0)
+        out = [o, *torch.autograd.grad(o.float().sum(), (q, k, v))]
+        lengths = torch.tensor([1, 300], dtype=torch.int32, device=dev)
+        out.append(decode_attention(q[:, :, 0].detach(), k.detach(),
+                                    v.detach(), lengths, 0, 50.0))
+        msg = rnd(500, 75, dtype=torch.float32).requires_grad_()
+        dst = torch.arange(500, dtype=torch.int32, device=dev) // 7
+        s = segment_sum_sorted(msg, dst, 80)
+        out += [s, torch.autograd.grad(s.sum(), msg)[0]]
+        table = rnd(100, 32, dtype=torch.float32).requires_grad_()
+        ids = (torch.arange(96, dtype=torch.int32, device=dev) % 100
+               ).view(4, 6, 4)
+        mask = torch.ones((4, 6, 4), device=dev)
+        b = EmbeddingBag.apply(table, ids, mask, "mean")
+        out += [b, torch.autograd.grad(b.sum(), table)[0]]
+        return out
+
+    reset_launch_counts()
+    want = calls(torch.device("cuda"))
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd",
+                 "decode_attention", "segment_sum_sorted", "embedding_bag",
+                 "embedding_bag_bwd"):
+        assert launched.get(name, 0) >= 1, name
+    reset_launch_counts()
+    reset_meta_ops()
+    got = calls(torch.device("meta"))
+    assert launch_counts() == {}
+    assert set(meta_ops()) == {"flash_attention", "flash_attention_bwd",
+                               "decode_attention", "segment_sum_sorted",
+                               "embedding_bag", "embedding_bag_bwd"}
+    for g, w in zip(got, want):
+        assert g.device.type == "meta"
+        assert g.shape == w.shape and g.dtype == w.dtype
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_psum_on_nccl():
+    """``compressed_psum`` over a (1, 1) NCCL mesh on the card
+    (``chip_smoke.psum_check``): equal bit for bit to the dequantized
+    ``ef_compress`` and its residual, the residual left out unequal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs on the card")
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    out = smoke.psum_check(0, torch.device("cuda"))
+    assert out["backend"] == "nccl"
+    assert out["exact"] and not out["planted_equal"]

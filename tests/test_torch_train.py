@@ -81,6 +81,25 @@ def test_tree_order_and_paths_are_jax_s():
     assert tree.describe(t).startswith("{'a': {'x': *, 'y': *}")
 
 
+def test_tree_leaves_are_freed_without_the_gc():
+    """``flatten``, ``leaves``, ``unflatten`` and ``tree_map`` leave no
+    reference cycle behind: with the GC off, a tree's tensors die with
+    their last reference (a cycle held a 61-GB decode cache on the card
+    until the GC ran)."""
+    import gc
+    import weakref
+    t = {"a": [torch.zeros(3), torch.zeros(2)], "b": torch.zeros(1)}
+    gc.disable()
+    try:
+        mapped = tree.tree_map(torch.neg, t)
+        back = tree.unflatten(t, tree.leaves(mapped))
+        refs = [weakref.ref(x) for x in tree.leaves(t) + tree.leaves(back)]
+        del t, mapped, back
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
 # -- optimizer ----------------------------------------------------------------
 
 def test_adamw_converges():
