@@ -89,8 +89,8 @@
    reads and two coalesced INSERT DATA on the ingest system; a sampled
    workload replayed through the admission queue, every answer verified.
 11. Training (also alone under ``--train-only``): ``flash_attention_bwd``
-   (from the forward kernels' new row log-sum-exp; bf16 at d <= 128 on the
-   tensor cores, ``csrc/flash_bwd_tc.cu``, the rest on the SIMT kernel of
+   (from the forward kernels' new row log-sum-exp; bf16 on the tensor
+   cores, ``csrc/flash_bwd_tc.cu``, float32 on the SIMT kernel of
    ``csrc/flash_bwd.cu``) against autograd of the plain version, element
    by element, each case's route read off its launch, and
    ``embedding_bag_bwd``
@@ -131,8 +131,10 @@
    ``decode_attention`` at that shape against the plain version, a lost
    chunk of keys planted, beside SDPA); qwen3-1.7b ``prefill_32k`` cut
    to B = 1; gemma2-2b ``train_4k`` cut to B = 4 (3 AdamW steps, the
-   loss falling; ``flash_attention_bwd`` at d = 256 against autograd of
-   the plain version, beside its bound and SDPA's backward); gcn-cora,
+   loss falling, every backward launch on the tensor-core route;
+   ``flash_attention_bwd`` at d = 256 against autograd of the plain
+   version, beside its bound, SDPA's backward and the SIMT kernel);
+   gcn-cora,
    PNA, EGNN and NequIP at ``minibatch_lg`` uncut (3 steps each on a
    subgraph the port's sampler draws from a Reddit-sized graph, the
    padding left out of the loss; every loss and gradient norm finite,
@@ -4405,10 +4407,12 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     ``flash_attention_bwd`` (from the forward kernel's own output and row
     lse, themselves checked) against autograd of ``mha_reference``: ragged
     S, windows on and off, softcaps on and off, GQA groups of 1, 2 and 4,
-    d 64, 128 and 256 (and 16, 32), strided and contiguous layouts, element
-    by element within ``flash_bwd_bound``, each case on the route
-    ``bwd_route`` names for it (bf16 at d <= 128 the tensor cores, the rest
-    SIMT), read off its one launch; each case also reads a planted
+    d 64, 128 and 256 (and 16, 32; at d = 256 also S = 1, 63, 64, 65 and
+    129 around the 64-row tiles, windows of 1 and 33 and a GQA group of
+    8), strided and contiguous layouts, element by element within
+    ``flash_bwd_bound``, each case on the route ``bwd_route`` names for it
+    (bf16 the tensor cores, float32 SIMT), read off its one launch; each
+    case also reads a planted
     fault (the kernel's formulas with the softcap's factor left out, or
     Delta where there is no softcap) and, from S = 64 on with a window
     other than 1, a second one (``late_rows_wrong``), each of which must
@@ -4450,7 +4454,13 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     flash_cases += [(1, 4, 2, 130, 16, 0, 0.0), (1, 8, 2, 97, 32, 1, 0.0),
                     (1, 2, 2, 1, 128, 0, 0.0), (2, 4, 4, 64, 128, 0, 0.0),
                     (1, 16, 8, 1024, 128, 0, 0.0),     # qwen3 heads
-                    (1, 8, 4, 600, 256, 256, 50.0)]    # gemma2, local layer
+                    (1, 8, 4, 600, 256, 256, 50.0),    # gemma2, local layer
+                    # d = 256 around its 64-row tiles, windows 1 and 33,
+                    # a GQA group of 8
+                    (1, 2, 1, 1, 256, 0, 0.0), (1, 4, 2, 63, 256, 0, 50.0),
+                    (2, 4, 2, 64, 256, 0, 0.0), (1, 4, 4, 65, 256, 33, 0.0),
+                    (1, 8, 1, 129, 256, 1, 0.0),
+                    (1, 16, 2, 129, 256, 33, 50.0)]
     for name in dtypes:
         dtype = getattr(torch, name)
         for i, (B, H, Hkv, S, d, win, cap) in enumerate(flash_cases):
@@ -5723,9 +5733,11 @@ def lm_train_cell(seed: int, batch: int, hbm: float, device) -> dict:
     weights from ``seed`` and AdamW state at the schedule's warm-up end
     (zero moments, step ``warmup_steps``: at the warm-up's first rates,
     3e-6 to 9e-6, a bf16 weight of 0.02 does not move), CELL_STEPS
-    steps of ``cell.fn`` on one batch, the loss finite and falling. Then
-    ``flash_attention_bwd`` at one microbatch's layer shape (d = 256, the
-    SIMT route; ``flash_bwd_row``)."""
+    steps of ``cell.fn`` on one batch, the loss finite and falling, and
+    one more step under the profiler (its kernel split, ``TRAIN_TRACK``).
+    Then ``flash_attention_bwd`` at one microbatch's layer shape (d = 256,
+    the tensor-core route; ``flash_bwd_row``, with the SIMT kernel's time
+    beside it)."""
     import torch
     from repro_torch.configs.registry import _opt_cfg, get_spec
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -5759,6 +5771,8 @@ def lm_train_cell(seed: int, batch: int, hbm: float, device) -> dict:
            "peak_bytes": _cell_peak(base), "launches": launch_counts(),
            "ok": (all(math.isfinite(x) for x in losses)
                   and losses[-1] < losses[0])}
+    out["profile"] = device_profile(lambda: cell.fn(params, opt, tokens),
+                                    TRAIN_TRACK, cpu=False)
     del params, opt, metrics
     torch.cuda.empty_cache()
     out["bwd"] = flash_bwd_row(cfg, out["launches"], hbm,
@@ -6006,6 +6020,8 @@ def cells_phase(args, hbm: float, device) -> dict:
         f"{json.dumps(long_['profile'])}")
     log(f"cells decode_attention at long_500k's global layer on {gpu}: "
         f"{json.dumps(long_['kernel'])}")
+    log(f"cells gemma2-2b train_4k profile (one step): "
+        f"{json.dumps(train['profile'])}")
     gemma = get_spec("gemma2-2b")
     L, mb = gemma.config.n_layers, gemma.microbatches
     checks = {
@@ -6016,8 +6032,10 @@ def cells_phase(args, hbm: float, device) -> dict:
         "prefill flash_attention launches": pre["launches"].get(
             "flash_attention", 0) == get_spec("qwen3-1.7b").config.n_layers,
         "train_4k loss finite and falling": train["ok"],
-        "train_4k flash_attention_bwd/simt launches": train["launches"].get(
-            "flash_attention_bwd/simt", 0) == CELL_STEPS * mb * L,
+        "train_4k flash_attention_bwd/tc launches": train["launches"].get(
+            "flash_attention_bwd/tc", 0) == CELL_STEPS * mb * L,
+        "train_4k no flash_attention_bwd/simt launch": train["launches"].get(
+            "flash_attention_bwd/simt", 0) == 0,
     }
     for arch, shape, _, _ in CARD_CELLS[3:]:
         run = runs[arch, shape]

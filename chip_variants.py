@@ -55,14 +55,26 @@ the marginal bound, in turns (same objective and assignment), and the
 device's busy share of one B&B on the shipped route.
 
 ``flash_attention_bwd`` (``--kernels bwd``) runs at qwen3-0.6b's training
-shape (B 8, S 2,048, H 16/8, d 128, bf16, the model's strided layout): the
-shipped tensor-core route (``csrc/flash_bwd_tc.cu``) beside the SIMT
-kernel the bf16 route took before (``csrc/flash_bwd.cu``, called on its
-library directly by ``chip_smoke.simt_bwd``), both held to
-``chip_smoke.flash_bwd_bound`` first, the tensor-core route's output to a
-first call's bit for bit; then the profiler's device time of each of its
-three kernels and the library's ``-Xptxas=-v`` lines (registers and
-spills of each instance).
+shape (B 8, S 2,048, H 16/8, d 128, bf16, the model's strided layout) and
+at gemma2-2b's (one ``train_4k`` microbatch's layer: B 1, S 4,096, H 8/4,
+d 256, softcap 50): the shipped tensor-core route
+(``csrc/flash_bwd_tc.cu``) beside the SIMT kernel the bf16 route took
+before (``csrc/flash_bwd.cu``, called on its library directly by
+``chip_smoke.simt_bwd``), both held to ``chip_smoke.flash_bwd_bound``
+first, the tensor-core route's output to a first call's bit for bit; then
+the profiler's device time of each of its three kernels, and last the
+library's ``-Xptxas=-v`` lines (registers, spills and shared memory of
+each instance, the D = 256 ones among them). At d = 256 the shipped plan
+also runs beside two builds of the same source: ``bwd_whole``, with
+``EXCHANGE`` false (each warpgroup takes the whole score tile, where the
+shipped two exchange their partial tiles), and ``bwd_head_major``, with
+``TILE_MAJOR`` false (d <= 128's block order); each held to the bound and
+timed in turns with its device times, and their ``-Xptxas=-v`` lines. Last,
+the device times of ``dkdv_tc_kernel`` and ``dq_tc_kernel`` in five
+timing-only builds, each with one phase taken out (``BWD_PHASES``: the P
+and dS math, the register-A products, the score products, the exchange's
+barriers, the ring's wait for its consumers); their outputs are wrong by
+design and are not checked.
 """
 
 from __future__ import annotations
@@ -247,7 +259,45 @@ VARIANTS = {
          "    if (!again) break;\n", "")]),
     # the register route with an exact projection for the bisection
     "qad_exact": ("qad_kernels.cu", [(_PROJECT, _EXACT_PROJECT)]),
+    # the d = 256 backward without the exchange: each warpgroup takes the
+    # whole S^T and dP^T (S and dP) tile over all of d, as the forward does
+    "bwd_whole": ("flash_bwd_tc.cu", [
+        ("  static constexpr bool EXCHANGE = SPLIT_COLS;",
+         "  static constexpr bool EXCHANGE = false;")]),
+    # the d = 256 backward with d <= 128's block order: the (head, batch)
+    # pairs one after another, the longest tiles first within each
+    "bwd_head_major": ("flash_bwd_tc.cu", [
+        ("  static constexpr bool TILE_MAJOR = SPLIT_COLS;",
+         "  static constexpr bool TILE_MAJOR = false;")]),
+    # timing only, outputs wrong by design: the backward with one phase
+    # taken out, to read what each phase costs
+    "bwd_no_math": ("flash_bwd_tc.cu", [       # P and dS: a select each
+        ("    float p, f = 1.f;\n    if (capped) {",
+         "    s = live ? s : 0.f;\n    dp = live ? dp * delta : 0.f;\n"
+         "    return;\n    float p, f = 1.f;\n    if (capped) {")]),
+    "bwd_no_rs": ("flash_bwd_tc.cu", [         # dV, dK and dQ's products
+        ("  for (int part = 0; part < 2; ++part)",
+         "  for (int part = 0; part < 0; ++part)")]),
+    "bwd_no_ss": ("flash_bwd_tc.cu", [         # S and dP's products
+        ("  for (int c = 0; c < (P::EXCHANGE ? P::OWN : P::NC); ++c)",
+         "  for (int c = 0; c < 0; ++c)")]),
+    "bwd_no_bar": ("flash_bwd_tc.cu", [        # the exchange's barriers
+        ('  asm volatile("bar.sync 1, 256;\\n" ::: "memory");', "")]),
+    "bwd_no_empty_wait": ("flash_bwd_tc.cu", [  # refills wait for no one
+        ("      mbar_wait(empty((i - 1) % kStages), ((i - 1) / kStages) & 1);"
+         "\n      load(i - 1 + kStages);\n    }\n    __syncwarp();  // warp 0"
+         " whole again before its wgmma\n    const int st = i % kStages;\n"
+         "    const uint32_t parity = (i / kStages) & 1;\n    const int q0",
+         "      load(i - 1 + kStages);\n    }\n    __syncwarp();  // warp 0"
+         " whole again before its wgmma\n    const int st = i % kStages;\n"
+         "    const uint32_t parity = (i / kStages) & 1;\n    const int q0"),
+        ("      mbar_wait(empty((i - 1) % kStages), ((i - 1) / kStages) & 1);"
+         "\n      load(i - 1 + kStages);",
+         "      load(i - 1 + kStages);")]),
 }
+# the timing-only builds above
+BWD_PHASES = ("bwd_no_math", "bwd_no_rs", "bwd_no_ss", "bwd_no_bar",
+              "bwd_no_empty_wait")
 SECTIONS = ("bag", "scan", "segment", "probe", "qad", "bwd")
 
 
@@ -287,8 +337,35 @@ def build_variants(nvcc_flags: list[str], nvcc: str,
         text = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{text}")
+        BUILD_LOGS[name] = text
         libs[name] = ctypes.CDLL(str(lib))
     return libs
+
+
+BUILD_LOGS: dict[str, str] = {}   # nvcc's output of each variant built
+
+
+def tc_variant(lib, q, k, v, o, dout, lse, softcap: float):
+    """(dq, dk, dv) of ``flash_attention_bwd``'s tensor-core route through
+    ``lib``, a variant build of ``csrc/flash_bwd_tc.cu``, called as the
+    wrapper calls the shipped library (no window; q, k, v and dout as TMA
+    reads them)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ROW_PAD, strides
+    B, H, S, d = q.shape
+    Sp = -(-S // ROW_PAD) * ROW_PAD
+    rows = torch.empty((2, B, H, Sp), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    rc = lib.bwd_tc_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), rows.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), strides(q, k, v, o, dout, dq, dk, dv),
+        B, H, k.shape[1], S, Sp, d, 0, softcap, d ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_attention_bwd variant: CUDA launch "
+                           f"failed ({rc})")
+    return dq, dk, dv
 
 
 # the variants each section builds
@@ -296,7 +373,7 @@ SECTION_VARIANTS = {"bag": ("bag_nohint", "bag_evictlast"),
                     "scan": ("probe_noshortcut",),
                     "segment": ("seg_nocarry",), "probe": ("probe_old",),
                     "qad": ("qad_noexit", "qad_vote1", "qad_exact"),
-                    "bwd": ()}
+                    "bwd": ("bwd_whole", "bwd_head_major", *BWD_PHASES)}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -352,6 +429,10 @@ def main(argv: list[str] | None = None) -> int:
     for name in SECTION_VARIANTS["qad"]:
         if name in libs:
             libs[name].qad_qad_solve.argtypes = [P] * 7 + [I] * 8 + [P]
+    for name in SECTION_VARIANTS["bwd"]:
+        if name in libs:
+            libs[name].bwd_tc_flash_attention_bwd.argtypes = \
+                _build.LIBRARIES["bwd_tc"][1]["flash_attention_bwd"] + [P]
     gpu = smoke.gpu_line()
     log(f"build {time.perf_counter() - t0:.1f} s; {gpu}")
     dev = torch.device("cuda")
@@ -750,42 +831,72 @@ def main(argv: list[str] | None = None) -> int:
     if "bwd" in sections:
         from repro_torch.kernels.flash_attention import (flash_attention,
                                                          flash_attention_bwd)
-        cfg = get_spec(smoke.LM_ARCH).config
-        B, S = smoke.TRAIN_BATCH, smoke.TRAIN_SEQ
-        H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-        gen = torch.Generator(device=dev).manual_seed(19)
-        q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.bfloat16,
-                                     dev)
-        dout = torch.randn((B, S, H, d), generator=gen, device=dev,
-                           dtype=torch.bfloat16).transpose(1, 2)
-        lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-        o = flash_attention(q, k, v, lse=lse)
-        label = f"flash_attention_bwd B={B} H={H}/{Hkv} S={S} d={d} bf16"
-        order = [("tensor-core route",
-                  lambda: flash_attention_bwd(q, k, v, o, dout, lse)),
-                 ("SIMT route",
-                  lambda: smoke.simt_bwd(q, k, v, o, dout, lse))]
-        want = ref.flash_attention_backward_reference(q, k, v, dout)
-        bound = smoke.flash_bwd_bound(q, k, v, o, dout, want)
-        for name, fn in order:
-            err, ratio = smoke.bwd_err(fn(), want, bound)
-            times[f"{label} {name} bound ratio"] = ratio
-            log(f"{label} {name}: max abs err {err}, {ratio}x "
-                f"flash_bwd_bound")
-            if not ratio <= 1.0:
-                raise AssertionError(f"{label} {name}: {ratio}x the bound")
-        del want, bound
-        torch.cuda.empty_cache()
-        # the tensor-core route's output against a first call's, bit for
-        # bit (no atomics), then both routes timed in turns
-        run_in_turns(label, order, order[0][1](), calls=3,
-                     exact=["tensor-core route"])
-        for kernel in ("rows_tc_kernel", "dkdv_tc_kernel", "dq_tc_kernel"):
-            ms, n = smoke.kernel_device_ms(order[0][1], kernel, calls=5)
-            times[f"{label} {kernel} device"] = ms
-            log(f"{label} {kernel} device: {ms} ms ({n} launches recorded)")
+        qwen, gemma = (get_spec(a).config for a in (smoke.LM_ARCH,
+                                                     "gemma2-2b"))
+        shapes = [(smoke.TRAIN_BATCH, smoke.TRAIN_SEQ, qwen, 0.0),
+                  (1, 4096, gemma, gemma.attn_softcap)]
+        for B, S, cfg, cap in shapes:
+            H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+            gen = torch.Generator(device=dev).manual_seed(19)
+            q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d,
+                                         torch.bfloat16, dev)
+            dout = torch.randn((B, S, H, d), generator=gen, device=dev,
+                               dtype=torch.bfloat16).transpose(1, 2)
+            lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+            o = flash_attention(q, k, v, softcap=cap, lse=lse)
+            label = (f"flash_attention_bwd B={B} H={H}/{Hkv} S={S} d={d} "
+                     f"softcap={cap} bf16")
+            order = [("tensor-core route",
+                      lambda: flash_attention_bwd(q, k, v, o, dout, lse, 0,
+                                                  cap)),
+                     ("SIMT route",
+                      lambda: smoke.simt_bwd(q, k, v, o, dout, lse, 0,
+                                             cap))]
+            for name in ("bwd_head_major", "bwd_whole"):
+                if d == 256 and name in libs:
+                    order.insert(1, (name, lambda lib=libs[name]: tc_variant(
+                        lib, q, k, v, o, dout, lse, cap)))
+            want = ref.flash_attention_backward_reference(q, k, v, dout, 0,
+                                                          cap)
+            bound = smoke.flash_bwd_bound(q, k, v, o, dout, want, 0, cap)
+            for name, fn in order:
+                err, ratio = smoke.bwd_err(fn(), want, bound)
+                times[f"{label} {name} bound ratio"] = ratio
+                log(f"{label} {name}: max abs err {err}, {ratio}x "
+                    f"flash_bwd_bound")
+                if not ratio <= 1.0:
+                    raise AssertionError(f"{label} {name}: {ratio}x the "
+                                         f"bound")
+            del want, bound
+            torch.cuda.empty_cache()
+            # the tensor-core route's output against a first call's, bit
+            # for bit (no atomics), then both routes timed in turns
+            run_in_turns(label, order, order[0][1](), calls=3,
+                         exact=["tensor-core route"])
+            for name, fn in order[:-1]:      # the tensor-core kernels
+                for kernel in ("rows_tc_kernel", "dkdv_tc_kernel",
+                               "dq_tc_kernel"):
+                    ms, n = smoke.kernel_device_ms(fn, kernel, calls=5)
+                    times[f"{label} {name} {kernel} device"] = ms
+                    log(f"{label} {name} {kernel} device: {ms} ms ({n} "
+                        f"launches recorded)")
+            for name in BWD_PHASES:   # timing only: outputs are wrong
+                if d == 256 and name in libs:
+                    for kernel in ("dkdv_tc_kernel", "dq_tc_kernel"):
+                        ms, n = smoke.kernel_device_ms(
+                            lambda lib=libs[name]: tc_variant(
+                                lib, q, k, v, o, dout, lse, cap),
+                            kernel, calls=5)
+                        times[f"{label} {name} {kernel} device"] = ms
+                        log(f"{label} {name} (timing only) {kernel} "
+                            f"device: {ms} ms ({n} launches recorded)")
+            del q, k, v, o, dout, lse, order
+            torch.cuda.empty_cache()
         for line in _build.build_log("bwd_tc").splitlines():
             log(f"ptxas: {line.strip()}")
+        for name in SECTION_VARIANTS["bwd"]:
+            for line in BUILD_LOGS.get(name, "").splitlines():
+                log(f"ptxas ({name}): {line.strip()}")
     print(gpu)
     print(json.dumps({"gpu": gpu, "ms": times}))
     return 0

@@ -7,9 +7,9 @@ library with a plain C interface under ``<repo>/build/`` and loaded with
 decode), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
 cores), ``decode_tc.cu`` (bfloat16 decode attention: a TMA ring, scores on
 the tensor cores), ``flash_bwd.cu`` (the attention backward, for
-training: float32, and bfloat16 at d = 256, on the CUDA cores),
+training: float32 on the CUDA cores),
 ``flash_bwd_tc.cu`` (library ``"bwd_tc"``: the bfloat16 attention
-backward at d = 16 to 128 on the tensor cores), ``sparse_kernels.cu``
+backward at d = 16 to 256 on the tensor cores), ``sparse_kernels.cu``
 (the recsys and GNN kernels, and the bag's backward) and
 ``qad_kernels.cu`` (the R-QAD solve behind B&B).
 A file name carries a hash of its source and flags, so an edited source

@@ -29,13 +29,14 @@ probabilities from q, k and the lse and gives dq, dk and dv in the
 inputs' dtype, any strides, float32 sums, no atomics. Its route is chosen
 by (dtype, d) (:func:`bwd_route`):
 
-- bfloat16 at d = 16, 32, 64 and 128 runs on the tensor cores
+- bfloat16, at every head dim, runs on the tensor cores
   (``csrc/flash_bwd_tc.cu``, library ``"bwd_tc"``: TMA-fed tiles,
-  ``wgmma`` products, P and dS split into two bf16 parts), with the TMA
-  operand rules above for q, k, v and dout (copies counted in
-  ``flash_attention_bwd.copies``);
-- float32, and bfloat16 at d = 256, run on the CUDA cores
-  (``csrc/flash_bwd.cu``, library ``"bwd"``, float32 products).
+  ``wgmma`` products, P and dS split into two bf16 parts; at d = 256 a
+  block's two warpgroups share 64 keys or rows and split the gradients'
+  columns), with the TMA operand rules above for q, k, v and dout (copies
+  counted in ``flash_attention_bwd.copies``);
+- float32 runs on the CUDA cores (``csrc/flash_bwd.cu``, library
+  ``"bwd"``, float32 products: TF32 products would break its check).
 
 Neither falls back to the other: a failed build or launch raises. The
 tensor-core route's arithmetic is emulated on the CPU by
@@ -53,9 +54,8 @@ from ._build import launch, tally
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the bfloat16 head dims whose backward runs on the tensor cores; d = 256
-# would need dK and dV's 256 accumulators a thread, so it stays SIMT
-TC_BWD_HEAD_DIMS = (16, 32, 64, 128)
+# the bfloat16 head dims whose backward runs on the tensor cores: all
+TC_BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 ROW_PAD = 128   # the tensor-core backward's lse/Delta rows: S rounded up
 BWD_OPS = 5     # the backward's operations, in halves of the forward's:
                 # five products of a pair (s, dP, dV, dQ, dK) to its two
@@ -246,8 +246,9 @@ def _bwd_tallied(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
 def bwd_route(dtype: torch.dtype, d: int) -> str:
     """The route of :func:`flash_attention_bwd` on the card, by dtype and
     head dim: ``"tc"`` (``csrc/flash_bwd_tc.cu``, the tensor cores) for
-    bfloat16 at d in ``TC_BWD_HEAD_DIMS``, else ``"simt"``
-    (``csrc/flash_bwd.cu``, float32 products on the CUDA cores)."""
+    bfloat16 at d in ``TC_BWD_HEAD_DIMS`` (every d of ``HEAD_DIMS``),
+    ``"simt"`` (``csrc/flash_bwd.cu``, float32 products on the CUDA cores)
+    for float32."""
     return "tc" if dtype == torch.bfloat16 and d in TC_BWD_HEAD_DIMS \
         else "simt"
 

@@ -155,11 +155,14 @@ def test_cuda_flash_bf16_serving_layout_launches_tensor_core_kernel():
 
 
 @pytest.mark.cuda
-def test_cuda_flash_bwd_bf16_training_layout_launches_tensor_core_kernel():
-    """A bf16 d = 128 backward in the training layout ([B, S, H, d]
-    transposed views, qwen3 heads, a ragged S) launches
-    ``flash_attention_bwd`` once on the tensor-core route
-    (``csrc/flash_bwd_tc.cu``), copies no operand, is within
+@pytest.mark.parametrize("case", [(2, 16, 8, 1000, 128, 0.0),
+                                  (1, 8, 4, 1000, 256, 50.0)])
+def test_cuda_flash_bwd_bf16_training_layout_launches_tensor_core_kernel(
+        case):
+    """A bf16 backward in the training layout ([B, S, H, d] transposed
+    views, a ragged S) at qwen3's heads (d = 128) and at gemma2's (d = 256,
+    softcap 50) launches ``flash_attention_bwd`` once on the tensor-core
+    route (``csrc/flash_bwd_tc.cu``), copies no operand, is within
     ``chip_smoke.flash_bwd_bound`` of autograd of the plain version and
     gives the same bits twice."""
     if not torch.cuda.is_available():
@@ -174,24 +177,26 @@ def test_cuda_flash_bwd_bf16_training_layout_launches_tensor_core_kernel():
         sys.path.remove(str(ROOT))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
-    B, H, Hkv, S, d = 2, 16, 8, 1000, 128
+    B, H, Hkv, S, d, cap = case
     q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.bfloat16, dev)
+    if cap > 0:     # scores ~ N(0, (c/2)^2): the cap bites
+        q = q * (cap / 2)  # keeps q's strides
     dout = torch.randn((B, S, H, d), generator=gen, device=dev,
                        dtype=torch.bfloat16).transpose(1, 2)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    o = flash_attention(q, k, v, lse=lse)
+    o = flash_attention(q, k, v, softcap=cap, lse=lse)
     copies = flash_attention_bwd.copies
     reset_launch_counts()
-    got = flash_attention_bwd(q, k, v, o, dout, lse)
+    got = flash_attention_bwd(q, k, v, o, dout, lse, 0, cap)
     torch.cuda.synchronize()
     counts = launch_counts()
     assert counts.get("flash_attention_bwd", 0) == 1
     assert counts.get("flash_attention_bwd/tc", 0) == 1
     assert flash_attention_bwd.copies == copies
-    again = flash_attention_bwd(q, k, v, o, dout, lse)
+    again = flash_attention_bwd(q, k, v, o, dout, lse, 0, cap)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    want = ref.flash_attention_backward_reference(q, k, v, dout)
-    bound = smoke.flash_bwd_bound(q, k, v, o, dout, want)
+    want = ref.flash_attention_backward_reference(q, k, v, dout, 0, cap)
+    bound = smoke.flash_bwd_bound(q, k, v, o, dout, want, 0, cap)
     assert smoke.bwd_err(got, want, bound)[1] <= 1.0
 
 
@@ -317,10 +322,11 @@ def test_cuda_backward_kernels_match_plain_versions(dtype):
     """``flash_attention_bwd`` against autograd of the plain attention and
     ``embedding_bag_bwd`` against ``zeros`` + ``index_add_`` on the card,
     on ``chip_smoke.check_backward_cases``: ragged S, windows and softcaps
-    on and off, GQA groups of 1, 2 and 4, d 16 to 256, element by element
+    on and off, GQA groups of 1 to 8, d 16 to 256, element by element
     within ``flash_bwd_bound`` (the forward's output and row lse checked
-    too); repeated rows, empty bags, NNZ 0, sum and mean, integer-valued
-    inputs exactly; each case's planted faults fail it."""
+    too), every bf16 case on the tensor-core route; repeated rows, empty
+    bags, NNZ 0, sum and mean, integer-valued inputs exactly; each case's
+    planted faults fail it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from repro_torch.kernels import reset_launch_counts
@@ -334,6 +340,8 @@ def test_cuda_backward_kernels_match_plain_versions(dtype):
     cases = smoke.check_backward_cases(torch.device("cuda"), (dtype,))
     assert cases[f"flash_attention_bwd {dtype}"]["max_ratio"] <= 1.0
     assert cases[f"flash_attention_bwd {dtype}"]["min_planted_ratio"] > 1.0
+    assert set(cases["flash_routes"]) == {
+        f"{dtype} {'tc' if dtype == 'bfloat16' else 'simt'}"}
     counts = launch_counts()
     assert counts["flash_attention_bwd"] > 0
     assert counts["embedding_bag_bwd"] > 0

@@ -3,10 +3,13 @@
 the plain version and ``jax.grad`` of the JAX package's plain attention.
 
 The kernels cannot run here, so their arithmetic is emulated as they run:
-dK and dV by 128-key tiles, each summing the G query heads of its group in
-order and, of each, the 64-row query tiles that see it; dQ by 128-row
-query tiles over 64-key tiles from the window's first to the diagonal.
-S^T and dP^T (S and dP) are float32 products of the bf16 inputs; P =
+dK and dV by BN-key tiles, each summing the G query heads of its group in
+order and, of each, the 64-row query tiles that see it; dQ by BN-row
+query tiles over 64-key tiles from the window's first to the diagonal (BN
+= 128, and 64 at d = 256, where a block's two warpgroups share its tile
+and split the gradients' columns: the kernels' ``Plan``).
+S^T and dP^T (S and dP) are float32 products of the bf16 inputs (at d =
+256 the sum of the two warpgroups' products over their halves of d); P =
 2^(s log2 e - lse2) from the forward's row lse (lse2 = lse log2 e); dS =
 P (dP - Delta) f with Delta = rowsum(dO O) from the forward's bf16 output
 and f the softcap's factor; P and dS enter their products split into
@@ -17,6 +20,7 @@ against ``jax.grad`` (its gradients rounded once to bf16); on a
 constructed cancellation case the same emulation with P and dS rounded
 once fails that check on each of dq, dk and dv."""
 
+import heapq
 import importlib
 import sys
 from pathlib import Path
@@ -37,7 +41,6 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 LOG2E = 1.4426950408889634
 BF16 = torch.bfloat16
-BN, BT = 128, 64        # the kernels' Plan: block rows, ring-tile rows
 SPLIT_LIMIT = 0.7       # of flash_bwd_bound, on every bf16 case
 CASES = [  # B, H, Hkv, S, d, window, softcap
     (1, 2, 2, 67, 64, 0, 0.0),
@@ -49,8 +52,21 @@ CASES = [  # B, H, Hkv, S, d, window, softcap
     (1, 4, 2, 1, 128, 0, 0.0),
     (1, 4, 2, 97, 32, 1, 0.0),
     (1, 4, 2, 130, 16, 0, 0.0),
+    # d = 256: GQA groups 1, 2 and 4, softcap 50, windows, S off the
+    # 64-row tile
+    (1, 2, 2, 67, 256, 0, 50.0),
+    (1, 4, 2, 130, 256, 33, 0.0),
+    (1, 8, 2, 100, 256, 0, 50.0),
+    (1, 4, 1, 65, 256, 1, 0.0),
 ]
 CANCEL_CASE = (1, 4, 2, 256, 128, 0, 0.0)
+
+
+def plan(d: int) -> tuple[int, int, int]:
+    """The kernels' ``Plan<d>``: (BN, BT, parts), the rows of a block's
+    fixed tile and of a ring tile, and the parts of d whose products are
+    summed for S and dP (2 with ``EXCHANGE``, at d = 256)."""
+    return (64, 64, 2) if d == 256 else (128, 64, 1)
 
 
 def _smoke():
@@ -69,8 +85,18 @@ def emulate(q, k, v, o, dout, lse, window=0, softcap=0.0, split=True):
     B, H, S, d = q.shape
     Hkv = k.shape[1]
     G = H // Hkv
+    BN, BT, d_parts = plan(d)
     scale = d ** -0.5
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+
+    def product(eq, x, y):
+        """S or dP: float32 products over each part of d, summed."""
+        w = d // d_parts
+        out = torch.einsum(eq, x[..., :w], y[..., :w])
+        for i in range(1, d_parts):
+            out += torch.einsum(eq, x[..., i * w:(i + 1) * w],
+                                y[..., i * w:(i + 1) * w])
+        return out
     lse2 = lse.float() * LOG2E
     delta = (dof * o.float()).sum(-1)
 
@@ -103,8 +129,8 @@ def emulate(q, k, v, o, dout, lse, window=0, softcap=0.0, split=True):
             for q0 in range(k0, last_row + 1, BT):
                 rows = torch.arange(q0, min(S, q0 + BT))
                 qt, dot = qf[:, g::G, q0:q0 + BT], dof[:, g::G, q0:q0 + BT]
-                s = torch.einsum("bhkd,bhqd->bhkq", kt, qt)      # S^T
-                dp = torch.einsum("bhkd,bhqd->bhkq", vt, dot)    # dP^T
+                s = product("bhkd,bhqd->bhkq", kt, qt)      # S^T
+                dp = product("bhkd,bhqd->bhkq", vt, dot)    # dP^T
                 p, ds = p_ds(s, dp, lse2[:, g::G, None, q0:q0 + BT],
                              delta[:, g::G, None, q0:q0 + BT],
                              live(keys, rows))
@@ -120,8 +146,8 @@ def emulate(q, k, v, o, dout, lse, window=0, softcap=0.0, split=True):
         for k0 in range(first, int(rows[-1]) + 1, BT):
             keys = torch.arange(k0, min(S, k0 + BT))
             kt, vt = kr[:, :, k0:k0 + BT], vr[:, :, k0:k0 + BT]
-            s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, q0:q0 + BN], kt)
-            dp = torch.einsum("bhqd,bhkd->bhqk", dof[:, :, q0:q0 + BN], vt)
+            s = product("bhqd,bhkd->bhqk", qf[:, :, q0:q0 + BN], kt)
+            dp = product("bhqd,bhkd->bhqk", dof[:, :, q0:q0 + BN], vt)
             _, ds = p_ds(s, dp, lse2[:, :, q0:q0 + BN, None],
                          delta[:, :, q0:q0 + BN, None], live(keys, rows).T)
             for part in parts(ds):
@@ -163,7 +189,7 @@ def _ratios(smoke, got, want, bound):
 
 @pytest.mark.parametrize("case", CASES)
 def test_split_emulation_within_the_bound_of_plain_and_jax(case):
-    """bf16 cases (d 16 to 128, GQA groups 1, 2 and 4, windows, softcaps,
+    """bf16 cases (d 16 to 256, GQA groups 1, 2 and 4, windows, softcaps,
     ragged S, S = 1): the emulation within SPLIT_LIMIT of
     ``flash_bwd_bound`` around the plain version, and around ``jax.grad``
     of ``repro.kernels.ref.mha_reference`` on the same float32 values
@@ -217,10 +243,48 @@ def test_split_passes_and_single_rounding_fails_cancellation(seed):
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_backward_route_by_dtype_and_head_dim(d):
-    """bf16 takes the tensor cores at d = 16 to 128 and the SIMT kernel at
-    d = 256; float32 always takes the SIMT kernel (TF32 would break its
-    bound)."""
-    assert bwd_route(torch.bfloat16, d) == (
-        "tc" if d in TC_BWD_HEAD_DIMS else "simt")
+    """bf16 takes the tensor cores at every head dim, d = 256 included;
+    float32 always takes the SIMT kernel (TF32 would break its bound)."""
+    assert d in TC_BWD_HEAD_DIMS
+    assert bwd_route(torch.bfloat16, d) == "tc"
     assert bwd_route(torch.float32, d) == "simt"
-    assert (bwd_route(torch.bfloat16, d) == "tc") == (d <= 128)
+
+
+def _makespan(work, sms=132):
+    """The time the last of ``work``'s blocks ends when each, in launch
+    order, goes to the first SM that is free (one block an SM, as the
+    kernels' shared memory and registers allow)."""
+    ends = [0] * sms
+    heapq.heapify(ends)
+    for w in work:
+        heapq.heappush(ends, heapq.heappop(ends) + w)
+    return max(ends)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,d,head_major,tile_major", [
+    (1, 8, 4, 4096, 256, (190, 156), (128, 127)),     # gemma2, train_4k
+    (8, 16, 8, 2048, 128, (304, 282), (268, 264)),    # qwen3, train
+])
+def test_tile_major_grid_order_balances_the_blocks(B, H, Hkv, S, d,
+                                                    head_major, tile_major):
+    """A model of the kernels' grids on 132 SMs, in (key or query tile,
+    64-row ring tiles) units of work: each block's work by the kernels'
+    loop bounds (dkdv: the G heads' query tiles from its keys to S; dq:
+    its key tiles up to the diagonal), blocks in linear launch order. The
+    tile-major order (``Plan::TILE_MAJOR``, d = 256) ends within 2% of
+    the mean; d <= 128's (tiles, heads, B) order ends far later at d =
+    256 (190 against 126: the first (head, batch) pairs' short tiles
+    take SMs that the last pairs' long tiles wait for)."""
+    BN, BT, _ = plan(d)
+    G, tiles = H // Hkv, -(-S // BN)
+    dkdv = [G * (S // BT - t * BN // BT) for t in range(tiles)]
+    dq = [(tiles - 1 - t) * BN // BT + BN // BT for t in range(tiles)]
+    got_head = tuple(_makespan([w for _ in range(n) for w in work])
+                     for work, n in ((dkdv, B * Hkv), (dq, B * H)))
+    got_tile = tuple(_makespan([w for w in work for _ in range(n)])
+                     for work, n in ((dkdv, B * Hkv), (dq, B * H)))
+    means = (sum(dkdv) * B * Hkv / 132, sum(dq) * B * H / 132)
+    print(f"head-major {got_head}, tile-major {got_tile}, mean {means}")
+    assert got_head == head_major and got_tile == tile_major
+    assert all(t <= 1.02 * m for t, m in zip(got_tile, means))
+
