@@ -10,7 +10,7 @@
     python3 chip_smoke.py --train-only
                                      # the training phase alone
     python3 chip_smoke.py --cells-only
-                                     # the cells phase alone
+                                     # the cells and mesh phases alone
 
 1. Builds the CUDA kernels of ``src/repro_torch/csrc`` with ``nvcc``, one
    process per source, all started together.
@@ -73,8 +73,9 @@
    timed beside its bound. Every model and kernel check also reads a
    planted fault that must fail it.
 9. The paper's system, last: ``EdgeCloudSystem`` on the scale-1000 store
-   (20 users, 4 edges, B&B and the four baselines, each round cold and
-   warm; thread overlap; a query split across two edges), then the SPARQL
+   (20 users, 4 edges, B&B and the four baselines, each round cold, bnb's
+   also warm; thread overlap on the workload's texts; a query split
+   across two edges), then the SPARQL
    UPDATE write path and an asynchronous rebalance on the 4-shard store;
    every round's results held against the numpy endpoint, bnb's
    objective the lowest, the query kernels launched against the edges'
@@ -113,9 +114,10 @@
    cut into several chunks, each against planted faults (the backward's
    gather dropping each run's first edge, the last chunk's rows left out
    of the join, PNA's max with the mesh route's tie rule); AdamW steps of
-   GCN (5) and PNA (2) on a labelled graph of ogb_products' size drawn on
-   the card, EGNN and NequIP on molecule batches (5 each) and on that
-   graph as one molecule (1 each), the loss finite and falling, step ms,
+   GCN (5) and PNA (2, at 2 of its 4 layers) on a labelled graph of
+   ogb_products' size drawn on the card, EGNN and NequIP on molecule
+   batches (5 each) and on that graph as one molecule (1 each, at 2
+   layers), the loss finite and falling, step ms,
    edges/s, peak memory, ``segment_sum_sorted`` launches a step against
    the checkpoints' count, one profiled step each; the backward's gather
    at D = 16 and 75 timed beside its bound and ``index_select``.
@@ -142,6 +144,18 @@
    dry run's; ``compressed_psum`` on a (1, 1) NCCL mesh equal bit for
    bit to the dequantized ``ef_compress``, the residual left out
    failing.
+13. The mesh routes (with the cells phase) on a (1, 1) NCCL mesh, every
+   collective run on the world of one: the four GNN cells at
+   ``minibatch_lg`` built on the mesh (``build_cell(..., mesh)``) against
+   the cells without one on the same batch and weights (the loss within
+   1e-5, every gradient leaf within 1e-4 of its max; PNA's against the
+   mesh tie rule), two timed AdamW steps of each route and
+   ``segment_sum_sorted``'s launches a mesh step, the GCN edges shuffled
+   and sorted again by the rank (the sort left out must fail on the
+   card); granite-moe-1b's bf16 prefill at full width and depth on the
+   expert-parallel route, logits and expert choices bit for bit the
+   single-device route's, each timed, and a planted expert slice off by
+   one that must change the logits. One ``mesh ...`` line each.
 
 Fails (non-zero exit, no result line) on any mismatch or exception, and
 when CUDA is not available. The last line is
@@ -3075,6 +3089,9 @@ SYSTEM_USERS, SYSTEM_EDGES, SYSTEM_HISTORY = 20, 4, 5
 SYSTEM_BUDGET_SHARE = 0.69
 SYSTEM_ROUND_QUERIES = 16
 POLICIES = ("cloud_only", "random", "edge_first", "greedy", "bnb")
+# the policies whose round also runs warm: bnb alone since PR 28 (all five
+# before; each round at scale 1000 takes ~15 s of host algebra and checks)
+WARM_POLICIES = ("bnb",)
 # the quickstart's algebra texts: OPTIONAL, UNION with LIMIT, DISTINCT with
 # ORDER BY, ASK
 SYSTEM_ALGEBRA = [
@@ -3185,16 +3202,17 @@ def _launch_delta(after: dict, before: dict) -> dict:
 
 
 def system_rounds(system, ep, pairs, oracle, device) -> dict:
-    """Each policy's round once cold and once warm, every result held
-    against the oracle; returns each policy's times, objective, edge share,
-    staging uploads and kernel launches."""
+    """Each policy's round cold, and again warm under WARM_POLICIES, every
+    result held against the oracle; returns each policy's times,
+    objective, edge share, staging uploads and kernel launches."""
     from repro_torch.kernels import launch_counts
     backend = system.engine.backend
     want = oracle.tables([t for _, t in pairs])
     out = {}
     for policy in POLICIES:
         row = {}
-        for phase in ("cold", "warm"):
+        for phase in ("cold", "warm") if policy in WARM_POLICIES else (
+                "cold",):
             if phase == "cold":
                 system.clear_engine_caches()
             u0, l0 = backend.staged_uploads, launch_counts()
@@ -3315,12 +3333,15 @@ def system_phase(gen, store, device, max_rows: int,
         prof["query_kernel_share"] = kern_ms / max(prof["device_ms"], 1e-12)
         info["cold_bnb_profile"] = prof
 
-    # overlap: the port never forks; "process" runs on threads
-    want = oracle.tables([t for _, t in pairs])
+    # overlap: the port never forks; "process" runs on threads. Its
+    # rounds take the workload's texts alone, without the host-bound
+    # algebra and cyclic texts (PR 28; the whole round before)
+    lean = pairs[:SYSTEM_ROUND_QUERIES]
+    want = oracle.tables([t for _, t in lean])
     info["overlap"] = {}
     for overlap, collect in ((True, True), ("process", False)):
         system.clear_engine_caches()
-        rep = ep.run_round(pairs, policy="bnb", observe=False,
+        rep = ep.run_round(lean, policy="bnb", observe=False,
                            overlap=overlap, collect_results=collect)
         children = multiprocessing.active_children()
         if rep.overlap_mode != "thread" or children:
@@ -3328,7 +3349,7 @@ def system_phase(gen, store, device, max_rows: int,
                                  f"{rep.overlap_mode!r}, child processes "
                                  f"{children}; want thread, none")
         if collect:
-            check_round(f"overlap={overlap!r}", rep, pairs, want)
+            check_round(f"overlap={overlap!r}", rep, lean, want)
         else:
             got = [o.n_matches for o in rep.outcomes]
             if got != [w.num_matches for w in want]:
@@ -4180,9 +4201,10 @@ def log_system(info: dict, gpu: str) -> None:
         f"edges {json.dumps(info['edges'])}, oracle "
         f"{info['oracle_seconds']} s")
     for policy, r in info["rounds"].items():
+        warm = (f", warm {r['warm']['execute_wall_seconds']} s"
+                if "warm" in r else "")
         log(f"system round {policy} on {gpu}: cold "
-            f"{r['cold']['execute_wall_seconds']} s, warm "
-            f"{r['warm']['execute_wall_seconds']} s, schedule_ms "
+            f"{r['cold']['execute_wall_seconds']} s{warm}, schedule_ms "
             f"{r['cold']['schedule_ms']}, objective {r['objective']}, "
             f"edge_share {r['edge_share']}: {json.dumps(r)}")
         if policy == "bnb" and not (r["cold"]["optimal"]
@@ -4782,6 +4804,11 @@ REORDER_FACTOR = 4           # the check's tolerance: GRAD_TOL plus this
 GNN_TRAIN = (("gcn-cora", "ogb_products", 5), ("pna", "ogb_products", 2),
              ("egnn", "molecule", 5), ("nequip", "molecule", 5),
              ("egnn", "ogb_products", 1), ("nequip", "ogb_products", 1))
+# depth of the chunked models' runs at ogb_products' size, cut in PR 28
+# from the published 4, 4 and 5 layers (widths kept): a step of each took
+# 22.2, 16.0 and 40.3 s, a third of the whole script's train phase
+GNN_TRAIN_LAYERS = {("pna", "ogb_products"): 2, ("egnn", "ogb_products"): 2,
+                    ("nequip", "ogb_products"): 2}
 GNN_TRAIN_TRACK = ("segment_sum", "scatter", "index", "gemm", "gemv",
                    "elementwise", "reduce", "Sort")
 GATHER_WIDTHS = (16, 75)     # the backward gather: GCN's and PNA's widths
@@ -4790,10 +4817,12 @@ GNN_TRAIN_LR = 1e-4          # EGNN's loss swings at 3e-4 and above from a
 
 
 def _mesh_tie_max(seg_max):
-    """``gnn.seg_max`` with a planted fault: the reference's mesh-route
-    backward (``repro/models/gnn.py:113-127``), which gives every element
-    tied at a row's max the row's whole cotangent where one device splits
-    it evenly."""
+    """``gnn.seg_max`` with the reference's mesh-route backward
+    (``repro/models/gnn.py:113-127``), which gives every element tied at a
+    row's max the row's whole cotangent where one device splits it
+    evenly: a planted fault for the single-device route
+    (``gnn_loss_check``), and the reference the mesh route is held to
+    (``mesh_gnn_check``)."""
     import torch
 
     class MeshMax(torch.autograd.Function):
@@ -5043,7 +5072,8 @@ def gnn_train_phase(args, hbm: float, device) -> dict:
     """GNN training on the card: ``gnn_loss_check`` for the four models;
     the runs of GNN_TRAIN (GCN and PNA labelled on a graph of
     ogb_products' size drawn and sorted on the card, EGNN and NequIP on
-    molecule batches and on that graph as one molecule), each's
+    molecule batches and on that graph as one molecule; PNA, EGNN and
+    NequIP at GNN_TRAIN_LAYERS layers on that graph), each's
     ``segment_sum_sorted`` launches a step checked against
     ``gnn_train_launches``; the backward gather at GATHER_WIDTHS. Returns
     the launches of every kernel over the runs."""
@@ -5067,13 +5097,18 @@ def gnn_train_phase(args, hbm: float, device) -> dict:
     total: dict[str, int] = {}
     for arch, where, steps in GNN_TRAIN:
         cfg = gnn_config(arch, where)
+        full = cfg.n_layers
+        cfg = dataclasses.replace(cfg, n_layers=GNN_TRAIN_LAYERS.get(
+            (arch, where), full))
         batch = gnn_train_batch(cfg, where, graph, args.seed, device)
         t0 = time.perf_counter()
         run = gnn_train(cfg, batch, steps, args.seed, device)
         del batch
         prof = run.pop("profile")
         launches = run.pop("launches")
-        log(f"train gnn {cfg.name} at {where} ({cfg.n_layers} layers, "
+        depth = (f"{cfg.n_layers} layers" if cfg.n_layers == full else
+                 f"{cfg.n_layers} of {full} layers")
+        log(f"train gnn {cfg.name} at {where} ({depth}, "
             f"hidden {cfg.d_hidden}, f32, AdamW) on {gpu}: "
             f"{json.dumps(run)} in {time.perf_counter() - t0:.1f} s")
         log(f"train gnn {cfg.name} at {where} profile (one step): "
@@ -5943,14 +5978,246 @@ def psum_check(seed: int, device) -> dict:
     return out
 
 
-def cells_phase(args, hbm: float, device) -> dict:
+# ---------------------------------------------------------------------------
+# the mesh routes (PR 28) on a (1, 1) mesh: NCCL on the card
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 2               # timed AdamW steps of each route's GNN cell
+MESH_LOSS_RTOL = 1e-5        # the mesh route's loss against the no-mesh one
+MESH_FAULT_SEQ = 1024        # prompt of the planted expert-slice fault
+
+
+def _timed_steps(fn, params, batch, steps: int) -> tuple[list, list]:
+    """``steps`` calls of a train step on ``params`` (updated in place),
+    each timed to its loss's read: (ms, losses)."""
+    from repro_torch.optim.adamw import adamw_init
+    opt = adamw_init(params)
+    ms, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, metrics = fn(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, losses
+
+
+def mesh_gnn_check(spec, sub: dict, seed: int, device, mesh) -> dict:
+    """``spec``'s ``minibatch_lg`` cell built on ``mesh`` (a (1, 1) mesh:
+    the mesh routes of ``models/gnn.py`` with every collective on the
+    process group) against the cell built without one, on
+    ``minibatch_batch``'s batch and the same weights from ``seed``: the
+    loss within MESH_LOSS_RTOL and every gradient leaf within GRAD_TOL *
+    max |leaf|; PNA's against the no-mesh route with the mesh tie rule
+    (``_mesh_tie_max``: every tie the whole cotangent), and the no-mesh
+    route's own even split, the planted fault here, must fail that on the
+    card (the sampler repeats edges, so messages tie; logged only on the
+    CPU, whose small rehearsal graph may hold no tie). Then MESH_STEPS
+    AdamW steps of
+    each cell, timed, and the ``segment_sum_sorted`` launches a mesh step.
+    For GCN also the planted fault: the edges shuffled and the rank's
+    local sort left out, so ``segment_sum_sorted`` gets unsorted dst; on
+    the card the loss must move past MESH_LOSS_RTOL (the CPU's plain
+    version sums any order, so there it is logged only)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.registry import build_cell, gnn_cell_config
+    from repro_torch.convert import local_shard
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import gnn
+    from repro_torch.models.common import AxisRules
+    from repro_torch.runtime.train_loop import value_and_grad
+    dev = torch.device(device)
+    cfg, sh = gnn_cell_config(spec.config, "minibatch_lg")
+    rules = AxisRules.for_mesh(mesh)
+    cell, one = (build_cell(spec, "minibatch_lg", m) for m in (mesh, None))
+    batch = minibatch_batch(cfg, sub, sh["d_feat"], seed, dev)
+    local = local_shard(batch, cell.in_specs[2], mesh)
+    params = gnn.gnn_init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                          dev)
+
+    def grads(b, r):
+        loss, _, g = value_and_grad(
+            lambda p, bb: gnn.gnn_loss(cfg, p, bb, r), params, b)
+        return float(loss), tree.leaves(g)
+
+    loss, got = grads(local, rules)
+    out = {"model": cfg.name, "nodes": len(sub["nodes"]),
+           "edges": len(sub["edge_index"]), "mesh": list(mesh.shape)}
+    if cfg.model == "pna":
+        with patched(gnn, "seg_max", _mesh_tie_max):
+            want_loss, want = grads(batch, None)
+        out["even_split_ratio"] = grad_err(got, grads(batch, None)[1],
+                                           GRAD_TOL)[1]
+    else:
+        want_loss, want = grads(batch, None)
+    out["loss"], out["loss_diff"] = loss, abs(loss - want_loss)
+    out["grad_max_abs_err"], out["grad_ratio"] = grad_err(got, want,
+                                                          GRAD_TOL)
+    del got, want
+    if cfg.model == "gcn":
+        order = torch.from_numpy(np.random.default_rng(seed).permutation(
+            len(sub["edge_index"]))).to(dev)
+        shuffled = {**local, "edge_index": local["edge_index"][order]}
+        with torch.no_grad():
+            out["shuffled_loss_diff"] = abs(float(gnn.gnn_loss(
+                cfg, params, shuffled, rules)[0]) - loss)
+            with patched(gnn, "sort_by_dst", lambda _: lambda ei: ei):
+                out["planted_unsorted_diff"] = abs(float(gnn.gnn_loss(
+                    cfg, params, shuffled, rules)[0]) - loss)
+    reset_launch_counts()
+    out["mesh_ms"], out["mesh_losses"] = _timed_steps(
+        cell.fn, tree.tree_map(torch.clone, params), local, MESH_STEPS)
+    out["mesh_launches"] = launch_counts()
+    reset_launch_counts()
+    out["one_ms"], out["one_losses"] = _timed_steps(
+        one.fn, tree.tree_map(torch.clone, params), batch, MESH_STEPS)
+    out["one_launches"] = launch_counts()
+    out["segment_sum_sorted_per_step"] = out["mesh_launches"].get(
+        "segment_sum_sorted", 0) / MESH_STEPS
+    limit = MESH_LOSS_RTOL * max(1.0, abs(want_loss))
+    out["ok"] = (math.isfinite(loss) and out["loss_diff"] <= limit
+                 and out["grad_ratio"] <= 1.0
+                 and all(math.isfinite(x) for x in out["mesh_losses"])
+                 and out.get("shuffled_loss_diff", 0.0) <= limit)
+    if cfg.model == "gcn" and dev.type == "cuda":
+        out["ok"] = out["ok"] and out["planted_unsorted_diff"] > limit
+    if cfg.model == "pna" and dev.type == "cuda":
+        out["ok"] = out["ok"] and out["even_split_ratio"] > 1.0
+    del params, batch, local
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _expert_slice_off_by_one(core):
+    """``transformer._moe_core`` with a planted fault: the expert slice
+    starting one expert late (``e0 + 1``)."""
+    def faulty(cfg, router, wi_gate, wi_up, wo_ffn, x, e0=0, train=False):
+        return core(cfg, router, wi_gate, wi_up, wo_ffn, x, e0 + 1, train)
+    return faulty
+
+
+def mesh_moe_check(cfg, params, tokens, device, mesh) -> dict:
+    """``lm_prefill`` of ``tokens`` on the expert-parallel route
+    (``AxisRules.for_mesh(mesh)``: on one rank e0 = 0 and El = E, every
+    collective on the process group) against the route without a mesh:
+    logits equal bit for bit and every layer's expert choices equal; each
+    route's prefill timed once after a warm-up; the ``flash_attention``
+    launches of the EP prefill. The planted fault (the slice starting one
+    expert late) must change the logits of a prefill of the first
+    MESH_FAULT_SEQ tokens."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import AxisRules
+    rules = AxisRules.for_mesh(mesh)
+    if not tf.expert_parallel(cfg, rules):
+        raise AssertionError(f"{cfg.name}: not on the expert-parallel route")
+
+    def prefill(r, calls: list | None = None):
+        with patched(tf, "_moe_route", route_capture(
+                [] if calls is None else calls)):
+            t0 = time.perf_counter()
+            logits = tf.lm_prefill(cfg, params, tokens, rules=r)
+            _sync(device)
+        return logits, (time.perf_counter() - t0)
+
+    prefill(rules)                                   # warm-up
+    ep_routes, one_routes = [], []
+    reset_launch_counts()
+    ep, ep_s = prefill(rules, ep_routes)
+    launches = launch_counts()
+    one, one_s = prefill(None, one_routes)
+    out = {"model": cfg.name, "tokens": list(tokens.shape),
+           "mesh": list(mesh.shape), "ep_prefill_s": ep_s,
+           "one_prefill_s": one_s, "logits_equal": torch.equal(ep, one),
+           "routing_equal": len(ep_routes) == len(one_routes) == cfg.n_layers
+           and all(torch.equal(a.ids, b.ids)
+                   for a, b in zip(ep_routes, one_routes)),
+           "launches": launches}
+    del ep, one, ep_routes, one_routes
+    short = tokens[:, :MESH_FAULT_SEQ]
+    want = tf.lm_prefill(cfg, params, short)
+    with patched(tf, "_moe_core", _expert_slice_off_by_one):
+        planted = tf.lm_prefill(cfg, params, short, rules=rules)
+    out["planted_max_abs_diff"] = float((planted.float()
+                                         - want.float()).abs().max())
+    out["ok"] = (out["logits_equal"] and out["routing_equal"]
+                 and out["planted_max_abs_diff"] > 0)
+    if torch.device(device).type == "cuda":
+        out["ok"] = out["ok"] and launches.get("flash_attention",
+                                               0) == cfg.n_layers
+    return out
+
+
+def mesh_phase(args, sub: dict, device, moe_cfg=None, prompt=None) -> dict:
+    """The mesh routes on a (1, 1) ``("data", "model")`` mesh of the
+    default group (NCCL on the card, gloo on the CPU: a world of one
+    through a ``HashStore``): the four GNN cells at ``minibatch_lg`` on
+    ``sub`` (``mesh_gnn_check``) and granite-moe-1b's bf16 prefill at
+    full width and depth on the expert-parallel route (``moe_cfg`` and a
+    float32 ``prompt`` of tokens in a rehearsal; ``mesh_moe_check``), one
+    log line each; raises on any failed check. Returns the kernels'
+    launches on the mesh routes (the GNN cells' timed mesh steps and the
+    EP prefill)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_spec
+    from repro_torch.launch.mesh import make_compat_mesh
+    from repro_torch.models.transformer import init_lm_params
+    dev = torch.device(device)
+    gpu = gpu_line() if dev.type == "cuda" else "the CPU"
+    mesh = make_compat_mesh((1, 1), ("data", "model"), dev)
+    bad, launches = [], {}
+    try:
+        log(f"mesh: {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+            f"{dist.get_backend()}")
+        for arch in (GNN_ARCH,) + GNN_ZOO:
+            t0 = time.perf_counter()
+            run = mesh_gnn_check(get_spec(arch), sub, args.seed, dev, mesh)
+            log(f"mesh gnn {arch} minibatch_lg on {gpu}: "
+                f"{json.dumps(run)} in {time.perf_counter() - t0:.1f} s")
+            if not run["ok"]:
+                bad.append(arch)
+            for k, v in run["mesh_launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        cfg = moe_cfg or get_spec(MOE_ARCH).config
+        dtype = torch.bfloat16 if moe_cfg is None else torch.float32
+        params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), dtype, dev)
+        tokens = _tokens(args.seed, (PREFILL_BATCH, prompt or
+                                     args.prefill_seq), cfg.vocab, dev)
+        t0 = time.perf_counter()
+        moe = mesh_moe_check(cfg, params, tokens, dev, mesh)
+        log(f"mesh moe {cfg.name} prefill on the expert-parallel route on "
+            f"{gpu}: {json.dumps(moe)} in {time.perf_counter() - t0:.1f} s")
+        if not moe["ok"]:
+            bad.append(cfg.name)
+        for k, v in moe["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        del params, tokens
+    finally:
+        dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        for name in ("segment_sum_sorted", "flash_attention"):
+            if launches.get(name, 0) <= 0:
+                bad.append(f"{name} not launched on the mesh routes")
+    if bad:
+        raise AssertionError(f"mesh: {bad}")
+    return launches
+
+
+def cells_phase(args, hbm: float, device) -> tuple[dict, dict]:
     """The registry's cells: every cell dry-run on the meta device in
     DRY_WORKERS processes (one line each: argument, output and peak GB,
     GFLOPs, whether the peak fits the card), after the CARD_CELLS have
     run on the card through ``cell.fn`` on a quiet host;
     each uncut cell's measured peak within PEAK_FACTOR of its dry run's,
     each cut cell's beside the dry run of its cut; ``compressed_psum`` on
-    NCCL. Returns the launches of every kernel over the card cells."""
+    NCCL; then the mesh routes (``mesh_phase``) on the card cells'
+    minibatch. Returns the launches of every kernel over the card cells,
+    and over the mesh routes."""
     import torch
     from repro_torch.configs.registry import get_spec
     gpu = gpu_line()
@@ -5969,6 +6236,10 @@ def cells_phase(args, hbm: float, device) -> dict:
         runs[arch, shape] = gnn_cell(arch, sub, args.seed, device)
     psum = psum_check(args.seed, device)
     log(f"cells on the card ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phase(args, sub, device)
+    del sub
+    log(f"mesh phase {time.perf_counter() - t0:.1f} s")
     # the dry run after the timed cells: its processes load the host
     t0 = time.perf_counter()
     pool, futures = start_dry_run(DRY_WORKERS)
@@ -6046,7 +6317,7 @@ def cells_phase(args, hbm: float, device) -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"cells: {bad}")
-    return launches
+    return launches, mesh_launches
 
 
 def gpu_line() -> str:
@@ -6103,7 +6374,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--cells-only", action="store_true",
                     help="the cells phase alone (the registry's cells: "
                          "the dry run, the cells that fit the card, "
-                         "compressed_psum)")
+                         "compressed_psum, the mesh routes)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the LM, MoE, recsys and GNN phases' "
                          "weights and inputs")
@@ -6206,10 +6477,12 @@ def main(argv: list[str] | None = None) -> int:
 
     if not (args.lm_only or args.sparse_only or args.train_only):
         t0 = time.perf_counter()
-        cell_launches = cells_phase(args, hbm, dev)
+        cell_launches, mesh_launches = cells_phase(args, hbm, dev)
         for row in rows:     # the kernels' launches in the card cells
             if row["name"] in cell_launches:
                 row["cells_launches"] = int(cell_launches[row["name"]])
+            if row["name"] in mesh_launches:   # and on the mesh routes
+                row["mesh_launches"] = int(mesh_launches[row["name"]])
         log(f"cells phase {time.perf_counter() - t0:.1f} s")
 
     if not only:

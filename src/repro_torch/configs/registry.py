@@ -10,12 +10,21 @@ dtypes, no storage) in the reference's tree order, consumed by the dry
 run (:mod:`repro_torch.launch.dryrun`) and by ``chip_smoke.py``'s cells
 phase, which makes real arguments of the same shapes.
 
-Where the port differs: a :class:`Cell` has no shardings, since the
-port's models have no sharded paths yet, so :func:`build_cell` takes no
-mesh but ``None`` or a one-device mesh. It has no ``probe`` either: the
-reference's single-layer probe corrects XLA's cost analysis, which counts
-a scan body once (``repro/launch/dryrun.py``); the port runs eagerly, and
-its counters see every layer.
+On a mesh (:mod:`repro_torch.launch.mesh`), :func:`build_cell` builds
+the GNN cells as the reference's ``_gnn_cell`` does: the step runs on
+``AxisRules.for_mesh(mesh)`` (the vertex-partitioned mesh routes of
+``models/gnn.py``), and the cell's ``in_specs`` give each argument's
+layout, the reference's ``in_shardings`` as tuples of axis names (node
+and edge arrays over the batch axes where their leading dim divides,
+``energy`` and the params replicated); each rank passes its pieces
+(``convert.local_shard``). The LM and recsys cells run on one device (a
+mesh of one): past it they need the reference's ``param_shardings``,
+``cache_shardings`` and ``recsys_param_shardings`` (FSDP and TP of every
+weight), which the port has not, and :func:`build_cell` raises. A
+:class:`Cell` has no ``probe``: the reference's single-layer probe
+corrects XLA's cost analysis, which counts a scan body once
+(``repro/launch/dryrun.py``); the port runs eagerly, and its counters see
+every layer.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ from typing import Callable
 
 import torch
 
+from ..launch.collectives import axis_size
+from ..models.common import AxisRules
 from ..models.gnn import GNNConfig, gnn_init, gnn_loss
 from ..models.recsys import (RecsysConfig, init_recsys_params, recsys_loss,
                              recsys_score, retrieval_topk)
@@ -137,6 +148,9 @@ class Cell:
     # grad-accumulation factor (== microbatches), as the reference's
     # roofline totals scale by it
     cost_multiplier: int = 1
+    # on a mesh, each argument's layout: {path: spec} per argument
+    # (``convert.local_shard``'s), paths left out replicated
+    in_specs: tuple = ()
 
 
 def _pad_to(n: int, m: int = 512) -> int:
@@ -153,17 +167,27 @@ def _meta(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=META)
 
 
+_MISSING_SHARDINGS = {
+    "lm": "the reference's param_shardings and cache_shardings",
+    "recsys": "the reference's recsys_param_shardings",
+}
+
+
 def build_cell(spec: ArchSpec, shape_name: str, mesh=None) -> Cell:
     """The cell of ``spec`` at ``shape_name``. ``mesh``: ``None`` or a
-    mesh of one device (:mod:`repro_torch.launch.mesh`); a larger mesh
-    raises ``ValueError``, as the port's models have no sharded paths."""
+    :mod:`repro_torch.launch.mesh` mesh. A GNN cell on a mesh takes the
+    mesh routes and states its ``in_specs``; an LM or recsys cell takes
+    ``None`` or a mesh of one device, and a larger mesh raises
+    ``ValueError``."""
+    if spec.family == "gnn":
+        return _gnn_cell(spec, shape_name, mesh)
     if mesh is not None and mesh.size() != 1:
-        raise ValueError(f"the port's cells run on one device; got a mesh "
-                         f"of {mesh.size()}")
+        raise ValueError(
+            f"the port's {spec.family} cells run on one device; a mesh of "
+            f"{mesh.size()} needs {_MISSING_SHARDINGS[spec.family]} (FSDP "
+            f"and TP of every weight), which are not ported")
     if spec.family == "lm":
         return _lm_cell(spec, shape_name)
-    if spec.family == "gnn":
-        return _gnn_cell(spec, shape_name)
     return _recsys_cell(spec, shape_name)
 
 
@@ -243,13 +267,34 @@ def gnn_cell_config(cfg: GNNConfig, shape_name: str) -> tuple[GNNConfig,
     return cfg, sh
 
 
-def _gnn_cell(spec: ArchSpec, shape_name: str) -> Cell:
+def gnn_batch_specs(batch: dict, mesh, rules: AxisRules) -> dict:
+    """The reference's layouts of a GNN batch (``_gnn_cell``): each leaf
+    but ``energy`` over the batch axes where its leading dim divides by
+    their ranks (``_batch_dim_spec``), else whole."""
+    shards = axis_size(mesh, rules.batch)
+    return {k: (rules.batch,) for k, v in batch.items()
+            if k != "energy" and v.shape[0] % shards == 0}
+
+
+def _gnn_cell(spec: ArchSpec, shape_name: str, mesh=None) -> Cell:
     dcfg, sh = gnn_cell_config(spec.config, shape_name)
     params = gnn_init(dcfg, torch.Generator(), device=META)
-    step = make_train_step(lambda p, b: gnn_loss(dcfg, p, b), _opt_cfg())
-    return Cell(fn=step, abstract_args=(params, adamw_init(params),
-                                        _gnn_batch_struct(dcfg, sh)),
-                description=f"gnn train {shape_name}")
+    batch = _gnn_batch_struct(dcfg, sh)
+    # vertex-partitioned DistGNN schedule on a mesh: node and edge arrays
+    # over the batch axes, the params (tiny) replicated
+    rules = None if mesh is None else AxisRules.for_mesh(mesh)
+    step = make_train_step(lambda p, b: gnn_loss(dcfg, p, b, rules),
+                           _opt_cfg(), rules=rules)
+    specs = ()
+    if mesh is not None:
+        specs = ({}, {}, gnn_batch_specs(batch, mesh, rules))
+        if len(specs[2]) != len(batch) - ("energy" in batch):
+            raise ValueError(f"gnn cell {shape_name}: the mesh routes take "
+                             f"every node and edge array sharded; a leading "
+                             f"dim does not divide by the batch axes' "
+                             f"ranks")
+    return Cell(fn=step, abstract_args=(params, adamw_init(params), batch),
+                description=f"gnn train {shape_name}", in_specs=specs)
 
 
 # -- recsys ------------------------------------------------------------------

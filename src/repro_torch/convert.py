@@ -11,7 +11,9 @@ EGNN, NequIP) parameter trees, given as numpy arrays, into the port's
 params, :func:`adamw_state_from_reference` an AdamW state (moments and
 step), and :func:`system_params_from_reference` the cloud-edge system's
 ``SystemParams``. All read plain arrays only, so
-they import nothing of the JAX package.
+they import nothing of the JAX package. :func:`local_shard` cuts a tree
+carried across (params or a batch) into this rank's pieces of a mesh, by
+the reference's layouts.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tree as _tree
 from .device import resolve_device
+from .launch import collectives as col
 
 from .core.cost import SystemParams
 from .rdf.dictionary import Dictionary
@@ -141,3 +145,37 @@ def system_params_from_reference(ref_params) -> SystemParams:
         assoc=np.array(ref_params.assoc, dtype=bool),
         r_backhaul=None if bh is None else np.array(bh, dtype=np.float64),
         F_cloud=float(ref_params.F_cloud))
+
+
+def local_shard(tree, specs: dict, mesh):
+    """This rank's pieces of ``tree`` (params or a batch, whole) on
+    ``mesh``, by the reference's layouts.
+
+    ``specs`` maps a leaf's path (:func:`repro_torch.tree.path_key`, e.g.
+    ``"layers/wi_gate"`` or ``"feat"``) to its layout, the reference's
+    ``PartitionSpec`` written as a tuple: for each leading dim ``None``
+    (whole), a mesh axis name or a tuple of names (cut into as many equal
+    tiles as those axes hold ranks, this rank's tile kept, row-major over
+    a tuple); dims past the tuple are whole. Leaves not in ``specs`` are
+    replicated and kept as they are. Raises ``KeyError`` for a path that
+    names no leaf and ``ValueError`` where a dim does not divide."""
+    flat = _tree.flatten(tree)
+    paths = {_tree.path_key(p) for p, _ in flat}
+    unknown = sorted(set(specs) - paths)
+    if unknown:
+        raise KeyError(f"local_shard: no leaf at {unknown}")
+    out = []
+    for path, leaf in flat:
+        spec = specs.get(_tree.path_key(path))
+        for dim, axes in enumerate(spec or ()):
+            if axes is None or axes == ():
+                continue
+            n = col.axis_size(mesh, axes)
+            if leaf.shape[dim] % n:
+                raise ValueError(f"local_shard: {_tree.path_key(path)} dim "
+                                 f"{dim} ({leaf.shape[dim]}) does not divide "
+                                 f"into {n} shards")
+            size = leaf.shape[dim] // n
+            leaf = leaf.narrow(dim, col.axis_index(mesh, axes) * size, size)
+        out.append(leaf.contiguous() if spec else leaf)
+    return _tree.unflatten(tree, out)

@@ -1,18 +1,55 @@
 """Shared model building blocks (port of ``repro/models/common.py``).
 
-Parameters are plain dicts of tensors. The JAX module's ``AxisRules`` and
-``constrain`` express sharding over a TPU mesh; the port runs on one card
-and leaves them out. Random initialisation takes an explicit
-``torch.Generator``: the same seed gives other numbers than ``jax.random``,
-so tests carry weights over with :mod:`repro_torch.convert` instead.
+Parameters are plain dicts of tensors. :class:`AxisRules` maps the
+logical axes (batch, fsdp, tp) onto the dimensions of a mesh
+(:mod:`repro_torch.launch.mesh`), as the reference's does. The
+reference's ``constrain`` (GSPMD's ``with_sharding_constraint``) has no
+counterpart: the port runs each rank's piece eagerly and states every
+layout itself, with the collectives of
+:mod:`repro_torch.launch.collectives` where the reference's ``shard_map``
+routes call ``jax.lax`` ones. Random initialisation takes an explicit
+``torch.Generator``: the same seed gives other numbers than
+``jax.random``, so tests carry weights over with :mod:`repro_torch.convert`
+instead.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class AxisRules:
+    """Logical -> mesh axis mapping.
+
+    batch: axes that shard the batch (data parallel, incl. the pod axis)
+    fsdp:  axis that shards parameter rows (fully-sharded data parallel)
+    tp:    tensor-parallel axis (heads / ffn / vocab / experts)
+    mesh:  a ``DeviceMesh`` or None; the mesh routes (``mp_aggregate``'s
+           sharded sum and max, NequIP's sharded chunk scan, the
+           expert-parallel MoE) run only where it is set.
+    """
+
+    batch: tuple[str, ...] = ("data",)
+    fsdp: str | None = "data"
+    tp: str | None = "model"
+    mesh: object = None
+
+    @classmethod
+    def for_mesh_axes(cls, axis_names: tuple[str, ...],
+                      mesh=None) -> "AxisRules":
+        if "pod" in axis_names:
+            return cls(batch=("pod", "data"), fsdp="data", tp="model",
+                       mesh=mesh)
+        return cls(batch=("data",), fsdp="data", tp="model", mesh=mesh)
+
+    @classmethod
+    def for_mesh(cls, mesh) -> "AxisRules":
+        return cls.for_mesh_axes(tuple(mesh.mesh_dim_names), mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

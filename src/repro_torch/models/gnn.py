@@ -25,20 +25,44 @@ under a checkpoint of its own, as the reference remats its fused NequIP
 chunks: the backward holds one chunk's edge state at a time, and the
 chunks' node rows are joined by ``torch.cat`` (they cover [0, N) in
 order). ``segment_sum_sorted``'s gradient gathers the output's gradient by
-``dst``; max and min take ``scatter_reduce``'s gradient, which splits the
-cotangent evenly among tied elements, as ``jax.ops.segment_max``'s
-derivative does on one device (the reference's mesh route gives each tie
-the whole cotangent; it needs a mesh, which the port has not).
+``dst``; on one device max and min take ``scatter_reduce``'s gradient,
+which splits the cotangent evenly among tied elements, as
+``jax.ops.segment_max``'s derivative does on one device.
+
+**The mesh routes.** Each forward and :func:`gnn_loss` take ``rules``
+(:class:`~repro_torch.models.common.AxisRules`); where ``rules.mesh`` is
+set and ``rules.batch`` is not empty they run the reference's
+vertex-partitioned schedule (``mp_aggregate``'s ``shard_map`` branch)
+on ``torch.distributed``. Every argument arrives as the reference's GNN
+cell shards it: the node arrays (feat, labels, label_mask, species,
+coords, graph_ids) hold this rank's rows, ``edge_index`` this rank's
+block of the edge list (global node ids), ``energy`` and the params are
+whole. A rank sorts its block by dst (once a graph), sums its edges
+(chunk by chunk, as above) into a full [N, D] partial and
+``psum_scatter``s it over the batch axes onto the node shards. GSPMD
+gathers the node tensors that ``x[src]`` and ``x[dst]`` read without
+being asked; the port ``all_gather``s each one once a layer (GCN's
+norms, PNA's and EGNN's features, EGNN's coordinates, NequIP's irreps),
+whose backward is ``psum_scatter``. Sums across ranks (the masked NLL and
+its count, PNA's mean log-degree, the per-graph energies) are ``psum``s.
+The max there is the reference's mesh rule: each rank's max (rows
+without an edge at -inf), ``pmax``, empty rows 0, and a backward that
+gives **every tie the whole cotangent** (``dmsg = where(m == y[d],
+g[d], 0)``, the reference's ``custom_vjp``), not the even split of one
+device. Replicated params get each rank's share of their gradient; the
+train step sums them over the batch axes
+(:func:`repro_torch.runtime.train_loop.make_train_step`).
 
 Names and layouts at the public functions are the JAX module's: features
 [N, F], ``edge_index`` int32 [E, 2] (src, dst), species [N] int, coords
 [N, 3], params as nested dicts and lists with ``(w, b)`` tuples for MLP
-layers. Where the port differs, by design: there is no sharding
-(``AxisRules``), as it serves from one card, so the reference's fused
-shard_map NequIP path (``_nequip_aggregate_fused``) becomes the chunk loop
-above; GCN computes the symmetric edge norms once for all layers (the JAX
-module recomputes them per layer, with the same operations) and scales
-the gathered messages in place.
+layers. Where the port differs, by design: NequIP's fused, sharded chunk
+scan (the reference's ``_nequip_aggregate_fused``) is the chunk loop
+above on the rank's block, its chunks' node rows joined into one partial
+that is scattered once a layer (see :func:`nequip_forward`); GCN computes
+the symmetric edge norms once for all layers (the JAX module recomputes
+them per layer, with the same operations) and scales the gathered
+messages in place.
 """
 
 from __future__ import annotations
@@ -54,6 +78,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import tree
 from ..device import resolve_device
 from ..kernels.segment_mp import segment_sum_sorted
+from ..launch import collectives as col
 from .common import dense_init
 
 # Edges of one chunk. NequIP (C = 32) is the widest model: a chunk's
@@ -277,20 +302,149 @@ def seg_mean(x: torch.Tensor, idx: torch.Tensor, n: int,
     return seg_sum(x, idx, n) / (cnt + eps)
 
 
+# ---------------------------------------------------------------------------
+# the mesh routes (the reference's shard_map branch of mp_aggregate)
+# ---------------------------------------------------------------------------
+
+def _on_mesh(rules) -> bool:
+    """Whether ``rules`` takes the mesh routes: a mesh and batch axes, the
+    reference's condition."""
+    return rules is not None and rules.mesh is not None and bool(rules.batch)
+
+
+def _shards(rules) -> int:
+    """The node shards: the batch axes' rank count, 1 off the mesh."""
+    return col.axis_size(rules.mesh, rules.batch) if _on_mesh(rules) else 1
+
+
+def _nodes(n_local: int, rules) -> int:
+    """The graph's node count from a rank's rows."""
+    return n_local * _shards(rules)
+
+
+def _gather_nodes(x: torch.Tensor, rules) -> torch.Tensor:
+    """A node tensor whole [N, ...] from each rank's rows (backward:
+    ``psum_scatter``); ``x`` itself off the mesh."""
+    if not _on_mesh(rules):
+        return x
+    return col.all_gather(x, rules.mesh, rules.batch)
+
+
+def _scatter_nodes(partial: torch.Tensor, rules) -> torch.Tensor:
+    """A rank's [N, D] partial summed over the batch axes, this rank's
+    rows kept (backward: ``all_gather``); ``partial`` itself off the
+    mesh."""
+    if not _on_mesh(rules):
+        return partial
+    return col.psum_scatter(partial, rules.mesh, rules.batch)
+
+
+def _psum(x: torch.Tensor, rules) -> torch.Tensor:
+    """``x`` summed over the batch axes (the cotangent goes back to each
+    rank unchanged); ``x`` itself off the mesh."""
+    return col.psum(x, rules.mesh, rules.batch) if _on_mesh(rules) else x
+
+
+def _my_rows(full: torch.Tensor, rules) -> torch.Tensor:
+    """This rank's rows of a node tensor [N, ...]."""
+    nl = full.shape[0] // _shards(rules)
+    i = col.axis_index(rules.mesh, rules.batch)
+    return full[i * nl:(i + 1) * nl]
+
+
+class _TieMax(torch.autograd.Function):
+    """The max [rows, D] of msg [E, D] over dst [E] in [0, rows), rows
+    without an edge at -inf. Backward: each element tied at its row's max
+    gets the whole cotangent."""
+
+    @staticmethod
+    def forward(ctx, msg, dst, rows):
+        index = dst.long()[:, None].expand_as(msg)
+        raw = msg.new_full((rows, msg.shape[1]), -math.inf)
+        raw.scatter_reduce_(0, index, msg, "amax")
+        ctx.save_for_backward(msg, dst, raw)
+        return raw
+
+    @staticmethod
+    def backward(ctx, g):
+        msg, dst, raw = ctx.saved_tensors
+        d = dst.long()
+        return torch.where(msg == raw[d], g[d], 0.0), None, None
+
+
+class _MeshMax(torch.autograd.Function):
+    """A rank's maxima [N, D] (-inf where it has no edge) combined over the
+    batch axes by ``pmax``, rows of no edge on any rank (``has`` false)
+    0, this rank's rows kept. Backward: the output and its cotangent
+    all-gathered to [N, D], the whole cotangent of a row to every rank
+    whose max equals it; with :class:`_TieMax` below, every tie of every
+    rank gets it, as the reference's mesh ``custom_vjp`` gives it."""
+
+    @staticmethod
+    def forward(ctx, raw, has, rules):
+        full = col.pmax(raw, rules.mesh, rules.batch)
+        y = torch.where(has, _my_rows(full, rules), 0.0)
+        ctx.rules = rules
+        ctx.save_for_backward(raw, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        raw, y = ctx.saved_tensors
+        r = ctx.rules
+        yf = col.all_gather(y, r.mesh, r.batch)
+        gf = col.all_gather(g.contiguous(), r.mesh, r.batch)
+        return torch.where(raw == yf, gf, 0.0), None, None
+
+
+def _raw_max(msg: torch.Tensor, ch: "_Chunk",
+             out: torch.Tensor | None) -> torch.Tensor:
+    """A chunk's maxima into its node rows [hi - lo, D], -inf where a row
+    has no edge (into ``out`` in place where given)."""
+    if out is None:
+        return _TieMax.apply(msg, ch.local, ch.hi - ch.lo)
+    index = ch.local.long()[:, None].expand_as(msg)
+    return out.fill_(-math.inf).scatter_reduce_(0, index, msg, "amax")
+
+
 def mp_aggregate(msg: torch.Tensor, dst: torch.Tensor, n: int,
-                 op: str = "sum") -> torch.Tensor:
-    """Message aggregation onto nodes, the GNN hot path: one kernel launch
-    over destination-sorted edges for ``op="sum"``; ``op="max"`` is
-    :func:`seg_max`."""
-    if op == "sum":
-        return segment_sum_sorted(msg, dst, n)
-    if op == "max":
+                 rules=None, op: str = "sum") -> torch.Tensor:
+    """Message aggregation onto nodes, the GNN hot path.
+
+    Off the mesh: one kernel launch over destination-sorted edges for
+    ``op="sum"``; ``op="max"`` is :func:`seg_max` (empty rows 0, a tie's
+    cotangent split evenly). On the mesh (``rules.mesh`` set, batch axes
+    not empty; the reference's vertex-partitioned ``shard_map`` branch):
+    ``msg`` [E_l, D] and ``dst`` [E_l] are this rank's edge block, dst
+    sorted and in [0, n); the result is this rank's [n / nsh, D] node
+    rows. The sum runs the ``segment_sum_sorted`` kernel into a full
+    [n, D] partial, then ``psum_scatter`` over the batch axes. The max is
+    the rank's max, ``pmax``, rows of no edge 0 (``has`` from a ``psum`` of
+    the counts), and a backward giving each tie the whole cotangent.
+    Raises ``ValueError`` where n is not divisible by the node shards."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"mp_aggregate op must be 'sum' or 'max', "
+                         f"got {op!r}")
+    if not _on_mesh(rules):
+        if op == "sum":
+            return segment_sum_sorted(msg, dst, n)
         return seg_max(msg, dst, n)
-    raise ValueError(f"mp_aggregate op must be 'sum' or 'max', got {op!r}")
+    nsh = _shards(rules)
+    if n % nsh:
+        raise ValueError(f"node dim {n} not divisible by {nsh}")
+    if op == "sum":
+        return _scatter_nodes(segment_sum_sorted(msg, dst, n), rules)
+    cnt = segment_sum_sorted(msg.new_ones((msg.shape[0], 1)), dst, n)
+    has = _my_rows(_psum(cnt, rules), rules) > 0
+    return _MeshMax.apply(_TieMax.apply(msg, dst, n), has, rules)
 
 
-def degrees(dst: torch.Tensor, n: int) -> torch.Tensor:
-    """In-degree [n] float32 of destination-sorted edges."""
+def degrees(dst: torch.Tensor, n: int, rules=None) -> torch.Tensor:
+    """In-degree [n] float32 of destination-sorted edges; on the mesh,
+    this rank's rows [n / nsh] of the in-degree of every rank's edges."""
+    if _on_mesh(rules):
+        return mp_aggregate(torch.ones((dst.shape[0], 1), dtype=torch.float32,
+                                       device=dst.device), dst, n, rules)[:, 0]
     return seg_sum(torch.ones((dst.shape[0],), dtype=torch.float32,
                               device=dst.device), dst, n)
 
@@ -351,22 +505,25 @@ def gcn_init(cfg: GNNConfig, generator: torch.Generator,
 
 
 def gcn_forward(cfg: GNNConfig, params: dict, feat: torch.Tensor,
-                edge_index: torch.Tensor) -> torch.Tensor:
+                edge_index: torch.Tensor, rules=None) -> torch.Tensor:
     """feat [N, F]; edge_index int32 [E, 2] (src, dst) -> logits [N,
     n_classes]. Self-loops added here. Unsorted edges are sorted first;
     pass ``sort_by_dst(edge_index)`` to sort a graph once for many
-    forwards."""
-    n = feat.shape[0]
+    forwards. On the mesh (``rules``), the rank's rows and edge block
+    (module docstring): the norms and each layer's ``x @ w`` are
+    all-gathered for the gather by edge."""
+    n = _nodes(feat.shape[0], rules)
     src, dst = _src_dst(edge_index)
-    deg = degrees(dst, n) + 1.0                           # +1 self loop
+    deg = degrees(dst, n, rules) + 1.0                    # +1 self loop
     inv_sqrt = torch.rsqrt(deg)
-    norm = (inv_sqrt[src] * inv_sqrt[dst])[:, None]
+    inv_all = _gather_nodes(inv_sqrt, rules)
+    norm = (inv_all[src] * inv_all[dst])[:, None]
     self_norm = (inv_sqrt * inv_sqrt)[:, None]
 
     def layer(x, w, last):
         x = x @ w
-        msg = x[src].mul_(norm)
-        agg = mp_aggregate(msg, dst, n) + x * self_norm
+        msg = _gather_nodes(x, rules)[src].mul_(norm)
+        agg = mp_aggregate(msg, dst, n, rules) + x * self_norm
         del msg
         return agg if last else torch.relu(agg)
 
@@ -412,23 +569,28 @@ def _scaled_concat(aggs: list, scales: list,
 
 
 def pna_forward(cfg: GNNConfig, params: dict, feat: torch.Tensor,
-                edge_index: torch.Tensor) -> torch.Tensor:
+                edge_index: torch.Tensor, rules=None) -> torch.Tensor:
     """feat [N, F]; edge_index int32 [E, 2] (src, dst) -> logits [N,
     n_classes]. Per chunk one message MLP on ``[x[dst], x[src]]``; its sum
     and its square's sum go through the kernel, max and min through
-    :func:`seg_max`, and the chunk's messages are freed."""
+    :func:`seg_max`, and the chunk's messages are freed. On the mesh
+    (``rules``), the rank's rows and edge block: ``x`` all-gathered once a
+    layer, the sums scattered onto the node shards, max and min by the
+    mesh rule (:class:`_MeshMax`), the mean log-degree over every rank."""
     for a in cfg.aggregators:
         if a not in ("mean", "max", "min", "std"):
             raise ValueError(f"unknown PNA aggregator {a!r}")
-    n = feat.shape[0]
+    mesh = _on_mesh(rules)
+    n = _nodes(feat.shape[0], rules)
     src, dst = _src_dst(edge_index)
     chunks = _chunks(src, dst, n)
-    cnt = degrees(dst, n)[:, None]
+    cnt = degrees(dst, n, rules)[:, None]
     deg = cnt[:, 0]
     safe_cnt = cnt.clamp(min=1.0)
+    has = cnt > 0
     # PNA degree scalers, delta = mean log(deg+1) over the batch graph
     logd = torch.log(deg + 1.0)
-    delta = logd.mean() + 1e-9
+    delta = (_psum(logd.sum(), rules) / n if mesh else logd.mean()) + 1e-9
     scaler_map = {
         "identity": torch.ones_like(deg),
         "amplification": logd / delta,
@@ -439,14 +601,18 @@ def pna_forward(cfg: GNNConfig, params: dict, feat: torch.Tensor,
     parts = [a for a in cfg.aggregators if a != "mean"]
 
     def layer(x, lp):
+        xa = _gather_nodes(x, rules)
+
         def body(i, outs):
             ch = chunks[i]
             outs = outs or [None] * (1 + len(parts))
-            m = _mlp(lp["msg"], torch.cat([x[ch.dst], x[ch.src]], dim=-1))
+            m = _mlp(lp["msg"], torch.cat([xa[ch.dst], xa[ch.src]], dim=-1))
             rows = [_sum(m, ch, outs[0])]
             for a, out in zip(parts, outs[1:]):
                 if a == "std":
                     rows.append(_sum(m * m, ch, out))
+                elif mesh:    # the rank's max of m, or of -m for the min
+                    rows.append(_raw_max(m if a == "max" else -m, ch, out))
                 else:
                     agg = seg_max if a == "max" else seg_min
                     rows.append(agg(m, ch.local, ch.hi - ch.lo, out=out))
@@ -454,7 +620,14 @@ def pna_forward(cfg: GNNConfig, params: dict, feat: torch.Tensor,
 
         total, *sums = _chunked(body, chunks, n, [x.shape[1]] * (1 + len(
             parts)), x, train)
-        got = dict(zip(parts, sums))
+        total = _scatter_nodes(total, rules)
+        got = {}
+        for a, part in zip(parts, sums):
+            if a == "std" or not mesh:
+                got[a] = _scatter_nodes(part, rules)
+            else:             # PNA's min is -max(-m), as the reference's
+                y = _MeshMax.apply(part, has, rules)
+                got[a] = y if a == "max" else -y
         del sums
         mean = total / safe_cnt
         del total
@@ -502,22 +675,26 @@ def egnn_init(cfg: GNNConfig, generator: torch.Generator,
 
 
 def egnn_forward(cfg: GNNConfig, params: dict, species: torch.Tensor,
-                 coords: torch.Tensor, edge_index: torch.Tensor
+                 coords: torch.Tensor, edge_index: torch.Tensor, rules=None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """species [N] int, coords [N, 3]. Returns (h [N, H], coords' [N,
-    3])."""
-    n = coords.shape[0]
+    3]). On the mesh (``rules``), the rank's rows and edge block: ``h``
+    and the coordinates, which change every layer, all-gathered once a
+    layer."""
+    n = _nodes(coords.shape[0], rules)
     src, dst = _src_dst(edge_index)
     chunks = _chunks(src, dst, n)
-    safe_cnt = degrees(dst, n)[:, None].clamp(min=1.0)
+    safe_cnt = degrees(dst, n, rules)[:, None].clamp(min=1.0)
 
     def layer(h, x, lp):
+        ha, xa = _gather_nodes(h, rules), _gather_nodes(x, rules)
+
         def body(i, outs):
             ch = chunks[i]
             outs = outs or [None, None]
-            rel = _rel(x, ch.dst, ch.src)
+            rel = _rel(xa, ch.dst, ch.src)
             d2 = torch.sum(rel * rel, dim=-1, keepdim=True)
-            m = _mlp(lp["phi_e"], torch.cat([h[ch.dst], h[ch.src], d2],
+            m = _mlp(lp["phi_e"], torch.cat([ha[ch.dst], ha[ch.src], d2],
                                             dim=-1))
             # coordinate update, normalized for stability (EGNN §3.1
             # variant: unit-ish direction + bounded coefficient keeps |x|
@@ -526,8 +703,9 @@ def egnn_forward(cfg: GNNConfig, params: dict, species: torch.Tensor,
             return [_sum(rel / (torch.sqrt(d2) + 1.0) * coef, ch, outs[0]),
                     _sum(m, ch, outs[1])]
 
-        upd, magg = _chunked(body, chunks, n, (3, h.shape[1]), h, train)
-        # h and x are not rebound: a chunk's checkpoint reads them again
+        upd, magg = (_scatter_nodes(a, rules) for a in _chunked(
+            body, chunks, n, (3, h.shape[1]), h, train))
+        # ha and xa are not rebound: a chunk's checkpoint reads them again
         return (h + _mlp(lp["phi_h"], torch.cat([h, magg], dim=-1)),
                 x + upd / safe_cnt)
 
@@ -540,11 +718,12 @@ def egnn_forward(cfg: GNNConfig, params: dict, species: torch.Tensor,
 
 
 def egnn_energy(cfg: GNNConfig, params: dict, species, coords, edge_index,
-                graph_ids, n_graphs: int) -> torch.Tensor:
-    """Energies [n_graphs]: the decoded atom energies summed per graph."""
-    h, _ = egnn_forward(cfg, params, species, coords, edge_index)
+                graph_ids, n_graphs: int, rules=None) -> torch.Tensor:
+    """Energies [n_graphs]: the decoded atom energies summed per graph (on
+    the mesh, each rank's rows summed, then a ``psum``)."""
+    h, _ = egnn_forward(cfg, params, species, coords, edge_index, rules)
     e_atom = _mlp(params["decode"], h)[:, 0]
-    return _graph_sum(e_atom, graph_ids, n_graphs)
+    return _psum(_graph_sum(e_atom, graph_ids, n_graphs), rules)
 
 
 # ---------------------------------------------------------------------------
@@ -636,35 +815,56 @@ def _nequip_messages(cfg: GNNConfig, radial_mlp, rbf, Y1, Y2, s0, s1, s2,
 
 
 def nequip_forward(cfg: GNNConfig, params: dict, species: torch.Tensor,
-                   coords: torch.Tensor, edge_index: torch.Tensor) -> dict:
+                   coords: torch.Tensor, edge_index: torch.Tensor,
+                   rules=None) -> dict:
     """Returns final irrep features {l0:[N,C], l1:[N,C,3], l2:[N,C,3,3]}.
     The edge geometry is computed once a chunk, the messages once a chunk
-    and layer."""
-    n = coords.shape[0]
+    and layer.
+
+    On the mesh (``rules``; the reference's ``_nequip_aggregate_fused``):
+    the coordinates are all-gathered once, h0, h1 and h2 once a layer; the
+    rank's dst-sorted edges run chunk by chunk, each chunk's
+    message-and-aggregate under a checkpoint of its own (training), into
+    its node rows of one [N, 2C + 9C + 18C] partial, which is
+    ``psum_scatter``ed onto the node shards once a layer. The reference
+    scatters each of its 8 chunks' full [N, .] partial instead: the same
+    sum in another order. At ogb_products' size (N = 2,449,029, C = 32:
+    64 + 288 + 576 float32 a node) a partial is 9.1 GB; the reference's
+    schedule holds one such partial a chunk and reduce-scatters each, the
+    port holds one a layer (18.2 GB for the moment the training route's
+    ``torch.cat`` joins its chunks' rows) and moves 1/k of the bytes for k
+    chunks, which matters since a rank's block past 2^19 edges takes as
+    many chunks as :func:`edge_chunks` cuts (119 for the whole graph)."""
+    n = _nodes(coords.shape[0], rules)
     C = cfg.d_hidden
     src, dst = _src_dst(edge_index)
     chunks = _chunks(src, dst, n)
-    geometry = [_nequip_geometry(cfg, coords, ch.src, ch.dst)
+    coords_all = _gather_nodes(coords, rules)
+    geometry = [_nequip_geometry(cfg, coords_all, ch.src, ch.dst)
                 for ch in chunks]
 
     def layer(h0, h1, h2, lp):
+        h0a, h1a, h2a = (_gather_nodes(h, rules) for h in (h0, h1, h2))
+
         def body(i, outs):
             ch = chunks[i]
             outs = outs or [None] * 3
             m0, m1, m2 = _nequip_messages(cfg, lp["radial"], *geometry[i],
-                                          h0[ch.src], h1[ch.src], h2[ch.src])
+                                          h0a[ch.src], h1a[ch.src],
+                                          h2a[ch.src])
             return [_sum(m0, ch, outs[0]), _sum(m1, ch, outs[1]),
                     _sum(m2, ch, outs[2])]
 
-        a0, a1, a2 = _chunked(body, chunks, n, (2 * C, 9 * C, 18 * C), h0,
-                              train)
+        a0, a1, a2 = (_scatter_nodes(a, rules) for a in _chunked(
+            body, chunks, n, (2 * C, 9 * C, 18 * C), h0, train))
+        nl = h0.shape[0]
 
         # channel mixing + self-interaction
         n0 = a0 @ lp["mix0"] + h0 @ lp["self0"]
-        n1 = torch.einsum("nkx,kc->ncx", a1.reshape(n, 3 * C, 3),
+        n1 = torch.einsum("nkx,kc->ncx", a1.reshape(nl, 3 * C, 3),
                           lp["mix1"]) \
             + torch.einsum("ncx,cd->ndx", h1, lp["self1"])
-        n2 = torch.einsum("nkxy,kc->ncxy", a2.reshape(n, 2 * C, 3, 3),
+        n2 = torch.einsum("nkxy,kc->ncxy", a2.reshape(nl, 2 * C, 3, 3),
                           lp["mix2"]) \
             + torch.einsum("ncxy,cd->ndxy", h2, lp["self2"])
         del a0, a1, a2
@@ -676,20 +876,20 @@ def nequip_forward(cfg: GNNConfig, params: dict, species: torch.Tensor,
 
     train = _training(params, coords)
     h0 = params["embed"][species]                      # [N, C]
-    h1 = coords.new_zeros((n, C, 3))
-    h2 = coords.new_zeros((n, C, 3, 3))
+    h1 = coords.new_zeros((h0.shape[0], C, 3))
+    h2 = coords.new_zeros((h0.shape[0], C, 3, 3))
     for lp in params["layers"]:
         h0, h1, h2 = _remat(train, layer, h0, h1, h2, lp)
     return {"l0": h0, "l1": h1, "l2": h2}
 
 
 def nequip_energy(cfg: GNNConfig, params: dict, species, coords, edge_index,
-                  graph_ids, n_graphs: int) -> torch.Tensor:
+                  graph_ids, n_graphs: int, rules=None) -> torch.Tensor:
     """Energies [n_graphs]: the decoded l0 atom energies summed per
-    graph."""
-    feats = nequip_forward(cfg, params, species, coords, edge_index)
+    graph (on the mesh, each rank's rows summed, then a ``psum``)."""
+    feats = nequip_forward(cfg, params, species, coords, edge_index, rules)
     e_atom = _mlp(params["decode"], feats["l0"])[:, 0]
-    return _graph_sum(e_atom, graph_ids, n_graphs)
+    return _psum(_graph_sum(e_atom, graph_ids, n_graphs), rules)
 
 
 # ---------------------------------------------------------------------------
@@ -710,7 +910,7 @@ def gnn_init(cfg: GNNConfig, generator: torch.Generator,
     return _INIT[cfg.model](cfg, generator, device)
 
 
-def gnn_loss(cfg: GNNConfig, params: dict, batch: dict
+def gnn_loss(cfg: GNNConfig, params: dict, batch: dict, rules=None
              ) -> tuple[torch.Tensor, dict]:
     """The family's loss, the reference's batch keys.
 
@@ -721,20 +921,27 @@ def gnn_loss(cfg: GNNConfig, params: dict, batch: dict
     [N], energy [G] -> the mean squared error of the per-graph energies,
     aux ``{"mse": loss}``.
 
+    On the mesh (``rules``), ``batch`` holds what the reference's GNN cell
+    gives a rank (module docstring); the NLL's sum and the mask's count
+    are ``psum``med over the batch axes, so every rank returns the whole
+    loss, and each replicated param's gradient is this rank's share.
+
     Where the port differs: a label outside ``[0, n_classes)`` makes
     ``F.cross_entropy`` raise ``IndexError`` (on the CPU; a device-side
     assert on the card), where the reference's ``take_along_axis`` gives a
     NaN loss."""
     if cfg.model in ("gcn", "pna"):
         fwd = gcn_forward if cfg.model == "gcn" else pna_forward
-        logits = fwd(cfg, params, batch["feat"], batch["edge_index"]).float()
+        logits = fwd(cfg, params, batch["feat"], batch["edge_index"],
+                     rules).float()
         nll = F.cross_entropy(logits, batch["labels"].long(),
                               reduction="none") * batch["label_mask"]
-        loss = nll.sum() / batch["label_mask"].sum().clamp(min=1.0)
+        loss = _psum(nll.sum(), rules) / _psum(
+            batch["label_mask"].sum(), rules).clamp(min=1.0)
         return loss, {"nll": loss}
     energy_fn = egnn_energy if cfg.model == "egnn" else nequip_energy
     pred = energy_fn(cfg, params, batch["species"], batch["coords"],
                      batch["edge_index"], batch["graph_ids"],
-                     batch["energy"].shape[0])
+                     batch["energy"].shape[0], rules)
     loss = torch.mean((pred - batch["energy"]) ** 2)
     return loss, {"mse": loss}

@@ -45,10 +45,19 @@ Where the port differs from the reference, by design:
   K/V at ``pos`` and returns the same dict; ``lm_prefill`` with a cache
   writes positions [0, S)), where JAX returns a new cache;
 - the MoE combine sums a token's K expert outputs in float32 and rounds
-  once, where JAX scatter-adds them in the activations' dtype;
-- there is no sharding (``AxisRules``): the port serves from one card, so
-  the reference's expert-parallel ``shard_map`` path reduces to its
-  single-shard core.
+  once, where JAX scatter-adds them in the activations' dtype.
+
+Under a mesh (``rules``, an :class:`~repro_torch.models.common.AxisRules`
+with a ``DeviceMesh``) the MoE layers take the reference's
+expert-parallel route (:func:`moe_ffn`), on ``torch.distributed``:
+tokens are batch-sharded, the non-expert weights replicated, each rank
+holds its expert slice (all-gathered over ``fsdp`` where the weights are
+sharded there) and a ``psum`` over ``tp`` combines the slices. Attention
+runs on each rank's rows through the same kernels. :func:`lm_loss`'s
+token mean is then ``psum``med over the batch axes. The reference's
+GSPMD layouts of the dense weights (``param_shardings``: FSDP and TP of
+every weight) are not ported; the port's replicated weights take no
+``constrain``.
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import FlashAttention, flash_attention
+from ..launch import collectives as col
 from .common import (ACTIVATIONS, apply_rope, dense_init, embed_init,
                      rms_norm, rope_tables)
 
@@ -344,13 +354,47 @@ def _moe_core(cfg: LMConfig, router: torch.Tensor, wi_gate: torch.Tensor,
     return y.to(x.dtype), r.aux
 
 
-def moe_ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, train: bool = False
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The MoE FFN on one card: the reference's single-shard branch. Its
-    expert-parallel ``shard_map`` path runs :func:`_moe_core` on each
-    expert slice and sums the slices, which on one card is the whole."""
-    return _moe_core(cfg, lp["router"], lp["wi_gate"], lp["wi_up"],
-                     lp["wo_ffn"], x, 0, train)
+def expert_parallel(cfg: LMConfig, rules) -> bool:
+    """The reference's ``use_smap``: a mesh holding ``rules.tp`` whose size
+    divides ``n_experts``."""
+    mesh = None if rules is None else rules.mesh
+    return (mesh is not None and rules.tp in tuple(mesh.mesh_dim_names)
+            and cfg.n_experts % col.axis_size(mesh, rules.tp) == 0)
+
+
+def moe_ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, train: bool = False,
+            rules=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN: (y, aux) of :func:`_moe_core`.
+
+    Without the expert-parallel route (:func:`expert_parallel`) it is the
+    reference's single-shard branch, all experts here. On the route (the
+    reference's ``shard_map`` body): ``x`` [B_l, S, D] is this rank's rows
+    and the expert leaves are this rank's slice of the reference's
+    layouts ``(tp, fsdp, None)`` / ``(tp, None, fsdp)``; with
+    ``rules.fsdp`` set they are all-gathered over it (``wi_gate`` and
+    ``wi_up`` on axis 1, ``wo_ffn`` on 2). The rank computes experts
+    [e0, e0 + El), ``e0 = axis_index(tp) * El``, and a ``psum`` over
+    ``tp`` combines the slices; ``aux`` is ``pmean``ed over the batch
+    axes. The tokens and the router, replicated over ``tp``, enter
+    through ``pvary`` (their gradient summed over ``tp``, as JAX types
+    them), and ``aux``, the same on every ``tp`` rank, is ``pmean``ed over
+    ``tp`` too, which leaves its value and gives each rank its share of
+    the gradient."""
+    if not expert_parallel(cfg, rules):
+        return _moe_core(cfg, lp["router"], lp["wi_gate"], lp["wi_up"],
+                         lp["wo_ffn"], x, 0, train)
+    mesh, tp, fsdp = rules.mesh, rules.tp, rules.fsdp
+    wig, wiu, wof = lp["wi_gate"], lp["wi_up"], lp["wo_ffn"]
+    if fsdp is not None:
+        wig = col.all_gather(wig, mesh, fsdp, dim=1)
+        wiu = col.all_gather(wiu, mesh, fsdp, dim=1)
+        wof = col.all_gather(wof, mesh, fsdp, dim=2)
+    El = cfg.n_experts // col.axis_size(mesh, tp)
+    e0 = col.axis_index(mesh, tp) * El
+    y, aux = _moe_core(cfg, col.pvary(lp["router"], mesh, tp), wig, wiu, wof,
+                       col.pvary(x, mesh, tp), e0, train)
+    y = col.psum(y, mesh, tp)
+    return y, col.pmean(aux, mesh, (*rules.batch, tp))
 
 
 def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -375,7 +419,7 @@ def _qkv(cfg: LMConfig, lp: dict, h: torch.Tensor, rot: tuple):
 
 
 def _residual(cfg: LMConfig, lp: dict, x: torch.Tensor,
-              attn: torch.Tensor, train: bool = False
+              attn: torch.Tensor, train: bool = False, rules=None
               ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Output projection, then the FFN half of the layer: (x, the MoE
     aux loss, None for a dense FFN)."""
@@ -386,7 +430,7 @@ def _residual(cfg: LMConfig, lp: dict, x: torch.Tensor,
     x = x + attn
     h = rms_norm(x, lp["ln_mlp"])
     if cfg.moe:
-        out, aux = moe_ffn(cfg, lp, h, train)
+        out, aux = moe_ffn(cfg, lp, h, train, rules)
     else:
         out, aux = dense_ffn(cfg, lp, h), None
     if cfg.sandwich_norm:
@@ -409,8 +453,8 @@ def _logits(cfg: LMConfig, params: dict, x: torch.Tensor,
 
 
 def _layer(cfg: LMConfig, lp: dict, x: torch.Tensor, window: int,
-           rot: tuple, kv_out: tuple | None = None, train: bool = False
-           ) -> tuple[torch.Tensor, torch.Tensor | None]:
+           rot: tuple, kv_out: tuple | None = None, train: bool = False,
+           rules=None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One prefill layer, (x, aux) as :func:`_residual`; ``kv_out`` =
     (k_cache, v_cache) [B, S_max, Kh, dh] views of one layer's cache,
     written at [0, S). ``train``: attention through
@@ -420,7 +464,7 @@ def _layer(cfg: LMConfig, lp: dict, x: torch.Tensor, window: int,
         attn = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2), window,
                                     cfg.attn_softcap or 0.0)
-        return _residual(cfg, lp, x, attn.transpose(1, 2), True)
+        return _residual(cfg, lp, x, attn.transpose(1, 2), True, rules)
     if kv_out is not None:
         S = x.shape[1]
         kv_out[0][:, :S] = k
@@ -429,7 +473,7 @@ def _layer(cfg: LMConfig, lp: dict, x: torch.Tensor, window: int,
     flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     window=window, softcap=cfg.attn_softcap or 0.0,
                     out=attn.transpose(1, 2))
-    return _residual(cfg, lp, x, attn)
+    return _residual(cfg, lp, x, attn, rules=rules)
 
 
 # ---------------------------------------------------------------------------
@@ -437,16 +481,17 @@ def _layer(cfg: LMConfig, lp: dict, x: torch.Tensor, window: int,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def lm_forward(cfg: LMConfig, params: dict, tokens: torch.Tensor
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+def lm_forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+               rules=None) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V_padded], aux_loss): the MoE
     layers' mean Switch aux loss, 0 for a dense config. Runs on the
-    params' device."""
-    return _forward(cfg, params, tokens, None)
+    params' device; under a mesh (``rules``) on this rank's rows, the MoE
+    layers on the expert-parallel route."""
+    return _forward(cfg, params, tokens, None, rules=rules)
 
 
 def _forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
-             cache: dict | None, train: bool = False
+             cache: dict | None, train: bool = False, rules=None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
@@ -457,41 +502,55 @@ def _forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
         lp = layer_params(params, layer)
         if train:   # rematted: the backward recomputes the layer
             x, aux_l = checkpoint(_layer, cfg, lp, x, window, rot, None,
-                                  True, use_reentrant=False)
+                                  True, rules, use_reentrant=False)
         else:
             kv = None if cache is None else (cache["k"][layer],
                                              cache["v"][layer])
-            x, aux_l = _layer(cfg, lp, x, window, rot, kv)
+            x, aux_l = _layer(cfg, lp, x, window, rot, kv, rules=rules)
         if aux_l is not None:
             aux = aux + aux_l
     return _logits(cfg, params, x, train), aux / cfg.n_layers
 
 
-def lm_loss(cfg: LMConfig, params: dict, tokens: torch.Tensor
-            ) -> tuple[torch.Tensor, dict]:
+def lm_loss(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+            rules=None) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy over [B, S] tokens (the reference's
     ``lm_loss``): the mean NLL of tokens 1..S-1 from the float32 logits of
     positions 0..S-2, plus ``aux_loss_weight`` times the MoE layers' mean
     aux loss. Returns (loss, {"nll", "aux"}), 0-dim float32 tensors with a
-    gradient to every leaf of ``params`` that requires one."""
-    logits, aux = _forward(cfg, params, tokens, None, train=True)
-    nll = torch.nn.functional.cross_entropy(
-        logits[:, :-1].float().flatten(0, 1), tokens[:, 1:].flatten().long())
+    gradient to every leaf of ``params`` that requires one.
+
+    Under a mesh with batch axes (``rules``), ``tokens`` are this rank's
+    rows: the NLL's sum is ``psum``med over the batch axes and divided by
+    every rank's token count, so each rank returns the whole loss and
+    each replicated leaf gets this rank's share of its gradient."""
+    logits, aux = _forward(cfg, params, tokens, None, train=True,
+                           rules=rules)
+    lg = logits[:, :-1].float().flatten(0, 1)
+    labels = tokens[:, 1:].flatten().long()
+    if rules is not None and rules.mesh is not None and rules.batch:
+        shards = col.axis_size(rules.mesh, rules.batch)
+        nll = col.psum(torch.nn.functional.cross_entropy(
+            lg, labels, reduction="sum"), rules.mesh, rules.batch) / (
+                labels.numel() * shards)
+    else:
+        nll = torch.nn.functional.cross_entropy(lg, labels)
     loss = nll + cfg.aux_loss_weight * aux
     return loss, {"nll": nll, "aux": aux}
 
 
 @torch.no_grad()
 def lm_prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor,
-               cache: dict | None = None) -> torch.Tensor:
+               cache: dict | None = None, rules=None) -> torch.Tensor:
     """Prefill pass: logits [B, S, V_padded]. With ``cache`` (from
     :func:`init_kv_cache`, ``S_max >= S``) each layer's K/V are written in
     place at positions [0, S), so decoding can go on from position S; the
-    JAX prefill returns logits only."""
+    JAX prefill returns logits only. Under a mesh (``rules``), as
+    :func:`lm_forward`."""
     if cache is not None and cache["k"].shape[2] < tokens.shape[1]:
         raise ValueError(f"cache holds {cache['k'].shape[2]} positions, "
                          f"prompt has {tokens.shape[1]}")
-    return _forward(cfg, params, tokens, cache)[0]
+    return _forward(cfg, params, tokens, cache, rules=rules)[0]
 
 
 def init_kv_cache(cfg: LMConfig, batch: int, max_seq: int,

@@ -74,7 +74,11 @@ def _chunks(t: torch.Tensor):
 
 
 def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum over leaves of their float32 squares (0-dim)."""
+    """sqrt of the sum over leaves of their float32 squares (0-dim). On a
+    mesh it is global as it stands where every leaf is replicated and its
+    gradient already summed over the ranks (``make_train_step(...,
+    rules=)``); a leaf sharded over the mesh would need its squares
+    ``psum``med here, and no cell of the port has one."""
     total = None
     for leaf in tree.leaves(grads):
         s = sum(c.float().square().sum() for c in _chunks(leaf.contiguous()))

@@ -28,8 +28,10 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from .. import tree
+from ..launch import collectives as col
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .fault_tolerance import StragglerMonitor, with_retries
@@ -67,7 +69,7 @@ def value_and_grad(loss_fn: Callable, params, batch):
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
-                    microbatches: int = 1, retries: int = 0):
+                    microbatches: int = 1, retries: int = 0, rules=None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics).
 
@@ -76,7 +78,18 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
     microbatches and divided by their count, the loss likewise, and aux
     comes from the last microbatch. The gradient is retried up to
     ``retries`` times on an exception; the in-place update is not.
+
+    Under a mesh (``rules`` with a mesh and batch axes) ``loss_fn`` runs
+    on this rank's batch and returns the whole loss with each rank's share
+    of the gradient (the GNN losses' mesh route). Every leaf of ``params``
+    is taken as replicated: its gradient is all-reduced over the batch
+    axes before AdamW, as GSPMD sums the reference's replicated GNN
+    params. So ``optim.adamw.global_norm`` is global as it stands. A leaf
+    sharded over the mesh would take no all-reduce and would have to be
+    ``psum``med inside ``global_norm``; no cell of the port has one.
     """
+    on_mesh = rules is not None and rules.mesh is not None and rules.batch
+    group = col.axis_group(rules.mesh, rules.batch) if on_mesh else None
 
     def gradient(params, batch):
         if microbatches == 1:
@@ -103,6 +116,9 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
 
     def step(params, opt_state, batch):
         loss, aux, grads = gradient(params, batch)
+        if group is not None:
+            for g in tree.leaves(grads):
+                dist.all_reduce(g, group=group)
         params, opt_state, info = adamw_update(opt_cfg, grads, opt_state,
                                                params)
         metrics = {"loss": loss, **info}

@@ -73,9 +73,12 @@ def test_abstract_args_match_reference(arch, shape, jmesh):
 
 
 def test_build_cell_refuses_a_larger_mesh():
+    """An LM cell runs on one device: past it, the message names the
+    reference's shardings that the port lacks (the GNN cells take a mesh
+    since PR 28: ``tests/test_torch_mesh_paths.py``)."""
     class Mesh:
         def size(self):
             return 2
-    spec = registry.get_spec("gcn-cora")
-    with pytest.raises(ValueError, match="one device"):
-        registry.build_cell(spec, "full_graph_sm", Mesh())
+    spec = registry.get_spec("qwen3-0.6b")
+    with pytest.raises(ValueError, match="one device.*param_shardings"):
+        registry.build_cell(spec, "train_4k", Mesh())

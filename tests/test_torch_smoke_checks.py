@@ -1,7 +1,11 @@
 """``chip_smoke.same_answer``, the multiset comparison that decides every
 SPARQL and system check of ``chip_smoke.py``: its packed-key route (rows
 packed into one int64 where their ids fit) agrees with the lexicographic
-sort, and both routes reject each kind of wrong answer."""
+sort, and both routes reject each kind of wrong answer. Then the script's
+``mesh`` phase rehearsed on the CPU: a gloo (1, 1) mesh, the four GNN
+cells at published widths on a small ``minibatch_lg`` subgraph and a
+tiny granite-moe prefill on the expert-parallel route, each against its
+route without a mesh, the planted expert-slice fault failing."""
 
 import importlib
 import sys
@@ -181,3 +185,44 @@ def test_wide_rows_differing_in_the_first_column(first):
     b = table(names, [[first + 2, 0, 2 ** 40], [first + 1, 1, 2 ** 40]])
     assert not packs(np.concatenate([a.bindings, b.bindings]))
     assert not smoke.same_answer(a, b)
+
+
+def test_mesh_phase_rehearsed_on_cpu(monkeypatch):
+    """``chip_smoke.mesh_phase`` on a gloo world of one: every GNN cell's
+    loss and gradients on the mesh route equal the route without a mesh
+    (PNA's against the mesh tie rule), the shuffled edges sorted again by
+    the rank, the MoE prefill's logits and expert choices on the EP route
+    bit for bit those of the single-device route, the planted expert
+    slice off by one changing them; no kernel launch on the CPU, and the
+    process group gone after."""
+    import json
+
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import reduce_config
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    monkeypatch.setitem(registry.GNN_SHAPES, "minibatch_lg", dict(
+        kind="sampled", n_nodes=1000, n_edges=900, d_feat=24,
+        batch_nodes=16, fanout=(5, 4)))
+    monkeypatch.setattr(smoke, "REDDIT_NODES", 3000)
+    monkeypatch.setattr(smoke, "REDDIT_DEGREE", 20)
+    sub = smoke.minibatch(smoke.reddit_like(0), 0)
+    lines = []
+    monkeypatch.setattr(smoke, "log", lines.append)
+    cfg = reduce_config(registry.get_spec(smoke.MOE_ARCH))
+    launches = smoke.mesh_phase(SimpleNamespace(seed=0, prefill_seq=64),
+                                sub, "cpu", moe_cfg=cfg, prompt=64)
+    assert launches == {} and not dist.is_initialized()
+    runs = {line.split()[2]: json.loads(line.split(": ", 1)[1].rsplit(
+        " in ", 1)[0]) for line in lines if line.startswith("mesh gnn")}
+    assert set(runs) == {smoke.GNN_ARCH, *smoke.GNN_ZOO}
+    for arch, run in runs.items():
+        assert run["ok"] and run["grad_ratio"] <= 1.0, (arch, run)
+        assert len(run["mesh_losses"]) == smoke.MESH_STEPS
+    assert runs["gcn-cora"]["shuffled_loss_diff"] <= smoke.MESH_LOSS_RTOL
+    moe = [json.loads(line.split(": ", 1)[1].rsplit(" in ", 1)[0])
+           for line in lines if line.startswith("mesh moe")]
+    assert len(moe) == 1 and moe[0]["ok"]
+    assert moe[0]["logits_equal"] and moe[0]["routing_equal"]
+    assert moe[0]["planted_max_abs_diff"] > 0
