@@ -155,7 +155,30 @@
    card); granite-moe-1b's bf16 prefill at full width and depth on the
    expert-parallel route, logits and expert choices bit for bit the
    single-device route's, each timed, and a planted expert slice off by
-   one that must change the logits. One ``mesh ...`` line each.
+   one that must change the logits. Then the weights' layouts
+   (``param_shardings``, ``cache_shardings``, ``recsys_param_shardings``):
+   ``mesh lm``: qwen3-0.6b's f32 ``lm_loss`` at 2 layers on the FSDP + TP
+   route against the route without a mesh (loss within 1e-5, gradients
+   within 1e-4 of each leaf's max; a target read one vocabulary entry
+   late must fail), then 3 bf16 AdamW steps at full depth (B = 8, S =
+   2,048) of each route, timed, the loss falling, every
+   ``flash_attention_bwd`` on the tensor-core route; ``mesh decode``:
+   gemma2-2b ``long_500k`` uncut on the ``seq_shard`` route, the logits
+   at position 2,047 and at the cell's own S - 1 bit for bit the route's
+   without a mesh (a slice's range one position late must change them;
+   the window dropped must pass ATTN_TOL), both routes timed warm in
+   turns, ``decode_attention``'s lse on both dtypes
+   against the plain version (lse left in log2 units must fail), timed
+   beside the call without it, and a global and a local layer's cache
+   cut into 16 and 256 slices, each attended on its view and combined
+   through the lse, equal to the whole call (averaging without the
+   weights must fail), one slice's call timed beside the whole;
+   ``mesh recsys``: Wide&Deep's serve_bulk scores and a train_batch
+   AdamW step on the row-sharded tables against the route without a
+   mesh, each timed, and the tables and candidates cut into 16 row
+   ranges whose partial bags, wide sums and top-100 lists combine to the
+   whole (out-of-range ids left in the mask must fail). One ``mesh ...``
+   line each. The decode kernel row gains ``lse_ms``.
 
 Fails (non-zero exit, no result line) on any mismatch or exception, and
 when CUDA is not available. The last line is
@@ -1633,6 +1656,14 @@ def attention_kernel_rows(cfg, prefill: dict, decode: dict,
     copies = decode_attention.copies - copies
     rate = {key: nbytes / rows[-1][key] / 1e9 if rows[-1][key] else None
             for key in ("ms", "library_ms")}
+    lse = lse_check(q, k, v, lengths)
+    log(f"kernel decode_attention with lse (the sequence-sharded decode's "
+        f"route) [B={B} H={H} Hkv={Hkv} S={S} length={n} d={d} bf16]: "
+        f"{json.dumps(lse)}")
+    if not lse["ok"]:
+        raise AssertionError(f"decode_attention lse: {lse}")
+    rows[-1].update(lse_ms=lse["lse_ms"], lse_same_call_ms=lse["ms"],
+                    lse_max_abs_err=lse["lse_max_abs_err"])
 
     def call():
         return decode_attention(q, k, v, lengths)
@@ -6150,16 +6181,535 @@ def mesh_moe_check(cfg, params, tokens, device, mesh) -> dict:
     return out
 
 
-def mesh_phase(args, sub: dict, device, moe_cfg=None, prompt=None) -> dict:
+# ---------------------------------------------------------------------------
+# the layouts on a (1, 1) mesh: FSDP + TP, the sequence-sharded
+# decode, the row-sharded tables
+# ---------------------------------------------------------------------------
+
+MESH_LM_STEPS = 3            # AdamW steps of qwen3-0.6b, each route
+MESH_DECODE_POS = 2047       # a long_500k position under gemma2's window:
+                             # every layer's visible range starts at 0
+                             # (the step at S - 1 starts the local ones
+                             # 4,096 back)
+MESH_SPLITS = (16, 256)      # the long_500k cache cut as 16 and 256 ranks
+                             # would hold it
+SPLIT_Q_SCALE = 4.0          # the split checks' query, times a random one:
+                             # a sharper softmax weighs the slices apart, so
+                             # a combine without the lse weights shows (a
+                             # diffuse query weighs random slices alike)
+MESH_LOCAL_BACK = 1000       # the local layer's split check decodes this
+                             # many positions before the cache's end, so
+                             # its window spans three of 256 slices
+MESH_RECSYS_SHARDS = 16      # the tables and candidates cut into as many
+                             # row ranges
+MESH_RECSYS_RTOL = 1e-6      # scores and loss, relative
+MESH_DECODE_ROUNDS = 3       # warm steps of each decode route, in turns
+
+
+def _off_by_one_target(nll):
+    """``transformer._vocab_parallel_nll`` with a planted fault: each
+    target's logit read one vocabulary entry late in the rank's shard."""
+    def faulty(logits, labels, rules):
+        return nll(logits, labels + 1, rules)
+    return faulty
+
+
+def mesh_lm_check(cfg, seed: int, device, mesh, batch: int = TRAIN_BATCH,
+                  seq: int = TRAIN_SEQ) -> dict:
+    """qwen3-0.6b on the layouts route (``param_shardings`` on ``mesh``,
+    every collective on the process group) against the route without a
+    mesh: ``lm_loss`` of ``cfg`` at GRAD_CHECK_LAYERS layers in float32
+    (GRAD_CHECK_SEQ tokens; the loss within MESH_LOSS_RTOL, every gradient
+    leaf within GRAD_TOL * max |leaf|; the planted fault, each target read
+    one vocabulary entry late, must move the loss past that), then at
+    full depth in bf16 MESH_LM_STEPS AdamW steps of each route on one
+    batch of ``batch`` x ``seq`` tokens, each timed, the loss finite and
+    falling, the mesh steps' launches read (every ``flash_attention_bwd``
+    on the tensor-core route on the card)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.convert import local_shard
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import AxisRules
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.train_loop import (make_train_step,
+                                                value_and_grad)
+    dev = torch.device(device)
+    rules = AxisRules.for_mesh(mesh)
+    small = dataclasses.replace(cfg, n_layers=GRAD_CHECK_LAYERS)
+    specs = tf.param_shardings(small, rules)
+    params = tf.init_lm_params(small, torch.Generator(
+        device=dev).manual_seed(seed), torch.float32, dev)
+    tokens = _tokens(seed, (1, GRAD_CHECK_SEQ), cfg.vocab, dev)
+
+    def grads(p, r):
+        loss, _, g = value_and_grad(lambda pp, b: tf.lm_loss(small, pp, b, r),
+                                    p, tokens)
+        return float(loss), tree.leaves(g)
+
+    loss, got = grads(local_shard(params, specs, mesh), rules)
+    want_loss, want = grads(params, None)
+    with patched(tf, "_vocab_parallel_nll", _off_by_one_target):
+        planted = float(tf.lm_loss(small, local_shard(params, specs, mesh),
+                                   tokens, rules)[0])
+    limit = MESH_LOSS_RTOL * max(1.0, abs(want_loss))
+    out = {"model": cfg.name, "mesh": list(mesh.shape),
+           "f32_layers": GRAD_CHECK_LAYERS, "f32_seq": GRAD_CHECK_SEQ,
+           "loss": loss, "loss_diff": abs(loss - want_loss),
+           "planted_loss_diff": abs(planted - want_loss)}
+    out["grad_max_abs_err"], out["grad_ratio"] = grad_err(got, want,
+                                                          GRAD_TOL)
+    del params, got, want
+    specs = tf.param_shardings(cfg, rules)
+    tokens = _tokens(seed, (batch, seq), cfg.vocab, dev)
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=0)
+    runs = {}
+    for name, r, s in (("mesh", rules, specs), ("one", None, None)):
+        params = tf.init_lm_params(cfg, torch.Generator(
+            device=dev).manual_seed(seed), torch.bfloat16, dev)
+        if r is not None:
+            params = local_shard(params, s, mesh)
+        step = make_train_step(lambda p, b, r=r: tf.lm_loss(cfg, p, b, r),
+                               opt, rules=r, specs=s)
+        run = train_steps(step, params, adamw_init(params), tokens,
+                          MESH_LM_STEPS, dev)
+        runs[name] = {k: run[k] for k in ("losses", "step_ms", "median_ms",
+                                          "peak_gb", "launches")}
+        del params, run
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out.update({f"{k}_{name}": v for name, run in runs.items()
+                for k, v in run.items() if k != "launches"})
+    out["shape"] = [batch, seq]
+    out["launches"] = runs["mesh"]["launches"]
+    losses = runs["mesh"]["losses"]
+    out["ok"] = (out["loss_diff"] <= limit and out["grad_ratio"] <= 1.0
+                 and out["planted_loss_diff"] > limit
+                 and all(math.isfinite(x) for x in losses)
+                 and losses[-1] < losses[0])
+    if dev.type == "cuda":
+        bwd = out["launches"].get("flash_attention_bwd/tc", 0)
+        out["ok"] = (out["ok"] and bwd == MESH_LM_STEPS * cfg.n_layers
+                     and not out["launches"].get("flash_attention_bwd/simt"))
+    return out
+
+
+def lse_check(q, k, v, lengths, window: int = 0, softcap: float = 0.0,
+              timed: bool = True) -> dict:
+    """``decode_attention``'s ``lse`` against the plain version's, within
+    LSE_TOL * max(1, |lse|), and its output bit for bit the call's without
+    ``lse``; the planted fault (the lse left in log2 units, as the bf16
+    route's merge holds it) must fail; on the card both calls timed."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    B, H, _ = q.shape
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    want = torch.empty_like(lse)
+    got = decode_attention(q, k, v, lengths, window, softcap, lse=lse)
+    ref.decode_reference(q, k, v, lengths, window, softcap, lse=want)
+    same = torch.equal(got, decode_attention(q, k, v, lengths, window,
+                                             softcap))
+    finite = torch.isfinite(want)
+    if not bool((finite == torch.isfinite(lse)).all()):
+        raise AssertionError("decode_attention lse: -inf rows differ")
+
+    def ratio(x):
+        d = (x[finite] - want[finite]).abs()
+        return float((d / (LSE_TOL * want[finite].abs().clamp(min=1.0)))
+                     .max()) if d.numel() else 0.0
+
+    out = {"dtype": str(q.dtype).removeprefix("torch."),
+           "shape": [B, H, k.shape[1], k.shape[2], q.shape[2]],
+           "window": window, "softcap": softcap,
+           "lse_max_abs_err": float((lse[finite] - want[finite]).abs()
+                                    .max()) if finite.any() else 0.0,
+           "lse_ratio": ratio(lse),
+           "planted_ratio": ratio(lse * math.log2(math.e)),
+           "out_equal_without_lse": same}
+    if timed and q.device.type == "cuda":
+        out["ms"] = time_ms(lambda: decode_attention(
+            q, k, v, lengths, window, softcap), calls=5, reps=7)
+        out["lse_ms"] = time_ms(lambda: decode_attention(
+            q, k, v, lengths, window, softcap, lse=lse), calls=5, reps=7)
+    out["ok"] = out["lse_ratio"] <= 1.0 and out["planted_ratio"] > 1.0 \
+        and same
+    return out
+
+
+def split_check(q, kc, vc, pos: int, window: int, softcap: float,
+                n: int) -> dict:
+    """One layer's decode at ``pos`` with its cache kc/vc [B, S, Kh, dh]
+    cut into ``n`` slices as ``n`` ranks would hold it: each slice
+    attended on its view (``attend_shard`` over ``shard_range``, the
+    kernel's lse), the slices combined through the lse (``lse_combine``
+    over the stacked slices; each slice's output float32, the combine
+    rounded once to q's dtype) against the whole call within ATTN_TOL.
+    The combine without the lse weights must fail. On the card the
+    slices' calls are timed, one full slice's alone, and the operand
+    copies of the views read (must be 0)."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import transformer as tf
+    B, S = kc.shape[:2]
+    held = S // n
+    lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=q.device)
+    whole = decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                             lengths, window, softcap)
+    copies = decode_attention.copies
+
+    def slices():
+        return zip(*(tf.attend_shard(
+            q, kc[:, r * held:(r + 1) * held],
+            vc[:, r * held:(r + 1) * held],
+            *tf.shard_range(pos, window, r * held, held), softcap)
+            for r in range(n)))
+
+    outs, lses = slices()
+    stacked = torch.stack(outs), torch.stack(lses)
+    reduce = (lambda t: t.amax(0, keepdim=True),
+              lambda t: t.sum(0, keepdim=True))
+    atol, rtol = ATTN_TOL[str(q.dtype).removeprefix("torch.")]
+    bound = atol + rtol * whole.float().abs()
+
+    def err(got):
+        d = (got.float() - whole.float()).abs()
+        return float(d.max()), float((d / bound).max())
+
+    max_err, ratio = err(tf.lse_combine(*stacked, *reduce, q.dtype)[0])
+    unweighted = (reduce[1](stacked[0]) / n).to(whole.dtype)[0]
+    out = {"slices": n, "held": held, "pos": pos, "window": window,
+           "max_abs_err": max_err, "tolerance_ratio": ratio,
+           "planted_ratio": err(unweighted)[1],
+           "visible_slices": sum(1 for r in range(n) if tf.shard_range(
+               pos, window, r * held, held)[1] > tf.shard_range(
+                   pos, window, r * held, held)[0]),
+           "copies": decode_attention.copies - copies}
+    if q.device.type == "cuda":
+        full = torch.full((B,), held, dtype=torch.int32, device=q.device)
+        out["slice_ms"] = time_ms(lambda: decode_attention(
+            q, kc[:, S - held:].transpose(1, 2),
+            vc[:, S - held:].transpose(1, 2), full, 0, softcap), calls=5,
+            reps=7)
+        out["slices_ms"] = time_ms(lambda: list(slices()), calls=1, reps=3)
+        out["whole_ms"] = time_ms(lambda: decode_attention(
+            q, kc.transpose(1, 2), vc.transpose(1, 2), lengths, window,
+            softcap), calls=5, reps=7)
+    out["ok"] = (ratio <= 1.0 and out["planted_ratio"] > 1.0
+                 and out["copies"] == 0)
+    return out
+
+
+def _range_one_late(shard_range):
+    """``transformer.shard_range`` with a planted fault: each slice's
+    visible range starting one position late."""
+    def faulty(pos, window, base, held):
+        a, b = shard_range(pos, window, base, held)
+        return min(a + 1, b), b
+    return faulty
+
+
+def _range_no_window(shard_range):
+    """``transformer.shard_range`` with a planted fault: the local layers'
+    window dropped, every position up to ``pos`` visible."""
+    def faulty(pos, window, base, held):
+        return shard_range(pos, 0, base, held)
+    return faulty
+
+
+def _no_collectives(col):
+    """``launch.collectives``' calls that the decode step makes, as the
+    identities they are on a world of one: a timing variant (the step's
+    host time without the process group), never a result."""
+    stack = contextlib.ExitStack()
+    for name in ("psum", "pmax", "pvary", "all_gather"):
+        stack.enter_context(patched(col, name, lambda f: (
+            lambda x, mesh, axes, *rest, **kw: x)))
+    return stack
+
+
+def _counted_collectives(col, counts: dict):
+    """``launch.collectives``' calls counted by name into ``counts``."""
+    stack = contextlib.ExitStack()
+    for name in ("psum", "pmax", "pvary", "all_gather"):
+        def wrap(f, name=name):
+            def counted(*args, **kw):
+                counts[name] = counts.get(name, 0) + 1
+                return f(*args, **kw)
+            return counted
+        stack.enter_context(patched(col, name, wrap))
+    return stack
+
+
+def mesh_decode_check(cfg, seed: int, device, mesh, seq: int | None = None,
+                      splits=MESH_SPLITS, pos: int = MESH_DECODE_POS,
+                      local_back: int = MESH_LOCAL_BACK,
+                      rounds: int = MESH_DECODE_ROUNDS) -> dict:
+    """gemma2-2b ``long_500k`` (``seq`` positions, its 524,288 by default)
+    on the ``seq_shard`` route of ``mesh`` against the route without one:
+    bf16 weights from ``seed`` and a cache filled with ``normal_`` a layer
+    at a time. One decode step at ``pos`` (every layer's visible range
+    starts at 0) with the logits bit for bit the route's without a mesh,
+    and the planted fault (each slice's range one position late) must
+    change them; the step's launches read. Then a step at the cell's own
+    position S - 1, where the local layers' ranges start 4,096 back: a
+    world of one's slice runs the whole call's chunk plan there too
+    (``attend_shard``), so the logits are bit for bit too (their
+    difference also read against ATTN_TOL, atol + rtol * max(1, max
+    |logit|)), and the planted fault (the window dropped) must pass that
+    bound. At S - 1 the two routes are timed warm,
+    ``rounds`` steps each in turns (mesh, no mesh, the mesh route with
+    its collectives as identities, then the reverse order), and the mesh
+    step's collectives counted by kind. Then ``decode_attention``'s lse
+    on both dtypes (``lse_check``: the global layer's shape in bf16,
+    timed beside the call without lse; a float32 cut of it), and the
+    cache of a global and a local layer cut into each of ``splits``
+    slices (``split_check`` with the query times SPLIT_Q_SCALE, at the
+    cache's last position and ``local_back`` before it)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import collectives as col
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import AxisRules
+    dev = torch.device(device)
+    rules = AxisRules.for_mesh(mesh)
+    S = seq or 524288
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = tf.init_lm_params(cfg, gen, device=dev)
+    cache = tf.init_kv_cache(cfg, 1, S, device=dev)
+    for layer in range(cfg.n_layers):
+        cache["k"][layer].normal_(generator=gen)
+        cache["v"][layer].normal_(generator=gen)
+    tok = _tokens(seed, (1, 1), cfg.vocab, dev).int()
+
+    def step(at, r=rules):
+        logits = tf.lm_decode_step(cfg, params, cache, tok, at, r,
+                                   r is not None)[0]
+        _sync(dev)
+        return logits
+
+    reset_launch_counts()
+    got = step(pos)
+    launches = launch_counts()
+    want = step(pos, None)
+    with patched(tf, "shard_range", _range_one_late):
+        planted = step(pos)
+    out = {"model": cfg.name, "S": S, "pos": pos, "mesh": list(mesh.shape),
+           "logits_equal": torch.equal(got, want),
+           "planted_max_abs_diff": float((planted.float() - want.float())
+                                         .abs().max()),
+           "launches": launches}
+    last = S - 1
+    got, want = step(last), step(last, None)
+    with patched(tf, "shard_range", _range_no_window):
+        planted = step(last)
+    atol, rtol = ATTN_TOL[str(want.dtype).removeprefix("torch.")]
+    limit = atol + rtol * max(1.0, float(want.float().abs().max()))
+    out["last"] = {
+        "pos": last, "logits_equal": torch.equal(got, want),
+        "max_abs_diff": float((got.float() - want.float()).abs().max()),
+        "limit": limit, "max_abs_logit": float(want.float().abs().max()),
+        "planted_max_abs_diff": float((planted.float() - want.float())
+                                      .abs().max())}
+    counts: dict = {}
+    with _counted_collectives(col, counts):
+        step(last)
+    out["last"]["collectives"] = counts
+    times = {"mesh": [], "one": [], "mesh_no_collectives": []}
+
+    def timed(name):
+        ctx = (_no_collectives(col) if name == "mesh_no_collectives"
+               else contextlib.nullcontext())
+        with ctx:
+            t0 = time.perf_counter()
+            step(last, None if name == "one" else rules)
+            times[name].append(time.perf_counter() - t0)
+
+    order = list(times)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            timed(name)
+    out["last"]["step_s"] = times
+    del got, want, planted
+    windows = cfg.layer_windows()
+    glob, loc = int(windows.argmin()), int(windows.argmax())
+    cap = cfg.attn_softcap or 0.0
+    kc, vc = cache["k"][glob], cache["v"][glob]
+    q = torch.randn((1, cfg.n_heads, cfg.d_head), generator=gen, device=dev,
+                    dtype=kc.dtype)
+    full = torch.full((1,), S, dtype=torch.int32, device=dev)
+    out["lse_bf16"] = lse_check(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                full, 0, cap)
+    cut = min(S, 4096)
+    out["lse_f32"] = lse_check(q.float(), kc[:, :cut].float().transpose(1, 2),
+                               vc[:, :cut].float().transpose(1, 2),
+                               torch.full((1,), cut, dtype=torch.int32,
+                                          device=dev), 0, cap, timed=False)
+    out["splits"] = {}
+    sharp = q * SPLIT_Q_SCALE
+    for n in splits:
+        out["splits"][f"global_{n}"] = split_check(sharp, kc, vc, S - 1, 0,
+                                                   cap, n)
+        out["splits"][f"local_{n}"] = split_check(
+            sharp, cache["k"][loc], cache["v"][loc], S - 1 - local_back,
+            int(windows[loc]), cap, n)
+    del params, cache, q, kc, vc
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["ok"] = (out["logits_equal"] and out["planted_max_abs_diff"] > 0
+                 and out["last"]["logits_equal"]
+                 and out["last"]["planted_max_abs_diff"] > limit
+                 and out["lse_bf16"]["ok"] and out["lse_f32"]["ok"]
+                 and all(s["ok"] for s in out["splits"].values()))
+    if dev.type == "cuda":
+        out["ok"] = out["ok"] and launches.get(
+            "decode_attention", 0) == cfg.n_layers
+    return out
+
+
+def _unmasked_rows(rows, mask, r0, n):
+    """``recsys.local_rows`` with a planted fault: the ids outside the
+    shard's range clamped in but left in the mask."""
+    return (rows - r0).clamp(0, n - 1), mask
+
+
+def mesh_recsys_check(cfg, seed: int, device, mesh, bulk: int = 262144,
+                      train: int = RECSYS_TRAIN_BATCH,
+                      shards: int = MESH_RECSYS_SHARDS) -> dict:
+    """Wide&Deep at full width (f32 weights from ``seed``) on the
+    row-sharded route (``recsys_param_shardings`` on ``mesh``) against
+    the route without one: ``recsys_score`` on ``bulk`` samples
+    (serve_bulk) within MESH_RECSYS_RTOL of the largest score, each timed;
+    one AdamW step of the train_batch cell's loss on ``train`` samples
+    each, timed, the loss within MESH_RECSYS_RTOL. Then the table, the
+    wide weights and the candidates cut into ``shards`` row ranges on the
+    device, as ``shards`` ranks would hold them: the ranges' partial bags
+    (``shard_bag``: the kernel in sum mode on ``local_rows``) summed and
+    divided by the count against the whole ``embedding_bag`` within
+    ``sum_err``'s bound, their wide sums likewise, and their top-100
+    lists merged (``merge_topk``) against the whole top-100, indices
+    equal outside near ties; the planted fault (out-of-range ids left in
+    the mask) must fail the bag check."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.convert import local_shard
+    from repro_torch.data.recsys import recsys_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import recsys as rs
+    from repro_torch.models.common import AxisRules
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.train_loop import make_train_step
+    dev = torch.device(device)
+    rules = AxisRules.for_mesh(mesh)
+    specs = rs.recsys_param_shardings(cfg, rules)
+    params = rs.init_recsys_params(cfg, torch.Generator(
+        device=dev).manual_seed(seed), dev)
+    pieces = local_shard(params, specs, mesh)
+    data = _recsys_inputs(cfg, bulk, seed, dev)
+    reset_launch_counts()
+    mesh_run = timed_calls(lambda: rs.recsys_score(cfg, pieces, data, rules),
+                           3, dev)
+    launches = mesh_run["launches"]
+    one_run = timed_calls(lambda: rs.recsys_score(cfg, params, data), 3, dev)
+    got, want = mesh_run.pop("out"), one_run.pop("out")
+    out = {"mesh": list(mesh.shape), "bulk": bulk,
+           "score_max_abs_diff": float((got - want).abs().max()),
+           "score_mesh_ms": mesh_run["median_ms"],
+           "score_one_ms": one_run["median_ms"]}
+    del got, want, data
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in recsys_batch(
+        train, n_sparse=cfg.n_sparse, vocab=cfg.vocab_per_field,
+        nnz=cfg.nnz_per_field, n_dense=cfg.n_dense, seed=seed).items()}
+    opt = AdamWConfig(peak_lr=TRAIN_LR, warmup_steps=0)
+    for name, r, s in (("mesh", rules, specs), ("one", None, None)):
+        p = tree.tree_map(torch.clone, pieces if r is not None else params)
+        step = make_train_step(lambda pp, b, r=r: rs.recsys_loss(cfg, pp, b,
+                                                                 r),
+                               opt, rules=r, specs=s)
+        run = train_steps(step, p, adamw_init(p), batch, 1, dev)
+        out[f"train_loss_{name}"] = run["losses"][0]
+        out[f"train_ms_{name}"] = run["step_ms"][0]
+        if name == "mesh":
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        del p, run
+    out["train"] = train
+    del batch
+    # the tables cut into row ranges, as `shards` ranks hold them
+    data = _recsys_inputs(cfg, min(bulk, 4096), seed + 1, dev)
+    rows = rs._field_ids(data["ids"], cfg.vocab_per_field)
+    mask = data["id_mask"]
+    n = cfg.unified_rows // shards
+    whole = rs.embedding_bag(params["embed"], data["ids"], mask,
+                             cfg.vocab_per_field)
+    bound = bag_bound(params["embed"], rows, mask, "mean")
+
+    def bags(local_rows=rs.local_rows):
+        with patched(rs, "local_rows", lambda _: local_rows):
+            s = sum(rs.shard_bag(params["embed"][i * n:(i + 1) * n], rows,
+                                 mask, i * n) for i in range(shards))
+        return s / mask.sum(dim=2).clamp(min=1.0)[..., None]
+
+    out["bag_max_abs_err"], out["bag_ratio"] = sum_err(bags(), whole, bound)
+    out["planted_bag_ratio"] = sum_err(bags(_unmasked_rows), whole,
+                                       bound)[1]
+    wide = params["wide"]
+    want_wide = (wide[rows] * mask).sum(dim=(1, 2))
+    got_wide = 0
+    for i in range(shards):
+        local, m = rs.local_rows(rows, mask, i * n, n)
+        got_wide = got_wide + (wide[i * n:(i + 1) * n][local] * m).sum(
+            dim=(1, 2))
+    out["wide_max_abs_diff"] = float((got_wide - want_wide).abs().max())
+    wide_limit = float(SUM_GROWTH * rows[0].numel() * (
+        wide[rows].abs() * mask).sum(dim=(1, 2)).max())
+    one = {k: v[:1] for k, v in data.items()}
+    x = rs._mlp(params, rs._deep_input(cfg, params, one))
+    scores = x @ params["candidates"].T
+    wv, wi = torch.topk(scores, 100, dim=-1)
+    c = cfg.n_candidates // shards
+    parts = [torch.topk(scores[:, i * c:(i + 1) * c], 100, dim=-1)
+             for i in range(shards)]
+    gv, gi = rs.merge_topk(torch.cat([p.values for p in parts], dim=-1),
+                           torch.cat([p.indices + i * c for i, p in
+                                      enumerate(parts)], dim=-1), 100)
+    amb = _ambiguous(wv[0].cpu(), 1e-6 * float(wv.abs().max()))
+    out["topk_values_equal"] = torch.equal(gv, wv)
+    out["topk_indices_equal_outside_ties"] = bool(
+        (gi[0].cpu() == wi[0].cpu())[~amb].all())
+    out["launches"] = launches
+    del params, pieces, data, scores
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    limit = MESH_RECSYS_RTOL
+    out["ok"] = (out["score_max_abs_diff"] <= limit
+                 and abs(out["train_loss_mesh"] - out["train_loss_one"])
+                 <= limit * abs(out["train_loss_one"])
+                 and out["bag_ratio"] <= 1.0
+                 and out["planted_bag_ratio"] > 1.0
+                 and out["wide_max_abs_diff"] <= wide_limit + 1e-30
+                 and out["topk_values_equal"]
+                 and out["topk_indices_equal_outside_ties"])
+    return out
+
+
+def mesh_phase(args, sub: dict, device, moe_cfg=None, prompt=None,
+               small: dict | None = None) -> dict:
     """The mesh routes on a (1, 1) ``("data", "model")`` mesh of the
     default group (NCCL on the card, gloo on the CPU: a world of one
     through a ``HashStore``): the four GNN cells at ``minibatch_lg`` on
-    ``sub`` (``mesh_gnn_check``) and granite-moe-1b's bf16 prefill at
-    full width and depth on the expert-parallel route (``moe_cfg`` and a
-    float32 ``prompt`` of tokens in a rehearsal; ``mesh_moe_check``), one
-    log line each; raises on any failed check. Returns the kernels'
-    launches on the mesh routes (the GNN cells' timed mesh steps and the
-    EP prefill)."""
+    ``sub`` (``mesh_gnn_check``), granite-moe-1b's bf16 prefill at full
+    width and depth on the expert-parallel route (``moe_cfg`` and a
+    float32 ``prompt`` of tokens in a rehearsal; ``mesh_moe_check``), then
+    the layouts: qwen3-0.6b's loss and training (``mesh_lm_check``),
+    gemma2-2b's long_500k decode on the sequence-sharded route with the
+    lse and the cache's splits (``mesh_decode_check``) and Wide&Deep's
+    row-sharded tables (``mesh_recsys_check``); ``small`` gives a
+    rehearsal their configs and sizes (keys ``lm``, ``decode``,
+    ``recsys``: keyword arguments, ``cfg`` among them). One log line
+    each; raises on any failed check. Returns the kernels' launches on
+    the mesh routes (the GNN cells' timed mesh steps, the EP prefill, the
+    mesh LM steps, the decode step, the recsys scoring and step)."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs.registry import get_spec
@@ -6167,8 +6717,14 @@ def mesh_phase(args, sub: dict, device, moe_cfg=None, prompt=None) -> dict:
     from repro_torch.models.transformer import init_lm_params
     dev = torch.device(device)
     gpu = gpu_line() if dev.type == "cuda" else "the CPU"
+    small = small or {}
     mesh = make_compat_mesh((1, 1), ("data", "model"), dev)
     bad, launches = [], {}
+
+    def add(got: dict) -> None:
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
     try:
         log(f"mesh: {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
             f"{dist.get_backend()}")
@@ -6179,8 +6735,7 @@ def mesh_phase(args, sub: dict, device, moe_cfg=None, prompt=None) -> dict:
                 f"{json.dumps(run)} in {time.perf_counter() - t0:.1f} s")
             if not run["ok"]:
                 bad.append(arch)
-            for k, v in run["mesh_launches"].items():
-                launches[k] = launches.get(k, 0) + v
+            add(run["mesh_launches"])
         cfg = moe_cfg or get_spec(MOE_ARCH).config
         dtype = torch.bfloat16 if moe_cfg is None else torch.float32
         params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(
@@ -6193,14 +6748,34 @@ def mesh_phase(args, sub: dict, device, moe_cfg=None, prompt=None) -> dict:
             f"{gpu}: {json.dumps(moe)} in {time.perf_counter() - t0:.1f} s")
         if not moe["ok"]:
             bad.append(cfg.name)
-        for k, v in moe["launches"].items():
-            launches[k] = launches.get(k, 0) + v
+        add(moe["launches"])
         del params, tokens
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        checks = (
+            ("lm", mesh_lm_check, LM_ARCH,
+             "on the layouts route (FSDP + TP)"),
+            ("decode", mesh_decode_check, "gemma2-2b",
+             "long_500k on the seq_shard route"),
+            ("recsys", mesh_recsys_check, RECSYS_ARCH,
+             "on the row-sharded tables"))
+        for key, check, arch, what in checks:
+            kw = dict(small.get(key, {}))
+            cfg = kw.pop("cfg", None) or get_spec(arch).config
+            t0 = time.perf_counter()
+            run = check(cfg, args.seed, dev, mesh, **kw)
+            log(f"mesh {key} {cfg.name} {what} on {gpu}: {json.dumps(run)} "
+                f"in {time.perf_counter() - t0:.1f} s")
+            if not run["ok"]:
+                bad.append(f"{key} {cfg.name}")
+            add(run["launches"])
     finally:
         dist.destroy_process_group()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-        for name in ("segment_sum_sorted", "flash_attention"):
+        for name in ("segment_sum_sorted", "flash_attention",
+                     "flash_attention_bwd", "decode_attention",
+                     "embedding_bag", "embedding_bag_bwd"):
             if launches.get(name, 0) <= 0:
                 bad.append(f"{name} not launched on the mesh routes")
     if bad:

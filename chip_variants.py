@@ -1,11 +1,17 @@
 #!/usr/bin/env python3
 """Time ``embedding_bag``, ``scan_probe``, ``segment_sum_sorted``,
-``probe_sorted_many``, ``qad_solve`` and ``flash_attention_bwd`` beside
-timing-only variants of themselves, on one NVIDIA GPU.
+``probe_sorted_many``, ``qad_solve``, ``flash_attention_bwd`` and
+``decode_attention`` beside timing-only variants of themselves, on one
+NVIDIA GPU.
 
     python3 chip_variants.py            # from the root of a checkout
     python3 chip_variants.py --kernels segment,probe
-                                        # some of the six sections
+                                        # some of the seven sections
+    git show <commit>:src/repro_torch/csrc/decode_tc.cu \
+        > build/parent/decode_tc.cu
+    python3 chip_variants.py --kernels decode
+                                        # the shipped decode kernel beside
+                                        # an earlier build of its source
 
 A variant is either a plan that the launchers would not pick (ids and mask
 read from device memory instead of through the ring, one element a lane
@@ -75,6 +81,18 @@ timing-only builds, each with one phase taken out (``BWD_PHASES``: the P
 and dS math, the register-A products, the score products, the exchange's
 barriers, the ring's wait for its consumers); their outputs are wrong by
 design and are not checked.
+
+``decode_attention`` (``--kernels decode``) runs its bf16 route at
+qwen3-0.6b's decode shape (B 8, H 16/8, 32,768 keys, d 128) and at
+gemma2-2b ``long_500k``'s global layer (B 1, H 8/4, 524,288 keys, d 256,
+softcap 50), caches in the model's [B, S, Hkv, d] layout: the shipped
+kernel without and with the ``lse`` output and with its float32 output
+(the sequence-sharded decode's call), beside the same source before the
+``lse`` output (``--parent-decode``, built here and called as its wrapper
+called it). The parent's output and the shipped one with ``lse`` are held
+to the shipped call's bit for bit, the float32 output rounded to bf16
+too; then all four are timed in turns, and the profiler's device time of
+each launch of ``decode_tc_kernel``.
 """
 
 from __future__ import annotations
@@ -298,7 +316,7 @@ VARIANTS = {
 # the timing-only builds above
 BWD_PHASES = ("bwd_no_math", "bwd_no_rs", "bwd_no_ss", "bwd_no_bar",
               "bwd_no_empty_wait")
-SECTIONS = ("bag", "scan", "segment", "probe", "qad", "bwd")
+SECTIONS = ("bag", "scan", "segment", "probe", "qad", "bwd", "decode")
 
 
 def log(msg: str) -> None:
@@ -373,17 +391,28 @@ SECTION_VARIANTS = {"bag": ("bag_nohint", "bag_evictlast"),
                     "scan": ("probe_noshortcut",),
                     "segment": ("seg_nocarry",), "probe": ("probe_old",),
                     "qad": ("qad_noexit", "qad_vote1", "qad_exact"),
-                    "bwd": ("bwd_whole", "bwd_head_major", *BWD_PHASES)}
+                    "bwd": ("bwd_whole", "bwd_head_major", *BWD_PHASES),
+                    "decode": ()}
+# the parent's decode_tc.cu argument types: q, k, v, lengths, o, part,
+# tickets, strides, B, H, Hkv, S, D, chunk, window, softcap, scale, stream
+_PARENT_DECODE = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
+    [ctypes.c_float] * 2 + [ctypes.c_void_p]
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", default=",".join(SECTIONS),
                     help=f"comma-separated sections of {SECTIONS}")
+    ap.add_argument("--parent-decode", type=Path,
+                    default=OUT.parent / "parent" / "decode_tc.cu",
+                    help="the decode section's earlier csrc/decode_tc.cu "
+                         "(before the lse output)")
     args = ap.parse_args([] if argv is None else argv)
     sections = args.kernels.split(",")
     if not set(sections) <= set(SECTIONS):
         ap.error(f"--kernels takes {SECTIONS}")
+    if "decode" in sections and not args.parent_decode.is_file():
+        ap.error(f"--parent-decode {args.parent_decode}: no such file")
     import torch
     if not torch.cuda.is_available():
         print("chip_variants: CUDA is not available", file=sys.stderr)
@@ -404,10 +433,19 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.sparql.engine import TorchBackend
 
     t0 = time.perf_counter()
-    _build.build("sparse", "rdf", "qad", "flash", "bwd", "bwd_tc")
+    _build.build("sparse", "rdf", "qad", "flash", "bwd", "bwd_tc", "decode")
     libs = build_variants(_build.NVCC_FLAGS, _build._nvcc(),
                           {v for sec in sections
                            for v in SECTION_VARIANTS[sec]})
+    if "decode" in sections:
+        OUT.mkdir(parents=True, exist_ok=True)
+        lib = OUT / "libdecode_parent.so"
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                        str(args.parent_decode)], check=True,
+                       capture_output=True)
+        libs["decode_parent"] = ctypes.CDLL(str(lib))
+        libs["decode_parent"].decode_decode_attention.argtypes = \
+            _PARENT_DECODE
     libs["bag"] = libs["seg"] = _build.library("sparse")
     libs["probe"] = _build.library("rdf")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -897,6 +935,68 @@ def main(argv: list[str] | None = None) -> int:
         for name in SECTION_VARIANTS["bwd"]:
             for line in BUILD_LOGS.get(name, "").splitlines():
                 log(f"ptxas ({name}): {line.strip()}")
+    # ------------------------------------- decode_attention, parent build
+    if "decode" in sections:
+        from repro_torch.kernels.decode_attention import (decode_attention,
+                                                          split_plan)
+        from repro_torch.kernels.flash_attention import strides
+        tickets = torch.zeros(1024, dtype=torch.int32, device=dev)
+
+        def parent_decode(q, k, v, lengths, softcap):
+            """The parent's kernel, called as its wrapper called it."""
+            B, H, d = q.shape
+            Hkv, S = k.shape[1], k.shape[2]
+            chunk, n_split = split_plan(B, Hkv, S, d)
+            out = torch.empty_like(q)
+            part = torch.empty(B * H * n_split * (d + 2),
+                               dtype=torch.float32, device=dev)
+            rc = libs["decode_parent"].decode_decode_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+                strides(q, k, v, out), B, H, Hkv, S, d, chunk, 0, softcap,
+                d ** -0.5, stream())
+            if rc:
+                raise RuntimeError(f"parent decode_attention: CUDA error "
+                                   f"{rc}")
+            return out
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for label, (B, H, Hkv, S, d, cap) in (
+                ("decode qwen3-0.6b", (8, 16, 8, 32768, 128, 0.0)),
+                ("decode long_500k global layer",
+                 (1, 8, 4, 524288, 256, 50.0))):
+            q = torch.randn((B, H, d), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            k, v = (torch.randn((B, S, Hkv, d), generator=gen, device=dev,
+                                dtype=torch.bfloat16).transpose(1, 2)
+                    for _ in range(2))
+            n = torch.full((B,), S, dtype=torch.int32, device=dev)
+            lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+            want = decode_attention(q, k, v, n, 0, cap)
+            unrounded = decode_attention(q, k, v, n, 0, cap, lse=lse,
+                                         out_dtype=torch.float32)
+            if not torch.equal(unrounded.to(torch.bfloat16), want):
+                raise AssertionError(f"{label}: the float32 output rounded "
+                                     f"differs from the bf16 one")
+            order = [
+                ("shipped", lambda: decode_attention(q, k, v, n, 0, cap)),
+                ("shipped with lse", lambda: decode_attention(
+                    q, k, v, n, 0, cap, lse=lse)),
+                ("shipped with lse, float32 output",
+                 lambda: decode_attention(q, k, v, n, 0, cap, lse=lse,
+                                          out_dtype=torch.float32)),
+                ("parent", lambda: parent_decode(q, k, v, n, cap)),
+            ]
+            run_in_turns(label, order, want, calls=20,
+                         exact=["shipped", "shipped with lse", "parent"])
+            for name, fn in order:
+                ms, m = smoke.kernel_device_ms(fn, "decode_tc_kernel",
+                                               calls=20)
+                times[f"{label} {name} device"] = ms
+                log(f"{label} {name} decode_tc_kernel device: {ms} ms ({m} "
+                    f"launches recorded)")
+            del q, k, v, want, unrounded, order
+            torch.cuda.empty_cache()
     print(gpu)
     print(json.dumps({"gpu": gpu, "ms": times}))
     return 0

@@ -10,17 +10,22 @@ dtypes, no storage) in the reference's tree order, consumed by the dry
 run (:mod:`repro_torch.launch.dryrun`) and by ``chip_smoke.py``'s cells
 phase, which makes real arguments of the same shapes.
 
-On a mesh (:mod:`repro_torch.launch.mesh`), :func:`build_cell` builds
-the GNN cells as the reference's ``_gnn_cell`` does: the step runs on
-``AxisRules.for_mesh(mesh)`` (the vertex-partitioned mesh routes of
-``models/gnn.py``), and the cell's ``in_specs`` give each argument's
-layout, the reference's ``in_shardings`` as tuples of axis names (node
-and edge arrays over the batch axes where their leading dim divides,
-``energy`` and the params replicated); each rank passes its pieces
-(``convert.local_shard``). The LM and recsys cells run on one device (a
-mesh of one): past it they need the reference's ``param_shardings``,
-``cache_shardings`` and ``recsys_param_shardings`` (FSDP and TP of every
-weight), which the port has not, and :func:`build_cell` raises. A
+On a mesh (:mod:`repro_torch.launch.mesh`, or a ``MetaMesh`` in the dry
+run), :func:`build_cell` builds every cell as the reference's does: the
+step runs on ``AxisRules.for_mesh(mesh)``, and the cell's ``in_specs``
+give each argument's layout, the reference's ``in_shardings`` as tuples
+of axis names, ``{path: spec}`` per argument (a bare tensor's path is
+``""``): for the GNNs node and edge arrays over the batch axes where
+their leading dim divides, ``energy`` and the params replicated; for the
+LMs ``param_shardings`` (FSDP and TP of every weight), the AdamW moments
+as the params, tokens over the batch axes where the batch divides
+(``(None, batch)`` for microbatches), the cache by ``cache_shardings``
+and ``pos`` replicated; for Wide&Deep ``recsys_param_shardings`` (the
+tables row-sharded over ``tp``) and the batch leaves over the batch axes
+where they divide (``labels`` always). Each rank passes its pieces
+(``convert.local_shard``). A mesh decode cell's ``pos`` is an int (the
+sharded decode cuts each rank's slice on the host), ``S - 1`` in its
+``abstract_args``: every position visible. A
 :class:`Cell` has no ``probe``: the reference's single-layer probe
 corrects XLA's cost analysis, which counts a scan body once
 (``repro/launch/dryrun.py``); the port runs eagerly, and its counters see
@@ -40,9 +45,11 @@ from ..launch.collectives import axis_size
 from ..models.common import AxisRules
 from ..models.gnn import GNNConfig, gnn_init, gnn_loss
 from ..models.recsys import (RecsysConfig, init_recsys_params, recsys_loss,
-                             recsys_score, retrieval_topk)
-from ..models.transformer import (LMConfig, init_kv_cache, init_lm_params,
-                                  lm_decode_step, lm_forward, lm_loss)
+                             recsys_param_shardings, recsys_score,
+                             retrieval_topk)
+from ..models.transformer import (LMConfig, cache_shardings, init_kv_cache,
+                                  init_lm_params, lm_decode_step, lm_forward,
+                                  lm_loss, param_shardings)
 from ..optim.adamw import AdamWConfig, adamw_init
 from ..runtime.train_loop import make_train_step
 
@@ -167,63 +174,86 @@ def _meta(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=META)
 
 
-_MISSING_SHARDINGS = {
-    "lm": "the reference's param_shardings and cache_shardings",
-    "recsys": "the reference's recsys_param_shardings",
-}
+def _batch_dim_spec(mesh, rules: AxisRules, dim: int):
+    """The reference's ``_batch_dim_spec``: the batch axes where ``dim``
+    divides by their ranks, else ``None`` (whole)."""
+    return rules.batch if dim % axis_size(mesh, rules.batch) == 0 else None
+
+
+def _opt_specs(p_specs: dict) -> dict:
+    """The AdamW state's layouts: the moments as the params, ``step``
+    replicated."""
+    return {f"{m}/{k}": v for m in ("m", "v") for k, v in p_specs.items()}
 
 
 def build_cell(spec: ArchSpec, shape_name: str, mesh=None) -> Cell:
     """The cell of ``spec`` at ``shape_name``. ``mesh``: ``None`` or a
-    :mod:`repro_torch.launch.mesh` mesh. A GNN cell on a mesh takes the
-    mesh routes and states its ``in_specs``; an LM or recsys cell takes
-    ``None`` or a mesh of one device, and a larger mesh raises
-    ``ValueError``."""
+    :mod:`repro_torch.launch.mesh` mesh (a ``DeviceMesh`` or a
+    ``MetaMesh``): the cell then runs on the mesh routes and states its
+    ``in_specs``."""
+    rules = None if mesh is None else AxisRules.for_mesh(mesh)
     if spec.family == "gnn":
         return _gnn_cell(spec, shape_name, mesh)
-    if mesh is not None and mesh.size() != 1:
-        raise ValueError(
-            f"the port's {spec.family} cells run on one device; a mesh of "
-            f"{mesh.size()} needs {_MISSING_SHARDINGS[spec.family]} (FSDP "
-            f"and TP of every weight), which are not ported")
     if spec.family == "lm":
-        return _lm_cell(spec, shape_name)
-    return _recsys_cell(spec, shape_name)
+        return _lm_cell(spec, shape_name, mesh, rules)
+    return _recsys_cell(spec, shape_name, mesh, rules)
 
 
 # -- LM ----------------------------------------------------------------------
 
-def _lm_cell(spec: ArchSpec, shape_name: str) -> Cell:
+def _lm_cell(spec: ArchSpec, shape_name: str, mesh=None,
+             rules: AxisRules | None = None) -> Cell:
     cfg: LMConfig = spec.config
     sh = LM_SHAPES[shape_name]
     B, S = sh["batch"], sh["seq"]
     params = init_lm_params(cfg, torch.Generator(), device=META)
+    p_specs = param_shardings(cfg, rules) if mesh is not None else {}
+
+    def tokens_spec(dim: int, lead: tuple = ()) -> dict:
+        if mesh is None:
+            return {}
+        ax = _batch_dim_spec(mesh, rules, dim)
+        return {"": (*lead, ax)} if ax else {}
 
     if sh["kind"] == "train":
         mb = spec.microbatches
-        step = make_train_step(lambda p, t: lm_loss(cfg, p, t), _opt_cfg(),
-                               microbatches=mb)
+        step = make_train_step(lambda p, t: lm_loss(cfg, p, t, rules),
+                               _opt_cfg(), microbatches=mb, rules=rules,
+                               specs=p_specs)
         tokens = _meta((mb, B // mb, S) if mb > 1 else (B, S), torch.int32)
+        specs = ()
+        if mesh is not None:
+            specs = (p_specs, _opt_specs(p_specs),
+                     tokens_spec(B // mb, (None,)) if mb > 1
+                     else tokens_spec(B))
         return Cell(fn=step, abstract_args=(params, adamw_init(params),
                                             tokens),
                     description=f"train_step B={B} S={S} mb={mb}",
-                    cost_multiplier=mb)
+                    cost_multiplier=mb, in_specs=specs)
 
     if sh["kind"] == "prefill":
         def fwd(params, tokens):
-            return lm_forward(cfg, params, tokens)[0]
+            return lm_forward(cfg, params, tokens, rules)[0]
         return Cell(fn=fwd, abstract_args=(params, _meta((B, S),
                                                          torch.int32)),
-                    description=f"prefill B={B} S={S}")
+                    description=f"prefill B={B} S={S}",
+                    in_specs=(p_specs, tokens_spec(B))
+                    if mesh is not None else ())
+
+    seq_shard = sh.get("seq_shard", False)
 
     def decode(params, cache, tokens, pos):
-        return lm_decode_step(cfg, params, cache, tokens, pos)
+        return lm_decode_step(cfg, params, cache, tokens, pos, rules,
+                              seq_shard)
 
     cache = init_kv_cache(cfg, B, S, device=META)
+    pos = _meta((), torch.int32) if mesh is None else S - 1
     return Cell(fn=decode,
                 abstract_args=(params, cache, _meta((B, 1), torch.int32),
-                               _meta((), torch.int32)),
-                description=f"serve_step B={B} cache={S}")
+                               pos),
+                description=f"serve_step B={B} cache={S}",
+                in_specs=(p_specs, cache_shardings(cfg, rules, seq_shard),
+                          tokens_spec(B), {}) if mesh is not None else ())
 
 
 # -- GNN ----------------------------------------------------------------------
@@ -299,7 +329,8 @@ def _gnn_cell(spec: ArchSpec, shape_name: str, mesh=None) -> Cell:
 
 # -- recsys ------------------------------------------------------------------
 
-def _recsys_cell(spec: ArchSpec, shape_name: str) -> Cell:
+def _recsys_cell(spec: ArchSpec, shape_name: str, mesh=None,
+                 rules: AxisRules | None = None) -> Cell:
     cfg: RecsysConfig = spec.config
     sh = RECSYS_SHAPES[shape_name]
     B = sh["batch"]
@@ -308,20 +339,32 @@ def _recsys_cell(spec: ArchSpec, shape_name: str) -> Cell:
     batch = {"ids": _meta(bag, torch.int32),
              "id_mask": _meta(bag, torch.float32),
              "dense": _meta((B, cfg.n_dense), torch.float32)}
+    p_specs, b_specs = {}, {}
+    if mesh is not None:
+        p_specs = recsys_param_shardings(cfg, rules)
+        ax = _batch_dim_spec(mesh, rules, B)
+        if ax:
+            b_specs = {"ids": (ax,), "id_mask": (ax,), "dense": (ax,)}
     if sh["kind"] == "train":
         batch["labels"] = _meta((B,), torch.float32)
-        step = make_train_step(lambda p, b: recsys_loss(cfg, p, b),
-                               _opt_cfg())
+        if mesh is not None:
+            b_specs["labels"] = (rules.batch,)
+        step = make_train_step(lambda p, b: recsys_loss(cfg, p, b, rules),
+                               _opt_cfg(), rules=rules, specs=p_specs)
         return Cell(fn=step, abstract_args=(params, adamw_init(params),
                                             batch),
-                    description=f"recsys train B={B}")
+                    description=f"recsys train B={B}",
+                    in_specs=(p_specs, _opt_specs(p_specs), b_specs)
+                    if mesh is not None else ())
+    specs = (p_specs, b_specs) if mesh is not None else ()
     if sh["kind"] == "score":
         def fn(params, batch):
-            return recsys_score(cfg, params, batch)
+            return recsys_score(cfg, params, batch, rules)
         return Cell(fn=fn, abstract_args=(params, batch),
-                    description=f"recsys score B={B}")
+                    description=f"recsys score B={B}", in_specs=specs)
 
     def fn(params, batch):
-        return retrieval_topk(cfg, params, batch, k=100)
+        return retrieval_topk(cfg, params, batch, k=100, rules=rules)
     return Cell(fn=fn, abstract_args=(params, batch),
-                description=f"retrieval B={B} C={cfg.n_candidates}")
+                description=f"retrieval B={B} C={cfg.n_candidates}",
+                in_specs=specs)

@@ -179,3 +179,17 @@ def local_shard(tree, specs: dict, mesh):
             leaf = leaf.narrow(dim, col.axis_index(mesh, axes) * size, size)
         out.append(leaf.contiguous() if spec else leaf)
     return _tree.unflatten(tree, out)
+
+
+def gather_shards(tree, specs: dict, mesh):
+    """The whole leaves of ``tree`` from every rank's pieces on ``mesh``
+    (the inverse of :func:`local_shard`, a collective: every rank calls
+    it): each dim a layout cuts all-gathered over its axes, in rank
+    order. Leaves not in ``specs`` are taken as replicated and kept."""
+    out = []
+    for path, leaf in _tree.flatten(tree):
+        for dim, axes in enumerate(specs.get(_tree.path_key(path)) or ()):
+            if axes is not None and axes != ():
+                leaf = col.all_gather(leaf, mesh, axes, dim=dim)
+        out.append(leaf)
+    return _tree.unflatten(tree, out)

@@ -444,13 +444,15 @@ __global__ void __launch_bounds__(kDecThreads)
 }
 
 // Grid (H, B), D threads: merge the chunks of one (sequence, query head).
-// A sequence with no valid key (length 0) gets zeros.
+// A sequence with no valid key (length 0) gets zeros. lse: null, or float32
+// [B, H] that receives the row's log-sum-exp of its scaled, capped scores
+// (natural log), -inf where no key is valid.
 template <typename T, int D>
 __global__ void __launch_bounds__(D)
     decode_merge_kernel(const float* __restrict__ part_o,
                         const float* __restrict__ part_ml, T* __restrict__ o,
-                        int64_t osb, int64_t osh, int64_t osd, int H,
-                        int n_split) {
+                        float* __restrict__ lse, int64_t osb, int64_t osh,
+                        int64_t osd, int H, int n_split) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int c = threadIdx.x;
@@ -468,6 +470,8 @@ __global__ void __launch_bounds__(D)
     a = fmaf(w, po[s * D + c], a);
   }
   o[b * osb + h * osh + c * osd] = from_float<T>(a / fmaxf(l, 1e-30f));
+  if (lse != nullptr && c == 0)
+    lse[row] = l > 0.f ? m_use + logf(l) : -INFINITY;
 }
 
 // ---------------------------------------------------------------------------
@@ -504,8 +508,8 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
 template <typename T, int D>
 int launch_decode(const void* q, const void* kc, const void* vc,
                   const void* lengths, void* o, void* part_o, void* part_ml,
-                  const int64_t* st, int B, int H, int Hkv, int S, int chunk,
-                  int window, float softcap, float scale,
+                  float* lse, const int64_t* st, int B, int H, int Hkv,
+                  int S, int chunk, int window, float softcap, float scale,
                   cudaStream_t stream) {
   const size_t bytes = DecodeLayout<D>::bytes(H / Hkv);
   cudaError_t err = allow_smem(decode_chunk_kernel<T, D>, bytes);
@@ -522,7 +526,7 @@ int launch_decode(const void* q, const void* kc, const void* vc,
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_merge_kernel<T, D><<<dim3(H, B), D, 0, stream>>>(
       static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<T*>(o), st[11], st[12], st[13], H, n_split);
+      static_cast<T*>(o), lse, st[11], st[12], st[13], H, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -567,11 +571,13 @@ int attn_flash_attention(const void* q, const void* k, const void* v,
 // q [B,H,D], caches [B,Hkv,S,D], lengths [B] int32, o [B,H,D]; strides =
 // q's three, the caches' four each, o's three (14 int64, host memory).
 // part_o [B,H,ceil(S/chunk),D] and part_ml [B,H,ceil(S/chunk),2] float32
-// scratch; chunk a multiple of 32. dtype must be 0: bfloat16 decode is
-// decode_tc.cu's.
+// scratch; chunk a multiple of 32. lse: null, or float32 [B,H] contiguous
+// that receives each row's log-sum-exp (-inf where no key is valid). dtype
+// must be 0: bfloat16 decode is decode_tc.cu's.
 int attn_decode_attention(const void* q, const void* kc, const void* vc,
                           const void* lengths, void* o, void* part_o,
-                          void* part_ml, const int64_t* strides, int dtype,
+                          void* part_ml, void* lse_out,
+                          const int64_t* strides, int dtype,
                           int B, int H, int Hkv, int S, int D, int chunk,
                           int window, float softcap, float scale,
                           void* stream) {
@@ -580,24 +586,28 @@ int attn_decode_attention(const void* q, const void* kc, const void* vc,
       dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   switch (D) {
     case 16: return launch_decode<float, 16>(q, kc, vc, lengths, o, part_o,
-                                             part_ml, strides, B, H, Hkv, S,
-                                             chunk, window, softcap, scale, s);
+                                             part_ml, lse, strides, B, H, Hkv,
+                                             S, chunk, window, softcap, scale,
+                                             s);
     case 32: return launch_decode<float, 32>(q, kc, vc, lengths, o, part_o,
-                                             part_ml, strides, B, H, Hkv, S,
-                                             chunk, window, softcap, scale, s);
+                                             part_ml, lse, strides, B, H, Hkv,
+                                             S, chunk, window, softcap, scale,
+                                             s);
     case 64: return launch_decode<float, 64>(q, kc, vc, lengths, o, part_o,
-                                             part_ml, strides, B, H, Hkv, S,
-                                             chunk, window, softcap, scale, s);
+                                             part_ml, lse, strides, B, H, Hkv,
+                                             S, chunk, window, softcap, scale,
+                                             s);
     case 128: return launch_decode<float, 128>(q, kc, vc, lengths, o, part_o,
-                                               part_ml, strides, B, H, Hkv, S,
-                                               chunk, window, softcap, scale,
-                                               s);
+                                               part_ml, lse, strides, B, H,
+                                               Hkv, S, chunk, window, softcap,
+                                               scale, s);
     case 256: return launch_decode<float, 256>(q, kc, vc, lengths, o, part_o,
-                                               part_ml, strides, B, H, Hkv, S,
-                                               chunk, window, softcap, scale,
-                                               s);
+                                               part_ml, lse, strides, B, H,
+                                               Hkv, S, chunk, window, softcap,
+                                               scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

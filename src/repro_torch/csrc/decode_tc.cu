@@ -62,6 +62,7 @@ constexpr int kWarps = 4;                    // consumer warps
 constexpr int kThreads = 32 * (kWarps + 1);  // and one producer warp
 constexpr int kMaxGroup = 16;                // query heads per kv head
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr uint32_t kSpinLimit = 1u << 26;    // mbarrier polls before a trap
 
 // Shared-memory plan for head dim D and a group padded to GP query heads.
@@ -103,10 +104,12 @@ struct Plan {
 
 struct Args {
   const __nv_bfloat16* q;
-  __nv_bfloat16* o;
+  void* o;         // bf16, or float32 where o_f32
   const int* lengths;
   float* part;     // [B, H, n_split, D] outputs, then [B, H, n_split, 2]
   int* tickets;    // [B * Hkv], 0 between launches
+  float* lse;      // null, or [B, H]: each row's log-sum-exp
+  int o_f32;       // o is float32: the merge's output stored unrounded
   int64_t qb, qh, qd, ob, oh, od;  // element strides of q and o
   int H, Hkv, S, chunk, window;
   float softcap, scale;
@@ -191,6 +194,15 @@ __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// o[at] = x, rounded to bf16 unless the output is float32
+__device__ __forceinline__ void store_out(const Args& a, int64_t at,
+                                          float x) {
+  if (a.o_f32)
+    static_cast<float*>(a.o)[at] = x;
+  else
+    static_cast<__nv_bfloat16*>(a.o)[at] = __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float bf16_lo(uint32_t u) {
@@ -284,10 +296,13 @@ __global__ void __launch_bounds__(kThreads, Plan<D, GP>::MIN_BLOCKS)
   const int c0 = max(lo, split * a.chunk);
   const int c1 = min(len, (split + 1) * a.chunk);
   if (c0 >= c1) {
-    if (len == 0 && split == 0) {  // no visible key: zeros
-      __nv_bfloat16* ob = a.o + b * a.ob + kh * G * a.oh;
+    if (len == 0 && split == 0) {  // no visible key: zeros, lse -inf
+      const int64_t ob = b * a.ob + kh * G * a.oh;
       for (int idx = threadIdx.x; idx < G * D; idx += kThreads)
-        ob[(idx / D) * a.oh + (idx % D) * a.od] = __float2bfloat16(0.f);
+        store_out(a, ob + (idx / D) * a.oh + (idx % D) * a.od, 0.f);
+      if (a.lse != nullptr && threadIdx.x < G)
+        a.lse[static_cast<int64_t>(b) * a.H + kh * G + threadIdx.x] =
+            -INFINITY;
     }
     return;
   }
@@ -566,7 +581,7 @@ __global__ void __launch_bounds__(kThreads, Plan<D, GP>::MIN_BLOCKS)
   consumers_sync();
   if (!*last_s) return;
   __threadfence();
-  __nv_bfloat16* const ob = a.o + b * a.ob + kh * G * a.oh;
+  const int64_t ob = b * a.ob + kh * G * a.oh;
   for (int idx = tid; idx < G * D; idx += 32 * kWarps) {
     const int g = idx / D;
     const int c = idx - g * D;
@@ -581,7 +596,11 @@ __global__ void __launch_bounds__(kThreads, Plan<D, GP>::MIN_BLOCKS)
       o = fmaf(f, __ldcg(part_o + (row + s) * D + c), o);
       sum = fmaf(f, __ldcg(part_ml + 2 * (row + s) + 1), sum);
     }
-    ob[g * a.oh + c * a.od] = __float2bfloat16(o / fmaxf(sum, 1e-30f));
+    store_out(a, ob + g * a.oh + c * a.od, o / fmaxf(sum, 1e-30f));
+    // the row's log-sum-exp: the max and sum are in log2 units
+    if (a.lse != nullptr && c == 0)
+      a.lse[head0 + g] =
+          sum > 0.f ? (m_use + log2f(sum)) * kLn2 : -INFINITY;
   }
 }
 
@@ -647,9 +666,9 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr,
 
 template <int D, int GP>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* o, void* part, void* tickets, const int64_t* st, int B,
-           int H, int Hkv, int S, int chunk, int window, float softcap,
-           float scale, cudaStream_t stream) {
+           void* o, void* part, void* tickets, void* lse, int o_f32,
+           const int64_t* st, int B, int H, int Hkv, int S, int chunk,
+           int window, float softcap, float scale, cudaStream_t stream) {
   using P = Plan<D, GP>;
   if (chunk % P::BK != 0) return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled fn = encode_tiled();
@@ -663,10 +682,12 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
       static_cast<int>(P::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{static_cast<const __nv_bfloat16*>(q),
-               static_cast<__nv_bfloat16*>(o),
+               o,
                static_cast<const int*>(lengths),
                static_cast<float*>(part),
                static_cast<int*>(tickets),
+               static_cast<float*>(lse),
+               o_f32,
                st[0], st[1], st[2], st[11], st[12], st[13],
                H, Hkv, S, chunk, window, softcap, scale};
   const dim3 grid(Hkv, (S + chunk - 1) / chunk, B);
@@ -678,40 +699,43 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 template <int D>
 int launch_group(int G, const void* q, const void* k, const void* v,
                  const void* lengths, void* o, void* part, void* tickets,
-                 const int64_t* st, int B, int H, int Hkv, int S, int chunk,
-                 int window, float softcap, float scale,
-                 cudaStream_t stream) {
+                 void* lse, int o_f32, const int64_t* st, int B, int H,
+                 int Hkv, int S, int chunk, int window, float softcap,
+                 float scale, cudaStream_t stream) {
   if (G <= 2)
-    return launch<D, 2>(q, k, v, lengths, o, part, tickets, st, B, H, Hkv,
-                        S, chunk, window, softcap, scale, stream);
+    return launch<D, 2>(q, k, v, lengths, o, part, tickets, lse, o_f32, st,
+                        B, H, Hkv, S, chunk, window, softcap, scale, stream);
   if (G <= 4)
-    return launch<D, 4>(q, k, v, lengths, o, part, tickets, st, B, H, Hkv,
-                        S, chunk, window, softcap, scale, stream);
+    return launch<D, 4>(q, k, v, lengths, o, part, tickets, lse, o_f32, st,
+                        B, H, Hkv, S, chunk, window, softcap, scale, stream);
   if (G <= 8)
-    return launch<D, 8>(q, k, v, lengths, o, part, tickets, st, B, H, Hkv,
-                        S, chunk, window, softcap, scale, stream);
-  return launch<D, 16>(q, k, v, lengths, o, part, tickets, st, B, H, Hkv, S,
-                       chunk, window, softcap, scale, stream);
+    return launch<D, 8>(q, k, v, lengths, o, part, tickets, lse, o_f32, st,
+                        B, H, Hkv, S, chunk, window, softcap, scale, stream);
+  return launch<D, 16>(q, k, v, lengths, o, part, tickets, lse, o_f32, st,
+                       B, H, Hkv, S, chunk, window, softcap, scale, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// bfloat16 q [B,H,D], caches [B,Hkv,S,D], lengths [B] int32, o [B,H,D];
+// bfloat16 q [B,H,D], caches [B,Hkv,S,D], lengths [B] int32, o [B,H,D]
+// bfloat16, or float32 where o_f32 is set (the merge's output unrounded);
 // strides = q's three element strides, the caches' four each, o's three (14
 // int64, host memory). The caches need d stride 1, their other strides
 // multiples of 8 elements and 16-byte aligned bases (the wrapper copies a
 // cache that has not); q and o take any strides. part: float32 scratch of
 // B * H * ceil(S / chunk) * (D + 2); tickets: int32 [B * Hkv], all 0 (the
-// kernel leaves them 0); chunk a multiple of the tile (64 keys, 32 at D =
-// 256). H / Hkv at most 16; D one of 16, 32, 64, 128, 256.
+// kernel leaves them 0); lse: null, or float32 [B,H] contiguous that
+// receives each row's log-sum-exp (natural log, -inf where no key is
+// visible); chunk a multiple of the tile (64 keys, 32 at D = 256). H / Hkv
+// at most 16; D one of 16, 32, 64, 128, 256.
 int decode_decode_attention(const void* q, const void* k, const void* v,
                             const void* lengths, void* o, void* part,
-                            void* tickets, const int64_t* strides, int B,
-                            int H, int Hkv, int S, int D, int chunk,
-                            int window, float softcap, float scale,
-                            void* stream) {
+                            void* tickets, void* lse, int o_f32,
+                            const int64_t* strides, int B, int H, int Hkv,
+                            int S, int D, int chunk, int window,
+                            float softcap, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       H / Hkv > kMaxGroup || chunk <= 0 || strides[6] != 1 ||
       strides[10] != 1)
@@ -720,20 +744,22 @@ int decode_decode_attention(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch_group<16>(G, q, k, v, lengths, o, part, tickets,
-                                     strides, B, H, Hkv, S, chunk, window,
-                                     softcap, scale, s);
+                                     lse, o_f32, strides, B, H, Hkv, S,
+                                     chunk, window, softcap, scale, s);
     case 32: return launch_group<32>(G, q, k, v, lengths, o, part, tickets,
-                                     strides, B, H, Hkv, S, chunk, window,
-                                     softcap, scale, s);
+                                     lse, o_f32, strides, B, H, Hkv, S,
+                                     chunk, window, softcap, scale, s);
     case 64: return launch_group<64>(G, q, k, v, lengths, o, part, tickets,
-                                     strides, B, H, Hkv, S, chunk, window,
-                                     softcap, scale, s);
+                                     lse, o_f32, strides, B, H, Hkv, S,
+                                     chunk, window, softcap, scale, s);
     case 128: return launch_group<128>(G, q, k, v, lengths, o, part,
-                                       tickets, strides, B, H, Hkv, S, chunk,
-                                       window, softcap, scale, s);
+                                       tickets, lse, o_f32, strides, B, H,
+                                       Hkv, S, chunk, window, softcap, scale,
+                                       s);
     case 256: return launch_group<256>(G, q, k, v, lengths, o, part,
-                                       tickets, strides, B, H, Hkv, S, chunk,
-                                       window, softcap, scale, s);
+                                       tickets, lse, o_f32, strides, B, H,
+                                       Hkv, S, chunk, window, softcap, scale,
+                                       s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

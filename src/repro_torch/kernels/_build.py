@@ -66,10 +66,10 @@ LIBRARIES = {
         # softcap, scale
         "flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _F, _F],
-        # q, k, v, lengths, o, part_o, part_ml, strides, dtype, B, H, Hkv,
-        # S, D, chunk, window, softcap, scale
-        "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _F, _F],
+        # q, k, v, lengths, o, part_o, part_ml, lse, strides, dtype, B, H,
+        # Hkv, S, D, chunk, window, softcap, scale
+        "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _F],
     }),
     "flash": ("flash_tc.cu", {
         # q, k, v, o, lse, strides, B, H, Hkv, S, D, window, softcap,
@@ -90,10 +90,10 @@ LIBRARIES = {
                                 _I, _I, _I, _I, _I, _I, _I, _F, _F],
     }),
     "decode": ("decode_tc.cu", {
-        # q, k, v, lengths, o, part, tickets, strides, B, H, Hkv, S, D,
-        # chunk, window, softcap, scale
-        "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _F, _F],
+        # q, k, v, lengths, o, part, tickets, lse, o_f32, strides, B, H,
+        # Hkv, S, D, chunk, window, softcap, scale
+        "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _F],
     }),
     "sparse": ("sparse_kernels.cu", {
         # table, ids, mask, out, dtype, n_bags, nnz, D, mean, then the

@@ -20,6 +20,14 @@ chunk of a (sequence, kv head), and read only the visible rows.
 - float32 runs the SIMT kernel of ``csrc/attention_kernels.cu`` (512-key
   chunks and a merge pass, any element strides).
 
+With ``lse`` (float32 [B, H]) both routes also write, at their merge,
+the natural log of the sum of exponentials of the scaled, softcapped
+logits over the visible keys, and -inf where no key is visible: the
+weight with which a sequence-sharded decode combines the slices of a
+cache (``models.transformer.lse_combine``). ``out_dtype=torch.float32``
+has the bf16 route store its merged output unrounded, so that combine
+rounds once.
+
 q and ``out`` take any strides on both routes. A tensor on the CPU takes
 the plain torch version in :mod:`.ref`; a tensor on the card launches a
 kernel or raises — it never falls back. A meta tensor (the dry run) gets
@@ -88,9 +96,14 @@ def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor,
-                     window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+                     window: int = 0, softcap: float = 0.0,
+                     lse: torch.Tensor | None = None,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """q [B, H, d]; caches [B, Hkv, S, d]; lengths [B] int32 -> [B, H, d]
-    in q's dtype. A length of 0 gives zeros."""
+    in ``out_dtype``: q's (the default) or float32. A length of 0 gives
+    zeros. ``lse``: None, or a contiguous float32 [B, H] tensor on q's
+    device that receives each row's log-sum-exp (-inf for a length of
+    0)."""
     check_attention("q", q, 3)
     check_attention("k_cache", k_cache, 4, like=q)
     check_attention("v_cache", v_cache, 4, like=q)
@@ -103,18 +116,31 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"/{tuple(v_cache.shape)}, lengths "
                          f"{tuple(lengths.shape)} must be [B,H,d], "
                          f"[B,Hkv,S,d] and [B] with H a multiple of Hkv")
+    if lse is not None and (lse.shape != (B, H) or lse.dtype != torch.float32
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 [B, H] = "
+                         f"{[B, H]} tensor on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise ValueError(f"out_dtype must be q's {q.dtype} or float32, got "
+                         f"{out_dtype}")
     window, softcap = max(int(window), 0), float(softcap)
     if q.device.type == "cpu":
         return ref.decode_reference(q, k_cache, v_cache, lengths, window,
-                                    softcap)
+                                    softcap, lse=lse, out_dtype=out_dtype)
     if H // Hkv > MAX_GROUP:
         raise ValueError(f"{H // Hkv} query heads per kv head; the kernels "
                          f"take at most {MAX_GROUP}")
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=out_dtype)
     if not out.numel():
         return out
-    if not S:
-        return out.zero_()              # an empty cache: no visible key
+    if not S:                           # an empty cache: no visible key
+        if lse is not None:
+            lse.fill_(float("-inf"))
+        return out.zero_()
+    lse_ptr = 0 if lse is None else lse.data_ptr()
     if q.dtype == torch.bfloat16:
         k_cache = tma_operand(k_cache, decode_attention)
         v_cache = tma_operand(v_cache, decode_attention)
@@ -126,7 +152,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         launch("decode_attention", q.device, q.data_ptr(),
                k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
                out.data_ptr(), part.data_ptr(),
-               _ticket_counters(q.device, B * Hkv).data_ptr(),
+               _ticket_counters(q.device, B * Hkv).data_ptr(), lse_ptr,
+               int(out.dtype == torch.float32),
                strides(q, k_cache, v_cache, out), B, H, Hkv, S, d, chunk,
                window, softcap, d ** -0.5, lib="decode")
     else:
@@ -140,7 +167,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         launch("decode_attention", q.device, q.data_ptr(),
                k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
                out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
-               strides(q, k_cache, v_cache, out), DTYPES[q.dtype], B, H,
+               lse_ptr, strides(q, k_cache, v_cache, out), DTYPES[q.dtype],
+               B, H,
                Hkv, S, d, F32_CHUNK, window, softcap, d ** -0.5)
     return out
 

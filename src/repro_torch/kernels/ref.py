@@ -150,11 +150,16 @@ def flash_attention_backward_reference(
 
 def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor,
-                     window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+                     window: int = 0, softcap: float = 0.0,
+                     lse: torch.Tensor | None = None,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """q [B,H,d]; caches [B,Hkv,S,d]; lengths [B] (valid prefix, including
-    the current position). Keys ``k < length`` are visible, and with
-    window > 0 only ``k >= length - window``. A sequence with no visible
-    key gives zeros, as the kernels' 1e-30 denominator does."""
+    the current position) -> [B,H,d] in ``out_dtype`` (q's by default).
+    Keys ``k < length`` are visible, and with window > 0 only ``k >=
+    length - window``. A sequence with no visible key gives zeros, as the
+    kernels' 1e-30 denominator does. ``lse`` (float32 [B, H]) receives the
+    log-sum-exp of each row's scaled, softcapped logits over its visible
+    keys, -inf where none is."""
     B, H, d = q.shape
     G = H // k_cache.shape[1]
     kf = k_cache.float().repeat_interleave(G, dim=1)
@@ -167,9 +172,12 @@ def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
     valid = kpos < n
     if window > 0:
         valid &= kpos >= n - window
+    if lse is not None:
+        lse.copy_(torch.logsumexp(s.masked_fill(~valid, float("-inf")),
+                                  dim=-1))
     p = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1)
     p = p * valid.any(dim=-1, keepdim=True)
-    return torch.einsum("bhk,bhkd->bhd", p, vf).to(q.dtype)
+    return torch.einsum("bhk,bhkd->bhd", p, vf).to(out_dtype or q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,15 @@ The autograd Functions follow JAX's transposes under ``shard_map``:
 
 Every call reaches the process group, also on an axis of one rank: a
 world of one runs the same collectives as a larger one.
+
+On a :class:`~repro_torch.launch.mesh.MetaMesh` (the dry run's rank 0 of
+a production mesh, no process group) a collective of a ``meta`` tensor
+returns a meta tensor of the right shape and reaches no group (any other
+tensor raises ``ValueError``); it adds
+its output bytes and one op to its kind's tally (``all-gather``,
+``reduce-scatter``, ``all-reduce``), as the reference's
+``collective_bytes`` sums the output shapes of the post-SPMD HLO's
+collectives. :func:`collective_counts` reads the tally.
 """
 
 from __future__ import annotations
@@ -40,6 +49,56 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single",
                           dist.reduce_scatter_tensor)
 _all_gather = getattr(dist, "all_gather_single",
                       dist.all_gather_into_tensor)
+
+
+_TALLY: dict[str, dict[str, int]] = {"bytes_by_kind": {},
+                                     "ops_by_kind": {}}
+
+
+class MetaGroup:
+    """The stand-in of an axis group on a meta mesh: its rank count."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+
+def collective_counts() -> dict:
+    """The meta collectives since :func:`reset_collective_counts`: bytes
+    and ops by kind and their total bytes (the reference's
+    ``collective_bytes`` record)."""
+    return {"bytes_by_kind": dict(_TALLY["bytes_by_kind"]),
+            "ops_by_kind": dict(_TALLY["ops_by_kind"]),
+            "total_bytes": sum(_TALLY["bytes_by_kind"].values())}
+
+
+def reset_collective_counts() -> None:
+    for d in _TALLY.values():
+        d.clear()
+
+
+def _count(kind: str, out: torch.Tensor) -> torch.Tensor:
+    by, ops = _TALLY["bytes_by_kind"], _TALLY["ops_by_kind"]
+    by[kind] = by.get(kind, 0) + out.numel() * out.element_size()
+    ops[kind] = ops.get(kind, 0) + 1
+    return out
+
+
+def _on_meta(x: torch.Tensor, group) -> bool:
+    """Whether ``group`` is a :class:`MetaGroup`; one takes meta tensors
+    only (a real tensor would get uninitialized memory or an unreduced
+    value), and raises ``ValueError`` on any other."""
+    if not isinstance(group, MetaGroup):
+        return False
+    if not x.is_meta:
+        raise ValueError(f"a meta mesh's collective takes meta tensors, got "
+                         f"one on {x.device}")
+    return True
+
+
+def _size(group) -> int:
+    if isinstance(group, MetaGroup):
+        return group.size
+    return dist.get_world_size(group)
 
 
 def _names(axes) -> tuple[str, ...]:
@@ -65,31 +124,54 @@ def axis_index(mesh, axes) -> int:
 def axis_group(mesh, axes):
     """The process group of ``axes``: the mesh dimension's group for one
     name, the flattened sub-mesh's for a tuple (created once and kept by
-    the mesh)."""
+    the mesh); a :class:`MetaGroup` on a meta mesh."""
     names = _names(axes)
     if not names:
         raise ValueError("axis_group: no axes")
+    if getattr(mesh, "is_meta", False):
+        return MetaGroup(axis_size(mesh, names))
     if len(names) == 1:
         return mesh.get_group(names[0])
     return mesh[names]._flatten().get_group()
 
 
 def _rs(x: torch.Tensor, group) -> torch.Tensor:
-    n = dist.get_world_size(group)
+    n = _size(group)
     if x.shape[0] % n:
         raise ValueError(f"psum_scatter: dim 0 of {tuple(x.shape)} is not "
                          f"divisible by {n} ranks")
     out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    if _on_meta(x, group):
+        return _count("reduce-scatter", out)
     _reduce_scatter(out, x.contiguous(), group=group)
     return out
 
 
 def _ag(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    n = dist.get_world_size(group)
+    n = _size(group)
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((x.shape[0] * n, *x.shape[1:]))
+    if _on_meta(x, group):
+        return _count("all-gather", out).movedim(0, dim)
     _all_gather(out, x, group=group)
     return out.movedim(0, dim)
+
+
+def _own(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x``: a collective reduces raw memory, so
+    every rank must lay its operand out alike (one rank's permuted view
+    would meet another's rows)."""
+    return x.detach().clone(memory_format=torch.contiguous_format)
+
+
+def _ar(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` (contiguous) reduced over ``group`` in place."""
+    if not x.is_contiguous():
+        raise ValueError("a collective reduces a contiguous tensor")
+    if _on_meta(x, group):
+        return _count("all-reduce", x)
+    dist.all_reduce(x, op=op, group=group)
+    return x
 
 
 def _rs_dim(g: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -121,9 +203,7 @@ class _AllGather(torch.autograd.Function):
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return _ar(_own(x), group)
 
     @staticmethod
     def backward(ctx, g):
@@ -133,10 +213,8 @@ class _Psum(torch.autograd.Function):
 class _Pmean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.n = dist.get_world_size(group)
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out / ctx.n
+        ctx.n = _size(group)
+        return _ar(_own(x), group) / ctx.n
 
     @staticmethod
     def backward(ctx, g):
@@ -151,9 +229,7 @@ class _Pvary(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _ar(_own(g), ctx.group), None
 
 
 def psum_scatter(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -181,10 +257,17 @@ def pmean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
 def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The elementwise maximum over ``axes`` (``lax.pmax``); no
     gradient."""
-    out = x.detach().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX,
-                    group=axis_group(mesh, axes))
-    return out
+    return _ar(_own(x), axis_group(mesh, axes), dist.ReduceOp.MAX)
+
+
+def all_reduce_(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` summed over ``axes`` in place, outside autograd (the train
+    step's gradient all-reduce and ``global_norm``'s sums); a
+    non-contiguous ``x`` (a gradient through ``psum_scatter``'s backward
+    on a dim past 0) through a contiguous copy."""
+    if x.is_contiguous():
+        return _ar(x, axis_group(mesh, axes))
+    return x.copy_(_ar(_own(x), axis_group(mesh, axes)))
 
 
 def pvary(x: torch.Tensor, mesh, axes) -> torch.Tensor:

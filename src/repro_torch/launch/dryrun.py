@@ -23,19 +23,29 @@ records:
     runs are data.
 
 Where the reference's numbers come from XLA (``memory_analysis``,
-``cost_analysis``), these come from the eager operations themselves. The
-reference's collective bytes (``collectives``, parsed from the post-SPMD
-HLO by ``collective_bytes``) have no counterpart: the port's cells run on
-one device and issue no collective. Nor does it need the reference's
-single-layer probe: XLA counts a scan body once, eager counting sees every
-layer. Meshes: ``--mesh single`` is one device (``mesh_shape`` [1, 1]),
-since the cells have no sharded paths yet.
+``cost_analysis``), these come from the eager operations themselves. Nor
+does it need the reference's single-layer probe: XLA counts a scan body
+once, eager counting sees every layer.
+
+Meshes (``--mesh``): ``single`` is one device (``mesh_shape`` [1, 1]),
+where the reference's ``single`` is 16 x 16; ``16x16`` (``("data",
+"model")``) and ``2x16x16`` (``("pod", "data", "model")``) are the
+reference's production meshes (its ``single`` and ``multi``). On those
+the cell is built on a :class:`~repro_torch.launch.mesh.MetaMesh` and
+rank 0's pieces of its arguments (``convert.local_shard`` by the cell's
+``in_specs``) run through the mesh routes: every byte count is per rank,
+and ``collectives`` tallies the bytes and ops of each kind of collective
+(``all-gather``, ``reduce-scatter``, ``all-reduce``: the output bytes of
+each, as the reference's ``collective_bytes`` reads them off the
+post-SPMD HLO). It is shape arithmetic on the host; no device is
+involved.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --list
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
       --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 16x16
 Results go to artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json; a
 failing cell is a record with ``ok: false`` and the exit code is 1.
 """
@@ -43,6 +53,7 @@ failing cell is a record with ``ok: false`` and the exit code is 1.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -57,10 +68,28 @@ from torch.utils.flop_counter import FlopCounterMode
 from .. import tree
 from ..configs.registry import (all_cells, build_cell, gnn_cell_config,
                                 get_spec, skipped_cells)
+from ..convert import local_shard
 from ..kernels import meta_ops, reset_meta_ops
 from ..models import gnn
+from .collectives import collective_counts, reset_collective_counts
+from .mesh import MetaMesh, production_shape
 
-MESH_SHAPES = {"single": [1, 1]}
+MESH_SHAPES = {"single": [1, 1], "16x16": [16, 16], "2x16x16": [2, 16, 16]}
+
+
+def meta_mesh(mesh_kind: str) -> MetaMesh | None:
+    """Rank 0 of ``mesh_kind``'s mesh, None for ``single``."""
+    if mesh_kind == "single":
+        return None
+    shape, axes = production_shape(multi_pod=mesh_kind == "2x16x16")
+    return MetaMesh(shape, axes)
+
+
+def rank_cell(cell, mesh):
+    """``cell`` with rank 0's pieces of its arguments on ``mesh``."""
+    return dataclasses.replace(cell, abstract_args=tuple(
+        local_shard(a, specs, mesh)
+        for a, specs in zip(cell.abstract_args, cell.in_specs)))
 
 
 class PeakMemory(TorchDispatchMode):
@@ -123,10 +152,12 @@ def analyze(cell) -> dict:
     arg_bytes = sum(t.nbytes for t in tree.leaves(args)
                     if isinstance(t, torch.Tensor))
     reset_meta_ops()
+    reset_collective_counts()
     mem = PeakMemory(known)
     with FlopCounterMode(display=False) as flops, mem:
         out = cell.fn(*args)
     kernels = meta_ops()
+    coll = collective_counts()
     known_ids = {id(s) for s in known}
     out_bytes = sum(s.nbytes() for s in storages(out)
                     if id(s) not in known_ids)
@@ -138,6 +169,7 @@ def analyze(cell) -> dict:
         "output_bytes": int(out_bytes),
         "temp_bytes": int(mem.peak - out_bytes),
         "peak_bytes": int(arg_bytes + mem.peak),
+        "collectives": coll,
     }
 
 
@@ -168,7 +200,10 @@ def run_cell(arch: str, shape: str, mesh_kind: str = "single",
         if shape not in spec.shapes:
             raise KeyError(f"{arch} has no cell {shape!r}; one of "
                            f"{list(spec.shapes)}")
-        cell = build_cell(spec, shape)
+        mesh = meta_mesh(mesh_kind)
+        cell = build_cell(spec, shape, mesh)
+        if mesh is not None:
+            cell = rank_cell(cell, mesh)
         record.update(analyze(cell))
         record["description"] = cell.description
         record["cost_multiplier"] = cell.cost_multiplier

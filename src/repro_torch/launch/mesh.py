@@ -13,6 +13,11 @@ larger mesh needs a group of as many ranks, which the caller starts
 (``torch.distributed.init_process_group`` with its address, world size
 and rank).
 
+:class:`MetaMesh` stands for rank 0 of a mesh without a process group:
+the dry run lays a cell out on the production meshes with it, on the
+``meta`` device (:mod:`repro_torch.launch.collectives` reaches no group
+there).
+
 The reference's ``mesh_axis_types_kwargs``, ``compat_shard_map`` and
 ``compat_pvary`` are shims over JAX versions (axis types, the
 ``shard_map`` module's move, ``pvary``'s typing); they have no torch
@@ -58,15 +63,48 @@ def make_compat_mesh(shape: tuple, axes: tuple,
                       mesh_dim_names=axes)
 
 
+class MetaMesh:
+    """Rank 0 of a mesh of ``shape`` with dimensions named ``axes``, with
+    the ``DeviceMesh`` attributes the port reads (``shape``,
+    ``mesh_dim_names``, ``size()``, ``get_local_rank``) and no process
+    group: the collectives take ``meta`` tensors on it
+    (``is_meta``)."""
+
+    is_meta = True
+
+    def __init__(self, shape: tuple, axes: tuple):
+        self.shape = tuple(int(n) for n in shape)
+        self.mesh_dim_names = tuple(axes)
+        if len(self.shape) != len(self.mesh_dim_names):
+            raise ValueError(f"mesh shape {self.shape} and axes "
+                             f"{self.mesh_dim_names} differ in length")
+
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def get_local_rank(self, axis: str) -> int:
+        if axis not in self.mesh_dim_names:
+            raise KeyError(f"no axis {axis!r} in {self.mesh_dim_names}")
+        return 0
+
+    def __repr__(self) -> str:
+        return f"MetaMesh({self.shape}, {self.mesh_dim_names})"
+
+
+def production_shape(multi_pod: bool = False) -> tuple[tuple, tuple]:
+    """The reference's production mesh: (shape, axes)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device: str | torch.device | None = None
                          ) -> DeviceMesh:
     """The reference's shapes: 16 x 16 ``("data", "model")``, or 2 x 16 x
     16 ``("pod", "data", "model")`` when ``multi_pod``; raises at any other
     world size."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_compat_mesh(shape, axes, device)
+    return make_compat_mesh(*production_shape(multi_pod), device)
 
 
 def make_mesh_for_devices(devices: list, model_axis: int = 16,

@@ -52,6 +52,11 @@ class AxisRules:
         return cls.for_mesh_axes(tuple(mesh.mesh_dim_names), mesh=mesh)
 
 
+def on_mesh(rules) -> bool:
+    """Whether ``rules`` (or None) carry a mesh: the mesh routes run."""
+    return rules is not None and rules.mesh is not None
+
+
 # ---------------------------------------------------------------------------
 # numerics
 # ---------------------------------------------------------------------------

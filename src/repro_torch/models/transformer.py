@@ -48,16 +48,35 @@ Where the port differs from the reference, by design:
   once, where JAX scatter-adds them in the activations' dtype.
 
 Under a mesh (``rules``, an :class:`~repro_torch.models.common.AxisRules`
-with a ``DeviceMesh``) the MoE layers take the reference's
-expert-parallel route (:func:`moe_ffn`), on ``torch.distributed``:
-tokens are batch-sharded, the non-expert weights replicated, each rank
-holds its expert slice (all-gathered over ``fsdp`` where the weights are
-sharded there) and a ``psum`` over ``tp`` combines the slices. Attention
-runs on each rank's rows through the same kernels. :func:`lm_loss`'s
-token mean is then ``psum``med over the batch axes. The reference's
-GSPMD layouts of the dense weights (``param_shardings``: FSDP and TP of
-every weight) are not ported; the port's replicated weights take no
-``constrain``.
+with a ``DeviceMesh``) every function runs on this rank's pieces of the
+reference's layouts (:func:`param_shardings`, :func:`cache_shardings`,
+cut by ``convert.local_shard``) and states each collective that GSPMD
+inserts for the reference (:mod:`repro_torch.launch.collectives`):
+
+- FSDP: each layer all-gathers its weights over ``fsdp`` just before use,
+  inside the layer's checkpoint (the recompute gathers again); the
+  gather's backward ``psum_scatter``s each leaf's gradient over ``data``;
+- TP: the column-parallel products (``wq``, ``wi_gate``, ``wi_up``, the
+  vocabulary-sharded head) take their input through ``pvary`` over
+  ``tp``, the row-parallel ones (``wo``, ``wo_ffn``) end in a ``psum``
+  over ``tp``; ``wk``, ``wv`` and the qk norms, replicated over ``tp``,
+  enter through ``pvary`` too, so every replicated leaf's gradient is
+  whole on each ``tp`` rank;
+- GQA: a rank computes the kv heads its query heads read (the columns of
+  ``wk``/``wv`` sliced after the gather); where ``n_heads % tp != 0``
+  (gemma2-2b's 8 heads at tp = 16) ``wq`` is gathered over ``tp`` as well
+  and every ``tp`` rank computes every head, ``wo`` staying row-parallel
+  on the rank's rows of the attention output: the same numbers as the
+  reference, at ``tp`` times its attention compute (a stated divergence);
+- the embedding is vocabulary-parallel (a masked lookup into the rank's
+  rows, ``psum`` over ``tp``); logits stay vocabulary-sharded, [B, S,
+  V/tp] (the reference's ``constrain(logits, batch, None, tp)``), and
+  :func:`lm_loss` is a vocabulary-parallel float32 cross-entropy;
+- the MoE layers take the expert-parallel route (:func:`moe_ffn`);
+- decode (:func:`lm_decode_step`) reads a sequence-sharded cache: each
+  rank attends over its own slice for every head and the ranks' outputs
+  are combined through ``decode_attention``'s log-sum-exp
+  (:func:`lse_combine`). It takes an int ``pos`` only.
 """
 
 from __future__ import annotations
@@ -75,7 +94,7 @@ from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import FlashAttention, flash_attention
 from ..launch import collectives as col
 from .common import (ACTIVATIONS, apply_rope, dense_init, embed_init,
-                     rms_norm, rope_tables)
+                     on_mesh, rms_norm, rope_tables)
 
 
 # ---------------------------------------------------------------------------
@@ -226,12 +245,121 @@ def layer_params(params: dict, layer: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# layouts on a mesh
+# ---------------------------------------------------------------------------
+
+def param_shardings(cfg: LMConfig, rules) -> dict:
+    """The reference's ``param_shardings`` (FSDP + TP) as
+    ``{path: spec}`` for ``convert.local_shard``: each spec leads with the
+    stacked layer axis (``None``) under ``layers/``."""
+    fs, tp = rules.fsdp, rules.tp
+    lay = {"wq": (None, fs, tp), "wk": (None, fs, None),
+           "wv": (None, fs, None), "wo": (None, tp, fs),
+           "ln_attn": (None, None), "ln_mlp": (None, None)}
+    if cfg.sandwich_norm:
+        lay["ln_attn_post"] = lay["ln_mlp_post"] = (None, None)
+    if cfg.qk_norm:
+        lay["q_norm"] = lay["k_norm"] = (None, None)
+    if cfg.moe:
+        lay["router"] = (None, fs, None)
+        lay["wi_gate"] = lay["wi_up"] = (None, tp, fs, None)
+        lay["wo_ffn"] = (None, tp, None, fs)
+    else:
+        lay["wi_gate"] = lay["wi_up"] = (None, fs, tp)
+        lay["wo_ffn"] = (None, tp, fs)
+    out = {"embed": (tp, fs), "final_norm": (None,)}
+    out.update({f"layers/{k}": v for k, v in lay.items()})
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (fs, tp)
+    return out
+
+
+def cache_axes(rules, seq_shard: bool = False) -> tuple:
+    """The mesh axes that shard the cache's sequence: ``tp``, or ``(fsdp,
+    tp)`` under ``seq_shard``."""
+    if seq_shard and rules.fsdp:
+        return (rules.fsdp, rules.tp)
+    return (rules.tp,)
+
+
+def cache_shardings(cfg: LMConfig, rules, seq_shard: bool = False) -> dict:
+    """The reference's ``cache_shardings``: [L, B, S, Kh, dh] with the
+    batch over the batch axes and the sequence over ``tp``; under
+    ``seq_shard`` (B = 1, long context) the sequence over ``(fsdp, tp)``."""
+    if seq_shard:
+        spec = (None, None, cache_axes(rules, True), None, None)
+    else:
+        spec = (None, rules.batch, rules.tp, None, None)
+    return {"k": spec, "v": spec}
+
+
+def _fsdp(w: torch.Tensor, rules, dim: int) -> torch.Tensor:
+    """``w`` all-gathered over ``fsdp`` on ``dim``; ``w`` itself without a
+    mesh or an ``fsdp`` axis."""
+    if not on_mesh(rules) or rules.fsdp is None:
+        return w
+    return col.all_gather(w, rules.mesh, rules.fsdp, dim=dim)
+
+
+def _vary(x: torch.Tensor, rules) -> torch.Tensor:
+    """``pvary`` over ``tp``; ``x`` itself without a mesh."""
+    return col.pvary(x, rules.mesh, rules.tp) if on_mesh(rules) else x
+
+
+def _tp_sum(x: torch.Tensor, rules) -> torch.Tensor:
+    """``psum`` over ``tp``; ``x`` itself without a mesh."""
+    return col.psum(x, rules.mesh, rules.tp) if on_mesh(rules) else x
+
+
+class HeadLayout(NamedTuple):
+    """A ``tp`` rank's attention heads: query heads [h0, h0 + n_q), kv
+    heads [k0, k0 + n_kv); ``replicated``: every head on every rank
+    (``n_heads % tp != 0``)."""
+    h0: int
+    n_q: int
+    k0: int
+    n_kv: int
+    replicated: bool
+
+
+def head_layout(cfg: LMConfig, tp: int, rank: int) -> HeadLayout:
+    """The heads rank ``rank`` of ``tp`` computes (see the module's
+    docstring for the replicated route)."""
+    H, Kh, G = cfg.n_heads, cfg.n_kv_heads, cfg.group_size
+    if H % tp:
+        return HeadLayout(0, H, 0, Kh, True)
+    n_q = H // tp
+    if n_q % G and G % n_q:
+        raise ValueError(f"{cfg.name}: {n_q} query heads a rank do not "
+                         f"tile groups of {G}")
+    h0 = rank * n_q
+    k0 = h0 // G
+    return HeadLayout(h0, n_q, k0, (h0 + n_q - 1) // G + 1 - k0, False)
+
+
+def _rank_heads(cfg: LMConfig, rules) -> HeadLayout:
+    """This rank's heads; every head without a mesh."""
+    if not on_mesh(rules):
+        return head_layout(cfg, 1, 0)
+    mesh = rules.mesh
+    return head_layout(cfg, col.axis_size(mesh, rules.tp),
+                       col.axis_index(mesh, rules.tp))
+
+
+# ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 
-def dense_ffn(cfg: LMConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+def dense_ffn(cfg: LMConfig, lp: dict, x: torch.Tensor,
+              rules=None) -> torch.Tensor:
+    """The gated FFN; on a mesh column-parallel ``wi_*`` (their ``d`` rows
+    gathered over ``fsdp``), row-parallel ``wo_ffn`` and a ``psum`` over
+    ``tp``."""
     act = ACTIVATIONS[cfg.act]
-    return (act(x @ lp["wi_gate"]) * (x @ lp["wi_up"])) @ lp["wo_ffn"]
+    x = _vary(x, rules)
+    h = act(x @ _fsdp(lp["wi_gate"], rules, 0)) * (
+        x @ _fsdp(lp["wi_up"], rules, 0))
+    return _tp_sum(h @ _fsdp(lp["wo_ffn"], rules, 1), rules)
 
 
 def moe_capacity(cfg: LMConfig, Tg: int) -> int:
@@ -372,7 +500,8 @@ def moe_ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, train: bool = False,
     and the expert leaves are this rank's slice of the reference's
     layouts ``(tp, fsdp, None)`` / ``(tp, None, fsdp)``; with
     ``rules.fsdp`` set they are all-gathered over it (``wi_gate`` and
-    ``wi_up`` on axis 1, ``wo_ffn`` on 2). The rank computes experts
+    ``wi_up`` on axis 1, ``wo_ffn`` on 2), and so is the router's ``d``
+    rows (``param_shardings``: ``(fsdp, None)``). The rank computes experts
     [e0, e0 + El), ``e0 = axis_index(tp) * El``, and a ``psum`` over
     ``tp`` combines the slices; ``aux`` is ``pmean``ed over the batch
     axes. The tokens and the router, replicated over ``tp``, enter
@@ -383,39 +512,76 @@ def moe_ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, train: bool = False,
     if not expert_parallel(cfg, rules):
         return _moe_core(cfg, lp["router"], lp["wi_gate"], lp["wi_up"],
                          lp["wo_ffn"], x, 0, train)
-    mesh, tp, fsdp = rules.mesh, rules.tp, rules.fsdp
-    wig, wiu, wof = lp["wi_gate"], lp["wi_up"], lp["wo_ffn"]
-    if fsdp is not None:
-        wig = col.all_gather(wig, mesh, fsdp, dim=1)
-        wiu = col.all_gather(wiu, mesh, fsdp, dim=1)
-        wof = col.all_gather(wof, mesh, fsdp, dim=2)
+    mesh, tp = rules.mesh, rules.tp
+    wig, wiu = _fsdp(lp["wi_gate"], rules, 1), _fsdp(lp["wi_up"], rules, 1)
+    wof = _fsdp(lp["wo_ffn"], rules, 2)
+    router = _fsdp(lp["router"], rules, 0)
     El = cfg.n_experts // col.axis_size(mesh, tp)
     e0 = col.axis_index(mesh, tp) * El
-    y, aux = _moe_core(cfg, col.pvary(lp["router"], mesh, tp), wig, wiu, wof,
+    y, aux = _moe_core(cfg, col.pvary(router, mesh, tp), wig, wiu, wof,
                        col.pvary(x, mesh, tp), e0, train)
     y = col.psum(y, mesh, tp)
     return y, col.pmean(aux, mesh, (*rules.batch, tp))
 
 
-def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+           rules=None) -> torch.Tensor:
+    """Token embeddings; on a mesh vocabulary-parallel: a masked lookup
+    into the rank's [V/tp, d] rows (``d`` gathered over ``fsdp``), then a
+    ``psum`` over ``tp``."""
+    if not on_mesh(rules):
+        x = params["embed"][tokens]
+    else:
+        emb = _fsdp(params["embed"], rules, 1)
+        n = emb.shape[0]
+        local = tokens.long() - col.axis_index(rules.mesh, rules.tp) * n
+        mine = (local >= 0) & (local < n)
+        x = _tp_sum(emb[local.clamp(0, n - 1)]
+                    * mine[..., None].to(emb.dtype), rules)
     if cfg.scale_embed:     # the factor rounded to x's dtype, as in JAX
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
     return x
 
 
-def _qkv(cfg: LMConfig, lp: dict, h: torch.Tensor, rot: tuple):
+def _qkv(cfg: LMConfig, lp: dict, h: torch.Tensor, rot: tuple,
+         rules=None, all_kv: bool = False):
     """Projections, qk norms and rotary embeddings (``rot`` = the pass's
-    :func:`rope_tables`): [B, S, heads, dh]."""
+    :func:`rope_tables`): [B, S, heads, dh]. On a mesh the rank's query
+    heads (:func:`head_layout`) and its kv heads, or every kv head with
+    ``all_kv`` (a cache write)."""
     B, S, _ = h.shape
-    H, Kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (h @ lp["wq"]).view(B, S, H, dh)
-    k = (h @ lp["wk"]).view(B, S, Kh, dh)
-    v = (h @ lp["wv"]).view(B, S, Kh, dh)
+    dh = cfg.d_head
+    lay = _rank_heads(cfg, rules)
+    h = _vary(h, rules)
+    wq = _fsdp(lp["wq"], rules, 0)
+    if lay.replicated:
+        wq = col.all_gather(wq, rules.mesh, rules.tp, dim=1)
+    wk = _fsdp(_vary(lp["wk"], rules), rules, 0)
+    wv = _fsdp(_vary(lp["wv"], rules), rules, 0)
+    if not all_kv:
+        cols = slice(lay.k0 * dh, (lay.k0 + lay.n_kv) * dh)
+        wk, wv = wk[:, cols], wv[:, cols]
+    q = (h @ wq).view(B, S, -1, dh)
+    k = (h @ wk).view(B, S, -1, dh)
+    v = (h @ wv).view(B, S, -1, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"])
-        k = rms_norm(k, lp["k_norm"])
+        q = rms_norm(q, _vary(lp["q_norm"], rules))
+        k = rms_norm(k, _vary(lp["k_norm"], rules))
     return apply_rope(q, *rot), apply_rope(k, *rot), v
+
+
+def _attn_out(cfg: LMConfig, lp: dict, flat: torch.Tensor,
+              rules=None) -> torch.Tensor:
+    """The output projection of attention [B, S, heads * dh]; on a mesh
+    row-parallel: the rank's heads (or, on the replicated route, the
+    rank's rows of every head's output) times its ``wo`` rows, ``psum``
+    over ``tp``."""
+    wo = _fsdp(lp["wo"], rules, 1)
+    if _rank_heads(cfg, rules).replicated:
+        n = wo.shape[0]
+        r = col.axis_index(rules.mesh, rules.tp)
+        flat = flat[..., r * n:(r + 1) * n]
+    return _tp_sum(flat @ wo, rules)
 
 
 def _residual(cfg: LMConfig, lp: dict, x: torch.Tensor,
@@ -423,8 +589,7 @@ def _residual(cfg: LMConfig, lp: dict, x: torch.Tensor,
               ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Output projection, then the FFN half of the layer: (x, the MoE
     aux loss, None for a dense FFN)."""
-    B, S = x.shape[:2]
-    attn = attn.reshape(B, S, cfg.n_heads * cfg.d_head) @ lp["wo"]
+    attn = _attn_out(cfg, lp, attn.reshape(*x.shape[:2], -1), rules)
     if cfg.sandwich_norm:
         attn = rms_norm(attn, lp["ln_attn_post"])
     x = x + attn
@@ -432,16 +597,19 @@ def _residual(cfg: LMConfig, lp: dict, x: torch.Tensor,
     if cfg.moe:
         out, aux = moe_ffn(cfg, lp, h, train, rules)
     else:
-        out, aux = dense_ffn(cfg, lp, h), None
+        out, aux = dense_ffn(cfg, lp, h, rules), None
     if cfg.sandwich_norm:
         out = rms_norm(out, lp["ln_mlp_post"])
     return x + out, aux
 
 
 def _logits(cfg: LMConfig, params: dict, x: torch.Tensor,
-            train: bool = False) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"])
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+            train: bool = False, rules=None) -> torch.Tensor:
+    """Final norm, head and softcap: [B, S, V_padded], or on a mesh the
+    rank's vocabulary shard [B, S, V_padded / tp]."""
+    x = _vary(rms_norm(x, params["final_norm"]), rules)
+    head = (_fsdp(params["embed"], rules, 1).T if cfg.tie_embeddings
+            else _fsdp(params["lm_head"], rules, 0))
     logits = x @ head
     if cfg.final_softcap is not None:
         cap = cfg.final_softcap
@@ -456,19 +624,28 @@ def _layer(cfg: LMConfig, lp: dict, x: torch.Tensor, window: int,
            rot: tuple, kv_out: tuple | None = None, train: bool = False,
            rules=None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One prefill layer, (x, aux) as :func:`_residual`; ``kv_out`` =
-    (k_cache, v_cache) [B, S_max, Kh, dh] views of one layer's cache,
-    written at [0, S). ``train``: attention through
-    :class:`FlashAttention` and every op out of place."""
-    q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln_attn"]), rot)
+    (k_cache, v_cache, base): [B, S_l, Kh, dh] views of one layer's cache
+    (this rank's positions [base, base + S_l) on a mesh), written where
+    they meet [0, S). ``train``: attention through :class:`FlashAttention`
+    and every op out of place."""
+    mesh_cache = kv_out is not None and on_mesh(rules)
+    q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln_attn"]), rot, rules,
+                   all_kv=mesh_cache)
     if train:
         attn = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2), window,
                                     cfg.attn_softcap or 0.0)
         return _residual(cfg, lp, x, attn.transpose(1, 2), True, rules)
     if kv_out is not None:
-        S = x.shape[1]
-        kv_out[0][:, :S] = k
-        kv_out[1][:, :S] = v
+        kc, vc, base = kv_out
+        lo, hi = max(base, 0), min(base + kc.shape[1], x.shape[1])
+        if hi > lo:
+            kc[:, lo - base:hi - base] = k[:, lo:hi]
+            vc[:, lo - base:hi - base] = v[:, lo:hi]
+    if mesh_cache:          # the rank's kv heads, from all of them
+        lay = _rank_heads(cfg, rules)
+        k = k[:, :, lay.k0:lay.k0 + lay.n_kv]
+        v = v[:, :, lay.k0:lay.k0 + lay.n_kv]
     attn = torch.empty_like(q)                       # [B, S, H, dh]
     flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     window=window, softcap=cfg.attn_softcap or 0.0,
@@ -485,19 +662,24 @@ def lm_forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
                rules=None) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, V_padded], aux_loss): the MoE
     layers' mean Switch aux loss, 0 for a dense config. Runs on the
-    params' device; under a mesh (``rules``) on this rank's rows, the MoE
-    layers on the expert-parallel route."""
+    params' device; under a mesh (``rules``) on this rank's tokens and
+    pieces of the weights, returning the rank's vocabulary shard [B, S,
+    V_padded / tp]."""
     return _forward(cfg, params, tokens, None, rules=rules)
 
 
 def _forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
-             cache: dict | None, train: bool = False, rules=None
-             ) -> tuple[torch.Tensor, torch.Tensor]:
+             cache: dict | None, train: bool = False, rules=None,
+             seq_shard: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, rules)
     rot = rope_tables(torch.arange(S, device=x.device).expand(B, S),
                       cfg.d_head, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    base = 0
+    if cache is not None and on_mesh(rules):
+        base = cache["k"].shape[2] * col.axis_index(
+            rules.mesh, cache_axes(rules, seq_shard))
     for layer, window in enumerate(cfg.layer_windows().tolist()):
         lp = layer_params(params, layer)
         if train:   # rematted: the backward recomputes the layer
@@ -505,11 +687,27 @@ def _forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
                                   True, rules, use_reentrant=False)
         else:
             kv = None if cache is None else (cache["k"][layer],
-                                             cache["v"][layer])
+                                             cache["v"][layer], base)
             x, aux_l = _layer(cfg, lp, x, window, rot, kv, rules=rules)
         if aux_l is not None:
             aux = aux + aux_l
-    return _logits(cfg, params, x, train), aux / cfg.n_layers
+    return _logits(cfg, params, x, train, rules), aux / cfg.n_layers
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                        rules) -> torch.Tensor:
+    """Per-token NLL [N] of float32 logits [N, V/tp], this rank's
+    vocabulary shard: the row max ``pmax``ed over ``tp`` (detached: it has
+    no gradient), the sum of exponentials and the target's logit (gathered
+    where the target lies in this shard) ``psum``med over ``tp``."""
+    n = logits.shape[-1]
+    m = col.pmax(logits.max(dim=-1).values, rules.mesh, rules.tp)
+    total = _tp_sum(torch.exp(logits - m[:, None]).sum(dim=-1), rules)
+    local = labels - col.axis_index(rules.mesh, rules.tp) * n
+    mine = (local >= 0) & (local < n)
+    picked = logits.gather(-1, local.clamp(0, n - 1)[:, None])[:, 0]
+    picked = _tp_sum(picked * mine, rules)
+    return torch.log(total) + m - picked
 
 
 def lm_loss(cfg: LMConfig, params: dict, tokens: torch.Tensor,
@@ -520,37 +718,48 @@ def lm_loss(cfg: LMConfig, params: dict, tokens: torch.Tensor,
     aux loss. Returns (loss, {"nll", "aux"}), 0-dim float32 tensors with a
     gradient to every leaf of ``params`` that requires one.
 
-    Under a mesh with batch axes (``rules``), ``tokens`` are this rank's
-    rows: the NLL's sum is ``psum``med over the batch axes and divided by
-    every rank's token count, so each rank returns the whole loss and
-    each replicated leaf gets this rank's share of its gradient."""
+    Under a mesh (``rules``), ``tokens`` are this rank's rows and the
+    params its pieces: the cross-entropy is vocabulary-parallel
+    (:func:`_vocab_parallel_nll`), the NLL's sum is ``psum``med over the
+    batch axes and divided by every rank's token count, so each rank
+    returns the whole loss and each leaf gets this rank's share of its
+    gradient (``make_train_step(..., specs=)`` sums the shares)."""
     logits, aux = _forward(cfg, params, tokens, None, train=True,
                            rules=rules)
     lg = logits[:, :-1].float().flatten(0, 1)
     labels = tokens[:, 1:].flatten().long()
-    if rules is not None and rules.mesh is not None and rules.batch:
-        shards = col.axis_size(rules.mesh, rules.batch)
-        nll = col.psum(torch.nn.functional.cross_entropy(
-            lg, labels, reduction="sum"), rules.mesh, rules.batch) / (
-                labels.numel() * shards)
-    else:
+    if not on_mesh(rules):
         nll = torch.nn.functional.cross_entropy(lg, labels)
+    else:
+        nll = _vocab_parallel_nll(lg, labels, rules).sum()
+        shards = 1
+        if rules.batch:
+            nll = col.psum(nll, rules.mesh, rules.batch)
+            shards = col.axis_size(rules.mesh, rules.batch)
+        nll = nll / (labels.numel() * shards)
     loss = nll + cfg.aux_loss_weight * aux
     return loss, {"nll": nll, "aux": aux}
 
 
 @torch.no_grad()
 def lm_prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor,
-               cache: dict | None = None, rules=None) -> torch.Tensor:
+               cache: dict | None = None, rules=None,
+               seq_shard: bool = False) -> torch.Tensor:
     """Prefill pass: logits [B, S, V_padded]. With ``cache`` (from
     :func:`init_kv_cache`, ``S_max >= S``) each layer's K/V are written in
     place at positions [0, S), so decoding can go on from position S; the
     JAX prefill returns logits only. Under a mesh (``rules``), as
-    :func:`lm_forward`."""
-    if cache is not None and cache["k"].shape[2] < tokens.shape[1]:
-        raise ValueError(f"cache holds {cache['k'].shape[2]} positions, "
+    :func:`lm_forward`; the cache is this rank's piece of
+    :func:`cache_shardings` (``seq_shard`` as there), and the rank writes
+    the positions it holds."""
+    held = cache["k"].shape[2] if cache is not None else None
+    if on_mesh(rules) and cache is not None:
+        held *= col.axis_size(rules.mesh, cache_axes(rules, seq_shard))
+    if cache is not None and held < tokens.shape[1]:
+        raise ValueError(f"cache holds {held} positions, "
                          f"prompt has {tokens.shape[1]}")
-    return _forward(cfg, params, tokens, cache, rules=rules)[0]
+    return _forward(cfg, params, tokens, cache, rules=rules,
+                    seq_shard=seq_shard)[0]
 
 
 def init_kv_cache(cfg: LMConfig, batch: int, max_seq: int,
@@ -566,7 +775,8 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_seq: int,
 
 @torch.no_grad()
 def lm_decode_step(cfg: LMConfig, params: dict, cache: dict,
-                   tokens: torch.Tensor, pos: int | torch.Tensor
+                   tokens: torch.Tensor, pos: int | torch.Tensor,
+                   rules=None, seq_shard: bool = False
                    ) -> tuple[torch.Tensor, dict]:
     """One decode step. tokens [B, 1]; pos: the current index, shared by
     the batch (an int or a 0-dim integer tensor on the tokens' device).
@@ -581,7 +791,20 @@ def lm_decode_step(cfg: LMConfig, params: dict, cache: dict,
     ``dynamic_update_slice`` clamps the write to the last slot and decodes
     on: copying that would silently overwrite the last cache row. A tensor
     ``pos`` is not checked, since reading it would sync with the device;
-    the caller keeps it in range."""
+    the caller keeps it in range.
+
+    Under a mesh (``rules``) the cache is this rank's piece of
+    :func:`cache_shardings` (``seq_shard`` as there) and the logits the
+    rank's vocabulary shard (:func:`_decode_step_mesh`); ``pos`` must be
+    an int there (the rank's view of its slice is cut on the host), and a
+    tensor raises ``ValueError``."""
+    if on_mesh(rules):
+        if isinstance(pos, torch.Tensor):
+            raise ValueError("lm_decode_step on a mesh takes an int pos: "
+                             "each rank cuts its slice's visible range on "
+                             "the host")
+        return _decode_step_mesh(cfg, params, cache, tokens, int(pos),
+                                 rules, seq_shard)
     max_seq = cache["k"].shape[2]
     if not isinstance(pos, torch.Tensor) and not 0 <= int(pos) < max_seq:
         raise ValueError(f"pos {int(pos)} is outside the cache's "
@@ -607,3 +830,111 @@ def lm_decode_step(cfg: LMConfig, params: dict, cache: dict,
                                 softcap=softcap)        # [B, H, dh]
         x = _residual(cfg, lp, x, attn)[0]
     return _logits(cfg, params, x), cache
+
+
+def shard_range(pos: int, window: int, base: int, held: int
+                ) -> tuple[int, int]:
+    """[a, b): the positions of a slice [base, base + held) that decoding
+    at ``pos`` sees (the global range [max(0, pos + 1 - window) if window
+    else 0, pos + 1)), in the slice's coordinates, clamped to [0,
+    held)."""
+    lo = max(0, pos + 1 - window) if window else 0
+    a = min(max(lo - base, 0), held)
+    b = min(max(pos + 1 - base, 0), held)
+    return a, max(a, b)
+
+
+def owner_slot(pos: int, base: int, held: int) -> int | None:
+    """The slot of ``pos`` in a slice [base, base + held), None where the
+    slice does not hold it (and so writes nothing)."""
+    return pos - base if base <= pos < base + held else None
+
+
+def attend_shard(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                 a: int, b: int, softcap: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """q [B, H, dh] against one slice of a layer's cache, kc/vc [B, S_l,
+    Kh, dh], its positions [a, b) visible: (out [B, H, dh] float32, lse
+    [B, H] float32). ``decode_attention`` runs on the whole slice with
+    lengths ``b`` and a window of ``b - a``: the keys of the view [a, b)
+    without a window, read alone, under the slice's own chunk plan
+    whatever ``a`` is (a world of one decodes bit for bit the call
+    without a mesh, local layers too). It writes its output unrounded, in
+    float32, so the combine rounds once; an empty range launches nothing
+    and gives zeros and an lse of -inf."""
+    B, H, _ = q.shape
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    if b <= a:
+        return (torch.zeros(q.shape, dtype=torch.float32, device=q.device),
+                lse.fill_(float("-inf")))
+    lengths = torch.full((B,), b, dtype=torch.int32, device=q.device)
+    out = decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                           lengths, b - a, softcap, lse=lse,
+                           out_dtype=torch.float32)
+    return out, lse
+
+
+def lse_combine(out: torch.Tensor, lse: torch.Tensor, pmax, psum,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The attention over every slice from each slice's float32 (out,
+    lse): ``m = pmax(lse)``, ``psum(out * exp(lse - m)) / psum(exp(lse -
+    m))`` in float32, rounded once to ``dtype``; ``pmax`` and ``psum``
+    reduce over the slices (collectives over the cache's axes on a
+    mesh)."""
+    w = torch.exp(lse - pmax(lse))
+    num = psum(out * w[..., None])
+    return (num / psum(w)[..., None]).to(dtype)
+
+
+def _decode_step_mesh(cfg: LMConfig, params: dict, cache: dict,
+                      tokens: torch.Tensor, pos: int, rules,
+                      seq_shard: bool) -> tuple[torch.Tensor, dict]:
+    """:func:`lm_decode_step` on a sequence-sharded cache: the rank holds
+    positions [base, base + S_l), ``base = axis_index(cache axes) * S_l``,
+    and writes the new K/V only if it holds ``pos``. Each layer: the
+    rank's query heads, all-gathered over ``tp`` (every head, [B, H,
+    dh]); :func:`attend_shard` over the rank's visible slice for every
+    head; :func:`lse_combine` over the cache's axes; the rank's heads'
+    rows into the row-parallel ``wo``."""
+    mesh = rules.mesh
+    axes = cache_axes(rules, seq_shard)
+    held = cache["k"].shape[2]
+    base = col.axis_index(mesh, axes) * held
+    if not 0 <= pos < held * col.axis_size(mesh, axes):
+        raise ValueError(f"pos {pos} is outside the cache's "
+                         f"[0, {held * col.axis_size(mesh, axes)}) "
+                         f"positions")
+    B = tokens.shape[0]
+    x = _embed(cfg, params, tokens, rules)
+    pos_t = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    rot = rope_tables(pos_t.expand(B, 1), cfg.d_head, cfg.rope_theta)
+    slot = owner_slot(pos, base, held)
+    at = torch.full((1,), slot or 0, dtype=torch.int64, device=x.device)
+    lay = _rank_heads(cfg, rules)
+    softcap = cfg.attn_softcap or 0.0
+
+    def pmax(t):
+        return col.pmax(t, mesh, axes)
+
+    def psum(t):
+        return col.psum(t, mesh, axes)
+
+    for layer, window in enumerate(cfg.layer_windows().tolist()):
+        lp = layer_params(params, layer)
+        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln_attn"]), rot, rules,
+                       all_kv=True)
+        kc, vc = cache["k"][layer], cache["v"][layer]   # [B, S_l, Kh, dh]
+        if slot is not None:
+            kc.index_copy_(1, at, k.to(kc.dtype))
+            vc.index_copy_(1, at, v.to(vc.dtype))
+        q = q[:, 0]
+        if not lay.replicated:
+            q = col.all_gather(q, mesh, rules.tp, dim=1)   # [B, H, dh]
+        out, lse = attend_shard(q, kc, vc,
+                                *shard_range(pos, window, base, held),
+                                softcap)
+        attn = lse_combine(out, lse, pmax, psum, q.dtype)
+        if not lay.replicated:
+            attn = attn[:, lay.h0:lay.h0 + lay.n_q]
+        x = _residual(cfg, lp, x, attn, rules=rules)[0]
+    return _logits(cfg, params, x, rules=rules), cache

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import tree
+from ..launch import collectives as col
 
 CHUNK = 1 << 24          # elements of a leaf updated at once
 
@@ -73,28 +74,50 @@ def _chunks(t: torch.Tensor):
         yield flat[i:i + CHUNK]
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, specs: dict | None = None,
+                mesh=None) -> torch.Tensor:
     """sqrt of the sum over leaves of their float32 squares (0-dim). On a
-    mesh it is global as it stands where every leaf is replicated and its
-    gradient already summed over the ranks (``make_train_step(...,
-    rules=)``); a leaf sharded over the mesh would need its squares
-    ``psum``med here, and no cell of the port has one."""
-    total = None
-    for leaf in tree.leaves(grads):
+    mesh (``specs``, the leaves' layouts as ``convert.local_shard`` takes
+    them, and ``mesh``) each sharded leaf's squares are ``psum``med over
+    the axes that shard it, each replicated leaf counted once: the norm
+    of the whole gradient, the same on every rank (its gradient already
+    summed over the ranks by ``make_train_step(..., rules=)``)."""
+    sums: dict[tuple, torch.Tensor] = {}
+    for path, leaf in tree.flatten(grads):
+        axes = ()
+        if mesh is not None:
+            named = spec_axes((specs or {}).get(tree.path_key(path)))
+            axes = tuple(a for a in mesh.mesh_dim_names if a in named)
         s = sum(c.float().square().sum() for c in _chunks(leaf.contiguous()))
-        total = s if total is None else total + s
-    if total is None:
+        sums[axes] = s if axes not in sums else sums[axes] + s
+    if not sums:
         return torch.zeros(())
+    total = None
+    for axes, s in sums.items():
+        if axes:
+            s = col.all_reduce_(s.clone(), mesh, axes)
+        total = s if total is None else total + s
     return torch.sqrt(total)
 
 
+def spec_axes(spec) -> set:
+    """The mesh axes a layout (``convert.local_shard``'s tuple) names."""
+    out = set()
+    for axes in spec or ():
+        if axes:
+            out.update((axes,) if isinstance(axes, str) else axes)
+    return out
+
+
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state: dict, params
+def adamw_update(cfg: AdamWConfig, grads, state: dict, params,
+                 specs: dict | None = None, mesh=None
                  ) -> tuple[dict, dict, dict]:
     """Returns (params, new_state, info): ``params`` and the moments
-    updated in place, ``info`` = {"grad_norm", "lr"} (0-dim tensors)."""
+    updated in place, ``info`` = {"grad_norm", "lr"} (0-dim tensors). On
+    a mesh the clipping norm is :func:`global_norm`'s over ``specs``."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     bc1 = 1 - cfg.b1 ** step.float()

@@ -15,6 +15,15 @@ prunes the oldest. Restore reads every leaf on the host and puts it on
 a JAX ``treedef`` repr under ``"treedef"``; the port writes its own
 description of the structure there (:func:`repro_torch.tree.describe`);
 neither restore reads it.
+
+On a mesh a checkpoint stays mesh-agnostic, as the reference's is:
+``save_checkpoint(..., specs=, mesh=)`` all-gathers each rank's pieces
+into whole leaves (``convert.gather_shards``) and rank 0 of the default
+group writes them; ``restore_checkpoint(..., specs=, mesh=)`` cuts each
+rank's pieces out of the whole leaves (``convert.local_shard``), on any
+mesh: the counterpart of the reference's ``shardings=`` and its elastic
+re-mesh path. ``specs`` is keyed by the state's paths (``"params/..."``,
+``"opt/m/..."``).
 """
 
 from __future__ import annotations
@@ -25,8 +34,10 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import tree
+from ..convert import gather_shards, local_shard
 
 
 def _host(leaf) -> np.ndarray:
@@ -44,8 +55,22 @@ def _flatten(state) -> dict[str, np.ndarray]:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state: dict,
-                    keep_last: int = 3) -> str:
-    """state: a tree of tensors (params, optimizer state, ...)."""
+                    keep_last: int = 3, specs: dict | None = None,
+                    mesh=None) -> str:
+    """state: a tree of tensors (params, optimizer state, ...). On a mesh
+    (``specs``, the layouts of ``state``'s leaves, and ``mesh``) every rank
+    calls it with its pieces: they are gathered into whole leaves and
+    rank 0 writes them, the others wait for it."""
+    if mesh is not None:
+        with torch.no_grad():
+            state = gather_shards(state, specs or {}, mesh)
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return os.path.join(ckpt_dir, f"step_{step:08d}")
+        try:
+            return save_checkpoint(ckpt_dir, step, state, keep_last)
+        finally:
+            dist.barrier()
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step:08d}")
@@ -92,10 +117,13 @@ def _tensor(arr: np.ndarray, like: torch.Tensor,
 
 
 def restore_checkpoint(ckpt_dir: str, like: dict, step: int | None = None,
-                       device=None) -> tuple[int, dict]:
+                       device=None, specs: dict | None = None,
+                       mesh=None) -> tuple[int, dict]:
     """Restore into the structure, dtypes and shapes of ``like`` (the
     latest step by default); each leaf on ``device``, or on the device of
-    ``like``'s leaf. Raises ``KeyError`` for a missing leaf and
+    ``like``'s leaf. On a mesh (``specs`` and ``mesh``) ``like`` holds this
+    rank's pieces and each is cut out of the whole leaf
+    (``convert.local_shard``). Raises ``KeyError`` for a missing leaf and
     ``ValueError`` for a shape that differs."""
     if step is None:
         step = latest_step(ckpt_dir)
@@ -110,9 +138,17 @@ def restore_checkpoint(ckpt_dir: str, like: dict, step: int | None = None,
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         arr = arrays[key]
+        dev = torch.device(device) if device is not None else leaf.device
+        if mesh is not None and (specs or {}).get(key):
+            piece = local_shard({"a": _tensor(arr, leaf, "cpu")},
+                                {"a": specs[key]}, mesh)["a"]
+            if tuple(piece.shape) != tuple(leaf.shape):
+                raise ValueError(f"{key}: piece {tuple(piece.shape)} of "
+                                 f"{arr.shape} != {tuple(leaf.shape)}")
+            out.append(piece.to(dev))
+            continue
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: shape {arr.shape} != "
                              f"{tuple(leaf.shape)}")
-        out.append(_tensor(arr, leaf, torch.device(device) if device
-                           is not None else leaf.device))
+        out.append(_tensor(arr, leaf, dev))
     return step, tree.unflatten(like, out)

@@ -28,11 +28,11 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
-import torch.distributed as dist
 
 from .. import tree
 from ..launch import collectives as col
-from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
+from ..models.common import on_mesh
+from ..optim.adamw import AdamWConfig, adamw_init, adamw_update, spec_axes
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .fault_tolerance import StragglerMonitor, with_retries
 
@@ -68,8 +68,17 @@ def value_and_grad(loss_fn: Callable, params, batch):
     return loss.detach(), aux, tree.unflatten(params, out)
 
 
+def reduce_axes(rules, spec) -> tuple:
+    """The batch axes over which a leaf of layout ``spec`` holds only this
+    rank's share of its gradient: those its layout does not shard it
+    over (an FSDP leaf's gather already summed it over ``data``)."""
+    named = spec_axes(spec)
+    return tuple(a for a in rules.batch if a not in named)
+
+
 def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
-                    microbatches: int = 1, retries: int = 0, rules=None):
+                    microbatches: int = 1, retries: int = 0, rules=None,
+                    specs: dict | None = None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics).
 
@@ -79,17 +88,22 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
     comes from the last microbatch. The gradient is retried up to
     ``retries`` times on an exception; the in-place update is not.
 
-    Under a mesh (``rules`` with a mesh and batch axes) ``loss_fn`` runs
-    on this rank's batch and returns the whole loss with each rank's share
-    of the gradient (the GNN losses' mesh route). Every leaf of ``params``
-    is taken as replicated: its gradient is all-reduced over the batch
-    axes before AdamW, as GSPMD sums the reference's replicated GNN
-    params. So ``optim.adamw.global_norm`` is global as it stands. A leaf
-    sharded over the mesh would take no all-reduce and would have to be
-    ``psum``med inside ``global_norm``; no cell of the port has one.
+    Under a mesh (``rules`` with a mesh) ``loss_fn`` runs on this rank's
+    batch and pieces of the params (``specs``: their layouts, ``{path:
+    spec}`` as ``convert.local_shard`` takes them, leaves left out
+    replicated) and returns the whole loss with each rank's share of the
+    gradient. Each leaf's gradient is all-reduced over the batch axes
+    its layout does not shard it over (:func:`reduce_axes`): a replicated
+    leaf over all of them, as GSPMD sums the reference's; an FSDP leaf
+    not over ``data`` again (its gather's backward summed it there); a
+    leaf sharded over ``tp`` and replicated over ``data``, such as the
+    recsys tables, over ``data``. Nothing is reduced over ``tp``: the
+    model's ``pvary``s leave each replicated leaf's gradient whole on
+    every ``tp`` rank. ``optim.adamw.global_norm`` then sums each sharded
+    leaf's squares over the axes that shard it.
     """
-    on_mesh = rules is not None and rules.mesh is not None and rules.batch
-    group = col.axis_group(rules.mesh, rules.batch) if on_mesh else None
+    specs = dict(specs or {})
+    meshed = on_mesh(rules)
 
     def gradient(params, batch):
         if microbatches == 1:
@@ -116,11 +130,15 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
 
     def step(params, opt_state, batch):
         loss, aux, grads = gradient(params, batch)
-        if group is not None:
-            for g in tree.leaves(grads):
-                dist.all_reduce(g, group=group)
-        params, opt_state, info = adamw_update(opt_cfg, grads, opt_state,
-                                               params)
+        if meshed:
+            for path, g in tree.flatten(grads):
+                axes = reduce_axes(rules, specs.get(tree.path_key(path)))
+                if axes:
+                    col.all_reduce_(g, rules.mesh, axes)
+        params, opt_state, info = adamw_update(
+            opt_cfg, grads, opt_state, params,
+            specs=specs if meshed else None,
+            mesh=rules.mesh if meshed else None)
         metrics = {"loss": loss, **info}
         if isinstance(aux, dict):
             metrics.update(aux)

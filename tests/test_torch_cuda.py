@@ -239,6 +239,45 @@ def test_cuda_decode_bf16_serving_layout_launches_ring_kernel():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_lse_and_split_over_views(dtype):
+    """``decode_attention``'s ``lse`` on both routes within
+    ``chip_smoke.LSE_TOL`` of the plain version's (rows of length 0 -inf,
+    lengths at the tile and chunk edges), the output bit for bit the
+    call's without ``lse`` and its float32 output (``out_dtype``)
+    rounded to q's dtype bit for bit that output; the cache cut into 8
+    views at non-zero offsets, attended and combined through the lse,
+    within ATTN_TOL of the whole call, with no operand copy
+    (``chip_smoke.lse_check`` and ``split_check``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    sys.path.insert(0, str(ROOT))
+    try:
+        smoke = importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+    from repro_torch.kernels.decode_attention import decode_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    B, H, Hkv, S, d = 8, 16, 8, 4096, 128
+    _, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, dtype, dev)
+    q = torch.randn((B, H, d), generator=gen, device=dev, dtype=dtype)
+    lengths = torch.tensor(smoke.decode_edge_lengths(B, Hkv, S, d),
+                           dtype=torch.int32, device=dev)
+    for window, cap in ((0, 0.0), (1000, 30.0)):
+        got = smoke.lse_check(q, k, v, lengths, window, cap, timed=False)
+        assert got["ok"], got
+        unrounded = decode_attention(q, k, v, lengths, window, cap,
+                                     out_dtype=torch.float32)
+        assert unrounded.dtype == torch.float32
+        assert torch.equal(unrounded.to(dtype),
+                           decode_attention(q, k, v, lengths, window, cap))
+        split = smoke.split_check(q, k.transpose(1, 2), v.transpose(1, 2),
+                                  S - 100, window, cap, 8)
+        assert split["ok"], split
+
+
+@pytest.mark.cuda
 def test_cuda_qad_solve_both_routes_match_plain_version():
     """``qad_solve`` against its plain version on the card on
     ``chip_smoke.QAD_SEEDED``: the register route (one warp a child at 8

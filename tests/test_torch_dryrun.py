@@ -5,7 +5,10 @@ launches nothing and tallies the kernel's operations; ``PeakMemory``
 counts new storages while they live; a reduced LM prefill cell's FLOPs
 equal a closed-form count of its products exactly; ``argument_bytes`` is
 the meta arguments' bytes; one full-size cell a family dry-runs ``ok``;
-``--list`` prints the reference's cells and skips in its format.
+``--list`` prints the reference's cells and skips in its format. On the
+reference's production meshes (``MetaMesh``, rank 0's pieces): an LM
+decode cell's and the recsys train cell's per-rank argument bytes and
+their all-gather bytes equal a closed form of the layouts.
 """
 
 import dataclasses
@@ -233,6 +236,97 @@ def test_full_size_cell_dry_runs(arch, shape, tmp_path):
     if shape == "ogb_products":
         assert rec["chunk_plan"] == "uniform"
         assert rec["flops_by"]["segment_sum_sorted"] > 0
+
+
+def _piece_bytes(tree_, specs: dict, sizes: dict) -> int:
+    """The bytes of rank 0's pieces: each leaf's over the ranks of the
+    axes its layout names."""
+    total = 0
+    for path, t in tree.flatten(tree_):
+        n = 1
+        for axes in specs.get(tree.path_key(path)) or ():
+            for a in (axes,) if isinstance(axes, str) else axes or ():
+                n *= sizes[a]
+        total += t.nbytes // n
+    return total
+
+
+def test_meta_mesh_dry_run_lm_decode(tmp_path):
+    """qwen3-0.6b ``decode_32k`` on 16 x 16: per-rank argument bytes (the
+    params' pieces, the cache's [L, B/16, S/16, Kh, dh], the tokens') and
+    all-gather bytes (each layer's seven weights gathered over ``data``,
+    q over ``model``, and the embedding twice: lookup and head)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import AxisRules
+    rec = dryrun.run_cell("qwen3-0.6b", "decode_32k", "16x16", str(tmp_path),
+                          log=lambda *_: None)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["mesh_shape"] == [16, 16]
+    cfg = registry.get_spec("qwen3-0.6b").config
+    sizes = {"data": 16, "model": 16}
+    rules = AxisRules()
+    params = tf.init_lm_params(cfg, torch.Generator(), device=META)
+    cache = tf.init_kv_cache(cfg, 128, 32768, device=META)
+    assert rec["argument_bytes"] == (
+        _piece_bytes(params, tf.param_shardings(cfg, rules), sizes)
+        + _piece_bytes(cache, tf.cache_shardings(cfg, rules), sizes)
+        + 128 // 16 * 4)
+    d, H, Kh, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.d_head, cfg.d_ff)
+    per_layer = (d * H * dh // 16 + 2 * d * Kh * dh + H * dh // 16 * d
+                 + 2 * d * F // 16 + F // 16 * d + 8 * H * dh) * 2
+    gathers = cfg.n_layers * per_layer + 2 * cfg.padded_vocab // 16 * d * 2
+    coll = rec["collectives"]
+    assert coll["bytes_by_kind"]["all-gather"] == gathers
+    assert coll["ops_by_kind"]["all-gather"] == 8 * cfg.n_layers + 2
+    assert coll["total_bytes"] == sum(coll["bytes_by_kind"].values())
+
+
+def test_meta_mesh_dry_run_recsys_train(tmp_path):
+    """Wide&Deep ``train_batch`` on 16 x 16: the tables' rows over
+    ``model`` and the batch over ``data`` in the per-rank argument bytes
+    (params, the AdamW moments as the params, the batch), no all-gather
+    (the candidates are not scored in training) and all-reduces for the
+    bags, the loss and the gradients."""
+    from repro_torch.models import recsys as rs
+    from repro_torch.models.common import AxisRules
+    from repro_torch.optim.adamw import adamw_init
+    rec = dryrun.run_cell("wide-deep", "train_batch", "16x16",
+                          str(tmp_path), log=lambda *_: None)
+    assert rec["ok"], rec.get("traceback")
+    cfg = registry.get_spec("wide-deep").config
+    sizes = {"data": 16, "model": 16}
+    params = rs.init_recsys_params(cfg, torch.Generator(), device=META)
+    specs = rs.recsys_param_shardings(cfg, AxisRules())
+    B = 65536 // 16
+    batch = 2 * B * cfg.n_sparse * cfg.nnz_per_field * 4 + B * (
+        cfg.n_dense + 1) * 4
+    assert rec["argument_bytes"] == (
+        _piece_bytes(params, specs, sizes)
+        + _piece_bytes(adamw_init(params)["m"], specs, sizes) * 2 + 4
+        + batch)
+    coll = rec["collectives"]
+    assert "all-gather" not in coll["bytes_by_kind"]
+    assert coll["ops_by_kind"]["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("kind", ["all_gather", "psum_scatter", "psum",
+                                  "pmax", "all_reduce_"])
+def test_meta_mesh_collective_refuses_a_real_tensor(kind):
+    """A collective on a ``MetaMesh`` takes meta tensors only: a CPU tensor
+    raises instead of coming back uninitialized or unreduced, and the
+    tally is left as it was; the same call on meta counts one op."""
+    from repro_torch.launch import collectives as col
+    from repro_torch.launch.mesh import MetaMesh
+    mesh = MetaMesh((2, 2), ("data", "model"))
+    fn = getattr(col, kind)
+    col.reset_collective_counts()
+    with pytest.raises(ValueError, match="meta tensors"):
+        fn(torch.ones(4, 3), mesh, "model")
+    assert col.collective_counts()["total_bytes"] == 0
+    out = fn(torch.ones(4, 3, device=META), mesh, "model")
+    assert out.is_meta
+    assert sum(col.collective_counts()["ops_by_kind"].values()) == 1
 
 
 def test_failing_cell_is_a_record(tmp_path):

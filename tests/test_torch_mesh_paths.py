@@ -20,15 +20,17 @@ configurations:
   step does) within (1e-4 + 4 x the reference's own float32 rounding) *
   max |leaf|, that rounding read against the port's float64 mesh route
   (~1e-7 of a leaf's max, but ~1e-4 for PNA: see ``_gnn_tol``);
-- the MoE ``lm_loss`` on the expert-parallel route, with the experts'
-  fsdp gather on (2, 1) and two expert slices on (1, 2): the loss, the
-  NLL and the aux loss within 1e-5 relative, every gradient (the rank's
-  slice of the experts' leaves) within 1e-4 * max |leaf|, and each
-  rank's expert choices equal to the single-device route's;
+- the MoE ``lm_loss`` on the expert-parallel route with every weight
+  laid out by ``param_shardings`` (the experts' ``EXPERT_SPECS`` among
+  them), the fsdp gathers on (2, 1) and two expert slices on (1, 2): the
+  loss, the NLL and the aux loss within 1e-5 relative, every gradient
+  piece (reduced as the train step reduces it) within 1e-4 * max |leaf|
+  of the rank's piece of the reference's, and each rank's expert choices
+  equal to the single-device route's;
 - one AdamW step of the gcn-cora ``full_graph_sm`` cell built on the
   (2, 1) mesh equal to the cell without a mesh on the whole batch;
-- ``build_cell``'s GNN layouts equal to the reference's ``in_shardings``
-  on a 2-device mesh, the LM and recsys cells refused past one device;
+- ``build_cell``'s layouts equal to the reference's ``in_shardings`` on a
+  2-device mesh: the GNN cells' and every LM and recsys cell's;
 - a world of one through the mesh routes equal to the routes without a
   mesh (PNA's gradient against the mesh tie rule);
 - ``axis_size``, ``axis_index`` and ``axis_group`` on a (2, 1, 1)
@@ -65,7 +67,9 @@ from repro_torch.models import transformer as ptf  # noqa: E402
 from repro_torch.models.common import AxisRules  # noqa: E402
 from repro_torch.optim.adamw import adamw_init  # noqa: E402
 from repro_torch.runtime.train_loop import (make_train_step,  # noqa: E402
-                                            value_and_grad)
+                                            reduce_axes, value_and_grad)
+
+import _mesh_specs  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 WORLD = 2
@@ -86,11 +90,12 @@ MOE_TOKENS = (2, 16)
 CELL = ("gcn-cora", "full_graph_sm")
 CHUNKED = ("pna", "egnn", "nequip")    # the models that cut edge chunks
 CHUNK_CAP = 24         # EDGE_CHUNK in the chunked runs: 2-6 chunks a rank
-# the experts' layouts: the reference's in_specs (transformer.py:410-411)
+# the MoE's layouts: ``param_shardings`` (FSDP and TP of every weight);
+# the experts' are the reference's EP in_specs (transformer.py:410-411)
 # under the stacked layer axis
-EXPERT_SPECS = {"layers/wi_gate": (None, "model", "data"),
-                "layers/wi_up": (None, "model", "data"),
-                "layers/wo_ffn": (None, "model", None, "data")}
+MOE_SPECS = ptf.param_shardings(ptf.LMConfig(**MOE), AxisRules())
+EXPERT_SPECS = {k: MOE_SPECS[k] for k in ("layers/wi_gate", "layers/wi_up",
+                                          "layers/wo_ffn")}
 
 
 @pytest.fixture(autouse=True)
@@ -190,6 +195,7 @@ def _reference(inputs_path: str, out_path: str) -> None:
             out[f"gnn_{model}"] = (float(loss), [np.asarray(x) for x in
                                                  jax.tree.leaves(g)])
         out["cells"] = {}
+        out["lm_cells"] = _mesh_specs.reference_specs((2, 1))
         for arch in ("gcn-cora", "pna", "egnn", "nequip"):
             spec = jreg.get_spec(arch)
             for shape in spec.shapes:
@@ -308,7 +314,7 @@ def _moe_rank(inp, shape) -> dict:
     cfg = ptf.LMConfig(**MOE)
     full = lm_params_from_reference(inp["moe"]["params"], "cpu",
                                     torch.float32)
-    params = local_shard(full, EXPERT_SPECS, mesh)
+    params = local_shard(full, MOE_SPECS, mesh)
     tokens = torch.from_numpy(inp["moe"]["tokens"])
     local = local_shard({"t": tokens}, {"t": (rules.batch,)}, mesh)["t"]
     routes = []
@@ -330,9 +336,10 @@ def _moe_rank(inp, shape) -> dict:
     finally:
         ptf._moe_route = old
     paths = [tree.path_key(p) for p, _ in tree.flatten(g)]
-    grads = tree.leaves(g)
-    summed = [x if p in EXPERT_SPECS else s for p, x, s in
-              zip(paths, grads, _summed(grads, mesh, rules.batch))]
+    summed = []
+    for p, x in tree.flatten(g):
+        axes = reduce_axes(rules, MOE_SPECS.get(tree.path_key(p)))
+        summed.append(_summed([x], mesh, axes)[0] if axes else x)
     return {"loss": float(loss), "nll": float(aux["nll"]),
             "aux": float(aux["aux"]), "paths": paths,
             "grads": _numpy(summed),
@@ -651,13 +658,10 @@ def test_moe_lm_loss_on_the_ep_route_matches_reference(runs, shape):
                      (res["aux"], waux)):
             assert abs(g - w) <= LOSS_RTOL * abs(w), (shape, g, w)
         mesh_like.rank = r
-        wants = []
-        for path, w in zip(res["paths"], wg):
-            if path in EXPERT_SPECS:
-                w = local_shard({"w": torch.from_numpy(w)},
-                                {"w": EXPERT_SPECS[path]},
-                                mesh_like)["w"].numpy()
-            wants.append(w)
+        wants = [local_shard({"w": torch.from_numpy(w)},
+                             {"w": MOE_SPECS.get(path)},
+                             mesh_like)["w"].numpy()
+                 for path, w in zip(res["paths"], wg)]
         assert _grad_ratio(res["grads"], wants) <= 1.0, shape
 
 
@@ -738,12 +742,21 @@ def test_gnn_cells_on_a_mesh_take_the_reference_layouts(runs):
                 arch, shape, key)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "wide-deep"])
-def test_lm_and_recsys_cells_refuse_a_larger_mesh(arch):
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "wide-deep",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "granite-moe-1b-a400m", "qwen3-1.7b",
+                                  "gemma2-2b"])
+def test_lm_and_recsys_cells_refuse_a_larger_mesh(runs, arch):
+    """Once a refusal past one device; with the layouts ported, each of
+    ``arch``'s cells builds on the (2, 1) mesh and its ``in_specs``
+    (params, opt, batch, cache) equal the reference's ``in_shardings``."""
+    want, _ = runs
     spec = registry.get_spec(arch)
-    with pytest.raises(ValueError, match="shardings"):
-        registry.build_cell(spec, next(iter(spec.shapes)),
-                            _FakeMesh((2, 1), rank=0))
+    mesh = _FakeMesh((2, 1), rank=0)
+    for shape in spec.shapes:
+        cell = registry.build_cell(spec, shape, mesh)
+        assert _mesh_specs.port_specs(cell) == \
+            want["lm_cells"][arch, shape], (arch, shape)
 
 
 def test_axes_on_a_pod_mesh(runs):

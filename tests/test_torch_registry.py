@@ -3,8 +3,11 @@ package's: the same cells and skips, the same ``microbatches``, and for
 every one of the cells the port's meta ``abstract_args`` equal to the
 reference's ``build_cell`` on a 1x1 CPU mesh (``ShapeDtypeStruct``
 leaves), leaf by leaf in shape and dtype, with the same description and
-cost multiplier.
+cost multiplier; on the 2-device meshes every LM and recsys cell's
+``in_specs`` equal to the reference's ``in_shardings``.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -17,6 +20,8 @@ from repro.launch.mesh import make_compat_mesh  # noqa: E402
 
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
+
+import _mesh_specs  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -72,13 +77,38 @@ def test_abstract_args_match_reference(arch, shape, jmesh):
             assert _dtype(g) == str(w.dtype), where
 
 
-def test_build_cell_refuses_a_larger_mesh():
-    """An LM cell runs on one device: past it, the message names the
-    reference's shardings that the port lacks (the GNN cells take a mesh
-    since PR 28: ``tests/test_torch_mesh_paths.py``)."""
-    class Mesh:
-        def size(self):
-            return 2
-    spec = registry.get_spec("qwen3-0.6b")
-    with pytest.raises(ValueError, match="one device.*param_shardings"):
-        registry.build_cell(spec, "train_4k", Mesh())
+class _Mesh:
+    """Rank 0's view of a mesh of ``shape`` (what ``build_cell`` reads)."""
+
+    def __init__(self, shape):
+        self.shape, self.mesh_dim_names = shape, _mesh_specs.AXES
+
+    def size(self):
+        return self.shape[0] * self.shape[1]
+
+    def get_local_rank(self, axis):
+        return 0
+
+
+@pytest.fixture(scope="module")
+def reference_layouts():
+    """The reference's ``in_shardings`` of the LM and recsys cells on the
+    2-device meshes, built in a subprocess with two host devices."""
+    shapes = ((2, 1), (1, 2))
+    with ThreadPoolExecutor(len(shapes)) as pool:
+        return dict(zip(shapes, pool.map(_mesh_specs.run_reference_specs,
+                                         shapes)))
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+def test_build_cell_refuses_a_larger_mesh(shape, reference_layouts):
+    """Once a refusal (an LM cell ran on one device only); now that the
+    layouts are ported, every LM and recsys cell builds on a 2-device
+    mesh and its ``in_specs`` (params, opt, batch, cache) equal the
+    reference's ``in_shardings`` there."""
+    want = reference_layouts[shape]
+    assert len(want) == 20
+    for (arch, name), layouts in want.items():
+        cell = registry.build_cell(registry.get_spec(arch), name,
+                                   _Mesh(shape))
+        assert _mesh_specs.port_specs(cell) == layouts, (arch, name)

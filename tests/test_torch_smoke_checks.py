@@ -5,8 +5,11 @@ sort, and both routes reject each kind of wrong answer. Then the script's
 ``mesh`` phase rehearsed on the CPU: a gloo (1, 1) mesh, the four GNN
 cells at published widths on a small ``minibatch_lg`` subgraph and a
 tiny granite-moe prefill on the expert-parallel route, each against its
-route without a mesh, the planted expert-slice fault failing."""
+route without a mesh, the planted expert-slice fault failing; and the
+weights' layouts' checks (``mesh lm``, ``mesh decode``, ``mesh recsys``)
+at reduced configs, each planted fault failing."""
 
+import dataclasses
 import importlib
 import sys
 from pathlib import Path
@@ -193,8 +196,10 @@ def test_mesh_phase_rehearsed_on_cpu(monkeypatch):
     (PNA's against the mesh tie rule), the shuffled edges sorted again by
     the rank, the MoE prefill's logits and expert choices on the EP route
     bit for bit those of the single-device route, the planted expert
-    slice off by one changing them; no kernel launch on the CPU, and the
-    process group gone after."""
+    slice off by one changing them; the layouts' checks at reduced
+    configs (``mesh lm``, ``mesh decode`` with its splits, ``mesh
+    recsys``), each planted fault failing; no kernel launch on the CPU,
+    and the process group gone after."""
     import json
 
     import torch.distributed as dist
@@ -211,8 +216,17 @@ def test_mesh_phase_rehearsed_on_cpu(monkeypatch):
     lines = []
     monkeypatch.setattr(smoke, "log", lines.append)
     cfg = reduce_config(registry.get_spec(smoke.MOE_ARCH))
+    recsys = dataclasses.replace(registry.get_spec(smoke.RECSYS_ARCH).config,
+                                 vocab_per_field=1000, n_candidates=4096)
+    small = {"lm": dict(cfg=reduce_config(registry.get_spec(smoke.LM_ARCH)),
+                        batch=2, seq=32),
+             "decode": dict(cfg=reduce_config(registry.get_spec(
+                 "gemma2-2b")), seq=512, splits=(4, 16), pos=100,
+                 local_back=20),
+             "recsys": dict(cfg=recsys, bulk=256, train=256, shards=4)}
     launches = smoke.mesh_phase(SimpleNamespace(seed=0, prefill_seq=64),
-                                sub, "cpu", moe_cfg=cfg, prompt=64)
+                                sub, "cpu", moe_cfg=cfg, prompt=64,
+                                small=small)
     assert launches == {} and not dist.is_initialized()
     runs = {line.split()[2]: json.loads(line.split(": ", 1)[1].rsplit(
         " in ", 1)[0]) for line in lines if line.startswith("mesh gnn")}
@@ -226,3 +240,19 @@ def test_mesh_phase_rehearsed_on_cpu(monkeypatch):
     assert len(moe) == 1 and moe[0]["ok"]
     assert moe[0]["logits_equal"] and moe[0]["routing_equal"]
     assert moe[0]["planted_max_abs_diff"] > 0
+    layouts = {line.split()[1]: json.loads(line.split(": ", 1)[1].rsplit(
+        " in ", 1)[0]) for line in lines
+        if line.split()[:2] in (["mesh", "lm"], ["mesh", "decode"],
+                                ["mesh", "recsys"])}
+    assert set(layouts) == {"lm", "decode", "recsys"}
+    assert all(run["ok"] for run in layouts.values()), layouts
+    assert layouts["lm"]["planted_loss_diff"] > smoke.MESH_LOSS_RTOL
+    assert layouts["decode"]["logits_equal"]
+    last = layouts["decode"]["last"]
+    assert last["logits_equal"] and last["max_abs_diff"] == 0.0
+    assert last["planted_max_abs_diff"] > last["limit"]
+    assert all(len(t) == smoke.MESH_DECODE_ROUNDS
+               for t in last["step_s"].values())
+    assert all(s["ok"] and s["planted_ratio"] > 1.0
+               for s in layouts["decode"]["splits"].values())
+    assert layouts["recsys"]["planted_bag_ratio"] > 1.0
