@@ -243,6 +243,22 @@ LM_REPLACES = {
 }
 # dense bf16 tensor-core peak of the H100 SXM (NVIDIA data sheet), FLOP/s
 BF16_OPS_PER_S = 989e12
+# the float32 tensor-core routes' floor: each float32 operation is six bf16
+# tensor-core products of three-piece splits (kernels/ref.py:split3), so
+# their bound is the work at a sixth of the bf16 peak, with the float32
+# CUDA-core bound (SCALAR_OPS_PER_S) beside it; such a route can beat the
+# CUDA-core bound, and its share is read against this floor
+SPLIT_OPS_PER_S = BF16_OPS_PER_S / 6
+# the float32 rows, keyed by their launch counts' names: flash_attention's
+# and flash_attention_bwd's three-piece tensor-core routes, the split
+# pre-pass that feeds both, decode_attention's float32 route
+F32_SOURCE = {
+    "flash_attention/tc32": "src/repro_torch/csrc/flash_f32_tc.cu",
+    "flash_attention/split": "src/repro_torch/csrc/flash_f32_tc.cu",
+    "decode_attention/f32": "src/repro_torch/csrc/attention_kernels.cu",
+    "flash_attention_bwd/tc32": "src/repro_torch/csrc/flash_bwd_f32_tc.cu",
+}
+F32_ROWS_SEED = 13
 # kernel against plain version, per element and by dtype: |kernel - plain|
 # <= atol + rtol * |plain|. Both sum in float32 (in another order) and
 # round once to the output's dtype, so bfloat16 adds at most one unit in
@@ -257,6 +273,14 @@ ATTN_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
 # check adds SPLIT_GROWTH * A to ATTN_TOL's bound; one rounding of P would
 # need 2^-8 A, 2^7 times more, which the cancellation case's control shows.
 SPLIT_GROWTH = 2.0 ** -15
+# The float32 tensor-core routes take each product as six bf16 products of
+# three-piece splits. A split one piece short (hi.hi + hi.mid + mid.hi,
+# ref.TWO_PIECE_TERMS) leaves about 2^-16 of each product; emulated on the
+# card at these cases (B, H, Hkv, S, d, window, softcap; qwen3's and
+# granite's heads, two million outputs each), it must fail
+# ATTN_TOL["float32"], and on the capped cases of the backward's checks the
+# backward's bound (check_backward_cases).
+TWO_PIECE_CASES = ((1, 16, 8, 1024, 128, 0, 0.0), (1, 16, 8, 1024, 64, 0, 0.0))
 # f32 card-vs-CPU logits and bf16 decode-vs-prefill logits, relative to
 # max(1, max |logit|); each run also reads a control (TF32 matmuls; the
 # current token left out of decode attention) that must exceed its limit
@@ -983,8 +1007,14 @@ def lm_model_check(cfg, seed: int, device, prompt: int = 128,
     above the limit, or the check could not see such a fault. An MoE
     config adds a second control on any device, each token's K-th expert
     left out of the combine (``drop_kth_expert``), and records the expert
-    choices of both sides (``routing_flips``)."""
+    choices of both sides (``routing_flips``). On a card it also records
+    the card run's launches (``launches``), and ok needs its prefill
+    attention on the route ``flash_route`` names for float32 at the
+    model's head dim and on no other (the three-piece tensor-core route,
+    ``flash_attention/tc32``, at d = 64 and 128)."""
     import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import flash_route
     from repro_torch.models import transformer
     from repro_torch.models.transformer import (init_kv_cache, init_lm_params,
                                                 lm_decode_step, lm_prefill)
@@ -1006,7 +1036,9 @@ def lm_model_check(cfg, seed: int, device, prompt: int = 128,
         return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
     routes_got, routes_want = ([], []) if cfg.moe else (None, None)
+    before = launch_counts()
     got = run(params, dev, routes_got)
+    launches = _launch_delta(launch_counts(), before)
     ref_dev = torch.device(ref_device)
     want = run(_params_to(params, ref_dev), ref_dev, routes_want)
     scale = max(float(w.abs().max()) for w in want)
@@ -1022,7 +1054,7 @@ def lm_model_check(cfg, seed: int, device, prompt: int = 128,
             matmul.allow_tf32 = tf32
     out = {"prompt": prompt, "steps": steps, "max_abs_diff": diff(got),
            "max_abs_logit": scale, "limit": limit,
-           "tf32_control_diff": control}
+           "tf32_control_diff": control, "launches": launches}
     if cfg.moe:
         with patched(transformer, "_moe_route", drop_kth_expert):
             routing = diff(run(params, dev))
@@ -1030,8 +1062,18 @@ def lm_model_check(cfg, seed: int, device, prompt: int = 128,
         out.update(routing_flips(routes_got, routes_want))
     out["ok"] = (finite and diff(got) <= limit
                  and (control is None or control > limit)
-                 and (routing is None or routing > limit))
+                 and (routing is None or routing > limit)
+                 and (dev.type != "cuda" or on_route(
+                     launches, "flash_attention",
+                     flash_route(torch.float32, cfg.d_head))))
     return out
+
+
+def on_route(launches: dict, kernel: str, route: str) -> bool:
+    """Whether ``kernel`` launched, and only on ``route`` (its launches
+    under ``kernel/route`` all of them)."""
+    n = launches.get(kernel, 0)
+    return n > 0 and launches.get(f"{kernel}/{route}", 0) == n
 
 
 def kept_recount(ids, E: int, C: int) -> int:
@@ -1390,14 +1432,20 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     (``decode_edge_lengths``) and 0 (exact zeros), windows that start
     inside a chunk and end inside a tile, q not contiguous, and caches TMA
     cannot read (the bf16 route copies them). The bf16 flash route is held
-    to ATTN_TOL plus SPLIT_GROWTH * A, every other route to ATTN_TOL.
+    to ATTN_TOL plus SPLIT_GROWTH * A, every other route to ATTN_TOL. Each
+    flash case runs on the route ``flash_route`` names (float32 at d = 64
+    and 128 the three-piece tensor-core route) and must be one launch
+    there; in float32 a split one piece short (``ref.TWO_PIECE_TERMS``,
+    emulated) must fail the check at d = 64 and 128 (TWO_PIECE_CASES).
     Returns the number of kernel calls and the largest ``attn_err``
     readings by dtype and by route; raises after every case has run if any
     was out of tolerance."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import launch_counts, ref
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS, TC32_KEY_TILE,
+                                                     flash_attention,
+                                                     flash_route)
 
     gen = torch.Generator(device=dev).manual_seed(7)
     flash_cases = [  # B, H, Hkv, S, d, window, softcap
@@ -1457,9 +1505,14 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
         nonlocal calls
         calls += 1
         want = ref.mha_reference(q, k, v, True, win, cap)
-        record(f"flash_attention {name} {label}", name, "flash_attention",
+        key = f"flash_attention/{flash_route(q.dtype, q.shape[-1])}"
+        before = launch_counts().get(key, 0)
+        record(f"flash_attention {name} {label}", name, key,
                flash_attention(q, k, v, window=win, softcap=cap), want,
                split_bound(q, k, v, win, cap))
+        if launch_counts().get(key, 0) != before + 1:
+            bad.append(f"flash_attention {name} {label}: not one launch on "
+                       f"{key}")
         return want
 
     for name in dtypes:
@@ -1482,6 +1535,24 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
             bad.append(f"flash_attention {name}: an unaligned q and a k "
                        f"with d stride {k.stride(-1)} made "
                        f"{flash_attention.copies - copies} copies, not 2")
+
+        if name == "float32":     # a generator of their own: the other
+            gen2 = torch.Generator(device=dev).manual_seed(29)  # cases'
+            for case in TWO_PIECE_CASES:      # draws stay as they were
+                B, H, Hkv, S, d, win, cap = case
+                q, k, v = _attn_inputs(gen2, B, H, Hkv, S, d, dtype, dev)
+                want = flash(f"{case}", name, q, k, v, win, cap)
+                control_err, control = attn_err(ref.mha_split_reference(
+                    q, k, v, win, cap, TC32_KEY_TILE[d],
+                    ref.TWO_PIECE_TERMS)[0], want)
+                ctl = routes.setdefault("two-piece split (control)", {
+                    "max_abs_err": 0.0, "min_ratio": float("inf")})
+                ctl["max_abs_err"] = max(ctl["max_abs_err"], control_err)
+                ctl["min_ratio"] = min(ctl["min_ratio"], control)
+                if not control > 1.0:
+                    bad.append(f"flash_attention {name} {case}: a split one "
+                               f"piece short is within the check "
+                               f"({control}x)")
 
         if name == "bfloat16":
             B, H, Hkv, S, d, win, cap = cancel_case
@@ -1686,6 +1757,202 @@ def attention_kernel_rows(cfg, prefill: dict, decode: dict,
     return rows
 
 
+def _sdpa_f32(q, k, v, causal: bool = True):
+    """One float32 ``scaled_dot_product_attention`` call of the same
+    function on the memory-efficient backend (its products on the tensor
+    cores in three-pass TF32), k and v expanded to q's heads beforehand:
+    with ``enable_gqa`` a float32 call may take the math backend, whose
+    dense scores at a 32k prefill are tens of GB. The yardstick of the
+    float32 rows, never used by the port; ``None`` where the backend
+    refuses the inputs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[1] // k.shape[1]
+    qc = q.contiguous()
+    ke = k.repeat_interleave(G, dim=1).contiguous()
+    ve = v.repeat_interleave(G, dim=1).contiguous()
+
+    def call():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(qc, ke, ve,
+                                                  is_causal=causal)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        log(f"sdpa (efficient, float32) refused ({str(exc)[:120]}): "
+            f"library_ms null")
+        return None
+    return call
+
+
+def simt_flash(q, k, v, window: int = 0, softcap: float = 0.0):
+    """``flash_attention``'s SIMT kernel (``csrc/attention_kernels.cu``,
+    float32 products on the CUDA cores) called on its library directly:
+    the route float32 took at d = 64 and 128 before the tensor-core one,
+    timed beside it on the same inputs. Not counted as a launch and not on
+    the port's path."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import DTYPES, strides
+    B, H, S, d = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _build.library("attn").attn_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            strides(q, k, v, out), DTYPES[q.dtype], B, H, k.shape[1], S, d,
+            window, softcap, d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_attention (SIMT): CUDA launch failed "
+                           f"({rc})")
+    return out
+
+
+def in_turns(a, b, calls: int, reps: int) -> tuple[float, float]:
+    """``time_ms`` of a and b in turns (a, b, b, a): each the mean of its
+    two readings."""
+    ta1 = time_ms(a, calls=calls, reps=reps)
+    tb1 = time_ms(b, calls=calls, reps=reps)
+    tb2 = time_ms(b, calls=calls, reps=reps)
+    ta2 = time_ms(a, calls=calls, reps=reps)
+    return (ta1 + ta2) / 2, (tb1 + tb2) / 2
+
+
+def f32_row(name, err, ms, plain_ms, library_ms, flops, nbytes, hbm,
+            launches, **extra) -> dict:
+    """A float32 row: ``bound_ms`` the split floor (SPLIT_OPS_PER_S) or
+    the bytes, with the float32 CUDA-core bound beside it where the row
+    has operations."""
+    t_bytes = nbytes / hbm * 1e3
+    t_ops = flops / SPLIT_OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": F32_SOURCE[name],
+            "replaces": F32_REPLACES[name], "launches": int(launches),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            "cuda_core_bound_ms": flops / SCALAR_OPS_PER_S * 1e3 if flops
+            else None, **extra}
+
+
+def f32_attention_rows(cfg, prefill: dict, decode: dict, launches: dict,
+                       hbm: float) -> list[dict]:
+    """The float32 serving routes at the serving shapes (the prefill's B
+    and S, the decode phase's cache, the model's strided layouts), each
+    against its plain version on the same card inputs and timed beside
+    its bound and one PyTorch call: ``flash_attention``'s tensor-core
+    route (with the SIMT kernel it replaced at this d, in turns, and a
+    planted fault), the split pre-pass on the same q, k and v (bit for
+    bit against ``ref.split3``; a lo piece left out must differ), and
+    ``decode_attention``'s float32 route. ``launches``: the float32 model
+    check's."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_route,
+                                                     split_pieces)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(F32_ROWS_SEED)
+    H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    B, S = prefill["batch"], prefill["seq"]
+    route = flash_route(torch.float32, d)
+    q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, torch.float32, dev)
+    shape = f"{cfg.name}: B={B} H={H} Hkv={Hkv} S={S} d={d} float32"
+
+    def kern():
+        return flash_attention(q, k, v)
+
+    def plain():
+        return ref.mha_reference(q, k, v)
+
+    want = plain()
+    err, ratio = attn_err(kern(), want)
+    control = attn_err(ref.mha_reference(q, k, v, True,
+                                         max(1, S - PLANTED_DROP)), want)[1]
+    simt_err = attn_err(simt_flash(q, k, v), want)[0]
+    del want
+    torch.cuda.empty_cache()
+    if not ratio <= 1.0 or not control > 1.0:
+        raise AssertionError(f"flash_attention [{shape}] route {route}: "
+                             f"{ratio}x the tolerance, planted fault "
+                             f"{control}x")
+    pairs = B * H * S * (S + 1) // 2
+    flops = 4 * d * pairs
+    nbytes = 4 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
+    lib = _sdpa_f32(q, k, v)
+    lib_err = attn_err(lib(), plain())[0] if lib else None
+    ms, simt_ms = in_turns(kern, lambda: simt_flash(q, k, v), 1, 3)
+    row = f32_row(f"flash_attention/{route}", err, ms,
+                  time_ms(plain, calls=1, reps=1),
+                  time_ms(lib, calls=1, reps=3) if lib else None, flops,
+                  nbytes, hbm, launches.get(f"flash_attention/{route}", 0),
+                  simt_ms=simt_ms)
+    log(f"kernel flash_attention/{route} [{shape}]: kernel_ms={row['ms']} "
+        f"simt_ms={simt_ms} (the SIMT kernel, same inputs, in turns) "
+        f"bound_ms={row['bound_ms']} ({row['bound_by']}: {flops} operations"
+        f" at a sixth of the bf16 peak) cuda_core_bound_ms="
+        f"{row['cuda_core_bound_ms']} plain_ms={row['plain_ms']} library_ms"
+        f"={row['library_ms']} (SDPA efficient, float32, expanded heads; "
+        f"max |library - plain| {lib_err}) launches={row['launches']} "
+        f"max_abs_err={err} ({ratio}x the tolerance; SIMT {simt_err}; "
+        f"planted fault {control}x); {flops / ms / 1e9} TFLOP/s of the "
+        f"function")
+    rows = [row]
+    del lib
+    torch.cuda.empty_cache()
+
+    # the split pre-pass on the same q, k and v
+    pieces = split_pieces(q, k, v)
+    exact = all(torch.equal(p[i], want_i)
+                for t, p in zip((q, k, v), pieces)
+                for i, want_i in enumerate(ref.split3(t)))
+    planted = not torch.equal(pieces[0][2], torch.zeros_like(pieces[0][2]))
+    del pieces
+    torch.cuda.empty_cache()
+    if not exact or not planted:
+        raise AssertionError(f"split pre-pass [{shape}]: equal to split3 "
+                             f"{exact}, its lo piece tells from none "
+                             f"{planted}")
+    n = q.numel() + k.numel() + v.numel()
+    row = f32_row("flash_attention/split", 0.0,
+                  time_ms(lambda: split_pieces(q, k, v), calls=5, reps=5),
+                  time_ms(lambda: [ref.split3(t) for t in (q, k, v)],
+                          calls=1, reps=3), None, 0, 10 * n, hbm,
+                  launches.get("flash_attention/split", 0))
+    log(f"kernel flash_attention/split [{shape}]: kernel_ms={row['ms']} "
+        f"bound_ms={row['bound_ms']} (bytes: 4 read and 6 written an "
+        f"element, {n} elements) plain_ms={row['plain_ms']} launches="
+        f"{row['launches']}; bit for bit equal to ref.split3")
+    rows.append(row)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # decode_attention's float32 route at the decode phase's shape
+    B, S, n = decode["batch"], decode["cache_len"], decode["final_length"]
+    _, k, v = _attn_inputs(gen, B, H, Hkv, S, d, torch.float32, dev)
+    q = torch.randn((B, H, d), generator=gen, device=dev)
+    lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
+    lib, how = _sdpa(q[:, :, None], k[:, :, :n], v[:, :, :n], False)
+    row = _attn_row(
+        "decode_attention", lambda: decode_attention(q, k, v, lengths),
+        lambda: ref.decode_reference(q, k, v, lengths),
+        lambda: ref.decode_reference(q, k, v, lengths,
+                                     max(1, n - PLANTED_DROP)),
+        (lambda: lib()[:, :, 0]) if lib else None, how, 4 * B * H * d * n,
+        4 * (2 * B * Hkv * n * d + 2 * B * H * d), hbm, launches,
+        f"B={B} H={H} Hkv={Hkv} S={S} length={n} d={d} float32", calls=20,
+        reps=7)
+    row.update(name="decode_attention/f32",
+               source=F32_SOURCE["decode_attention/f32"])
+    rows.append(row)
+    del q, k, v, lib
+    torch.cuda.empty_cache()
+    return rows
+
+
 def decode_split_sweep(call, B: int, Hkv: int, S: int, d: int) -> dict:
     """``call``'s device time under split plans for other grid sizes than
     the wrapper's (``WAVES`` of its module set to 1 to 16 in turn, then
@@ -1855,7 +2122,8 @@ def lm_phase(args, hbm: float | None, device) -> list[dict]:
     cases = check_attention_cases(device)
     log(f"attention edge cases within (atol, rtol) {ATTN_TOL}, the bf16 "
         f"flash route plus {SPLIT_GROWTH} * A: {json.dumps(cases)}")
-    return attention_kernel_rows(cfg, pre, dec, hbm)
+    rows = attention_kernel_rows(cfg, pre, dec, hbm)
+    return rows + f32_attention_rows(cfg, pre, dec, check["launches"], hbm)
 
 
 def no_drop(cfg):
@@ -4267,6 +4535,14 @@ BWD_REPLACES = {
     "embedding_bag_bwd": "src/repro/models/recsys.py:103 (embedding_bag's "
                          "gather, differentiated by XLA; no Pallas kernel)",
 }
+F32_REPLACES = {
+    "flash_attention/tc32": LM_REPLACES["flash_attention"],
+    "flash_attention/split": "none: the pre-pass of the float32 tensor-core "
+                             "routes (the Pallas kernel reads float32 "
+                             "operands whole)",
+    "decode_attention/f32": LM_REPLACES["decode_attention"],
+    "flash_attention_bwd/tc32": BWD_REPLACES["flash_attention_bwd"],
+}
 # flash_attention_bwd against autograd of the plain version (float32
 # inside, each gradient rounded once to its input's dtype), element by
 # element (flash_bwd_bound): |kernel - plain| <= BWD_REL |plain| + BWD_SUM M
@@ -4464,9 +4740,13 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     129 around the 64-row tiles, windows of 1 and 33 and a GQA group of
     8), strided and contiguous layouts, element by element within
     ``flash_bwd_bound``, each case on the route ``bwd_route`` names for it
-    (bf16 the tensor cores, float32 SIMT), read off its one launch; each
-    case also reads a planted
-    fault (the kernel's formulas with the softcap's factor left out, or
+    (bf16 the tensor cores, float32 the three-piece tensor-core route at
+    d = 64 and 128 and SIMT at the other head dims), read off its one
+    launch; on the float32 tensor-core route's capped cases a split one
+    piece short (``ref.mha_split_backward_reference`` with
+    ``ref.TWO_PIECE_TERMS``) must fail the bound on at least one (its
+    smallest and largest ratios are returned); each case also reads a
+    planted fault (the kernel's formulas with the softcap's factor left out, or
     Delta where there is no softcap) and, from S = 64 on with a window
     other than 1, a second one (``late_rows_wrong``), each of which must
     fail it. ``embedding_bag_bwd`` against ``zeros`` +
@@ -4559,6 +4839,14 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
                 controls.append(bwd_err(late_rows_wrong(got), want,
                                         bound)[1])
             note(f"flash_attention_bwd {name}", ratio, min(controls))
+            if route == "tc32" and cap > 0:
+                two = bwd_err(ref.mha_split_backward_reference(
+                    q, k, v, o, dout, lse, win, cap, ref.TWO_PIECE_TERMS),
+                    want, bound)[1]
+                w = worst.setdefault("two-piece split (control)", {
+                    "min_ratio": float("inf"), "max_ratio": 0.0})
+                w["min_ratio"] = min(w["min_ratio"], two)
+                w["max_ratio"] = max(w["max_ratio"], two)
             if not ratio <= 1.0:
                 bad.append(f"{label}: max |kernel - plain| {err}, {ratio}x "
                            f"the bound")
@@ -4625,6 +4913,10 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
                             ig, ids, planted_bag(m), V, combiner), iwant):
                     bad.append(f"{label} integer: planted fault passes")
     _sync(dev)
+    two = worst.get("two-piece split (control)")
+    if two is not None and not two["max_ratio"] > 1.0:
+        bad.append(f"flash_attention_bwd: a split one piece short is within "
+                   f"the bound on every capped float32 case ({two})")
     if bad:
         raise AssertionError("; ".join(bad))
     return {"cases": cases, "flash_routes": routes, **worst}
@@ -4637,9 +4929,14 @@ def lm_loss_check(cfg, seed: int, device, ref_device="cpu") -> dict:
     and tokens on ``ref_device`` (the plain versions): the loss within
     GRAD_TOL * max(1, |loss|) and every gradient leaf within GRAD_TOL *
     max |leaf| of the CPU's. On a card the control runs the card side
-    again with TF32 matmuls; ok also needs it outside the tolerance."""
+    again with TF32 matmuls; ok also needs it outside the tolerance, and
+    the attention forward and backward of the card step (``launches``) on
+    the float32 routes ``flash_route`` and ``bwd_route`` name at the
+    model's head dim and on no other."""
     import torch
     from repro_torch import tree
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import bwd_route, flash_route
     from repro_torch.models.transformer import init_lm_params, lm_loss
     from repro_torch.runtime.train_loop import value_and_grad
     dev = torch.device(device)
@@ -4652,7 +4949,9 @@ def lm_loss_check(cfg, seed: int, device, ref_device="cpu") -> dict:
                                       tokens.to(d))
         return loss.cpu(), [x.cpu() for x in tree.leaves(g)]
 
+    before = launch_counts()
     got_loss, got = grads(params, dev)
+    launches = _launch_delta(launch_counts(), before)
     ref_dev = torch.device(ref_device)
     ref_params = _params_to(params, ref_dev)
     want_loss, want = grads(ref_params, ref_dev)
@@ -4669,11 +4968,17 @@ def lm_loss_check(cfg, seed: int, device, ref_device="cpu") -> dict:
     out = {"layers": cfg.n_layers, "seq": GRAD_CHECK_SEQ,
            "loss": float(want_loss), "loss_diff": loss_diff,
            "grad_max_abs_err": err, "grad_ratio": ratio,
-           "tf32_control_ratio": control, "leaves": len(want)}
+           "tf32_control_ratio": control, "leaves": len(want),
+           "launches": launches}
     out["ok"] = (bool(torch.isfinite(got_loss)) and all(
         bool(torch.isfinite(g).all()) for g in got)
         and loss_diff <= GRAD_TOL * max(1.0, abs(float(want_loss)))
-        and ratio <= 1.0 and (control is None or control > 1.0))
+        and ratio <= 1.0 and (control is None or control > 1.0)
+        and (dev.type != "cuda" or (
+            on_route(launches, "flash_attention",
+                     flash_route(torch.float32, cfg.d_head))
+            and on_route(launches, "flash_attention_bwd",
+                         bwd_route(torch.float32, cfg.d_head)))))
     return out
 
 
@@ -5311,6 +5616,101 @@ def flash_bwd_row(cfg, launches: dict, hbm: float, B: int = TRAIN_BATCH,
     return row
 
 
+def f32_bwd_row(cfg, launches: dict, hbm: float, B: int = TRAIN_BATCH,
+                S: int = TRAIN_SEQ) -> dict:
+    """``flash_attention_bwd``'s float32 route at a training step's shape
+    (one layer of ``cfg``: B sequences of S tokens, float32, the model's
+    strided layout) against autograd of the plain version on the same card
+    inputs within ``flash_bwd_bound``, with two planted faults (Delta left
+    out; ``late_rows_wrong``) failing it, from the forward's own output and
+    lse (held to ATTN_TOL and LSE_TOL); timed in turns with the SIMT kernel
+    it replaced at this d (``simt_bwd``), beside its split floor (2.5x the
+    forward's operations at SPLIT_OPS_PER_S) and the float32 CUDA-core
+    bound, the plain version and SDPA's float32 backward (the efficient
+    backend, expanded heads). ``launches``: the float32 loss check's."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (bwd_route,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(F32_ROWS_SEED)
+    H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    route = bwd_route(torch.float32, d)
+    q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, torch.float32, dev)
+    dout = torch.randn((B, S, H, d), generator=gen,
+                       device=dev).transpose(1, 2)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    o = flash_attention(q, k, v, lse=lse)
+    shape = f"B={B} H={H} Hkv={Hkv} S={S} d={d} float32"
+    o_ratio = attn_err(o, ref.mha_reference(q, k, v))[1]
+    lse_want = ref.mha_lse_reference(q, k)
+    lse_ratio = float(((lse - lse_want).abs()
+                       / (LSE_TOL * lse_want.abs().clamp(min=1.0))).max())
+    del lse_want
+    if not (o_ratio <= 1.0 and lse_ratio <= 1.0):
+        raise AssertionError(f"flash_attention [{shape}] with lse: output "
+                             f"{o_ratio}x, lse {lse_ratio}x the tolerance")
+
+    def kern():
+        return flash_attention_bwd(q, k, v, o, dout, lse)
+
+    def plain():
+        return ref.flash_attention_backward_reference(q, k, v, dout)
+
+    want = plain()
+    got = kern()
+    bound = flash_bwd_bound(q, k, v, o, dout, want)
+    err, ratio = bwd_err(got, want, bound)
+    controls = {
+        "delta": bwd_err(flash_bwd_math(q, k, v, o, dout, lse,
+                                        fault="delta"), want, bound)[1],
+        "late_rows": bwd_err(late_rows_wrong(got), want, bound)[1]}
+    del want, got, bound
+    torch.cuda.empty_cache()
+    if not ratio <= 1.0 or not min(controls.values()) > 1.0:
+        raise AssertionError(f"flash_attention_bwd [{shape}] route {route}: "
+                             f"{ratio}x the bound (max abs err {err}), "
+                             f"planted faults {controls}")
+    G = H // Hkv
+    qq = q.detach().contiguous().requires_grad_()
+    ke = k.repeat_interleave(G, 1).contiguous().requires_grad_()
+    ve = v.repeat_interleave(G, 1).contiguous().requires_grad_()
+    go = dout.contiguous()
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        so = F.scaled_dot_product_attention(qq, ke, ve, is_causal=True)
+
+    def lib():
+        return torch.autograd.grad(so, (qq, ke, ve), go, retain_graph=True)
+
+    ms, simt_ms = in_turns(
+        kern, lambda: simt_bwd(q, k, v, o, dout, lse), 3, 3)
+    pairs = B * H * S * (S + 1) // 2
+    flops = 2.5 * 4 * d * pairs
+    nbytes = 4 * (4 * B * H * S * d + 4 * B * Hkv * S * d) + 4 * B * H * S
+    row = f32_row(f"flash_attention_bwd/{route}", err, ms,
+                  time_ms(plain, calls=1, reps=1),
+                  time_ms(lib, calls=3, reps=3), flops, nbytes, hbm,
+                  launches.get(f"flash_attention_bwd/{route}", 0),
+                  simt_ms=simt_ms)
+    log(f"kernel flash_attention_bwd/{route} [{shape}]: kernel_ms="
+        f"{row['ms']} simt_ms={simt_ms} (the SIMT kernel, same inputs, in "
+        f"turns) bound_ms={row['bound_ms']} ({row['bound_by']}: {flops} "
+        f"operations, 2.5x the forward's, at a sixth of the bf16 peak) "
+        f"cuda_core_bound_ms={row['cuda_core_bound_ms']} plain_ms="
+        f"{row['plain_ms']} library_ms={row['library_ms']} (SDPA backward "
+        f"through autograd, efficient, float32, expanded heads) launches="
+        f"{row['launches']} max_abs_err={err} ({ratio}x flash_bwd_bound; "
+        f"planted faults {json.dumps(controls)}); forward with lse: output "
+        f"{o_ratio}x, lse {lse_ratio}x the tolerance; {flops / ms / 1e9} "
+        f"TFLOP/s by that count")
+    del q, k, v, o, dout, lse, qq, ke, ve, so, go
+    torch.cuda.empty_cache()
+    return row
+
+
 def bag_bwd_row(cfg, batch: dict, launches: dict, hbm: float) -> dict:
     """``embedding_bag_bwd`` at the Wide&Deep training step's shape (the
     unified 40M-row table, the batch's field-offset ids and mask, a
@@ -5465,7 +5865,8 @@ def train_phase(args, hbm: float, device) -> tuple[list[dict], dict]:
         raise AssertionError(f"train lm: the loss did not fall or is not "
                              f"finite: {lm['losses']}")
     torch.cuda.empty_cache()
-    rows = [flash_bwd_row(cfg, launches, hbm)]
+    rows = [flash_bwd_row(cfg, launches, hbm),
+            f32_bwd_row(cfg, check["launches"], hbm)]
 
     rcfg = get_spec(RECSYS_ARCH).config
     t0 = time.perf_counter()
@@ -6225,10 +6626,14 @@ def mesh_lm_check(cfg, seed: int, device, mesh, batch: int = TRAIN_BATCH,
     full depth in bf16 MESH_LM_STEPS AdamW steps of each route on one
     batch of ``batch`` x ``seq`` tokens, each timed, the loss finite and
     falling, the mesh steps' launches read (every ``flash_attention_bwd``
-    on the tensor-core route on the card)."""
+    on the tensor-core route on the card), and the float32 step's
+    (``f32_launches``: its attention forward and backward on the float32
+    routes ``flash_route`` and ``bwd_route`` name, on the card)."""
     import torch
     from repro_torch import tree
     from repro_torch.convert import local_shard
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import bwd_route, flash_route
     from repro_torch.models import transformer as tf
     from repro_torch.models.common import AxisRules
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
@@ -6247,7 +6652,9 @@ def mesh_lm_check(cfg, seed: int, device, mesh, batch: int = TRAIN_BATCH,
                                     p, tokens)
         return float(loss), tree.leaves(g)
 
+    before = launch_counts()
     loss, got = grads(local_shard(params, specs, mesh), rules)
+    f32_launches = _launch_delta(launch_counts(), before)
     want_loss, want = grads(params, None)
     with patched(tf, "_vocab_parallel_nll", _off_by_one_target):
         planted = float(tf.lm_loss(small, local_shard(params, specs, mesh),
@@ -6256,7 +6663,8 @@ def mesh_lm_check(cfg, seed: int, device, mesh, batch: int = TRAIN_BATCH,
     out = {"model": cfg.name, "mesh": list(mesh.shape),
            "f32_layers": GRAD_CHECK_LAYERS, "f32_seq": GRAD_CHECK_SEQ,
            "loss": loss, "loss_diff": abs(loss - want_loss),
-           "planted_loss_diff": abs(planted - want_loss)}
+           "planted_loss_diff": abs(planted - want_loss),
+           "f32_launches": f32_launches}
     out["grad_max_abs_err"], out["grad_ratio"] = grad_err(got, want,
                                                           GRAD_TOL)
     del params, got, want
@@ -6290,7 +6698,11 @@ def mesh_lm_check(cfg, seed: int, device, mesh, batch: int = TRAIN_BATCH,
     if dev.type == "cuda":
         bwd = out["launches"].get("flash_attention_bwd/tc", 0)
         out["ok"] = (out["ok"] and bwd == MESH_LM_STEPS * cfg.n_layers
-                     and not out["launches"].get("flash_attention_bwd/simt"))
+                     and not out["launches"].get("flash_attention_bwd/simt")
+                     and on_route(f32_launches, "flash_attention",
+                                  flash_route(torch.float32, cfg.d_head))
+                     and on_route(f32_launches, "flash_attention_bwd",
+                                  bwd_route(torch.float32, cfg.d_head)))
     return out
 
 

@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
 """Time ``embedding_bag``, ``scan_probe``, ``segment_sum_sorted``,
-``probe_sorted_many``, ``qad_solve``, ``flash_attention_bwd`` and
-``decode_attention`` beside timing-only variants of themselves, on one
-NVIDIA GPU.
+``probe_sorted_many``, ``qad_solve``, ``flash_attention_bwd``,
+``decode_attention`` and the float32 attention routes beside timing-only
+variants of themselves, on one NVIDIA GPU.
 
     python3 chip_variants.py            # from the root of a checkout
     python3 chip_variants.py --kernels segment,probe
-                                        # some of the seven sections
+                                        # some of the eight sections
+    git archive <commit> src/repro_torch/csrc/flash_tc.cu \
+        src/repro_torch/csrc/flash_bwd_tc.cu | tar -x -C build/parent
+    python3 chip_variants.py --kernels f32 \
+        --parent-bf16 build/parent/src/repro_torch/csrc
+                                        # the float32 routes, and the bf16
+                                        # ones beside an earlier build
     git show <commit>:src/repro_torch/csrc/decode_tc.cu \
         > build/parent/decode_tc.cu
     python3 chip_variants.py --kernels decode
@@ -93,6 +99,30 @@ called it). The parent's output and the shipped one with ``lse`` are held
 to the shipped call's bit for bit, the float32 output rounded to bf16
 too; then all four are timed in turns, and the profiler's device time of
 each launch of ``decode_tc_kernel``.
+
+``f32`` (``--kernels f32``) runs the float32 attention routes at
+qwen3-0.6b's prefill shape (B 1, S 32,768, H 16/8, d 128) and at
+granite-moe's (H 16/8, d 64), the model's strided layout: the
+three-piece tensor-core route (``csrc/flash_f32_tc.cu``) beside the SIMT
+kernel it replaced at these head dims (``chip_smoke.simt_flash``) and a
+build of its source without ``FRESH_PV`` (each tile's P V accumulated into
+O by the tensor cores, not in a fresh accumulator), each held to
+``ATTN_TOL["float32"]`` against the plain version first, the shipped
+route's output to a first call's bit for bit; then timed in turns with the
+profiler's device time of ``flash32_kernel`` and of the split pre-pass.
+Before that, on 18 capped cases of the backward check's kind (q scaled by
+c / 2, caps 20, 30 and 50, d 64 and 128), the largest error of the three
+and of the plain float32 version against float64, and of the three
+against the plain version.
+Then the backward at qwen3-0.6b's training shape (B 8, S 2,048): the
+route (``csrc/flash_bwd_f32_tc.cu``) beside ``chip_smoke.simt_bwd``, each
+held to ``flash_bwd_bound``, timed in turns, with the device time of each
+of its kernels. With ``--parent-bf16 DIR`` (a directory holding an
+earlier ``flash_tc.cu`` and ``flash_bwd_tc.cu``) the bf16 routes at
+qwen3-0.6b's prefill and training shapes run beside those sources' builds,
+called as the wrappers call the shipped libraries: outputs bit for bit
+equal, then timed in turns (parent, shipped, shipped, parent). Last, the
+``-Xptxas=-v`` lines of the float32 libraries and the variants.
 """
 
 from __future__ import annotations
@@ -282,6 +312,11 @@ VARIANTS = {
     "bwd_whole": ("flash_bwd_tc.cu", [
         ("  static constexpr bool EXCHANGE = SPLIT_COLS;",
          "  static constexpr bool EXCHANGE = false;")]),
+    # the float32 forward with each tile's P V accumulated into O by the
+    # tensor cores
+    "f32_no_fresh_pv": ("flash_f32_tc.cu", [
+        ("  static constexpr bool FRESH_PV = true;",
+         "  static constexpr bool FRESH_PV = false;")]),
     # the d = 256 backward with d <= 128's block order: the (head, batch)
     # pairs one after another, the longest tiles first within each
     "bwd_head_major": ("flash_bwd_tc.cu", [
@@ -316,7 +351,8 @@ VARIANTS = {
 # the timing-only builds above
 BWD_PHASES = ("bwd_no_math", "bwd_no_rs", "bwd_no_ss", "bwd_no_bar",
               "bwd_no_empty_wait")
-SECTIONS = ("bag", "scan", "segment", "probe", "qad", "bwd", "decode")
+SECTIONS = ("bag", "scan", "segment", "probe", "qad", "bwd", "decode",
+            "f32")
 
 
 def log(msg: str) -> None:
@@ -392,7 +428,7 @@ SECTION_VARIANTS = {"bag": ("bag_nohint", "bag_evictlast"),
                     "segment": ("seg_nocarry",), "probe": ("probe_old",),
                     "qad": ("qad_noexit", "qad_vote1", "qad_exact"),
                     "bwd": ("bwd_whole", "bwd_head_major", *BWD_PHASES),
-                    "decode": ()}
+                    "decode": (), "f32": ("f32_no_fresh_pv",)}
 # the parent's decode_tc.cu argument types: q, k, v, lengths, o, part,
 # tickets, strides, B, H, Hkv, S, D, chunk, window, softcap, scale, stream
 _PARENT_DECODE = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
@@ -407,6 +443,10 @@ def main(argv: list[str] | None = None) -> int:
                     default=OUT.parent / "parent" / "decode_tc.cu",
                     help="the decode section's earlier csrc/decode_tc.cu "
                          "(before the lse output)")
+    ap.add_argument("--parent-bf16", type=Path, default=None,
+                    help="the f32 section's directory of an earlier "
+                         "flash_tc.cu and flash_bwd_tc.cu, built and timed "
+                         "beside the shipped bf16 routes")
     args = ap.parse_args([] if argv is None else argv)
     sections = args.kernels.split(",")
     if not set(sections) <= set(SECTIONS):
@@ -433,7 +473,8 @@ def main(argv: list[str] | None = None) -> int:
     from repro_torch.sparql.engine import TorchBackend
 
     t0 = time.perf_counter()
-    _build.build("sparse", "rdf", "qad", "flash", "bwd", "bwd_tc", "decode")
+    _build.build("sparse", "rdf", "qad", "flash", "bwd", "bwd_tc", "decode",
+                 "attn", "flash32", "bwd32")
     libs = build_variants(_build.NVCC_FLAGS, _build._nvcc(),
                           {v for sec in sections
                            for v in SECTION_VARIANTS[sec]})
@@ -471,6 +512,23 @@ def main(argv: list[str] | None = None) -> int:
         if name in libs:
             libs[name].bwd_tc_flash_attention_bwd.argtypes = \
                 _build.LIBRARIES["bwd_tc"][1]["flash_attention_bwd"] + [P]
+    for name in SECTION_VARIANTS["f32"]:
+        if name in libs:
+            libs[name].flash32_flash_attention.argtypes = \
+                _build.LIBRARIES["flash32"][1]["flash_attention"] + [P]
+    if "f32" in sections and args.parent_bf16 is not None:
+        for lib, src in (("flash", "flash_tc.cu"), ("bwd_tc", "flash_bwd_tc.cu")):
+            out = OUT / f"lib{lib}_parent.so"
+            OUT.mkdir(parents=True, exist_ok=True)
+            subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                            str(out), str(args.parent_bf16 / src)],
+                           check=True, capture_output=True)
+            handle = ctypes.CDLL(str(out))
+            kernel = "flash_attention" if lib == "flash" else \
+                "flash_attention_bwd"
+            getattr(handle, f"{lib}_{kernel}").argtypes = \
+                _build.LIBRARIES[lib][1][kernel] + [P]
+            libs[f"{lib}_parent"] = handle
     gpu = smoke.gpu_line()
     log(f"build {time.perf_counter() - t0:.1f} s; {gpu}")
     dev = torch.device("cuda")
@@ -997,9 +1055,229 @@ def main(argv: list[str] | None = None) -> int:
                     f"launches recorded)")
             del q, k, v, want, unrounded, order
             torch.cuda.empty_cache()
+    # ------------------------------------ float32 attention on the cores
+    if "f32" in sections:
+        f32_section(libs, smoke, times, run_in_turns, stream, dev)
     print(gpu)
     print(json.dumps({"gpu": gpu, "ms": times}))
     return 0
+
+
+def f32_section(libs, smoke, times, run_in_turns, stream, dev) -> None:
+    """The ``f32`` section (see the module's docstring)."""
+    import torch
+    from repro_torch.configs.registry import get_spec
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.flash_attention import (
+        ROW_PAD, flash_attention, flash_attention_bwd, split_pieces, strides)
+
+    def tc32_variant(lib, q, k, v, window=0, softcap=0.0):
+        """The float32 forward through ``lib``, a variant build of
+        ``csrc/flash_f32_tc.cu``, called as the wrapper calls it."""
+        B, H, S, d = q.shape
+        out = torch.empty_like(q)
+        q3, k3, v3 = split_pieces(q, k, v)
+        rc = lib.flash32_flash_attention(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
+            None, strides(out), B, H, k.shape[1], S, d, window, softcap,
+            d ** -0.5, stream())
+        if rc:
+            raise RuntimeError(f"flash_attention f32 variant: CUDA error {rc}")
+        return out
+
+    def bf16_flash(lib, q, k, v):
+        """The bf16 forward through ``lib`` (``flash_tc.cu``'s library,
+        shipped or earlier), called as the wrapper calls it."""
+        B, H, S, d = q.shape
+        out = torch.empty_like(q)
+        rc = lib.flash_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            strides(q, k, v, out), B, H, k.shape[1], S, d, 0, 0.0,
+            d ** -0.5, stream())
+        if rc:
+            raise RuntimeError(f"flash_attention (bf16): CUDA error {rc}")
+        return out
+
+    def bf16_bwd(lib, q, k, v, o, dout, lse):
+        """The bf16 backward through ``lib`` (``flash_bwd_tc.cu``'s
+        library, shipped or earlier), called as the wrapper calls it."""
+        B, H, S, d = q.shape
+        Sp = -(-S // ROW_PAD) * ROW_PAD
+        rows = torch.empty((2, B, H, Sp), dtype=torch.float32, device=dev)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        rc = lib.bwd_tc_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), rows.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            strides(q, k, v, o, dout, dq, dk, dv), B, H, k.shape[1], S, Sp,
+            d, 0, 0.0, d ** -0.5, stream())
+        if rc:
+            raise RuntimeError(f"flash_attention_bwd (bf16): CUDA error {rc}")
+        return dq, dk, dv
+
+    def f64_attention(q, k, v, window, softcap):
+        """The plain version's function in float64 (dense; small S)."""
+        B, H, S, d = q.shape
+        G = H // k.shape[1]
+        s = torch.einsum("bhqd,bhkd->bhqk", q.double(),
+                         k.double().repeat_interleave(G, 1)) * d ** -0.5
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        pos = torch.arange(S, device=dev)
+        mask = pos[None, :] <= pos[:, None]
+        if window > 0:
+            mask &= pos[None, :] > pos[:, None] - window
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        return torch.einsum("bhqk,bhkd->bhqd", p,
+                            v.double().repeat_interleave(G, 1))
+
+    # The float32 forward's error on the backward check's capped cases (its
+    # 64- and 128-dim ones, q scaled by c / 2 as check_backward_cases scales
+    # it), each route and the plain float32 version against float64 and
+    # the routes against the plain version, in units of ATTN_TOL's 1e-5
+    gen = torch.Generator(device=dev).manual_seed(31)
+    worst: dict = {}
+    n = 0
+    for d in (64, 128):
+        for G in (1, 2, 4):
+            for win, cap in ((0, 30.0), (100, 20.0), (0, 50.0)):
+                B, H, Hkv, S = 1 + n % 2, 2 * G, 2, 125 + 87 * n
+                n += 1
+                q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d,
+                                             torch.float32, dev)
+                q = q * (cap / 2)
+                exact = f64_attention(q, k, v, win, cap)
+                outs = {"plain": ref.mha_reference(q, k, v, True, win, cap),
+                        "tc32 route": flash_attention(q, k, v, window=win,
+                                                      softcap=cap),
+                        "SIMT route": smoke.simt_flash(q, k, v, win, cap)}
+                if "f32_no_fresh_pv" in libs:
+                    outs["f32_no_fresh_pv"] = tc32_variant(
+                        libs["f32_no_fresh_pv"], q, k, v, win, cap)
+                for name, o in outs.items():
+                    for against, want in (("float64", exact),
+                                          ("plain", outs["plain"])):
+                        if name == "plain" and against == "plain":
+                            continue
+                        key = f"{name} vs {against}, cap {cap:g}"
+                        err = float((o.double() - want.double()).abs().max())
+                        worst[key] = max(worst.get(key, 0.0), err / 1e-5)
+    for key, ratio in worst.items():
+        times[f"f32 capped cases {key} (x 1e-5)"] = ratio
+        log(f"flash_attention f32, capped cases (q x c / 2, d 64 and 128): "
+            f"{key}: {ratio} x 1e-5")
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for arch in (smoke.LM_ARCH, smoke.MOE_ARCH):
+        cfg = get_spec(arch).config
+        B, S, H, Hkv, d = 1, 32768, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        label = f"flash_attention {arch} B={B} H={H}/{Hkv} S={S} d={d} f32"
+        q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.float32,
+                                     dev)
+        order = [("tc32 route", lambda: flash_attention(q, k, v)),
+                 ("SIMT route", lambda: smoke.simt_flash(q, k, v))]
+        if "f32_no_fresh_pv" in libs:
+            order.insert(1, ("f32_no_fresh_pv", lambda: tc32_variant(
+                libs["f32_no_fresh_pv"], q, k, v)))
+        want = ref.mha_reference(q, k, v)
+        for name, fn in order:
+            err, ratio = smoke.attn_err(fn(), want)
+            times[f"{label} {name} tolerance ratio"] = ratio
+            log(f"{label} {name}: max abs err {err}, {ratio}x ATTN_TOL")
+            if not ratio <= 1.0:
+                raise AssertionError(f"{label} {name}: {ratio}x ATTN_TOL")
+        del want
+        torch.cuda.empty_cache()
+        run_in_turns(label, order, order[0][1](), calls=1,
+                     exact=["tc32 route"])
+        for kernel in ("flash32_kernel", "split_kernel"):
+            ms, n = smoke.kernel_device_ms(order[0][1], kernel, calls=3)
+            times[f"{label} {kernel} device"] = ms
+            log(f"{label} {kernel} device: {ms} ms ({n} launches recorded)")
+        del q, k, v, order
+        torch.cuda.empty_cache()
+
+    cfg = get_spec(smoke.LM_ARCH).config
+    B, S, H, Hkv, d = (smoke.TRAIN_BATCH, smoke.TRAIN_SEQ, cfg.n_heads,
+                       cfg.n_kv_heads, cfg.d_head)
+    label = f"flash_attention_bwd B={B} H={H}/{Hkv} S={S} d={d} f32"
+    q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.float32, dev)
+    dout = torch.randn((B, S, H, d), generator=gen,
+                       device=dev).transpose(1, 2)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    o = flash_attention(q, k, v, lse=lse)
+    order = [("tc32 route",
+              lambda: flash_attention_bwd(q, k, v, o, dout, lse)),
+             ("SIMT route", lambda: smoke.simt_bwd(q, k, v, o, dout, lse))]
+    want = ref.flash_attention_backward_reference(q, k, v, dout)
+    bound = smoke.flash_bwd_bound(q, k, v, o, dout, want)
+    for name, fn in order:
+        err, ratio = smoke.bwd_err(fn(), want, bound)
+        times[f"{label} {name} bound ratio"] = ratio
+        log(f"{label} {name}: max abs err {err}, {ratio}x flash_bwd_bound")
+        if not ratio <= 1.0:
+            raise AssertionError(f"{label} {name}: {ratio}x the bound")
+    del want, bound
+    torch.cuda.empty_cache()
+    run_in_turns(label, order, order[0][1](), calls=3, exact=["tc32 route"])
+    for kernel in ("split_kernel", "rows_kernel", "dkdv_kernel", "dq_kernel"):
+        ms, n = smoke.kernel_device_ms(order[0][1], kernel, calls=5)
+        times[f"{label} {kernel} device"] = ms
+        log(f"{label} {kernel} device: {ms} ms ({n} launches recorded)")
+    del q, k, v, o, dout, lse, order
+    torch.cuda.empty_cache()
+
+    if "flash_parent" in libs:
+        # the bf16 routes against an earlier build of their sources, both
+        # libraries called the same way; then each kernel's device time
+        shipped = {"flash": _build.library("flash"),
+                   "bwd_tc": _build.library("bwd_tc")}
+        for B, S in ((1, 32768), (smoke.TRAIN_BATCH, smoke.TRAIN_SEQ)):
+            q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d,
+                                         torch.bfloat16, dev)
+            label = f"flash_attention B={B} H={H}/{Hkv} S={S} d={d} bf16"
+            order = [(name, lambda lib=lib: bf16_flash(lib, q, k, v))
+                     for name, lib in (("shipped", shipped["flash"]),
+                                       ("parent", libs["flash_parent"]))]
+            run_in_turns(label, order, flash_attention(q, k, v),
+                         calls=1 if S > 4096 else 5)
+            runs = [order]
+            if S == smoke.TRAIN_SEQ:
+                dout = torch.randn((B, S, H, d), generator=gen, device=dev,
+                                   dtype=torch.bfloat16).transpose(1, 2)
+                lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+                o = flash_attention(q, k, v, lse=lse)
+                bwd_label = (f"flash_attention_bwd B={B} H={H}/{Hkv} S={S} "
+                             f"d={d} bf16")
+                bwd_order = [
+                    (name, lambda lib=lib: bf16_bwd(lib, q, k, v, o, dout,
+                                                    lse))
+                    for name, lib in (("shipped", shipped["bwd_tc"]),
+                                      ("parent", libs["bwd_tc_parent"]))]
+                run_in_turns(bwd_label, bwd_order,
+                             flash_attention_bwd(q, k, v, o, dout, lse),
+                             calls=3)
+                runs.append(bwd_order)
+            for run, kernels, lab in zip(
+                    runs, (("flash_tc_kernel",),
+                           ("rows_tc_kernel", "dkdv_tc_kernel",
+                            "dq_tc_kernel")),
+                    (label, f"flash_attention_bwd B={B} S={S} bf16")):
+                for rnd, seq in enumerate((run, run[::-1])):
+                    for name, fn in seq:
+                        for kernel in kernels:
+                            ms, n = smoke.kernel_device_ms(fn, kernel,
+                                                           calls=5)
+                            times[f"{lab} {name} {kernel} device "
+                                  f"[{rnd}]"] = ms
+                            log(f"{lab} {name} {kernel} device [{rnd}]: "
+                                f"{ms} ms ({n} launches recorded)")
+            del q, k, v, order, runs
+            torch.cuda.empty_cache()
+    for line in _build.build_log("flash32", "bwd32").splitlines():
+        log(f"ptxas: {line.strip()}")
+    for line in BUILD_LOGS.get("f32_no_fresh_pv", "").splitlines():
+        log(f"ptxas (f32_no_fresh_pv): {line.strip()}")
 
 
 if __name__ == "__main__":

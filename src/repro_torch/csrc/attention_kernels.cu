@@ -1,11 +1,16 @@
 // Float32 attention kernels of the LM serving path, for Hopper (sm_90a):
-// causal prefill attention (flash) and one-token attention against a KV
-// cache (decode). Built by repro_torch/kernels/_build.py with
+// causal prefill attention (flash) at d = 16, 32 and 256, and one-token
+// attention against a KV cache (decode). Built by
+// repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // into its own shared library with a plain C interface, loaded with ctypes.
 // The bfloat16 routes have kernels of their own: prefill on the tensor
-// cores (flash_tc.cu), decode through a TMA ring (decode_tc.cu).
+// cores (flash_tc.cu), decode through a TMA ring (decode_tc.cu); and
+// float32 prefill at d = 64 and 128 runs on the tensor cores as bf16
+// products of three-piece splits (flash_f32_tc.cu). chip_variants.py
+// --kernels f32 still calls this flash kernel at d = 64 and 128, to time
+// the two beside each other; the port's path does not.
 //
 // Every entry point takes device pointers, the element strides of each
 // tensor (a host array of int64), and the caller's CUDA stream; it launches
@@ -23,8 +28,9 @@
 // 4*S*S/2*d*H operations on S*d*(2H+2Hkv) elements, so operations bound
 // it; this kernel runs its products on the float32 CUDA cores from shared
 // memory (16-byte reads, a 4x4 score and a 4x(d/16) output tile per
-// thread). It stays off the tensor cores on purpose: TF32 would round
-// float32 inputs to 10 bits, far outside the float32 checks.
+// thread). One-pass TF32 would round float32 inputs to 10 bits, far
+// outside the float32 checks; flash_f32_tc.cu's exact split takes d = 64
+// and 128 to the tensor cores, and the other head dims are still to do.
 //
 // decode: replaces repro/kernels/decode_attention.py (decode_attention) for
 // float32 inputs. Bytes bound it: each step reads every valid K/V row once.

@@ -3,13 +3,17 @@
 Each source is compiled on first use by ``nvcc`` into its own shared
 library with a plain C interface under ``<repo>/build/`` and loaded with
 ``ctypes``: ``rdf_kernels.cu`` (the SPARQL query kernels),
-``attention_kernels.cu`` (the float32 LM attention kernels: prefill and
-decode), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
+``attention_kernels.cu`` (the float32 LM attention kernels: decode,
+and prefill at d = 16, 32 and 256), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
 cores), ``decode_tc.cu`` (bfloat16 decode attention: a TMA ring, scores on
 the tensor cores), ``flash_bwd.cu`` (the attention backward, for
 training: float32 on the CUDA cores),
 ``flash_bwd_tc.cu`` (library ``"bwd_tc"``: the bfloat16 attention
-backward at d = 16 to 256 on the tensor cores), ``sparse_kernels.cu``
+backward at d = 16 to 256 on the tensor cores), ``flash_f32_tc.cu`` and
+``flash_bwd_f32_tc.cu`` (libraries ``"flash32"`` and ``"bwd32"``: float32
+prefill attention and its backward at d = 64 and 128 on the tensor cores,
+as bf16 products of three-piece splits, and the split pre-pass),
+``sparse_kernels.cu``
 (the recsys and GNN kernels, and the bag's backward) and
 ``qad_kernels.cu`` (the R-QAD solve behind B&B).
 A file name carries a hash of its source and flags, so an edited source
@@ -76,6 +80,22 @@ LIBRARIES = {
         # scale
         "flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _F],
+    }),
+    "flash32": ("flash_f32_tc.cu", {
+        # q3, k3, v3 (the split pieces), o, lse, o strides, B, H, Hkv, S,
+        # D, window, softcap, scale
+        "flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _F],
+        # desc (pointer, four strides and heads of each source), n, dst,
+        # B, S, D
+        "split": [_P, _I, _P, _I, _I, _I],
+    }),
+    "bwd32": ("flash_bwd_f32_tc.cu", {
+        # q3, k3, v3, do3 (the split pieces), o, dout, lse, rows, dq, dk,
+        # dv, strides (o, dout, dq, dk, dv), B, H, Hkv, S, Sp, D, window,
+        # softcap, scale
+        "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _I, _I, _I, _I, _I, _I, _I, _F, _F],
     }),
     "bwd": ("flash_bwd.cu", {
         # q, k, v, o, dout, lse, delta, dq, dk, dv, strides, dtype, B, H,
@@ -211,11 +231,13 @@ def library(lib: str) -> ctypes.CDLL:
 
 
 def launch(kernel: str, device: torch.device, *args,
-           lib: str | None = None, route: str | None = None) -> None:
+           lib: str | None = None, route: str | None = None,
+           counted: str | None = None) -> None:
     """Launch ``kernel`` (of library ``lib``, by default the first that has
     it) on ``device``'s current stream; raise on a non-zero CUDA status,
     else count the launch under the kernel's name and, for a kernel with
-    routes, under ``kernel/route`` too."""
+    routes, under ``kernel/route`` too; or under ``counted`` alone, for a
+    pre-pass counted beside the kernel it feeds."""
     lib = lib or _LIBRARY_OF[kernel]
     handle = library(lib)
     with torch.cuda.device(device):
@@ -225,6 +247,9 @@ def launch(kernel: str, device: torch.device, *args,
         msg = getattr(handle, f"{lib}_error_string")(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA launch failed ({rc}: {msg})")
     with _lock:
+        if counted:
+            _launches[counted] += 1
+            return
         _launches[kernel] += 1
         if route:
             _launches[f"{kernel}/{route}"] += 1

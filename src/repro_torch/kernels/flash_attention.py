@@ -1,21 +1,29 @@
 """Causal prefill attention: the ``flash_attention`` CUDA kernels.
 
-Wrapper of two kernels (ports of ``repro/kernels/flash_attention.py``)
+Wrapper of the kernels that port ``repro/kernels/flash_attention.py``,
 with the Pallas signature: q [B, H, S, d], k/v [B, Hkv, S, d] with H a
 multiple of Hkv, an optional sliding window and logit softcap, any S (the
-ragged last tile is masked).
+ragged last tile is masked). The route is chosen by (dtype, d)
+(:func:`flash_route`) and each launch is counted as
+``flash_attention/<route>``:
 
-- bfloat16 runs on the tensor cores (``csrc/flash_tc.cu``: TMA-fed K/V
-  ring, ``wgmma`` products, P split into two bf16 parts). TMA reads q, k
-  and v through tensor maps, so each needs d stride 1, its other strides
+- ``"tc"``, bfloat16, on the tensor cores (``csrc/flash_tc.cu``: TMA-fed
+  K/V ring, ``wgmma`` products, P split into two bf16 parts). TMA reads q,
+  k and v through tensor maps, so each needs d stride 1, its other strides
   multiples of 8 elements (16 bytes) and a 16-byte aligned base; a caller
   holding [B, S, H, d] passes ``x.transpose(1, 2)`` with no copy. An
   operand that misses one of these is copied into a new contiguous tensor
   first, and ``flash_attention.copies`` counts those copies.
-- float32 runs on the CUDA cores (``csrc/attention_kernels.cu``), in full
-  float32, with any element strides.
+- ``"tc32"``, float32 at d = 64 and 128, on the tensor cores
+  (``csrc/flash_f32_tc.cu``, library ``"flash32"``): a pre-pass
+  (``flash_attention/split``, :func:`split_pieces`) writes q, k and v, of
+  any strides, as three bf16 pieces each (:func:`.ref.split3`, exact), and
+  each product is the sum of six bf16 ``wgmma`` products of the pieces,
+  within a float32 rounding of the float32 product (P split in three too).
+- ``"simt"``, float32 at d = 16, 32 and 256, on the CUDA cores
+  (``csrc/attention_kernels.cu``), in full float32, with any strides.
 
-``out`` takes any strides on both routes. A tensor on the CPU takes the
+``out`` takes any strides on every route. A tensor on the CPU takes the
 plain torch version in :mod:`.ref`; a tensor on the card launches a kernel
 or raises — it never falls back. A meta tensor (the dry run) gets meta
 outputs, and the kernel's operations (:func:`attention_ops`) go to the
@@ -29,18 +37,25 @@ probabilities from q, k and the lse and gives dq, dk and dv in the
 inputs' dtype, any strides, float32 sums, no atomics. Its route is chosen
 by (dtype, d) (:func:`bwd_route`):
 
-- bfloat16, at every head dim, runs on the tensor cores
+- ``"tc"``, bfloat16 at every head dim, on the tensor cores
   (``csrc/flash_bwd_tc.cu``, library ``"bwd_tc"``: TMA-fed tiles,
   ``wgmma`` products, P and dS split into two bf16 parts; at d = 256 a
   block's two warpgroups share 64 keys or rows and split the gradients'
   columns), with the TMA operand rules above for q, k, v and dout (copies
   counted in ``flash_attention_bwd.copies``);
-- float32 runs on the CUDA cores (``csrc/flash_bwd.cu``, library
-  ``"bwd"``, float32 products: TF32 products would break its check).
+- ``"tc32"``, float32 at d = 64 and 128, on the tensor cores
+  (``csrc/flash_bwd_f32_tc.cu``, library ``"bwd32"``): q, k, v and dout
+  split in three by the same pre-pass, every product six bf16 products,
+  P and dS split in three;
+- ``"simt"``, float32 at d = 16, 32 and 256, on the CUDA cores
+  (``csrc/flash_bwd.cu``, library ``"bwd"``, float32 products: one-pass
+  TF32 products would break its check).
 
-Neither falls back to the other: a failed build or launch raises. The
-tensor-core route's arithmetic is emulated on the CPU by
-``tests/test_torch_flash_bwd_split.py``.
+No route falls back to another: a failed build or launch raises. The
+tensor-core routes' arithmetic is emulated on the CPU by
+``tests/test_torch_flash_split.py``, ``tests/test_torch_flash_bwd_split.py``
+and (float32, with :func:`.ref.mha_split_reference`)
+``tests/test_torch_flash_f32_split.py``.
 """
 
 from __future__ import annotations
@@ -56,6 +71,10 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the bfloat16 head dims whose backward runs on the tensor cores: all
 TC_BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+# the float32 head dims that run on the tensor cores (route "tc32"), and
+# the forward's key tile at each (flash_f32_tc.cu's Plan<D>::BK)
+TC32_HEAD_DIMS = (64, 128)
+TC32_KEY_TILE = {64: 64, 128: 32}
 ROW_PAD = 128   # the tensor-core backward's lse/Delta rows: S rounded up
 BWD_OPS = 5     # the backward's operations, in halves of the forward's:
                 # five products of a pair (s, dP, dV, dQ, dK) to its two
@@ -148,17 +167,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not out.numel():
         return out
     lse_ptr = None if lse is None else lse.data_ptr()
-    if q.dtype == torch.bfloat16:
+    route = flash_route(q.dtype, d)
+    if route == "tc":
         q, k, v = (tma_operand(t, flash_attention) for t in (q, k, v))
         launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), out.data_ptr(), lse_ptr, strides(q, k, v, out),
-               B, H, Hkv, S, d, window, softcap, d ** -0.5, lib="flash")
+               B, H, Hkv, S, d, window, softcap, d ** -0.5, lib="flash",
+               route=route)
+    elif route == "tc32":
+        q3, k3, v3 = split_pieces(q, k, v)
+        launch("flash_attention", q.device, q3.data_ptr(), k3.data_ptr(),
+               v3.data_ptr(), out.data_ptr(), lse_ptr, strides(out), B, H,
+               Hkv, S, d, window, softcap, d ** -0.5, lib="flash32",
+               route=route)
     else:
         launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), out.data_ptr(), lse_ptr, strides(q, k, v, out),
                DTYPES[q.dtype], B, H, Hkv, S, d, window, softcap,
-               d ** -0.5)
+               d ** -0.5, route=route)
     return out
+
+
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """The route of :func:`flash_attention` on the card, by dtype and head
+    dim: ``"tc"`` (``csrc/flash_tc.cu``) for bfloat16, ``"tc32"``
+    (``csrc/flash_f32_tc.cu``, three-piece splits on the tensor cores) for
+    float32 at d in ``TC32_HEAD_DIMS``, ``"simt"``
+    (``csrc/attention_kernels.cu``, float32 on the CUDA cores) for float32
+    at the other head dims."""
+    if dtype == torch.bfloat16:
+        return "tc"
+    return "tc32" if d in TC32_HEAD_DIMS else "simt"
+
+
+def split_pieces(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """Each float32 [B, heads, S, d] tensor (any strides; one B, S and d)
+    as its three bf16 pieces (:func:`.ref.split3`): [3, B, heads, S, d],
+    contiguous, all in one new buffer written by one launch of the split
+    kernel (``csrc/flash_f32_tc.cu``), counted as
+    ``flash_attention/split``; on the CPU the plain :func:`.ref.split3`.
+    The float32 tensor-core routes read the pieces through TMA tensor maps
+    as [3 B, heads, S, d]."""
+    B, _, S, d = tensors[0].shape
+    sizes = [t.numel() for t in tensors]
+    buf = torch.empty(3 * sum(sizes), dtype=torch.bfloat16,
+                      device=tensors[0].device)
+    outs, at = [], 0
+    for t, n in zip(tensors, sizes):
+        outs.append(buf[at:at + 3 * n].view(3, *t.shape))
+        at += 3 * n
+    if buf.device.type == "cpu":
+        for t, pieces in zip(tensors, outs):
+            for piece, want in zip(pieces, ref.split3(t)):
+                piece.copy_(want)
+    elif buf.device.type == "cuda" and buf.numel():
+        desc = [x for t in tensors
+                for x in (t.data_ptr(), *t.stride(), t.shape[1])]
+        launch("split", buf.device, (ctypes.c_int64 * len(desc))(*desc),
+               len(tensors), buf.data_ptr(), B, S, d, lib="flash32",
+               counted="flash_attention/split")
+    return outs
 
 
 def check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
@@ -182,10 +250,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     has its input's shape, dtype and strides. The CPU takes the plain
     version (autograd through ``mha_reference``; o and lse unused); the
     card launches ``flash_attention_bwd`` on the route :func:`bwd_route`
-    names (counted as ``flash_attention_bwd/tc`` or ``/simt``) or raises.
-    The tensor-core route reads q, k, v and dout through TMA tensor maps,
-    so an operand without d stride 1, 16-byte strides and base is copied
-    first (counted in ``flash_attention_bwd.copies``); o and the
+    names (counted as ``flash_attention_bwd/tc``, ``/tc32`` or ``/simt``)
+    or raises. The bf16 tensor-core route reads q, k, v and dout through
+    TMA tensor maps, so an operand without d stride 1, 16-byte strides and
+    base is copied first (counted in ``flash_attention_bwd.copies``); the
+    float32 one reads their split pieces (:func:`split_pieces`); o and the
     gradients take any strides."""
     check_attention("q", q, 4)
     for name, t in (("k", k), ("v", v), ("o", o), ("dout", dout)):
@@ -206,7 +275,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if not dq.numel():
         return dq, dk.zero_(), dv.zero_()
-    if bwd_route(q.dtype, d) == "tc":
+    route = bwd_route(q.dtype, d)
+    if route == "tc32":
+        Sp = -(-S // ROW_PAD) * ROW_PAD
+        rows = torch.empty((2, B, H, Sp), dtype=torch.float32,
+                           device=q.device)
+        if q.device.type == "meta":
+            return _bwd_tallied(dq, dk, dv, window)
+        q3, k3, v3, do3 = split_pieces(q, k, v, dout)
+        launch("flash_attention_bwd", q.device, q3.data_ptr(),
+               k3.data_ptr(), v3.data_ptr(), do3.data_ptr(), o.data_ptr(),
+               dout.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               strides(o, dout, dq, dk, dv), B, H, Hkv, S, Sp, d, window,
+               softcap, d ** -0.5, lib="bwd32", route=route)
+    elif route == "tc":
         q, k, v, dout = (tma_operand(t, flash_attention_bwd)
                          for t in (q, k, v, dout))
         Sp = -(-S // ROW_PAD) * ROW_PAD
@@ -247,10 +330,13 @@ def bwd_route(dtype: torch.dtype, d: int) -> str:
     """The route of :func:`flash_attention_bwd` on the card, by dtype and
     head dim: ``"tc"`` (``csrc/flash_bwd_tc.cu``, the tensor cores) for
     bfloat16 at d in ``TC_BWD_HEAD_DIMS`` (every d of ``HEAD_DIMS``),
-    ``"simt"`` (``csrc/flash_bwd.cu``, float32 products on the CUDA cores)
-    for float32."""
-    return "tc" if dtype == torch.bfloat16 and d in TC_BWD_HEAD_DIMS \
-        else "simt"
+    ``"tc32"`` (``csrc/flash_bwd_f32_tc.cu``, three-piece splits on the
+    tensor cores) for float32 at d in ``TC32_HEAD_DIMS``, ``"simt"``
+    (``csrc/flash_bwd.cu``, float32 products on the CUDA cores) for
+    float32 at the other head dims."""
+    if dtype == torch.bfloat16 and d in TC_BWD_HEAD_DIMS:
+        return "tc"
+    return "tc32" if d in TC32_HEAD_DIMS else "simt"
 
 
 class FlashAttention(torch.autograd.Function):

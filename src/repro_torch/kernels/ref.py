@@ -148,6 +148,134 @@ def flash_attention_backward_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# The float32 tensor-core routes (csrc/flash_f32_tc.cu, flash_bwd_f32_tc.cu)
+# take each product a.b as bf16 products of three-piece splits (split3):
+# the six (piece of a, piece of b) pairs below, 0 = hi, 1 = mid, 2 = lo,
+# smallest first as the kernels issue them. The three dropped pairs (mid.lo,
+# lo.mid, lo.lo) sum to at most about 2^-23 |a||b|, a float32 rounding of
+# the product. TWO_PIECE_TERMS is the control one piece short: hi.hi +
+# hi.mid + mid.hi.
+SPLIT_TERMS = ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))
+TWO_PIECE_TERMS = ((1, 0), (0, 1), (0, 0))
+_LOG2E = 1.4426950408889634
+
+
+def split3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """float32 x -> bf16 (hi, mid, lo): hi = bf16(x), mid = bf16(x - hi),
+    lo = bf16(x - hi - mid). For normal x, hi + mid + lo == x exactly:
+    each subtraction is exact in float32, and the last remainder has at
+    most 7 significant bits."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def split_product(eq: str, a: torch.Tensor, b: torch.Tensor,
+                  terms=SPLIT_TERMS) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as the float32 routes' tensor cores take it: the
+    sum, in float32, of the products of the ``terms`` pairs of
+    :func:`split3` pieces (each bf16 product exact in float32)."""
+    pa = [p.float() for p in split3(a)]
+    pb = [p.float() for p in split3(b)]
+    out = torch.einsum(eq, pa[terms[0][0]], pb[terms[0][1]])
+    for i, j in terms[1:]:
+        out += torch.einsum(eq, pa[i], pb[j])
+    return out
+
+
+def _visible(S: int, window: int, device) -> torch.Tensor:
+    pos = torch.arange(S, device=device)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    return mask
+
+
+def mha_split_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: int = 0, softcap: float = 0.0,
+                        key_tile: int = 64, terms=SPLIT_TERMS
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The float32 tensor-core forward's arithmetic on float32 q [B,H,S,d]
+    and k/v [B,Hkv,S,d] -> (out [B,H,S,d], lse [B,H,S]): key tiles of
+    ``key_tile``, S = Q K^T by :func:`split_product`, the online softmax in
+    log2 units with l summed over the unrounded p, P V with P split in
+    three as well. ``terms`` of :data:`TWO_PIECE_TERMS` gives the control
+    one piece short. Dense over the rows; small S."""
+    B, H, S, d = q.shape
+    G = H // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    scale = d ** -0.5
+    rows = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, H, S, 1), -float("inf"), device=q.device)
+    l = torch.zeros((B, H, S, 1), device=q.device)
+    o = torch.zeros((B, H, S, d), device=q.device)
+    for k0 in range(0, S, key_tile):
+        s = split_product("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + key_tile],
+                          terms)
+        if softcap > 0:
+            x = torch.tanh(s * scale * (1.0 / softcap)) * softcap * _LOG2E
+        else:
+            x = s * (scale * _LOG2E)
+        keys = torch.arange(k0, min(S, k0 + key_tile), device=q.device)
+        dead = keys[None, :] > rows
+        if window > 0:
+            dead |= keys[None, :] <= rows - window
+        x = x.masked_fill(dead, -float("inf"))
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        m_use = torch.where(m_new == -float("inf"), 0.0, m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(x - m_use)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        m = m_new
+        o = o * alpha + split_product("bhqk,bhkd->bhqd", p,
+                                      vf[:, :, k0:k0 + key_tile], terms)
+    lse = (m + torch.log2(l.clamp(min=1e-30))) / _LOG2E
+    return (o / l.clamp(min=1e-30)).to(q.dtype), lse[..., 0]
+
+
+def mha_split_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+        dout: torch.Tensor, lse: torch.Tensor, window: int = 0,
+        softcap: float = 0.0, terms=SPLIT_TERMS
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The float32 tensor-core backward's arithmetic -> (dq, dk, dv): S and
+    dP = dO V^T by :func:`split_product`, P = 2^(s log2 e - lse log2 e) on
+    the mask, Delta = rowsum(dO O) in float32, dS = P (dP - Delta) f (f the
+    softcap's factor), then dV = P^T dO, dK = scale dS^T Q and dQ = scale
+    dS K with P and dS split in three too, summed over each GQA group.
+    Dense over [B, H, S, S]; small S."""
+    B, H, S, d = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    scale = d ** -0.5
+    qf, dof = q.float(), dout.float()
+    kr = k.float().repeat_interleave(G, dim=1)
+    vr = v.float().repeat_interleave(G, dim=1)
+    s = split_product("bhqd,bhkd->bhqk", qf, kr, terms)
+    f = 1.0
+    if softcap > 0:
+        t = torch.tanh(s * (scale / softcap))
+        x, f = t * (softcap * _LOG2E), 1 - t * t
+    else:
+        x = s * (scale * _LOG2E)
+    p = torch.where(_visible(S, window, q.device),
+                    torch.exp2(x - lse.float()[..., None] * _LOG2E), 0.0)
+    dp = split_product("bhqd,bhkd->bhqk", dof, vr, terms)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * f
+    dq = split_product("bhqk,bhkd->bhqd", ds, kr, terms) * scale
+    dk = split_product("bhqk,bhqd->bhkd", ds, qf, terms).view(
+        B, Hkv, G, S, d).sum(2) * scale
+    dv = split_product("bhqk,bhqd->bhkd", p, dof, terms).view(
+        B, Hkv, G, S, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor,
                      window: int = 0, softcap: float = 0.0,

@@ -379,8 +379,9 @@ def test_cuda_backward_kernels_match_plain_versions(dtype):
     cases = smoke.check_backward_cases(torch.device("cuda"), (dtype,))
     assert cases[f"flash_attention_bwd {dtype}"]["max_ratio"] <= 1.0
     assert cases[f"flash_attention_bwd {dtype}"]["min_planted_ratio"] > 1.0
-    assert set(cases["flash_routes"]) == {
-        f"{dtype} {'tc' if dtype == 'bfloat16' else 'simt'}"}
+    assert set(cases["flash_routes"]) == (
+        {"bfloat16 tc"} if dtype == "bfloat16"
+        else {"float32 tc32", "float32 simt"})
     counts = launch_counts()
     assert counts["flash_attention_bwd"] > 0
     assert counts["embedding_bag_bwd"] > 0
