@@ -265,6 +265,16 @@ F32_ROWS_SEED = 13
 # the last place, 2^-7 of |plain|; atol covers the float32 sums (about
 # 1e-6 apart on an H100).
 ATTN_TOL = {"float32": (1e-5, 0.0), "bfloat16": (1e-5, 2.0 ** -7)}
+# The float32 checks' yardstick (f32_err). On capped inputs with scores
+# ~500 the plain float32 version is itself up to 1.66e-5 from float64,
+# past ATTN_TOL's whole atol, so it cannot tell a kernel more exact than it
+# from a faulty one. Every float32 forward case also runs the plain version
+# in float64. Where the plain float32 version is within F64_SHARE of the
+# atol of float64 everywhere, the kernel is held to it within ATTN_TOL as
+# before; else to float64, element by element within atol + |plain32 -
+# float64|: no farther from exact than float32's own plain version, plus
+# atol.
+F64_SHARE = 0.5
 # The bf16 flash_attention route alone (csrc/flash_tc.cu) runs P V on the
 # tensor cores with P split in two bf16 parts, p_hi = bf16(p) and p_lo =
 # bf16(p - p_hi): p_hi + p_lo is within 2^-16 p, so the output is within
@@ -276,11 +286,25 @@ SPLIT_GROWTH = 2.0 ** -15
 # The float32 tensor-core routes take each product as six bf16 products of
 # three-piece splits. A split one piece short (hi.hi + hi.mid + mid.hi,
 # ref.TWO_PIECE_TERMS) leaves about 2^-16 of each product; emulated on the
-# card at these cases (B, H, Hkv, S, d, window, softcap; qwen3's and
-# granite's heads, two million outputs each), it must fail
-# ATTN_TOL["float32"], and on the capped cases of the backward's checks the
-# backward's bound (check_backward_cases).
-TWO_PIECE_CASES = ((1, 16, 8, 1024, 128, 0, 0.0), (1, 16, 8, 1024, 64, 0, 0.0))
+# card at these cases (B, H, Hkv, S, d, window, softcap; qwen3's,
+# granite's and gemma2's heads, two million outputs each), it must fail
+# ATTN_TOL["float32"] (f32_err's rule for its case), and on the capped
+# cases of the backward's checks the backward's bound
+# (check_backward_cases).
+TWO_PIECE_CASES = ((1, 16, 8, 1024, 128, 0, 0.0), (1, 16, 8, 1024, 64, 0, 0.0),
+                   (1, 8, 4, 1024, 256, 0, 0.0))
+# gemma2-2b's float32 path (its d_head 256 on flash_attention's and
+# flash_attention_bwd's three-piece routes): the model check at full width
+# and GEMMA_CHECK_LAYERS of its 26 layers (two local, two global; all 26
+# are 10.5 GB of float32 weights on each side, and the CPU side runs them
+# all), the loss check at GRAD_CHECK_LAYERS; the kernels' rows at a
+# global layer's prefill (GEMMA_ROW_SEQ, no window) and a local one's
+# (window 4,096), and the backward at train_4k's layer (one sequence of
+# GEMMA_BWD_SEQ)
+GEMMA_ARCH = "gemma2-2b"
+GEMMA_CHECK_LAYERS = 4
+GEMMA_ROW_SEQ = 32768
+GEMMA_BWD_SEQ = 4096
 # f32 card-vs-CPU logits and bf16 decode-vs-prefill logits, relative to
 # max(1, max |logit|); each run also reads a control (TF32 matmuls; the
 # current token left out of decode attention) that must exceed its limit
@@ -1011,7 +1035,7 @@ def lm_model_check(cfg, seed: int, device, prompt: int = 128,
     the card run's launches (``launches``), and ok needs its prefill
     attention on the route ``flash_route`` names for float32 at the
     model's head dim and on no other (the three-piece tensor-core route,
-    ``flash_attention/tc32``, at d = 64 and 128)."""
+    ``flash_attention/tc32``, at d = 64, 128 and 256)."""
     import torch
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import flash_route
@@ -1365,6 +1389,30 @@ def attn_err(got, want, split=None) -> tuple[float, float]:
     return float(delta.max()), float((delta / bound).max())
 
 
+def f64_reference(q, k, v, window: int = 0, softcap: float = 0.0):
+    """The plain version's function in float64 on q, k and v (the float32
+    checks' exact yardstick, F64_SHARE)."""
+    from repro_torch.kernels import ref
+    return ref.mha_reference(q.double(), k.double(), v.double(), True,
+                             window, softcap)
+
+
+def f32_err(got, plain, exact) -> tuple[float, float, str]:
+    """(max |got - yardstick|, ratio, rule) of a float32 output under the
+    rule F64_SHARE states: ``plain`` the plain float32 version's output,
+    ``exact`` the float64 one's. Rule "plain": ``attn_err(got, plain)``;
+    rule "float64": max |got - exact| / (atol + |plain - exact|). Within
+    tolerance when the ratio is at most 1."""
+    if not got.numel():
+        return 0.0, 0.0, "plain"
+    atol = ATTN_TOL["float32"][0]
+    own = (plain.double() - exact).abs()
+    if float(own.max()) <= F64_SHARE * atol:
+        return (*attn_err(got, plain), "plain")
+    diff = (got.double() - exact).abs()
+    return float(diff.max()), float((diff / (atol + own)).max()), "float64"
+
+
 def split_bound(q, k, v, window: int = 0, softcap: float = 0.0):
     """A = sum p|v| / l per output element (the plain version on |v|) for
     the bf16 flash route's check; None for float32, whose route does not
@@ -1432,14 +1480,17 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     (``decode_edge_lengths``) and 0 (exact zeros), windows that start
     inside a chunk and end inside a tile, q not contiguous, and caches TMA
     cannot read (the bf16 route copies them). The bf16 flash route is held
-    to ATTN_TOL plus SPLIT_GROWTH * A, every other route to ATTN_TOL. Each
-    flash case runs on the route ``flash_route`` names (float32 at d = 64
-    and 128 the three-piece tensor-core route) and must be one launch
-    there; in float32 a split one piece short (``ref.TWO_PIECE_TERMS``,
-    emulated) must fail the check at d = 64 and 128 (TWO_PIECE_CASES).
-    Returns the number of kernel calls and the largest ``attn_err``
-    readings by dtype and by route; raises after every case has run if any
-    was out of tolerance."""
+    to ATTN_TOL plus SPLIT_GROWTH * A, every float32 flash case to
+    ``f32_err``'s rule (the plain float32 version within ATTN_TOL, or on
+    the cases where that version is itself off float64, float64 within
+    atol plus its own error), decode to ATTN_TOL. Each flash case runs on
+    the route ``flash_route`` names (float32 at d = 64, 128 and 256 the
+    three-piece tensor-core route) and must be one launch there; in
+    float32 a split one piece short (``ref.TWO_PIECE_TERMS``, emulated)
+    must fail its case's rule at d = 64, 128 and 256 (TWO_PIECE_CASES).
+    Returns the number of kernel calls, the largest readings by dtype and
+    by route, and the float32 flash cases by rule; raises after every case
+    has run if any was out of tolerance."""
     import torch
     from repro_torch.kernels import launch_counts, ref
     from repro_torch.kernels.decode_attention import decode_attention
@@ -1487,10 +1538,10 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
                      (4, 32, 8, 4096, 128, 0, 0.0)]     # phi3.5-moe
     decode_strided_case = (8, 4, 2, 600, 64, 0, 0.0)  # caches TMA cannot read
     worst, routes, bad = {}, {}, []
+    rules = {"plain": 0, "float64": 0}    # float32 flash cases by rule
     calls = 0
 
-    def record(label, dtype, route, got, want, split=None):
-        err, ratio = attn_err(got, want, split)
+    def record(label, dtype, route, err, ratio):
         for w in (worst.setdefault(dtype, {"max_abs_err": 0.0,
                                            "max_ratio": 0.0}),
                   routes.setdefault(f"{route} {dtype}",
@@ -1502,18 +1553,27 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
                        f"tolerance")
 
     def flash(label, name, q, k, v, win, cap):
+        """One case on the card: float32 under f32_err's rule (its float64
+        output returned too), bf16 within ATTN_TOL plus the split's
+        growth."""
         nonlocal calls
         calls += 1
         want = ref.mha_reference(q, k, v, True, win, cap)
         key = f"flash_attention/{flash_route(q.dtype, q.shape[-1])}"
         before = launch_counts().get(key, 0)
-        record(f"flash_attention {name} {label}", name, key,
-               flash_attention(q, k, v, window=win, softcap=cap), want,
-               split_bound(q, k, v, win, cap))
+        got = flash_attention(q, k, v, window=win, softcap=cap)
+        exact = None
+        if name == "float32":
+            exact = f64_reference(q, k, v, win, cap)
+            err, ratio, rule = f32_err(got, want, exact)
+            rules[rule] += 1
+        else:
+            err, ratio = attn_err(got, want, split_bound(q, k, v, win, cap))
+        record(f"flash_attention {name} {label}", name, key, err, ratio)
         if launch_counts().get(key, 0) != before + 1:
             bad.append(f"flash_attention {name} {label}: not one launch on "
                        f"{key}")
-        return want
+        return want, exact
 
     for name in dtypes:
         dtype = getattr(torch, name)
@@ -1541,10 +1601,10 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
             for case in TWO_PIECE_CASES:      # draws stay as they were
                 B, H, Hkv, S, d, win, cap = case
                 q, k, v = _attn_inputs(gen2, B, H, Hkv, S, d, dtype, dev)
-                want = flash(f"{case}", name, q, k, v, win, cap)
-                control_err, control = attn_err(ref.mha_split_reference(
+                want, exact = flash(f"{case}", name, q, k, v, win, cap)
+                control_err, control, _ = f32_err(ref.mha_split_reference(
                     q, k, v, win, cap, TC32_KEY_TILE[d],
-                    ref.TWO_PIECE_TERMS)[0], want)
+                    ref.TWO_PIECE_TERMS)[0], want, exact)
                 ctl = routes.setdefault("two-piece split (control)", {
                     "max_abs_err": 0.0, "min_ratio": float("inf")})
                 ctl["max_abs_err"] = max(ctl["max_abs_err"], control_err)
@@ -1558,8 +1618,8 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
             B, H, Hkv, S, d, win, cap = cancel_case
             q, k, _ = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev)
             v = paired_values(gen, B, Hkv, S, d, dtype, dev)
-            want = flash(f"{cancel_case} cancellation", name, q, k, v, win,
-                         cap)
+            want, _ = flash(f"{cancel_case} cancellation", name, q, k, v,
+                            win, cap)
             control_err, control = attn_err(
                 p_rounded_once(q, k, v, win, cap), want,
                 split_bound(q, k, v, win, cap))
@@ -1576,8 +1636,9 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
             lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
             out = decode_attention(q, k, v, lengths, window=win, softcap=cap)
             label = f"decode_attention {name} {label} {lens}"
-            record(label, name, "decode_attention", out,
-                   ref.decode_reference(q, k, v, lengths, win, cap))
+            record(label, name, "decode_attention",
+                   *attn_err(out, ref.decode_reference(q, k, v, lengths,
+                                                       win, cap)))
             if 0 in lens and out[lens.index(0)].any():
                 bad.append(f"{label}: length 0 gives non-zeros")
 
@@ -1612,7 +1673,8 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     torch.cuda.synchronize()
     if bad:
         raise AssertionError("; ".join(bad))
-    return {"cases": calls, **worst, "routes": routes}
+    return {"cases": calls, **worst, "routes": routes,
+            "float32_flash_rules": rules}
 
 
 def _sdpa(q, k, v, causal: bool):
@@ -1757,26 +1819,34 @@ def attention_kernel_rows(cfg, prefill: dict, decode: dict,
     return rows
 
 
-def _sdpa_f32(q, k, v, causal: bool = True):
+def _sdpa_f32(q, k, v, causal: bool = True, window: int = 0):
     """One float32 ``scaled_dot_product_attention`` call of the same
-    function on the memory-efficient backend (its products on the tensor
-    cores in three-pass TF32), k and v expanded to q's heads beforehand:
-    with ``enable_gqa`` a float32 call may take the math backend, whose
-    dense scores at a 32k prefill are tens of GB. The yardstick of the
-    float32 rows, never used by the port; ``None`` where the backend
-    refuses the inputs."""
+    function but the softcap (SDPA has none) on the memory-efficient
+    backend (its products on the tensor cores in three-pass TF32), k and v
+    expanded to q's heads beforehand: with ``enable_gqa`` a float32 call
+    may take the math backend, whose dense scores at a 32k prefill are tens
+    of GB. A window goes in as a boolean mask. The yardstick of the float32
+    rows, never used by the port; ``None`` where the backend refuses the
+    inputs."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    S = q.shape[2]
     G = q.shape[1] // k.shape[1]
     qc = q.contiguous()
     ke = k.repeat_interleave(G, dim=1).contiguous()
     ve = v.repeat_interleave(G, dim=1).contiguous()
+    mask = None
+    if window > 0:
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                                 > pos[:, None] - window)
 
     def call():
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-            return F.scaled_dot_product_attention(qc, ke, ve,
-                                                  is_causal=causal)
+            return F.scaled_dot_product_attention(
+                qc, ke, ve, attn_mask=mask,
+                is_causal=causal and mask is None)
     try:
         call()
         torch.cuda.synchronize()
@@ -1785,6 +1855,24 @@ def _sdpa_f32(q, k, v, causal: bool = True):
             f"library_ms null")
         return None
     return call
+
+
+def _sdpa_f32_backward(q, k, v, dout):
+    """SDPA's float32 backward through autograd on the efficient backend
+    (expanded heads, causal, no softcap), as a call: the yardstick of the
+    float32 backward rows, never used by the port."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[1] // k.shape[1]
+    qq = q.detach().contiguous().requires_grad_()
+    ke = k.repeat_interleave(G, 1).contiguous().requires_grad_()
+    ve = v.repeat_interleave(G, 1).contiguous().requires_grad_()
+    go = dout.contiguous()
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        so = F.scaled_dot_product_attention(qq, ke, ve, is_causal=True)
+    return lambda: torch.autograd.grad(so, (qq, ke, ve), go,
+                                       retain_graph=True)
 
 
 def simt_flash(q, k, v, window: int = 0, softcap: float = 0.0):
@@ -1837,74 +1925,81 @@ def f32_row(name, err, ms, plain_ms, library_ms, flops, nbytes, hbm,
             else None, **extra}
 
 
-def f32_attention_rows(cfg, prefill: dict, decode: dict, launches: dict,
-                       hbm: float) -> list[dict]:
-    """The float32 serving routes at the serving shapes (the prefill's B
-    and S, the decode phase's cache, the model's strided layouts), each
-    against its plain version on the same card inputs and timed beside
-    its bound and one PyTorch call: ``flash_attention``'s tensor-core
-    route (with the SIMT kernel it replaced at this d, in turns, and a
-    planted fault), the split pre-pass on the same q, k and v (bit for
-    bit against ``ref.split3``; a lo piece left out must differ), and
-    ``decode_attention``'s float32 route. ``launches``: the float32 model
-    check's."""
+def f32_flash_row(cfg, B: int, S: int, window: int, softcap: float,
+                  launches: dict, hbm: float, gen) -> tuple[dict, tuple]:
+    """``flash_attention``'s float32 route at one shape of ``cfg``'s heads
+    (B sequences of S tokens, the model's strided layout, a window and a
+    softcap) against its plain version on the same card inputs under
+    ``f32_err``'s rule, with a planted fault (PLANTED_DROP keys of each
+    row's last left out) that must fail it; timed in turns with the SIMT
+    kernel (``simt_flash``) and beside its split floor, the float32
+    CUDA-core bound, the plain version and SDPA's float32 call
+    (``_sdpa_f32``). ``launches``: a float32 model check's. Returns the row
+    and its q, k, v."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_route,
-                                                     split_pieces)
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(F32_ROWS_SEED)
+    from repro_torch.kernels.flash_attention import (attention_ops,
+                                                     flash_attention,
+                                                     flash_route)
     H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    B, S = prefill["batch"], prefill["seq"]
     route = flash_route(torch.float32, d)
-    q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, torch.float32, dev)
-    shape = f"{cfg.name}: B={B} H={H} Hkv={Hkv} S={S} d={d} float32"
+    q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, torch.float32, torch.device(
+        "cuda"))
+    shape = (f"{cfg.name}: B={B} H={H} Hkv={Hkv} S={S} d={d} window="
+             f"{window} softcap={softcap:g} float32")
 
     def kern():
-        return flash_attention(q, k, v)
+        return flash_attention(q, k, v, window=window, softcap=softcap)
 
     def plain():
-        return ref.mha_reference(q, k, v)
+        return ref.mha_reference(q, k, v, True, window, softcap)
 
     want = plain()
-    err, ratio = attn_err(kern(), want)
-    control = attn_err(ref.mha_reference(q, k, v, True,
-                                         max(1, S - PLANTED_DROP)), want)[1]
-    simt_err = attn_err(simt_flash(q, k, v), want)[0]
-    del want
+    exact = f64_reference(q, k, v, window, softcap)
+    err, ratio, rule = f32_err(kern(), want, exact)
+    control = f32_err(ref.mha_reference(
+        q, k, v, True, max(1, (window or S) - PLANTED_DROP), softcap), want,
+        exact)[1]
+    simt_err = f32_err(simt_flash(q, k, v, window, softcap), want, exact)[0]
+    del want, exact
     torch.cuda.empty_cache()
     if not ratio <= 1.0 or not control > 1.0:
         raise AssertionError(f"flash_attention [{shape}] route {route}: "
-                             f"{ratio}x the tolerance, planted fault "
-                             f"{control}x")
-    pairs = B * H * S * (S + 1) // 2
-    flops = 4 * d * pairs
+                             f"{ratio}x the tolerance ({rule} rule), "
+                             f"planted fault {control}x")
+    flops = attention_ops(B, H, S, d, window)
     nbytes = 4 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
-    lib = _sdpa_f32(q, k, v)
-    lib_err = attn_err(lib(), plain())[0] if lib else None
-    ms, simt_ms = in_turns(kern, lambda: simt_flash(q, k, v), 1, 3)
+    lib = _sdpa_f32(q, k, v, window=window)
+    lib_err = attn_err(lib(), ref.mha_reference(q, k, v, True, window)
+                       )[0] if lib else None
+    ms, simt_ms = in_turns(kern, lambda: simt_flash(q, k, v, window, softcap),
+                           1, 3)
     row = f32_row(f"flash_attention/{route}", err, ms,
                   time_ms(plain, calls=1, reps=1),
                   time_ms(lib, calls=1, reps=3) if lib else None, flops,
                   nbytes, hbm, launches.get(f"flash_attention/{route}", 0),
-                  simt_ms=simt_ms)
+                  simt_ms=simt_ms, shape=shape)
     log(f"kernel flash_attention/{route} [{shape}]: kernel_ms={row['ms']} "
         f"simt_ms={simt_ms} (the SIMT kernel, same inputs, in turns) "
         f"bound_ms={row['bound_ms']} ({row['bound_by']}: {flops} operations"
         f" at a sixth of the bf16 peak) cuda_core_bound_ms="
         f"{row['cuda_core_bound_ms']} plain_ms={row['plain_ms']} library_ms"
-        f"={row['library_ms']} (SDPA efficient, float32, expanded heads; "
-        f"max |library - plain| {lib_err}) launches={row['launches']} "
-        f"max_abs_err={err} ({ratio}x the tolerance; SIMT {simt_err}; "
-        f"planted fault {control}x); {flops / ms / 1e9} TFLOP/s of the "
-        f"function")
-    rows = [row]
+        f"={row['library_ms']} (SDPA efficient, float32, expanded heads, "
+        f"no softcap; max |library - plain without softcap|"
+        f" {lib_err}) launches={row['launches']} max_abs_err={err} ({ratio}x"
+        f" the tolerance, {rule} rule; SIMT {simt_err}; planted fault "
+        f"{control}x); {flops / ms / 1e9} TFLOP/s of the function")
     del lib
     torch.cuda.empty_cache()
+    return row, (q, k, v)
 
-    # the split pre-pass on the same q, k and v
+
+def split_pieces_check(q, k, v, shape: str) -> None:
+    """The split pre-pass on q, k and v against ``ref.split3`` bit for bit;
+    a lo piece left out must differ. Raises if either fails."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import split_pieces
     pieces = split_pieces(q, k, v)
     exact = all(torch.equal(p[i], want_i)
                 for t, p in zip((q, k, v), pieces)
@@ -1916,6 +2011,32 @@ def f32_attention_rows(cfg, prefill: dict, decode: dict, launches: dict,
         raise AssertionError(f"split pre-pass [{shape}]: equal to split3 "
                              f"{exact}, its lo piece tells from none "
                              f"{planted}")
+
+
+def f32_attention_rows(cfg, prefill: dict, decode: dict, launches: dict,
+                       hbm: float) -> list[dict]:
+    """The float32 serving routes at the serving shapes (the prefill's B
+    and S, the decode phase's cache, the model's strided layouts), each
+    against its plain version on the same card inputs and timed beside
+    its bound and one PyTorch call: ``flash_attention``'s tensor-core
+    route (``f32_flash_row``), the split pre-pass on the same q, k and v
+    (bit for bit against ``ref.split3``; a lo piece left out must differ),
+    and ``decode_attention``'s float32 route. ``launches``: the float32
+    model check's."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import split_pieces
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(F32_ROWS_SEED)
+    H, Hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    B, S = prefill["batch"], prefill["seq"]
+    row, (q, k, v) = f32_flash_row(cfg, B, S, 0, 0.0, launches, hbm, gen)
+    rows = [row]
+    shape = f"{cfg.name}: B={B} H={H} Hkv={Hkv} S={S} d={d} float32"
+
+    # the split pre-pass on the same q, k and v
+    split_pieces_check(q, k, v, shape)
     n = q.numel() + k.numel() + v.numel()
     row = f32_row("flash_attention/split", 0.0,
                   time_ms(lambda: split_pieces(q, k, v), calls=5, reps=5),
@@ -2053,8 +2174,9 @@ def _attn_row(name, kern, plain, planted, lib, how, flops, nbytes, hbm,
 
 
 def lm_phase(args, hbm: float | None, device) -> list[dict]:
-    """The LM serving phase at full width; returns the attention kernels'
-    rows (none off the card)."""
+    """The LM serving phase at full width, then gemma2-2b's float32 path
+    (``gemma_f32_phase``); returns the attention kernels' rows (none off
+    the card)."""
     import torch
     from repro_torch.configs.registry import LM_SHAPES, get_spec
     from repro_torch.kernels.decode_attention import decode_attention
@@ -2121,9 +2243,50 @@ def lm_phase(args, hbm: float | None, device) -> list[dict]:
 
     cases = check_attention_cases(device)
     log(f"attention edge cases within (atol, rtol) {ATTN_TOL}, the bf16 "
-        f"flash route plus {SPLIT_GROWTH} * A: {json.dumps(cases)}")
+        f"flash route plus {SPLIT_GROWTH} * A, float32 under f32_err's "
+        f"rule: {json.dumps(cases)}")
     rows = attention_kernel_rows(cfg, pre, dec, hbm)
-    return rows + f32_attention_rows(cfg, pre, dec, check["launches"], hbm)
+    rows += f32_attention_rows(cfg, pre, dec, check["launches"], hbm)
+    return rows + gemma_f32_phase(args, hbm, device)
+
+
+def gemma_f32_phase(args, hbm: float, device) -> list[dict]:
+    """gemma2-2b's float32 path: the model check at full width and
+    GEMMA_CHECK_LAYERS layers (its attention all on the three-piece route
+    at d = 256, one launch a layer, none on ``/simt``), then
+    ``flash_attention``'s float32 rows at a global and a local layer's
+    prefill (``f32_flash_row``), the split pre-pass held to ``ref.split3``
+    on the global row's q, k and v at d = 256."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs.registry import get_spec
+
+    full = get_spec(GEMMA_ARCH).config
+    cfg = dc.replace(full, n_layers=GEMMA_CHECK_LAYERS)
+    t0 = time.perf_counter()
+    check = lm_model_check(cfg, args.seed, device)
+    log(f"lm model check (f32, card vs CPU, {cfg.name} at "
+        f"{GEMMA_CHECK_LAYERS} of {full.n_layers} layers, full width): "
+        f"{json.dumps(check)} in {time.perf_counter() - t0:.1f} s")
+    tc32 = check["launches"].get("flash_attention/tc32", 0)
+    if not check["ok"] or tc32 != GEMMA_CHECK_LAYERS:
+        raise AssertionError(f"{cfg.name}: f32 logits differ or attention "
+                             f"off the tc32 route ({tc32} launches): "
+                             f"{check}")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(F32_ROWS_SEED)
+    rows = []
+    for window in (0, full.window):
+        row, qkv = f32_flash_row(full, PREFILL_BATCH, GEMMA_ROW_SEQ, window,
+                                 full.attn_softcap, check["launches"], hbm,
+                                 gen)
+        rows.append(row)
+        if not window:
+            split_pieces_check(*qkv, row["shape"])
+        del qkv
+        torch.cuda.empty_cache()
+    return rows
 
 
 def no_drop(cfg):
@@ -4741,8 +4904,10 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     8), strided and contiguous layouts, element by element within
     ``flash_bwd_bound``, each case on the route ``bwd_route`` names for it
     (bf16 the tensor cores, float32 the three-piece tensor-core route at
-    d = 64 and 128 and SIMT at the other head dims), read off its one
-    launch; on the float32 tensor-core route's capped cases a split one
+    d = 64, 128 and 256 and SIMT at 16 and 32), read off its one launch;
+    the forward's float32 output under ``f32_err``'s rule (its capped cases
+    scale q by c / 2, where the plain float32 version is off float64); on
+    the float32 tensor-core route's capped cases a split one
     piece short (``ref.mha_split_backward_reference`` with
     ``ref.TWO_PIECE_TERMS``) must fail the bound on at least one (its
     smallest and largest ratios are returned); each case also reads a
@@ -4767,6 +4932,7 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     gen = torch.Generator(device=dev).manual_seed(17)
     worst, bad = {}, []
     routes: dict = {}
+    rules = {"plain": 0, "float64": 0}    # float32 forward outputs by rule
     cases = 0
 
     def note(key, ratio, control):
@@ -4809,8 +4975,15 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
                                dtype=dtype).transpose(1, 2)
             lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
             o = flash_attention(q, k, v, window=win, softcap=cap, lse=lse)
-            o_ratio = attn_err(o, ref.mha_reference(q, k, v, True, win, cap),
-                               split_bound(q, k, v, win, cap))[1]
+            o_want = ref.mha_reference(q, k, v, True, win, cap)
+            if name == "float32":
+                _, o_ratio, rule = f32_err(o, o_want, f64_reference(
+                    q, k, v, win, cap))
+                rules[rule] += 1
+            else:
+                o_ratio = attn_err(o, o_want,
+                                   split_bound(q, k, v, win, cap))[1]
+            del o_want
             note(f"o {name}", o_ratio, None)
             if not o_ratio <= 1.0:
                 bad.append(f"{label}: the forward's output {o_ratio}x its "
@@ -4919,7 +5092,8 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
                    f"the bound on every capped float32 case ({two})")
     if bad:
         raise AssertionError("; ".join(bad))
-    return {"cases": cases, "flash_routes": routes, **worst}
+    return {"cases": cases, "flash_routes": routes,
+            "float32_o_rules": rules, **worst}
 
 
 def lm_loss_check(cfg, seed: int, device, ref_device="cpu") -> dict:
@@ -5617,20 +5791,20 @@ def flash_bwd_row(cfg, launches: dict, hbm: float, B: int = TRAIN_BATCH,
 
 
 def f32_bwd_row(cfg, launches: dict, hbm: float, B: int = TRAIN_BATCH,
-                S: int = TRAIN_SEQ) -> dict:
+                S: int = TRAIN_SEQ, softcap: float = 0.0) -> dict:
     """``flash_attention_bwd``'s float32 route at a training step's shape
     (one layer of ``cfg``: B sequences of S tokens, float32, the model's
-    strided layout) against autograd of the plain version on the same card
-    inputs within ``flash_bwd_bound``, with two planted faults (Delta left
-    out; ``late_rows_wrong``) failing it, from the forward's own output and
-    lse (held to ATTN_TOL and LSE_TOL); timed in turns with the SIMT kernel
-    it replaced at this d (``simt_bwd``), beside its split floor (2.5x the
-    forward's operations at SPLIT_OPS_PER_S) and the float32 CUDA-core
+    strided layout, a softcap) against autograd of the plain version on
+    the same card inputs within ``flash_bwd_bound``, with two planted
+    faults (the softcap's factor left out, or Delta without a softcap;
+    ``late_rows_wrong``) failing it, from the forward's own output and lse
+    (the output under ``f32_err``'s rule, the lse within LSE_TOL); timed in
+    turns with the SIMT kernel (``simt_bwd``), beside its split floor (2.5x
+    the forward's operations at SPLIT_OPS_PER_S) and the float32 CUDA-core
     bound, the plain version and SDPA's float32 backward (the efficient
-    backend, expanded heads). ``launches``: the float32 loss check's."""
+    backend, expanded heads, no softcap: SDPA has none). ``launches``: a
+    float32 loss check's."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (bwd_route,
                                                      flash_attention,
@@ -5643,30 +5817,36 @@ def f32_bwd_row(cfg, launches: dict, hbm: float, B: int = TRAIN_BATCH,
     dout = torch.randn((B, S, H, d), generator=gen,
                        device=dev).transpose(1, 2)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    o = flash_attention(q, k, v, lse=lse)
-    shape = f"B={B} H={H} Hkv={Hkv} S={S} d={d} float32"
-    o_ratio = attn_err(o, ref.mha_reference(q, k, v))[1]
-    lse_want = ref.mha_lse_reference(q, k)
+    o = flash_attention(q, k, v, softcap=softcap, lse=lse)
+    shape = (f"{cfg.name}: B={B} H={H} Hkv={Hkv} S={S} d={d} softcap="
+             f"{softcap:g} float32")
+    _, o_ratio, o_rule = f32_err(o, ref.mha_reference(q, k, v, True, 0,
+                                                      softcap),
+                                 f64_reference(q, k, v, 0, softcap))
+    lse_want = ref.mha_lse_reference(q, k, 0, softcap)
     lse_ratio = float(((lse - lse_want).abs()
                        / (LSE_TOL * lse_want.abs().clamp(min=1.0))).max())
     del lse_want
     if not (o_ratio <= 1.0 and lse_ratio <= 1.0):
         raise AssertionError(f"flash_attention [{shape}] with lse: output "
-                             f"{o_ratio}x, lse {lse_ratio}x the tolerance")
+                             f"{o_ratio}x ({o_rule} rule), lse {lse_ratio}x "
+                             f"the tolerance")
 
     def kern():
-        return flash_attention_bwd(q, k, v, o, dout, lse)
+        return flash_attention_bwd(q, k, v, o, dout, lse, 0, softcap)
 
     def plain():
-        return ref.flash_attention_backward_reference(q, k, v, dout)
+        return ref.flash_attention_backward_reference(q, k, v, dout, 0,
+                                                      softcap)
 
     want = plain()
     got = kern()
-    bound = flash_bwd_bound(q, k, v, o, dout, want)
+    bound = flash_bwd_bound(q, k, v, o, dout, want, 0, softcap)
     err, ratio = bwd_err(got, want, bound)
+    fault = "softcap" if softcap > 0 else "delta"
     controls = {
-        "delta": bwd_err(flash_bwd_math(q, k, v, o, dout, lse,
-                                        fault="delta"), want, bound)[1],
+        fault: bwd_err(flash_bwd_math(q, k, v, o, dout, lse, 0, softcap,
+                                      fault=fault), want, bound)[1],
         "late_rows": bwd_err(late_rows_wrong(got), want, bound)[1]}
     del want, got, bound
     torch.cuda.empty_cache()
@@ -5674,19 +5854,9 @@ def f32_bwd_row(cfg, launches: dict, hbm: float, B: int = TRAIN_BATCH,
         raise AssertionError(f"flash_attention_bwd [{shape}] route {route}: "
                              f"{ratio}x the bound (max abs err {err}), "
                              f"planted faults {controls}")
-    G = H // Hkv
-    qq = q.detach().contiguous().requires_grad_()
-    ke = k.repeat_interleave(G, 1).contiguous().requires_grad_()
-    ve = v.repeat_interleave(G, 1).contiguous().requires_grad_()
-    go = dout.contiguous()
-    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-        so = F.scaled_dot_product_attention(qq, ke, ve, is_causal=True)
-
-    def lib():
-        return torch.autograd.grad(so, (qq, ke, ve), go, retain_graph=True)
-
+    lib = _sdpa_f32_backward(q, k, v, dout)
     ms, simt_ms = in_turns(
-        kern, lambda: simt_bwd(q, k, v, o, dout, lse), 3, 3)
+        kern, lambda: simt_bwd(q, k, v, o, dout, lse, 0, softcap), 3, 3)
     pairs = B * H * S * (S + 1) // 2
     flops = 2.5 * 4 * d * pairs
     nbytes = 4 * (4 * B * H * S * d + 4 * B * Hkv * S * d) + 4 * B * H * S
@@ -5694,19 +5864,19 @@ def f32_bwd_row(cfg, launches: dict, hbm: float, B: int = TRAIN_BATCH,
                   time_ms(plain, calls=1, reps=1),
                   time_ms(lib, calls=3, reps=3), flops, nbytes, hbm,
                   launches.get(f"flash_attention_bwd/{route}", 0),
-                  simt_ms=simt_ms)
+                  simt_ms=simt_ms, shape=shape)
     log(f"kernel flash_attention_bwd/{route} [{shape}]: kernel_ms="
         f"{row['ms']} simt_ms={simt_ms} (the SIMT kernel, same inputs, in "
         f"turns) bound_ms={row['bound_ms']} ({row['bound_by']}: {flops} "
         f"operations, 2.5x the forward's, at a sixth of the bf16 peak) "
         f"cuda_core_bound_ms={row['cuda_core_bound_ms']} plain_ms="
         f"{row['plain_ms']} library_ms={row['library_ms']} (SDPA backward "
-        f"through autograd, efficient, float32, expanded heads) launches="
-        f"{row['launches']} max_abs_err={err} ({ratio}x flash_bwd_bound; "
-        f"planted faults {json.dumps(controls)}); forward with lse: output "
-        f"{o_ratio}x, lse {lse_ratio}x the tolerance; {flops / ms / 1e9} "
-        f"TFLOP/s by that count")
-    del q, k, v, o, dout, lse, qq, ke, ve, so, go
+        f"through autograd, efficient, float32, expanded heads, no softcap)"
+        f" launches={row['launches']} max_abs_err={err} ({ratio}x "
+        f"flash_bwd_bound; planted faults {json.dumps(controls)}); forward "
+        f"with lse: output {o_ratio}x ({o_rule} rule), lse {lse_ratio}x the "
+        f"tolerance; {flops / ms / 1e9} TFLOP/s by that count")
+    del q, k, v, o, dout, lse, lib
     torch.cuda.empty_cache()
     return row
 
@@ -5796,12 +5966,15 @@ def bag_bwd_row(cfg, batch: dict, launches: dict, hbm: float) -> dict:
 def train_phase(args, hbm: float, device) -> tuple[list[dict], dict]:
     """Training on the card: both backward kernels' edge cases, the f32
     ``lm_loss`` step card vs CPU at GRAD_CHECK_LAYERS layers of full width
-    with its TF32 control, a checkpoint of that state saved and restored on
-    the card, qwen3-0.6b (full width and depth, bf16) and Wide&Deep (full
-    width, f32) taking TRAIN_STEPS AdamW steps each, then the backward
-    kernels' rows, then GNN training (``gnn_train_phase``). Launch counts
-    are reset before each model's steps and read after them. Returns the
-    two rows and the launches of every kernel over all models' steps."""
+    with its TF32 control (qwen3-0.6b, then gemma2-2b, whose d = 256 takes
+    the float32 three-piece routes), a checkpoint of qwen3's state saved
+    and restored on the card, qwen3-0.6b (full width and depth, bf16) and
+    Wide&Deep (full width, f32) taking TRAIN_STEPS AdamW steps each, then
+    the backward kernels' rows (the float32 one at qwen3's training shape
+    and at gemma2's layer), then GNN training (``gnn_train_phase``).
+    Launch counts are reset before each model's steps and read after them.
+    Returns the rows and the launches of every kernel over all models'
+    steps."""
     import dataclasses as dc
 
     import torch
@@ -5829,6 +6002,17 @@ def train_phase(args, hbm: float, device) -> tuple[list[dict], dict]:
         f"{time.perf_counter() - t0:.1f} s")
     if not check["ok"]:
         raise AssertionError(f"lm_loss card vs CPU: {check}")
+    gfull = get_spec(GEMMA_ARCH).config
+    gsmall = dc.replace(gfull, n_layers=GRAD_CHECK_LAYERS)
+    t0 = time.perf_counter()
+    gcheck = lm_loss_check(gsmall, args.seed, device)
+    log(f"train: lm_loss f32 step card vs CPU ({gsmall.name} at "
+        f"{GRAD_CHECK_LAYERS} layers, full width): {json.dumps(gcheck)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not gcheck["ok"]:
+        raise AssertionError(f"lm_loss card vs CPU ({gsmall.name}): "
+                             f"{gcheck}")
+    torch.cuda.empty_cache()
     from repro_torch.models.transformer import init_lm_params
     params = init_lm_params(small, torch.Generator(device=device).manual_seed(
         args.seed), torch.float32, device)
@@ -5866,7 +6050,9 @@ def train_phase(args, hbm: float, device) -> tuple[list[dict], dict]:
                              f"finite: {lm['losses']}")
     torch.cuda.empty_cache()
     rows = [flash_bwd_row(cfg, launches, hbm),
-            f32_bwd_row(cfg, check["launches"], hbm)]
+            f32_bwd_row(cfg, check["launches"], hbm),
+            f32_bwd_row(gfull, gcheck["launches"], hbm, 1, GEMMA_BWD_SEQ,
+                        gfull.attn_softcap)]
 
     rcfg = get_spec(RECSYS_ARCH).config
     t0 = time.perf_counter()

@@ -4,7 +4,8 @@
 ``decode_attention`` and the float32 attention routes beside timing-only
 variants of themselves, on one NVIDIA GPU.
 
-    python3 chip_variants.py            # from the root of a checkout
+    python3 chip_variants.py            # from the root of a checkout:
+                                        # every section but decode
     python3 chip_variants.py --kernels segment,probe
                                         # some of the eight sections
     git archive <commit> src/repro_torch/csrc/flash_tc.cu \
@@ -110,14 +111,21 @@ O by the tensor cores, not in a fresh accumulator), each held to
 ``ATTN_TOL["float32"]`` against the plain version first, the shipped
 route's output to a first call's bit for bit; then timed in turns with the
 profiler's device time of ``flash32_kernel`` and of the split pre-pass.
-Before that, on 18 capped cases of the backward check's kind (q scaled by
-c / 2, caps 20, 30 and 50, d 64 and 128), the largest error of the three
-and of the plain float32 version against float64, and of the three
-against the plain version.
+Before that, on capped cases of the backward check's kind (q scaled by
+c / 2, caps 20, 30 and 50; 9 draws at d = 64 and at 128, 18 at 256), the
+largest error of the routes and of the plain float32 version against
+float64, of the routes against the plain version, and of each route's
+``chip_smoke.f32_err`` ratio (the float32 checks' rule).
 Then the backward at qwen3-0.6b's training shape (B 8, S 2,048): the
 route (``csrc/flash_bwd_f32_tc.cu``) beside ``chip_smoke.simt_bwd``, each
 held to ``flash_bwd_bound``, timed in turns, with the device time of each
-of its kernels. With ``--parent-bf16 DIR`` (a directory holding an
+of its kernels. Then gemma2-2b's d = 256 (``d256_section``): the forward
+at a global layer's prefill (B 1, H 8/4, S 32,768, softcap 50) and a
+local one's (window 4,096), the backward at B 1, S 4,096, softcap 50,
+each route beside the SIMT kernel and SDPA's float32 call (no softcap),
+in turns, with its kernels' device times; and the SIMT kernels at d = 16
+and 32 (``simt_rows``: forward at B 1, H 16/8, S 32,768, backward at B
+8, S 2,048) beside their plain versions and SDPA. With ``--parent-bf16 DIR`` (a directory holding an
 earlier ``flash_tc.cu`` and ``flash_bwd_tc.cu``) the bf16 routes at
 qwen3-0.6b's prefill and training shapes run beside those sources' builds,
 called as the wrappers call the shipped libraries: outputs bit for bit
@@ -265,6 +273,22 @@ _EXACT_PROJECT = _PROJECT + r"""
 template <int KMAX>
 """ + _PROJECT.replace("project(", "project_bisect(")
 
+# the 64 x 16 score product f32_bk16 needs, which the shipped plans do not
+_WGMMA_SS16 = r"""template <>
+__device__ __forceinline__ void wgmma_ss<16>(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+"""
+
 # name: (source file, [(shipped text, variant text)])
 VARIANTS = {
     # no L2 hints at all: plain stores, bulk copies without a policy
@@ -317,6 +341,16 @@ VARIANTS = {
     "f32_no_fresh_pv": ("flash_f32_tc.cu", [
         ("  static constexpr bool FRESH_PV = true;",
          "  static constexpr bool FRESH_PV = false;")]),
+    # the float32 forward at d = 256 on the other plan that fits its shared
+    # memory: two stages of 16-key K and V tiles (S a 64 x 16 wgmma)
+    "f32_bk16": ("flash_f32_tc.cu", [
+        ("  static constexpr int BK = D == 64 ? 64 : 32;    // keys a tile\n"
+         "  static constexpr int STAGES = D == 64 ? 3 : D == 128 ? 2 : 1;",
+         "  static constexpr int BK = D == 256 ? 16 : D == 128 ? 32 : 64;\n"
+         "  static constexpr int STAGES = D == 64 ? 3 : 2;"),
+        ("template <>\n__device__ __forceinline__ void wgmma_ss<32>(",
+         _WGMMA_SS16 + "template <>\n"
+         "__device__ __forceinline__ void wgmma_ss<32>(")]),
     # the d = 256 backward with d <= 128's block order: the (head, batch)
     # pairs one after another, the longest tiles first within each
     "bwd_head_major": ("flash_bwd_tc.cu", [
@@ -353,6 +387,9 @@ BWD_PHASES = ("bwd_no_math", "bwd_no_rs", "bwd_no_ss", "bwd_no_bar",
               "bwd_no_empty_wait")
 SECTIONS = ("bag", "scan", "segment", "probe", "qad", "bwd", "decode",
             "f32")
+# the sections run when none is named: decode times an earlier build of
+# its source, which a checkout does not hold, so it runs only when named
+DEFAULT_SECTIONS = tuple(s for s in SECTIONS if s != "decode")
 
 
 def log(msg: str) -> None:
@@ -428,7 +465,7 @@ SECTION_VARIANTS = {"bag": ("bag_nohint", "bag_evictlast"),
                     "segment": ("seg_nocarry",), "probe": ("probe_old",),
                     "qad": ("qad_noexit", "qad_vote1", "qad_exact"),
                     "bwd": ("bwd_whole", "bwd_head_major", *BWD_PHASES),
-                    "decode": (), "f32": ("f32_no_fresh_pv",)}
+                    "decode": (), "f32": ("f32_no_fresh_pv", "f32_bk16")}
 # the parent's decode_tc.cu argument types: q, k, v, lengths, o, part,
 # tickets, strides, B, H, Hkv, S, D, chunk, window, softcap, scale, stream
 _PARENT_DECODE = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
@@ -437,8 +474,10 @@ _PARENT_DECODE = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", default=",".join(SECTIONS),
-                    help=f"comma-separated sections of {SECTIONS}")
+    ap.add_argument("--kernels", default=",".join(DEFAULT_SECTIONS),
+                    help=f"comma-separated sections of {SECTIONS} (by "
+                         f"default all but decode, which needs "
+                         f"--parent-decode)")
     ap.add_argument("--parent-decode", type=Path,
                     default=OUT.parent / "parent" / "decode_tc.cu",
                     help="the decode section's earlier csrc/decode_tc.cu "
@@ -451,12 +490,12 @@ def main(argv: list[str] | None = None) -> int:
     sections = args.kernels.split(",")
     if not set(sections) <= set(SECTIONS):
         ap.error(f"--kernels takes {SECTIONS}")
-    if "decode" in sections and not args.parent_decode.is_file():
-        ap.error(f"--parent-decode {args.parent_decode}: no such file")
     import torch
     if not torch.cuda.is_available():
         print("chip_variants: CUDA is not available", file=sys.stderr)
         return 1
+    if "decode" in sections and not args.parent_decode.is_file():
+        ap.error(f"--parent-decode {args.parent_decode}: no such file")
     sys.path.insert(0, str(REPO / "src"))
     import chip_smoke as smoke
     from repro_torch.configs.registry import get_spec
@@ -1115,57 +1154,50 @@ def f32_section(libs, smoke, times, run_in_turns, stream, dev) -> None:
             raise RuntimeError(f"flash_attention_bwd (bf16): CUDA error {rc}")
         return dq, dk, dv
 
-    def f64_attention(q, k, v, window, softcap):
-        """The plain version's function in float64 (dense; small S)."""
-        B, H, S, d = q.shape
-        G = H // k.shape[1]
-        s = torch.einsum("bhqd,bhkd->bhqk", q.double(),
-                         k.double().repeat_interleave(G, 1)) * d ** -0.5
-        if softcap > 0:
-            s = torch.tanh(s / softcap) * softcap
-        pos = torch.arange(S, device=dev)
-        mask = pos[None, :] <= pos[:, None]
-        if window > 0:
-            mask &= pos[None, :] > pos[:, None] - window
-        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
-        return torch.einsum("bhqk,bhkd->bhqd", p,
-                            v.double().repeat_interleave(G, 1))
-
-    # The float32 forward's error on the backward check's capped cases (its
-    # 64- and 128-dim ones, q scaled by c / 2 as check_backward_cases scales
-    # it), each route and the plain float32 version against float64 and
-    # the routes against the plain version, in units of ATTN_TOL's 1e-5
+    # The float32 forward's error on capped cases of the backward check's
+    # kind (q scaled by c / 2 as check_backward_cases scales it): 9 draws
+    # at d = 64 and 128 each, 18 at d = 256. Each route's and the plain
+    # float32 version's largest error from float64 and the routes' from the
+    # plain version, in units of ATTN_TOL's 1e-5, and the largest ratio of
+    # chip_smoke.f32_err (the checks' rule) of each route
     gen = torch.Generator(device=dev).manual_seed(31)
     worst: dict = {}
     n = 0
-    for d in (64, 128):
-        for G in (1, 2, 4):
-            for win, cap in ((0, 30.0), (100, 20.0), (0, 50.0)):
-                B, H, Hkv, S = 1 + n % 2, 2 * G, 2, 125 + 87 * n
-                n += 1
-                q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d,
-                                             torch.float32, dev)
-                q = q * (cap / 2)
-                exact = f64_attention(q, k, v, win, cap)
-                outs = {"plain": ref.mha_reference(q, k, v, True, win, cap),
-                        "tc32 route": flash_attention(q, k, v, window=win,
-                                                      softcap=cap),
-                        "SIMT route": smoke.simt_flash(q, k, v, win, cap)}
-                if "f32_no_fresh_pv" in libs:
-                    outs["f32_no_fresh_pv"] = tc32_variant(
-                        libs["f32_no_fresh_pv"], q, k, v, win, cap)
-                for name, o in outs.items():
-                    for against, want in (("float64", exact),
-                                          ("plain", outs["plain"])):
-                        if name == "plain" and against == "plain":
-                            continue
-                        key = f"{name} vs {against}, cap {cap:g}"
-                        err = float((o.double() - want.double()).abs().max())
-                        worst[key] = max(worst.get(key, 0.0), err / 1e-5)
+    draws = [(d, G, win, cap) for d in (64, 128) for G in (1, 2, 4)
+             for win, cap in ((0, 30.0), (100, 20.0), (0, 50.0))]
+    draws += [(256, G, win, cap) for G in (1, 2, 4)
+              for win, cap in ((0, 30.0), (100, 20.0), (0, 50.0),
+                               (0, 50.0), (300, 50.0), (0, 20.0))]
+    for d, G, win, cap in draws:
+        B, H, Hkv, S = 1 + n % 2, 2 * G, 2, 125 + 87 * (n % 9)
+        n += 1
+        q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.float32,
+                                     dev)
+        q = q * (cap / 2)
+        exact = smoke.f64_reference(q, k, v, win, cap)
+        outs = {"plain": ref.mha_reference(q, k, v, True, win, cap),
+                "tc32 route": flash_attention(q, k, v, window=win,
+                                              softcap=cap),
+                "SIMT route": smoke.simt_flash(q, k, v, win, cap)}
+        if "f32_no_fresh_pv" in libs:
+            outs["f32_no_fresh_pv"] = tc32_variant(
+                libs["f32_no_fresh_pv"], q, k, v, win, cap)
+        for name, o in outs.items():
+            for against, want in (("float64", exact),
+                                  ("plain", outs["plain"])):
+                if name == "plain" and against == "plain":
+                    continue
+                key = f"d {d}: {name} vs {against}, cap {cap:g}"
+                err = float((o.double() - want.double()).abs().max())
+                worst[key] = max(worst.get(key, 0.0), err / 1e-5)
+            if name != "plain":
+                key = f"d {d}: {name} f32_err ratio"
+                ratio = smoke.f32_err(o, outs["plain"], exact)[1]
+                worst[key] = max(worst.get(key, 0.0), ratio)
     for key, ratio in worst.items():
-        times[f"f32 capped cases {key} (x 1e-5)"] = ratio
-        log(f"flash_attention f32, capped cases (q x c / 2, d 64 and 128): "
-            f"{key}: {ratio} x 1e-5")
+        times[f"f32 capped cases {key}"] = ratio
+        log(f"flash_attention f32, capped cases (q x c / 2): {key}: "
+            f"{ratio}" + ("" if "ratio" in key else " x 1e-5"))
 
     gen = torch.Generator(device=dev).manual_seed(23)
     for arch in (smoke.LM_ARCH, smoke.MOE_ARCH):
@@ -1227,6 +1259,11 @@ def f32_section(libs, smoke, times, run_in_turns, stream, dev) -> None:
     del q, k, v, o, dout, lse, order
     torch.cuda.empty_cache()
 
+    d256_section(smoke, times, run_in_turns, gen, dev,
+                 (lambda *a: tc32_variant(libs["f32_bk16"], *a))
+                 if "f32_bk16" in libs else None)
+    simt_rows(smoke, times, gen, dev)
+
     if "flash_parent" in libs:
         # the bf16 routes against an earlier build of their sources, both
         # libraries called the same way; then each kernel's device time
@@ -1276,8 +1313,166 @@ def f32_section(libs, smoke, times, run_in_turns, stream, dev) -> None:
             torch.cuda.empty_cache()
     for line in _build.build_log("flash32", "bwd32").splitlines():
         log(f"ptxas: {line.strip()}")
-    for line in BUILD_LOGS.get("f32_no_fresh_pv", "").splitlines():
-        log(f"ptxas (f32_no_fresh_pv): {line.strip()}")
+    for name in SECTION_VARIANTS["f32"]:
+        for line in BUILD_LOGS.get(name, "").splitlines():
+            log(f"ptxas ({name}): {line.strip()}")
+
+
+def d256_section(smoke, times, run_in_turns, gen, dev, bk16=None) -> None:
+    """gemma2-2b's float32 attention at d = 256 (the f32 section): the
+    forward at a global layer's prefill (B 1, H 8/4, S 32,768, softcap 50)
+    and a local one's (window 4,096), the backward at train_4k's layer (B
+    1, S 4,096, softcap 50): the three-piece route beside the SIMT kernel,
+    SDPA's float32 call (``chip_smoke._sdpa_f32`` and
+    ``_sdpa_f32_backward``, efficient backend, no softcap) and, for the
+    forward, ``bk16`` (the f32_bk16 build, called as the wrapper calls the
+    shipped one), each route held to its check first, timed in turns, with
+    the device time of each kernel of the route."""
+    import torch
+    from repro_torch.configs.registry import get_spec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    cfg = get_spec(smoke.GEMMA_ARCH).config
+    H, Hkv, d, cap = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.attn_softcap
+    for window in (0, cfg.window):
+        B, S = 1, smoke.GEMMA_ROW_SEQ
+        label = (f"flash_attention gemma2 B={B} H={H}/{Hkv} S={S} d={d} "
+                 f"window={window} softcap={cap:g} f32")
+        q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.float32,
+                                     dev)
+        order = [("tc32 route", lambda: flash_attention(
+                      q, k, v, window=window, softcap=cap)),
+                 ("SIMT route", lambda: smoke.simt_flash(q, k, v, window,
+                                                         cap))]
+        if bk16 is not None:
+            order.insert(1, ("f32_bk16", lambda: bk16(q, k, v, window, cap)))
+        want = ref.mha_reference(q, k, v, True, window, cap)
+        exact = smoke.f64_reference(q, k, v, window, cap)
+        for name, fn in order:
+            err, ratio, rule = smoke.f32_err(fn(), want, exact)
+            times[f"{label} {name} tolerance ratio"] = ratio
+            log(f"{label} {name}: max abs err {err}, {ratio}x ({rule} "
+                f"rule)")
+            if not ratio <= 1.0:
+                raise AssertionError(f"{label} {name}: {ratio}x the check")
+        del want, exact
+        torch.cuda.empty_cache()
+        lib = smoke._sdpa_f32(q, k, v, window=window)
+        if lib is not None:
+            order.append(("SDPA efficient (no softcap)", lib))
+        run_in_turns(label, order, order[0][1](), calls=1,
+                     exact=["tc32 route"])
+        for kernel in ("flash32_kernel", "split_kernel"):
+            ms, n = smoke.kernel_device_ms(order[0][1], kernel, calls=3)
+            times[f"{label} {kernel} device"] = ms
+            log(f"{label} {kernel} device: {ms} ms ({n} launches recorded)")
+        del q, k, v, order, lib
+        torch.cuda.empty_cache()
+
+    B, S = 1, smoke.GEMMA_BWD_SEQ
+    label = (f"flash_attention_bwd gemma2 B={B} H={H}/{Hkv} S={S} d={d} "
+             f"softcap={cap:g} f32")
+    q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.float32, dev)
+    dout = torch.randn((B, S, H, d), generator=gen,
+                       device=dev).transpose(1, 2)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    o = flash_attention(q, k, v, softcap=cap, lse=lse)
+    order = [("tc32 route",
+              lambda: flash_attention_bwd(q, k, v, o, dout, lse, 0, cap)),
+             ("SIMT route",
+              lambda: smoke.simt_bwd(q, k, v, o, dout, lse, 0, cap))]
+    want = ref.flash_attention_backward_reference(q, k, v, dout, 0, cap)
+    bound = smoke.flash_bwd_bound(q, k, v, o, dout, want, 0, cap)
+    for name, fn in order:
+        err, ratio = smoke.bwd_err(fn(), want, bound)
+        times[f"{label} {name} bound ratio"] = ratio
+        log(f"{label} {name}: max abs err {err}, {ratio}x flash_bwd_bound")
+        if not ratio <= 1.0:
+            raise AssertionError(f"{label} {name}: {ratio}x the bound")
+    del want, bound
+    torch.cuda.empty_cache()
+    lib = smoke._sdpa_f32_backward(q, k, v, dout)
+    order.append(("SDPA efficient backward (no softcap)", lib))
+    run_in_turns(label, order, order[0][1](), calls=3, exact=["tc32 route"])
+    for kernel in ("split_kernel", "rows_kernel", "dkdv_kernel", "dq_kernel"):
+        ms, n = smoke.kernel_device_ms(order[0][1], kernel, calls=5)
+        times[f"{label} {kernel} device"] = ms
+        log(f"{label} {kernel} device: {ms} ms ({n} launches recorded)")
+    del q, k, v, o, dout, lse, order, lib
+    torch.cuda.empty_cache()
+
+
+def simt_rows(smoke, times, gen, dev) -> None:
+    """The SIMT float32 kernels at d = 16 and 32, which no zoo config
+    uses: the forward at B 1, H 16/8, S 32,768 and the backward at B 8,
+    H 16/8, S 2,048 (qwen3-0.6b's heads and shapes), each held to its
+    check, timed beside its plain version and SDPA's float32 call, with
+    the split floor and the float32 CUDA-core bound of its operations."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (attention_ops,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    for d in (16, 32):
+        B, H, Hkv, S = 1, 16, 8, 32768
+        label = f"flash_attention SIMT B={B} H={H}/{Hkv} S={S} d={d} f32"
+        q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.float32,
+                                     dev)
+        err, ratio = smoke.attn_err(flash_attention(q, k, v),
+                                    ref.mha_reference(q, k, v))
+        if not ratio <= 1.0:
+            raise AssertionError(f"{label}: {ratio}x ATTN_TOL")
+        ops = attention_ops(B, H, S, d)
+        lib = smoke._sdpa_f32(q, k, v)
+        row = {"ms": smoke.time_ms(lambda: flash_attention(q, k, v),
+                                   calls=1, reps=3),
+               "plain_ms": smoke.time_ms(lambda: ref.mha_reference(q, k, v),
+                                         calls=1, reps=1),
+               "library_ms": smoke.time_ms(lib, calls=1, reps=3)
+               if lib else None,
+               "bound_ms": ops / smoke.SPLIT_OPS_PER_S * 1e3,
+               "cuda_core_bound_ms": ops / smoke.SCALAR_OPS_PER_S * 1e3,
+               "max_abs_err": err}
+        for key, val in row.items():
+            times[f"{label} {key}"] = val
+        log(f"{label}: {json.dumps(row)}")
+        del q, k, v, lib
+        torch.cuda.empty_cache()
+
+        B, S = smoke.TRAIN_BATCH, smoke.TRAIN_SEQ
+        label = (f"flash_attention_bwd SIMT B={B} H={H}/{Hkv} S={S} d={d} "
+                 f"f32")
+        q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.float32,
+                                     dev)
+        dout = torch.randn((B, S, H, d), generator=gen,
+                           device=dev).transpose(1, 2)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        o = flash_attention(q, k, v, lse=lse)
+        want = ref.flash_attention_backward_reference(q, k, v, dout)
+        err, ratio = smoke.bwd_err(
+            flash_attention_bwd(q, k, v, o, dout, lse), want,
+            smoke.flash_bwd_bound(q, k, v, o, dout, want))
+        if not ratio <= 1.0:
+            raise AssertionError(f"{label}: {ratio}x the bound")
+        del want
+        ops = 2.5 * attention_ops(B, H, S, d)
+        lib = smoke._sdpa_f32_backward(q, k, v, dout)
+        row = {"ms": smoke.time_ms(
+                   lambda: flash_attention_bwd(q, k, v, o, dout, lse),
+                   calls=3, reps=3),
+               "plain_ms": smoke.time_ms(
+                   lambda: ref.flash_attention_backward_reference(
+                       q, k, v, dout), calls=1, reps=1),
+               "library_ms": smoke.time_ms(lib, calls=3, reps=3),
+               "bound_ms": ops / smoke.SPLIT_OPS_PER_S * 1e3,
+               "cuda_core_bound_ms": ops / smoke.SCALAR_OPS_PER_S * 1e3,
+               "max_abs_err": err}
+        for key, val in row.items():
+            times[f"{label} {key}"] = val
+        log(f"{label}: {json.dumps(row)}")
+        del q, k, v, o, dout, lse, lib
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

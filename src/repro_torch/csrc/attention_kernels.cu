@@ -1,5 +1,5 @@
 // Float32 attention kernels of the LM serving path, for Hopper (sm_90a):
-// causal prefill attention (flash) at d = 16, 32 and 256, and one-token
+// causal prefill attention (flash) at d = 16 and 32, and one-token
 // attention against a KV cache (decode). Built by
 // repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -7,9 +7,9 @@
 // into its own shared library with a plain C interface, loaded with ctypes.
 // The bfloat16 routes have kernels of their own: prefill on the tensor
 // cores (flash_tc.cu), decode through a TMA ring (decode_tc.cu); and
-// float32 prefill at d = 64 and 128 runs on the tensor cores as bf16
+// float32 prefill at d = 64, 128 and 256 runs on the tensor cores as bf16
 // products of three-piece splits (flash_f32_tc.cu). chip_variants.py
-// --kernels f32 still calls this flash kernel at d = 64 and 128, to time
+// --kernels f32 still calls this flash kernel at d = 64, 128 and 256, to time
 // the two beside each other; the port's path does not.
 //
 // Every entry point takes device pointers, the element strides of each

@@ -1,8 +1,8 @@
 // Backward of causal prefill attention (flash_attention_bwd) for Hopper
-// (sm_90a), the float32 route at d = 16, 32 and 256: dQ, dK and dV of the
+// (sm_90a), the float32 route at d = 16 and 32: dQ, dK and dV of the
 // forward in attention_kernels.cu, from q, k, v, the output o, its gradient
 // dO and the row log-sum-exp the forward wrote. bfloat16 runs on the tensor
-// cores (flash_bwd_tc.cu), and so does float32 at d = 64 and 128 as bf16
+// cores (flash_bwd_tc.cu), and so does float32 at d = 64, 128 and 256 as bf16
 // products of three-piece splits (flash_bwd_f32_tc.cu); the kernels here
 // take either dtype, and chip_smoke.simt_bwd and chip_variants.py call
 // them at those head dims to time them beside the routes that replaced
@@ -30,8 +30,8 @@
 // 4 x 4 (4 x 2) score tile and float4 reads along the reduction. Inputs
 // of either dtype are staged in shared memory as float32; all sums are
 // float32; dQ, dK and dV are rounded once to the inputs' dtype. What holds
-// it back: the SIMT products (flash_bwd_f32_tc.cu puts d = 64 and 128 on
-// the tensor cores; d = 16, 32 and 256 are still to do), and one block an
+// it back: the SIMT products (flash_bwd_f32_tc.cu puts d = 64, 128 and 256
+// on the tensor cores; d = 16 and 32 are still to do), and one block an
 // SM at d = 128 (170 KB of shared memory).
 //
 // Three kernels, one entry point:

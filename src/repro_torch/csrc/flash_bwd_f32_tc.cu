@@ -1,10 +1,10 @@
 // Backward of causal prefill attention in float32 on Hopper's bf16 tensor
-// cores (sm_90a): the float32 route of flash_attention_bwd at d = 64 and 128
-// ("tc32"). Built by repro_torch/kernels/_build.py with
+// cores (sm_90a): the float32 route of flash_attention_bwd at d = 64, 128
+// and 256 ("tc32"). Built by repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // into its own shared library with a plain C interface, loaded with ctypes
-// (d = 16, 32 and 256 stay the SIMT kernels of flash_bwd.cu).
+// (d = 16 and 32 stay the SIMT kernels of flash_bwd.cu).
 // cuTensorMapEncodeTiled is looked up at run time (an entry point of
 // libcuda through the runtime), so the library needs no -lcuda.
 //
@@ -48,14 +48,27 @@
 // block is one warpgroup with BN = 64 keys (rows) and the ring's tiles are
 // 32 rows (keys): 96 KB of fixed tiles and two 48 KB stages. At d = 64 a
 // block keeps flash_bwd_tc.cu's two warpgroups, BN = 128 and 64-row tiles,
-// in the same 192 KB. Registers: at d = 128 a dK/dV warpgroup holds dK and
+// in the same 192 KB. At d = 256 the fixed tiles alone would be 192 KB for
+// 64 keys (rows), with no room left for the ring, and one warpgroup could
+// not hold dK and dV (256 floats a thread). So a (key or row) tile is two
+// blocks, a cluster of two (SPLIT): each holds its half of d's columns of
+// every tile and runs the d = 128 plan over it (fixed tiles 96 KB, two
+// ring stages 96 KB), its S^T and dP^T (S and dP) partial over that half.
+// The two partial tiles are swapped through distributed shared memory
+// (XCH: two 16 KB buffers a block, one per exchange in turn; one cluster
+// barrier an exchange) and each block adds its peer's, so both hold the
+// same sums (a + b == b + a) and the same P and dS; each then accumulates
+// and stores its half of dK and dV (dQ): 230,952 bytes a block. Registers:
+// at d = 128 (and each half of d = 256) a dK/dV warpgroup holds dK and
 // dV (128 floats a thread), S^T and dP^T (32) and their three-piece splits
 // (48). What holds it back from the bound: the split's six products for
 // each of seven products (S and dP in both kernels); one warpgroup a block
 // at d = 128, where its products and its P and dS math take turns with
 // nothing to overlap them; and S^T, dP^T (S, dP) reading both operands
-// from shared memory in 32-row tiles at d = 128. Thread 0 issues the
-// loads: it refills the stage of tile i - 1 at the top of tile i.
+// from shared memory in 32-row tiles at d = 128; at d = 256 the P and dS
+// math done twice, once in each block of the pair, and the exchange's
+// barrier a tile. Thread 0 issues the loads: it refills the stage of tile
+// i - 1 at the top of tile i.
 
 #include <cstdint>
 
@@ -81,34 +94,42 @@ __host__ __device__ constexpr int term_b(int t) {
   return t == 0 ? 1 : t == 2 ? 2 : t == 4 ? 1 : 0;
 }
 
-// Shared-memory plan for head dim D (64 or 128). Both kernels hold two
+// Shared-memory plan for head dim D (64, 128 or 256). Both kernels hold two
 // fixed tiles of BN rows (dkdv: K, V; dq: Q, dO), a ring of kStages stages
 // of two BT-row tiles (dkdv: Q, dO; dq: K, V) and the rows' lse2 and Delta
-// (dkdv: BT of each a stage; dq: BN of each, once). Each tile is three
-// pieces; a piece is D / 64 chunks of [rows][64] bf16, rows of 128 bytes
-// swizzled by TMA, the canonical layout wgmma reads.
+// (dkdv: BT of each a stage; dq: BN of each, once); at d = 256 (SPLIT) a
+// block holds DH = 128 of d's columns, and the exchange's buffers. Each
+// tile is three pieces; a piece is DH / 64 chunks of [rows][64] bf16, rows
+// of 128 bytes swizzled by TMA, the canonical layout wgmma reads.
 template <int D>
 struct Plan {
-  static constexpr int NW = D == 128 ? 1 : 2;  // warpgroups a block
+  static constexpr bool SPLIT = D == 256;      // a cluster of two blocks,
+                                               // each over half of d
+  static constexpr int DH = SPLIT ? D / 2 : D; // d's columns a block holds
+  static constexpr int NW = D == 64 ? 2 : 1;   // warpgroups a block
   static constexpr int THREADS = 128 * NW;
   static constexpr int BN = 64 * NW;           // keys of a dkdv block, rows
                                                // of a dq one
-  static constexpr int BT = D == 128 ? 32 : 64;  // rows of a dkdv ring tile,
+  static constexpr int BT = D == 64 ? 64 : 32;   // rows of a dkdv ring tile,
                                                  // keys of a dq one
   static constexpr int CW = 64;
-  static constexpr int NC = D / CW;
+  static constexpr int NC = DH / CW;
   static constexpr int SWZ = 128;
   static constexpr int LAYOUT = 1;
-  static constexpr uint32_t FIX_PIECE = BN * D * 2;
+  static constexpr uint32_t FIX_PIECE = BN * DH * 2;
   static constexpr uint32_t FIX_BYTES = 3 * FIX_PIECE;
-  static constexpr uint32_t TILE_PIECE = BT * D * 2;
+  static constexpr uint32_t TILE_PIECE = BT * DH * 2;
   static constexpr uint32_t TILE_BYTES = 3 * TILE_PIECE;
   static constexpr uint32_t STAGE_BYTES = 2 * TILE_BYTES;
   static constexpr uint32_t RING_OFF = 2 * FIX_BYTES;
   static constexpr uint32_t ROWS_OFF = RING_OFF + kStages * STAGE_BYTES;
   static constexpr uint32_t ROWS_BYTES =
       2 * BN > 2 * BT * kStages ? 2 * BN * 4 : 2 * BT * kStages * 4;
-  static constexpr uint32_t BAR_OFF = ROWS_OFF + ROWS_BYTES;
+  // the exchange (SPLIT): two buffers, each S^T's and dP^T's partial
+  // tiles of 64 x BT floats, [2][BT / 8][128 threads] float4s
+  static constexpr uint32_t XCH_OFF = ROWS_OFF + ROWS_BYTES;
+  static constexpr uint32_t XCH_BUF = 2 * 64 * BT * 4;
+  static constexpr uint32_t BAR_OFF = XCH_OFF + (SPLIT ? 2 * XCH_BUF : 0);
   // fix_full, then full and empty of each stage; 1 KB of slack aligns the
   // base to the 128-byte swizzle's 1,024-byte period
   static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 2 * kStages) + 1024;
@@ -232,6 +253,70 @@ __device__ __forceinline__ void pin(uint32_t* r) {
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The block's rank in its cluster (0 or 1 under SPLIT).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The same shared-memory offset in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr,
+                                                 uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Every thread of both blocks arrives; what each wrote before is visible to
+// the other's reads after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// S^T and dP^T (S and dP), each partial over this block's half of d (N
+// floats a thread, wgmma's accumulator layout), summed with the peer
+// block's: both written to this block's buffer `own`, the cluster barrier,
+// then the peer's read from its buffer `peer` (a cluster address) at the
+// same places. Both blocks add the same two values, so both get the same
+// bits. The buffers are [2][N / 4][128] float4s, thread-minor.
+template <int N>
+__device__ __forceinline__ void exchange(float* s, float* dp, uint32_t own,
+                                         uint32_t peer, int tid) {
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const float* r = x ? dp : s;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+      asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       own + ((x * (N / 4) + j) * 128 + tid) * 16),
+                   "f"(r[4 * j]), "f"(r[4 * j + 1]), "f"(r[4 * j + 2]),
+                   "f"(r[4 * j + 3])
+                   : "memory");
+  }
+  cluster_sync();
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    float* r = x ? dp : s;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      float v0, v1, v2, v3;
+      asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(v0), "=f"(v1), "=f"(v2), "=f"(v3)
+                   : "r"(peer + ((x * (N / 4) + j) * 128 + tid) * 16)
+                   : "memory");
+      r[4 * j] += v0;
+      r[4 * j + 1] += v1;
+      r[4 * j + 2] += v2;
+      r[4 * j + 3] += v3;
+    }
+  }
 }
 
 // d[64 x N] (+)= A[64 x 16] B[16 x N]: A and B K-major in shared memory.
@@ -405,15 +490,16 @@ struct PdS {
 };
 
 // Store acc * mul as float32, rows row_a and row_a + 8 (those below S) of
-// the 64 x D block in wgmma's accumulator layout through out's strides, in
-// pairs where they are adjacent and aligned.
+// the 64 x DH block in wgmma's accumulator layout, its columns from col0 on,
+// through out's strides, in pairs where they are adjacent and aligned.
 template <int D>
 __device__ __forceinline__ void store_rows(const Out& out, int b, int h,
                                            int row_a, int S, int lane,
+                                           int col0,
                                            float (&acc)[Plan<D>::NC][32],
                                            float mul) {
   using P = Plan<D>;
-  float* base = out.p + b * out.b + h * out.h;
+  float* base = out.p + b * out.b + h * out.h + col0 * out.d;
   const bool pairs = out.d == 1 && out.s % 2 == 0 && out.b % 2 == 0 &&
                      out.h % 2 == 0 &&
                      (reinterpret_cast<uintptr_t>(out.p) & 7) == 0;
@@ -485,7 +571,8 @@ __global__ void __launch_bounds__(32 * kRowWarps)
 }
 
 // Grid (ceil(S / BN), Hkv, B), the key tiles with the most queries (the
-// first) first.
+// first) first; under SPLIT (ceil(S / BN) * 2, Hkv, B), clusters of two
+// blocks along x, block rank r of a pair holding d's columns DH r on.
 // Thread t of warpgroup w (warp t / 32, lane t % 32) owns keys key_a = k0 +
 // 64 w + 16 (t / 32) + lane / 4 and key_a + 8: element 4 j + e of its S^T
 // and dP^T rows lies at query q0 + 8 j + 2 (lane % 4) + (e & 1), key + 8
@@ -514,8 +601,10 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
   const uint32_t fix_full = bar;
   const auto full = [&](int st) { return bar + 8u * (1 + st); };
   const auto empty = [&](int st) { return bar + 8u * (1 + kStages + st); };
+  const uint32_t rank = P::SPLIT ? cluster_rank() : 0;
+  const int col0 = static_cast<int>(rank) * P::DH;  // the block's columns
 
-  const int k0 = blockIdx.x * BN;
+  const int k0 = (P::SPLIT ? blockIdx.x / 2 : blockIdx.x) * BN;
   const int kh = blockIdx.y;
   const int b = blockIdx.z;
   const int G = a.H / a.Hkv;
@@ -540,8 +629,10 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const uint32_t at = p * P::TILE_PIECE + c * BT * SWZ;
-        tma_load(q_s(st) + at, &tq, full(st), c * CW, q0, h, p * a.B + b);
-        tma_load(do_s(st) + at, &tdo, full(st), c * CW, q0, h, p * a.B + b);
+        tma_load(q_s(st) + at, &tq, full(st), col0 + c * CW, q0, h,
+                 p * a.B + b);
+        tma_load(do_s(st) + at, &tdo, full(st), col0 + c * CW, q0, h,
+                 p * a.B + b);
       }
     const float* lrow =
         a.rows + (static_cast<int64_t>(b) * a.H + h) * a.Sp + q0;
@@ -562,8 +653,10 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const uint32_t at = p * P::FIX_PIECE + c * BN * SWZ;
-        tma_load(k_s + at, &tk, fix_full, c * CW, k0, kh, p * a.B + b);
-        tma_load(v_s + at, &tv, fix_full, c * CW, k0, kh, p * a.B + b);
+        tma_load(k_s + at, &tk, fix_full, col0 + c * CW, k0, kh,
+                 p * a.B + b);
+        tma_load(v_s + at, &tv, fix_full, col0 + c * CW, k0, kh,
+                 p * a.B + b);
       }
     for (int i = 0; i < kStages && i < n_tiles; ++i) load(i);
   }
@@ -591,6 +684,7 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
     }
 
   mbar_wait(fix_full, 0);
+  int xi = 0;  // exchanges so far: the buffer of the next is xi % 2
   for (int i = 0; i < n_tiles; ++i) {
     // refill the stage tile i - 1 used once every warpgroup is done with it
     if (threadIdx.x == 0 && i >= 1 && i - 1 + kStages < n_tiles) {
@@ -618,6 +712,11 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
     wgmma_wait<0>();
     pin<BT / 2>(s);
     pin<BT / 2>(dp);
+    if constexpr (P::SPLIT) {
+      const uint32_t own = base + P::XCH_OFF + (xi & 1) * P::XCH_BUF;
+      exchange<BT / 2>(s, dp, own, cluster_addr(own, rank ^ 1), tid);
+      ++xi;
+    }
 
     const float* lse2 = reinterpret_cast<const float*>(gbase + rows_s(st));
     const float* delta = lse2 + BT;
@@ -664,11 +763,14 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
     pin_frags<KS>(sf);
     mbar_arrive(empty(st));
   }
-  store_rows<D>(a.out0, b, kh, key_a, a.S, lane, dk, a.scale);
-  store_rows<D>(a.out1, b, kh, key_a, a.S, lane, dv, 1.f);
+  // the peer may still read this block's last exchange buffer
+  if constexpr (P::SPLIT) cluster_sync();
+  store_rows<D>(a.out0, b, kh, key_a, a.S, lane, col0, dk, a.scale);
+  store_rows<D>(a.out1, b, kh, key_a, a.S, lane, col0, dv, 1.f);
 }
 
-// Grid (ceil(S / BN), H, B), the longest query tiles first. Thread t of
+// Grid (ceil(S / BN), H, B), the longest query tiles first (x doubled into
+// clusters of two under SPLIT, as dkdv_kernel's). Thread t of
 // warpgroup w owns rows row_a = q0 + 64 w + 16 (t / 32) + lane / 4 and
 // row_a + 8: element 4 j + e of its S and dP rows lies at key k0 + 8 j +
 // 2 (lane % 4) + (e & 1), row + 8 when e >= 2; it holds those rows of dQ.
@@ -695,9 +797,13 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
   const uint32_t fix_full = bar;
   const auto full = [&](int st) { return bar + 8u * (1 + st); };
   const auto empty = [&](int st) { return bar + 8u * (1 + kStages + st); };
+  const uint32_t rank = P::SPLIT ? cluster_rank() : 0;
+  const int col0 = static_cast<int>(rank) * P::DH;  // the block's columns
 
   const int nq = (a.S + BN - 1) / BN;
-  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * BN;
+  const int q0 =
+      (nq - 1 - static_cast<int>(P::SPLIT ? blockIdx.x / 2 : blockIdx.x)) *
+      BN;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (a.H / a.Hkv);
@@ -715,8 +821,10 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const uint32_t at = p * P::TILE_PIECE + c * BT * SWZ;
-        tma_load(k_s(st) + at, &tk, full(st), c * CW, k0, kh, p * a.B + b);
-        tma_load(v_s(st) + at, &tv, full(st), c * CW, k0, kh, p * a.B + b);
+        tma_load(k_s(st) + at, &tk, full(st), col0 + c * CW, k0, kh,
+                 p * a.B + b);
+        tma_load(v_s(st) + at, &tv, full(st), col0 + c * CW, k0, kh,
+                 p * a.B + b);
       }
   };
 
@@ -733,8 +841,10 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const uint32_t at = p * P::FIX_PIECE + c * BN * SWZ;
-        tma_load(q_s + at, &tq, fix_full, c * CW, q0, h, p * a.B + b);
-        tma_load(do_s + at, &tdo, fix_full, c * CW, q0, h, p * a.B + b);
+        tma_load(q_s + at, &tq, fix_full, col0 + c * CW, q0, h,
+                 p * a.B + b);
+        tma_load(do_s + at, &tdo, fix_full, col0 + c * CW, q0, h,
+                 p * a.B + b);
       }
     const float* lrow =
         a.rows + (static_cast<int64_t>(b) * a.H + h) * a.Sp + q0;
@@ -769,6 +879,7 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
     lse2[r] = rows_sm[row_a + 8 * r - q0];
     delta[r] = rows_sm[BN + row_a + 8 * r - q0];
   }
+  int xi = 0;  // exchanges so far: the buffer of the next is xi % 2
   for (int i = 0; i < n_tiles; ++i) {
     if (threadIdx.x == 0 && i >= 1 && i - 1 + kStages < n_tiles) {
       mbar_wait(empty((i - 1) % kStages), ((i - 1) / kStages) & 1);
@@ -794,6 +905,11 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
     wgmma_wait<0>();
     pin<BT / 2>(s);
     pin<BT / 2>(dp);
+    if constexpr (P::SPLIT) {
+      const uint32_t own = base + P::XCH_OFF + (xi & 1) * P::XCH_BUF;
+      exchange<BT / 2>(s, dp, own, cluster_addr(own, rank ^ 1), tid);
+      ++xi;
+    }
 
     const bool edge =
         k0 + BT - 1 > r0 || (a.window > 0 && k0 <= r0 + 63 - a.window);
@@ -825,7 +941,8 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
     pin_frags<KS>(sf);
     mbar_arrive(empty(st));
   }
-  store_rows<D>(a.out0, b, h, row_a, a.S, lane, dq, a.scale);
+  if constexpr (P::SPLIT) cluster_sync();
+  store_rows<D>(a.out0, b, h, row_a, a.S, lane, col0, dq, a.scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -876,6 +993,40 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
 }
 
 inline Strides4 strides4(const int64_t* s) { return {s[0], s[1], s[2], s[3]}; }
+
+// One launch of dkdv_kernel<D> or dq_kernel<D> on `tiles` key or row tiles:
+// under SPLIT two blocks a tile, launched as clusters of two.
+template <int D, typename Kernel>
+cudaError_t launch_tiles(Kernel kernel, int tiles, int heads, int B,
+                         const CUtensorMap& m0,
+                         const CUtensorMap& m1, const CUtensorMap& m2,
+                         const CUtensorMap& m3, const Args& a,
+                         cudaStream_t stream) {
+  using P = Plan<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(P::SMEM));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * (P::SPLIT ? 2 : 1), heads, B);
+  cfg.blockDim = dim3(P::THREADS);
+  cfg.dynamicSmemBytes = P::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P::SPLIT ? 2 : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = P::SPLIT ? 1 : 0;
+  CUtensorMap t0 = m0, t1 = m1, t2 = m2, t3 = m3;
+  Args args = a;
+  void* params[] = {&t0, &t1, &t2, &t3, &args};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel),
+                            params);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 inline Out out_of(void* p, const int64_t* s) {
   return {static_cast<float*>(p), s[0], s[1], s[2], s[3]};
 }
@@ -912,25 +1063,15 @@ int launch(const void* q3, const void* k3, const void* v3, const void* do3,
 
   const Args kv_args{out_of(dk, st + 12), out_of(dv, st + 16), rows, half,
                      B, H, Hkv, S, Sp, window, softcap, scale};
-  err = cudaFuncSetAttribute(dkdv_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(P::SMEM));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (S + P::BN - 1) / P::BN;
-  dkdv_kernel<D><<<dim3(tiles, Hkv, B), P::THREADS, P::SMEM, stream>>>(
-      kq, kk, kv, kdo, kv_args);
-  err = cudaGetLastError();
+  err = launch_tiles<D>(dkdv_kernel<D>, tiles, Hkv, B, kq, kk, kv, kdo,
+                        kv_args, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const Args q_args{out_of(dq, st + 8), out_of(dq, st + 8), rows, half,
                     B, H, Hkv, S, Sp, window, softcap, scale};
-  err = cudaFuncSetAttribute(dq_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(P::SMEM));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<D><<<dim3(tiles, H, B), P::THREADS, P::SMEM, stream>>>(
-      qq, qk, qv, qdo, q_args);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_tiles<D>(dq_kernel<D>, tiles, H, B, qq, qk,
+                                          qv, qdo, q_args, stream));
 }
 
 }  // namespace
@@ -943,7 +1084,7 @@ extern "C" {
 // strides of o, dout, dq, dk and dv (20 int64, host memory; any strides).
 // lse [B,H,S] float32 contiguous (natural log, from the forward); rows
 // float32 scratch of 2 B H Sp, 16-byte aligned, Sp = S rounded up to 128.
-// D 64 or 128.
+// D 64, 128 or 256.
 int bwd32_flash_attention_bwd(const void* q3, const void* k3, const void* v3,
                               const void* do3, const void* o,
                               const void* dout, const void* lse, void* rows,
@@ -965,6 +1106,9 @@ int bwd32_flash_attention_bwd(const void* q3, const void* k3, const void* v3,
                                strides, B, H, Hkv, S, Sp, window, softcap,
                                scale, s);
     case 128: return launch<128>(q3, k3, v3, do3, of, gf, l, r, dq, dk, dv,
+                                 strides, B, H, Hkv, S, Sp, window, softcap,
+                                 scale, s);
+    case 256: return launch<256>(q3, k3, v3, do3, of, gf, l, r, dq, dk, dv,
                                  strides, B, H, Hkv, S, Sp, window, softcap,
                                  scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -1,11 +1,11 @@
 // Causal prefill attention in float32 on Hopper's bf16 tensor cores
-// (sm_90a): the float32 route of flash_attention at d = 64 and 128 ("tc32"),
-// and the split pre-pass that feeds it and flash_bwd_f32_tc.cu. Built by
-// repro_torch/kernels/_build.py with
+// (sm_90a): the float32 route of flash_attention at d = 64, 128 and 256
+// ("tc32"), and the split pre-pass that feeds it and flash_bwd_f32_tc.cu.
+// Built by repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // into its own shared library with a plain C interface, loaded with ctypes
-// (d = 16, 32 and 256 stay the SIMT kernel of attention_kernels.cu).
+// (d = 16 and 32 stay the SIMT kernel of attention_kernels.cu).
 // cuTensorMapEncodeTiled is looked up at run time (an entry point of
 // libcuda through the runtime), so the library needs no -lcuda.
 //
@@ -39,12 +39,15 @@
 //                pieces:
 //   - a ring of STAGES K/V tiles in shared memory, each of three pieces of
 //     BK keys (bf16, the 128-byte swizzle), filled by TMA from one producer
-//     thread, each stage with its own K-full, V-full and empty mbarriers;
+//     thread, each stage with its own K-full, V-full, K-empty and V-empty
+//     mbarriers: a stage's K tile is refilled once S = Q K^T is done with
+//     it, while the softmax and P V of the same tile run;
 //     the Q tile's three pieces are loaded once. The tensor maps read the
 //     pieces as [3 B, heads, S, d], piece p of batch b at batch p B + b;
 //     TMA zero-fills rows past S;
 //   - two consumer warpgroups own 64 query rows each of a 128-row query
-//     tile. S = Q K^T is six wgmmas per 16 columns of d (both operands in
+//     tile (one warpgroup and 64 rows at d = 256, below). S = Q K^T is six
+//     wgmmas per 16 columns of d (both operands in
 //     shared memory, float32 accumulators). Masks only on tiles that cross
 //     the diagonal or the window's edge; tiles no row sees are never loaded;
 //   - the online softmax in registers as in flash_tc.cu (2^x on the
@@ -61,13 +64,23 @@
 // Shared memory binds the plan (Plan<D>): three pieces cost 6 bytes an
 // element. At d = 128 the Q tile is 96 KB and a stage of 32-key K and V
 // tiles 48 KB: two stages, 192 KB (64-key tiles would need 288 KB). At
-// d = 64, 64-key tiles and three stages, 192 KB. What holds it back from
-// the bound: the 32-key tiles at d = 128 make S = Q K^T a 64 x 32 wgmma
-// that reads its A operand (Q) from shared memory each time, so those
-// products are near the SM's shared-memory bandwidth; per score the
-// softmax and the three-way split cost about a dozen CUDA-core
-// instructions; and FRESH_PV's wait a chunk (about 1% at d = 128 and 10%
-// at d = 64 on an H100, chip_variants.py --kernels f32).
+// d = 64, 64-key tiles and three stages, 192 KB. At d = 256 a 128-row Q
+// tile alone would be 192 KB, so a block is one consumer warpgroup of 64
+// rows (Q 96 KB) and one stage of 32-key K and V tiles (48 KB each), 192
+// KB: the K tile is refilled while the softmax and P V of its tile run,
+// the V tile while the next S runs (two stages of 16-key tiles, the other
+// plan that fits, is slower at gemma2's 32k prefill and spills: variant
+// f32_bk16 of chip_variants.py --kernels f32). O is 128 floats a thread
+// (four 64-column chunks), with S's 16, P's 24 split registers and one
+// chunk's fresh 32: 227 registers, no spill, with no setmaxnreg (the block
+// is 256 threads, so every thread may hold 255). What holds it back from
+// the bound: the 32-key tiles make S = Q K^T a 64 x 32 wgmma that reads
+// its A operand (Q) from shared memory each time, so those products are
+// near the SM's shared-memory bandwidth; per score the softmax and the
+// three-way split cost about a dozen CUDA-core instructions; FRESH_PV's
+// wait a chunk (about 1% at d = 128 and 10% at d = 64 on an H100,
+// chip_variants.py --kernels f32; four a tile at d = 256); and at d = 256
+// one consumer warpgroup a block, whose products and softmax take turns.
 
 #include <cstdint>
 
@@ -77,8 +90,6 @@
 
 namespace {
 
-constexpr int kThreads = 384;         // warpgroups 0, 1 consume; 2 produces
-constexpr int kConsumers = 256;
 constexpr int kSplitThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr uint32_t kSpinLimit = 1u << 26;  // mbarrier polls before a trap
@@ -93,15 +104,19 @@ __host__ __device__ constexpr int term_b(int t) {
   return t == 0 ? 1 : t == 2 ? 2 : t == 4 ? 1 : 0;
 }
 
-// Shared-memory plan for head dim D (64 or 128). Each tile piece is stored
-// as D / 64 chunks of 64 columns; a chunk is [rows][64] bf16, rows of 128
-// bytes swizzled by TMA, the canonical layout wgmma reads (8-row atoms
-// 1,024 bytes apart).
+// Shared-memory plan for head dim D (64, 128 or 256). Each tile piece is
+// stored as D / 64 chunks of 64 columns; a chunk is [rows][64] bf16, rows
+// of 128 bytes swizzled by TMA, the canonical layout wgmma reads (8-row
+// atoms 1,024 bytes apart). Warpgroups 0 .. NWG - 1 consume, 64 query rows
+// each; warpgroup NWG produces.
 template <int D>
 struct Plan {
-  static constexpr int BM = 128;                  // query rows a block
-  static constexpr int BK = D == 128 ? 32 : 64;   // keys per tile
-  static constexpr int STAGES = D == 128 ? 2 : 3;
+  static constexpr int NWG = D == 256 ? 1 : 2;    // consumer warpgroups
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int CONSUMERS = 128 * NWG;
+  static constexpr int BM = 64 * NWG;             // query rows a block
+  static constexpr int BK = D == 64 ? 64 : 32;    // keys a tile
+  static constexpr int STAGES = D == 64 ? 3 : D == 128 ? 2 : 1;
   static constexpr int CW = 64;
   static constexpr int NC = D / CW;
   static constexpr int SWZ = 128;
@@ -117,9 +132,9 @@ struct Plan {
   static constexpr uint32_t K_OFF = 3 * Q_PIECE;
   static constexpr uint32_t V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr uint32_t BAR_OFF = V_OFF + STAGES * KV_BYTES;
-  // q_full, then k_full, v_full and empty for each stage; 1 KB of slack
-  // aligns the base to the 128-byte swizzle's 1,024-byte period
-  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+  // q_full, then k_full, v_full, k_empty and v_empty for each stage; 1 KB
+  // of slack aligns the base to the 128-byte swizzle's 1,024-byte period
+  static constexpr size_t SMEM = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
   static_assert(SMEM <= 232448, "more shared memory than a block can have");
 };
 
@@ -400,7 +415,7 @@ __global__ void __launch_bounds__(kSplitThreads)
 // accumulator layout: element 4 j + e of a row of accumulators lies at
 // column 8 j + 2 (lane % 4) + (e & 1), row + 8 when e >= 2.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Plan<D>::THREADS, 1)
     flash32_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Args a) {
@@ -416,8 +431,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t q_full = bar;
   const auto k_full = [&](int st) { return bar + 8u * (1 + st); };
   const auto v_full = [&](int st) { return bar + 8u * (1 + STAGES + st); };
-  const auto empty = [&](int st) {
+  const auto k_empty = [&](int st) {
     return bar + 8u * (1 + 2 * STAGES + st);
+  };
+  const auto v_empty = [&](int st) {
+    return bar + 8u * (1 + 3 * STAGES + st);
   };
 
   const int nq = (a.S + BM - 1) / BM;
@@ -435,16 +453,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(k_full(st), 1);
       mbar_init(v_full(st), 1);
-      mbar_init(empty(st), kConsumers);
+      mbar_init(k_empty(st), P::CONSUMERS);
+      mbar_init(v_empty(st), P::CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == 2) {
+  if (wg == P::NWG) {
     // ---- producer: one thread keeps the ring full ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 2 * 128) {
+    if constexpr (P::NWG == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == P::NWG * 128) {
       mbar_expect_tx(q_full, 3 * P::Q_PIECE);
 #pragma unroll
       for (int p = 0; p < 3; ++p)
@@ -454,7 +474,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                    q0, h, p * a.B + b);
       for (int t = t_first, i = 0; t <= t_last; ++t, ++i) {
         const int st = i % STAGES;
-        mbar_wait(empty(st), ((i / STAGES) & 1) ^ 1);
+        const uint32_t free = ((i / STAGES) & 1) ^ 1;
+        mbar_wait(k_empty(st), free);
         mbar_expect_tx(k_full(st), P::KV_BYTES);
 #pragma unroll
         for (int p = 0; p < 3; ++p)
@@ -462,6 +483,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int c = 0; c < NC; ++c)
             tma_load(k_s(st) + p * P::KV_PIECE + c * BK * SWZ, &tk,
                      k_full(st), c * CW, t * BK, kh, p * a.B + b);
+        mbar_wait(v_empty(st), free);
         mbar_expect_tx(v_full(st), P::KV_BYTES);
 #pragma unroll
         for (int p = 0; p < 3; ++p)
@@ -473,7 +495,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ---- consumers: 64 query rows per warpgroup ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    if constexpr (P::NWG == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int tid = threadIdx.x & 127;
     const int lane = tid & 31;
     const int r0 = q0 + 64 * wg;  // its first row
@@ -510,8 +533,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int k0 = t * BK;
       if (!runs(t)) {
         mbar_wait(k_full(st), parity);
+        mbar_arrive(k_empty(st));
         mbar_wait(v_full(st), parity);
-        mbar_arrive(empty(st));
+        mbar_arrive(v_empty(st));
         continue;
       }
       float s[BK / 2];
@@ -519,6 +543,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       issue_scores<D>(s, q_wg, k_s(st));
       wgmma_wait<0>();
       pin<BK / 2>(s);
+      mbar_arrive(k_empty(st));  // S is done with the K tile
 
       if (capped) {
 #pragma unroll
@@ -625,7 +650,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int x = 0; x < 3; ++x)
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) pin<4>(pp[x][kk]);
-      mbar_arrive(empty(st));
+      mbar_arrive(v_empty(st));
     }
 
     if (active) {
@@ -742,7 +767,7 @@ int launch(const void* q3, const void* k3, const void* v3, void* o,
   const Args a{static_cast<float*>(o), st[0], st[1], st[2], st[3], lse,
                B, H, Hkv, S, window, softcap, scale};
   const dim3 grid((S + P::BM - 1) / P::BM, H, B);
-  flash32_kernel<D><<<grid, kThreads, P::SMEM, stream>>>(tq, tk, tv, a);
+  flash32_kernel<D><<<grid, P::THREADS, P::SMEM, stream>>>(tq, tk, tv, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -782,7 +807,7 @@ int flash32_split(const int64_t* desc, int n, void* dst, int B, int S,
 // (bf16, contiguous, from flash32_split), o [B,H,S,D] float32 with element
 // strides ostrides (4 int64, host memory; any strides). lse: null (serving),
 // or float32 [B,H,S] contiguous that receives each row's log-sum-exp in
-// natural log (the backward's input). D 64 or 128.
+// natural log (the backward's input). D 64, 128 or 256.
 int flash32_flash_attention(const void* q3, const void* k3, const void* v3,
                             void* o, void* lse_out, const int64_t* ostrides,
                             int B, int H, int Hkv, int S, int D, int window,
@@ -796,6 +821,8 @@ int flash32_flash_attention(const void* q3, const void* k3, const void* v3,
     case 64: return launch<64>(q3, k3, v3, o, lse, ostrides, B, H, Hkv, S,
                                window, softcap, scale, s);
     case 128: return launch<128>(q3, k3, v3, o, lse, ostrides, B, H, Hkv, S,
+                                 window, softcap, scale, s);
+    case 256: return launch<256>(q3, k3, v3, o, lse, ostrides, B, H, Hkv, S,
                                  window, softcap, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

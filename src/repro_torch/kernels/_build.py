@@ -4,14 +4,14 @@ Each source is compiled on first use by ``nvcc`` into its own shared
 library with a plain C interface under ``<repo>/build/`` and loaded with
 ``ctypes``: ``rdf_kernels.cu`` (the SPARQL query kernels),
 ``attention_kernels.cu`` (the float32 LM attention kernels: decode,
-and prefill at d = 16, 32 and 256), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
+and prefill at d = 16 and 32), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
 cores), ``decode_tc.cu`` (bfloat16 decode attention: a TMA ring, scores on
 the tensor cores), ``flash_bwd.cu`` (the attention backward, for
 training: float32 on the CUDA cores),
 ``flash_bwd_tc.cu`` (library ``"bwd_tc"``: the bfloat16 attention
 backward at d = 16 to 256 on the tensor cores), ``flash_f32_tc.cu`` and
 ``flash_bwd_f32_tc.cu`` (libraries ``"flash32"`` and ``"bwd32"``: float32
-prefill attention and its backward at d = 64 and 128 on the tensor cores,
+prefill attention and its backward at d = 64, 128 and 256 on the tensor cores,
 as bf16 products of three-piece splits, and the split pre-pass),
 ``sparse_kernels.cu``
 (the recsys and GNN kernels, and the bag's backward) and

@@ -14,13 +14,13 @@ ragged last tile is masked). The route is chosen by (dtype, d)
   holding [B, S, H, d] passes ``x.transpose(1, 2)`` with no copy. An
   operand that misses one of these is copied into a new contiguous tensor
   first, and ``flash_attention.copies`` counts those copies.
-- ``"tc32"``, float32 at d = 64 and 128, on the tensor cores
+- ``"tc32"``, float32 at d = 64, 128 and 256, on the tensor cores
   (``csrc/flash_f32_tc.cu``, library ``"flash32"``): a pre-pass
   (``flash_attention/split``, :func:`split_pieces`) writes q, k and v, of
   any strides, as three bf16 pieces each (:func:`.ref.split3`, exact), and
   each product is the sum of six bf16 ``wgmma`` products of the pieces,
   within a float32 rounding of the float32 product (P split in three too).
-- ``"simt"``, float32 at d = 16, 32 and 256, on the CUDA cores
+- ``"simt"``, float32 at d = 16 and 32, on the CUDA cores
   (``csrc/attention_kernels.cu``), in full float32, with any strides.
 
 ``out`` takes any strides on every route. A tensor on the CPU takes the
@@ -43,11 +43,12 @@ by (dtype, d) (:func:`bwd_route`):
   block's two warpgroups share 64 keys or rows and split the gradients'
   columns), with the TMA operand rules above for q, k, v and dout (copies
   counted in ``flash_attention_bwd.copies``);
-- ``"tc32"``, float32 at d = 64 and 128, on the tensor cores
+- ``"tc32"``, float32 at d = 64, 128 and 256, on the tensor cores
   (``csrc/flash_bwd_f32_tc.cu``, library ``"bwd32"``): q, k, v and dout
   split in three by the same pre-pass, every product six bf16 products,
-  P and dS split in three;
-- ``"simt"``, float32 at d = 16, 32 and 256, on the CUDA cores
+  P and dS split in three; at d = 256 a key or row tile is a cluster of
+  two blocks, each over half of d, that swap their partial score tiles;
+- ``"simt"``, float32 at d = 16 and 32, on the CUDA cores
   (``csrc/flash_bwd.cu``, library ``"bwd"``, float32 products: one-pass
   TF32 products would break its check).
 
@@ -73,8 +74,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 # the float32 head dims that run on the tensor cores (route "tc32"), and
 # the forward's key tile at each (flash_f32_tc.cu's Plan<D>::BK)
-TC32_HEAD_DIMS = (64, 128)
-TC32_KEY_TILE = {64: 64, 128: 32}
+TC32_HEAD_DIMS = (64, 128, 256)
+TC32_KEY_TILE = {64: 64, 128: 32, 256: 32}
 ROW_PAD = 128   # the tensor-core backward's lse/Delta rows: S rounded up
 BWD_OPS = 5     # the backward's operations, in halves of the forward's:
                 # five products of a pair (s, dP, dV, dQ, dK) to its two

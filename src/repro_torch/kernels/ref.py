@@ -77,20 +77,22 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   softcap: float = 0.0) -> torch.Tensor:
     """q [B,H,S,d]; k/v [B,Hkv,S,d] (query head h reads kv head h // G).
 
-    Dense softmax attention in float32: scale ``d ** -0.5``, softcap
+    Dense softmax attention in float32 (float64 for float64 inputs, the
+    float32 checks' exact yardstick): scale ``d ** -0.5``, softcap
     ``tanh(s / c) * c``, masked scores -1e30, key k visible to query q when
     ``k <= q`` (causal) and ``k > q - window`` (window > 0). Computed over
-    chunks of query rows so the scores stay under 1 GiB; the result is
-    the same. Returns q's dtype."""
+    chunks of query rows so the scores stay under 1 GiB of float32; the
+    result is the same. Returns q's dtype."""
     B, H, S, d = q.shape
     G = H // k.shape[1]
-    kf = k.float().repeat_interleave(G, dim=1)
-    vf = v.float().repeat_interleave(G, dim=1)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    kf = k.to(acc).repeat_interleave(G, dim=1)
+    vf = v.to(acc).repeat_interleave(G, dim=1)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     kpos = torch.arange(S, device=q.device)[None, :]
     step = max(1, _SCORE_ELEMS // max(1, B * H * S))
     for q0 in range(0, S, step):
-        qc = q[:, :, q0:q0 + step].float()
+        qc = q[:, :, q0:q0 + step].to(acc)
         s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * (d ** -0.5)
         if softcap > 0:
             s = torch.tanh(s / softcap) * softcap

@@ -3,8 +3,10 @@ same data, the port's import boundary, its refusal to run on the CPU unless
 asked, and a CPU rehearsal of ``chip_smoke.py``'s serving phase."""
 
 import importlib
+import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -193,6 +195,26 @@ def test_chip_variants_refuses_without_cuda_and_matches_the_sources(
         "void project(")[1].split("template")[0]
     assert sources["qad_exact"].count("void project(") == 1
     assert sources["qad_exact"].count("void project_bisect(") == 1
+
+
+def test_chip_variants_refuses_without_cuda_in_a_tree_without_builds(
+        tmp_path, monkeypatch, capsys):
+    """``main([])`` in a tree that holds the script and no ``build/`` (as a
+    fresh checkout is): it returns 1 with nothing on stdout and raises no
+    SystemExit, since no section run by default needs an earlier build,
+    and the card is asked for before any file is looked at."""
+    script = tmp_path / "chip_variants.py"
+    shutil.copy(ROOT / "chip_variants.py", script)
+    spec = importlib.util.spec_from_file_location("chip_variants_clean",
+                                                  script)
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    assert not (tmp_path / "build").exists()
+    assert "decode" not in variants.DEFAULT_SECTIONS
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert variants.main([]) == 1
+    assert variants.main(["--kernels", "decode"]) == 1
+    assert capsys.readouterr().out == ""
 
 
 @pytest.mark.parametrize("sharded", [False, True])

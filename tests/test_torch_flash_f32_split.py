@@ -11,7 +11,9 @@ bf16 products of ``SPLIT_TERMS``, P (and dS) split in three as well, the
 forward by the kernel's key tiles with the online softmax. Held to the
 card's float32 checks as they stand (``chip_smoke.ATTN_TOL["float32"]``
 and ``chip_smoke.flash_bwd_bound``); a split one piece short
-(``TWO_PIECE_TERMS``) must fail the forward's check on a stated case."""
+(``TWO_PIECE_TERMS``) must fail the forward's check on stated cases, and
+the float64 yardstick (``chip_smoke.f32_err``) on a capped case passes the
+plain version and fails the controls."""
 
 import importlib
 import sys
@@ -42,11 +44,18 @@ CASES = [(B, H, Hkv, S, d, win, cap)
          for (B, H, Hkv, S, _, win, cap) in FLASH_CASES
          for d in TC32_HEAD_DIMS]
 # the backward's cases: three of those (GQA groups 2 and 1, a window, a
-# softcap) and a ragged S off every tile
+# softcap) and a ragged S off every tile; at d = 256 (gemma2's heads) a
+# softcap of 50, a window and a ragged S off the 64-row tiles
 BWD_CASES = [(2, 4, 2, 128, 64, 0, 0.0), (1, 4, 4, 256, 128, 0, 50.0),
-             (1, 2, 1, 64, 128, 32, 30.0), (1, 4, 2, 97, 64, 0, 0.0)]
-# the stated case on which a split one piece short fails the forward check
+             (1, 2, 1, 64, 128, 32, 30.0), (1, 4, 2, 97, 64, 0, 0.0),
+             (1, 4, 2, 128, 256, 0, 50.0), (1, 2, 1, 96, 256, 32, 0.0),
+             (1, 4, 2, 97, 256, 0, 0.0)]
+# the stated cases on which a split one piece short fails the forward check
 CONTROL_CASE = (1, 4, 2, 256, 128, 0, 0.0)
+CONTROL_CASE_256 = (1, 4, 2, 256, 256, 0, 0.0)      # gemma2's head dim
+# a capped case of the backward check's kind (q scaled by c / 2), where the
+# plain float32 version is itself off float64 and the float64 rule holds
+YARDSTICK_CASE = (1, 4, 2, 256, 256, 0, 50.0)
 
 
 @pytest.fixture(autouse=True)
@@ -194,34 +203,84 @@ def test_split_backward_within_the_float32_bound_of_jax_grad(case):
     assert max(ratios) <= 1.0
 
 
-def test_two_piece_split_fails_the_forward_check():
-    """The control one piece short (hi.hi + hi.mid + mid.hi, P split in two
-    as well) leaves about 2^-16 of each product: on CONTROL_CASE it is out
-    of ``ATTN_TOL["float32"]``, where the three-piece split on the same
-    inputs is well inside it. So the card's float32 check can see a split
-    that is one piece short."""
+def _two_piece_control(case):
+    """(three, two): the three-piece split's and the two-piece control's
+    ``attn_err`` ratios against the plain version on ``case``."""
     smoke = _smoke()
-    B, H, Hkv, S, d, win, cap = CONTROL_CASE
-    q, k, v = (torch.from_numpy(a) for a in _inputs(CONTROL_CASE, 5))
+    B, H, Hkv, S, d, win, cap = case
+    q, k, v = (torch.from_numpy(a) for a in _inputs(case, 5))
     want = ref.mha_reference(q, k, v, True, win, cap)
     tile = TC32_KEY_TILE[d]
     three = smoke.attn_err(ref.mha_split_reference(q, k, v, win, cap,
                                                    tile)[0], want)[1]
     two = smoke.attn_err(ref.mha_split_reference(
         q, k, v, win, cap, tile, ref.TWO_PIECE_TERMS)[0], want)[1]
-    print(f"{CONTROL_CASE}: three pieces {three}x, two pieces {two}x the "
+    print(f"{case}: three pieces {three}x, two pieces {two}x the "
           f"float32 tolerance")
+    return three, two
+
+
+def test_two_piece_split_fails_the_forward_check():
+    """The control one piece short (hi.hi + hi.mid + mid.hi, P split in two
+    as well) leaves about 2^-16 of each product: on CONTROL_CASE it is out
+    of ``ATTN_TOL["float32"]``, where the three-piece split on the same
+    inputs is well inside it. So the card's float32 check can see a split
+    that is one piece short."""
+    three, two = _two_piece_control(CONTROL_CASE)
     assert three <= 0.5
     assert two > 1.0
+
+
+def test_two_piece_split_fails_the_forward_check_at_d256():
+    """The same at gemma2's head dim (CONTROL_CASE_256, the d = 256 route's
+    32-key tiles): the two-piece control out of ``ATTN_TOL["float32"]``,
+    the three-piece split well inside it."""
+    three, two = _two_piece_control(CONTROL_CASE_256)
+    assert three <= 0.5
+    assert two > 1.0
+
+
+def test_float64_yardstick_on_a_capped_case():
+    """``chip_smoke.f32_err``'s rule on a capped case (q scaled by c / 2):
+    the plain float32 version is more than half of ATTN_TOL's atol from
+    float64 there, so the case is read against float64 (each element
+    within atol plus the plain version's own error). The plain float32
+    version passes it; the two-piece emulation and the plain version with
+    PLANTED_DROP keys of each long row left out fail it. An uncapped case
+    stays on the plain rule."""
+    smoke = _smoke()
+    B, H, Hkv, S, d, win, cap = YARDSTICK_CASE
+    q, k, v = (torch.from_numpy(a)
+               for a in _inputs(YARDSTICK_CASE, 11, bite=True))
+    plain = ref.mha_reference(q, k, v, True, win, cap)
+    exact = smoke.f64_reference(q, k, v, win, cap)
+    own = float((plain.double() - exact).abs().max())
+    tile = TC32_KEY_TILE[d]
+    got = {
+        "plain": plain,
+        "two": ref.mha_split_reference(q, k, v, win, cap, tile,
+                                       ref.TWO_PIECE_TERMS)[0],
+        "dropped": ref.mha_reference(q, k, v, True,
+                                     S - smoke.PLANTED_DROP, cap)}
+    read = {name: smoke.f32_err(o, plain, exact) for name, o in got.items()}
+    print(f"{YARDSTICK_CASE}: plain float32 {own} from float64; {read}")
+    assert own > smoke.F64_SHARE * smoke.ATTN_TOL["float32"][0]
+    assert all(rule == "float64" for _, _, rule in read.values())
+    assert read["plain"][1] <= 1.0
+    assert read["two"][1] > 1.0 and read["dropped"][1] > 1.0
+    q0, k0, v0 = (torch.from_numpy(a) for a in _inputs(CONTROL_CASE_256, 5))
+    plain0 = ref.mha_reference(q0, k0, v0)
+    assert smoke.f32_err(plain0, plain0, smoke.f64_reference(
+        q0, k0, v0))[2] == "plain"
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_routes_by_dtype_and_head_dim(d):
     """bf16 takes the bf16 tensor-core kernels at every head dim; float32
-    takes the three-piece tensor-core routes at d = 64 and 128 and the
-    SIMT kernels at d = 16, 32 and 256, forward and backward alike."""
+    takes the three-piece tensor-core routes at d = 64, 128 and 256 and the
+    SIMT kernels at d = 16 and 32, forward and backward alike."""
     assert flash_route(torch.bfloat16, d) == "tc"
     assert bwd_route(torch.bfloat16, d) == "tc"
-    f32 = "tc32" if d in (64, 128) else "simt"
+    f32 = "tc32" if d in (64, 128, 256) else "simt"
     assert flash_route(torch.float32, d) == f32
     assert bwd_route(torch.float32, d) == f32

@@ -256,3 +256,28 @@ def test_mesh_phase_rehearsed_on_cpu(monkeypatch):
     assert all(s["ok"] and s["planted_ratio"] > 1.0
                for s in layouts["decode"]["splits"].values())
     assert layouts["recsys"]["planted_bag_ratio"] > 1.0
+
+
+def test_gemma2_float32_checks_on_cpu():
+    """gemma2-2b's float32 path of ``chip_smoke.py`` at a tiny width with
+    its head dim of 256 (the d that takes the three-piece routes on the
+    card), on the CPU through the plain versions on both sides: the model
+    check at GEMMA_CHECK_LAYERS layers (two local with a window that bites
+    inside the prompt, two global; softcaps 50 and 30) and the loss check
+    at GRAD_CHECK_LAYERS, each ok with no difference and no launch."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import reduce_config
+    tiny = dataclasses.replace(
+        reduce_config(registry.get_spec(smoke.GEMMA_ARCH)), d_head=256)
+    assert tiny.attn_pattern == "local_global" and tiny.window < 16
+    check = smoke.lm_model_check(
+        dataclasses.replace(tiny, n_layers=smoke.GEMMA_CHECK_LAYERS),
+        seed=0, device="cpu", prompt=16, steps=4)
+    assert check["ok"] and check["max_abs_diff"] == 0.0
+    assert check["launches"] == {} and check["tf32_control_diff"] is None
+    loss = smoke.lm_loss_check(
+        dataclasses.replace(tiny, n_layers=smoke.GRAD_CHECK_LAYERS), 0,
+        "cpu")
+    assert loss["ok"] and loss["loss_diff"] == 0.0
+    assert loss["grad_ratio"] == 0.0 and loss["launches"] == {}
+    assert loss["layers"] == smoke.GRAD_CHECK_LAYERS
