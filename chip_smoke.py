@@ -287,12 +287,17 @@ SPLIT_GROWTH = 2.0 ** -15
 # three-piece splits. A split one piece short (hi.hi + hi.mid + mid.hi,
 # ref.TWO_PIECE_TERMS) leaves about 2^-16 of each product; emulated on the
 # card at these cases (B, H, Hkv, S, d, window, softcap; qwen3's,
-# granite's and gemma2's heads, two million outputs each), it must fail
+# granite's and gemma2's heads, two million outputs each; qwen3's heads at
+# d = 16 and 32, 262,144 and 524,288 outputs), it must fail
 # ATTN_TOL["float32"] (f32_err's rule for its case), and on the capped
 # cases of the backward's checks the backward's bound
-# (check_backward_cases).
+# (check_backward_cases). At d = 16 and 32 the products' sums are shorter
+# and the control's error smaller: emulated on the CPU at these shapes it
+# is out of the check (tests/test_torch_flash_f32_split.py), but on fewer
+# outputs (B 1, H 4, S 256) it can stay inside it at d = 16.
 TWO_PIECE_CASES = ((1, 16, 8, 1024, 128, 0, 0.0), (1, 16, 8, 1024, 64, 0, 0.0),
-                   (1, 8, 4, 1024, 256, 0, 0.0))
+                   (1, 8, 4, 1024, 256, 0, 0.0), (1, 16, 8, 1024, 16, 0, 0.0),
+                   (1, 16, 8, 1024, 32, 0, 0.0))
 # gemma2-2b's float32 path (its d_head 256 on flash_attention's and
 # flash_attention_bwd's three-piece routes): the model check at full width
 # and GEMMA_CHECK_LAYERS of its 26 layers (two local, two global; all 26
@@ -1475,7 +1480,10 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     narrower than a key tile, operands TMA cannot read (a q at an odd
     element offset, a k with d stride != 1: the bf16 route copies them)
     and, in bf16, a cancellation case (V rows in pairs of opposite sign)
-    whose control, P rounded once to bf16, must fail the check; for decode
+    whose control, P rounded once to bf16, must fail the check; at d = 16
+    and 32, S, windows and softcaps around the 128-row query tile and the
+    float32 route's 128-key tile (their own generator, so that the other
+    cases' draws stay as they were); for decode
     ragged lengths in one batch at the bf16 kernel's tile and chunk edges
     (``decode_edge_lengths``) and 0 (exact zeros), windows that start
     inside a chunk and end inside a tile, q not contiguous, and caches TMA
@@ -1484,10 +1492,11 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     ``f32_err``'s rule (the plain float32 version within ATTN_TOL, or on
     the cases where that version is itself off float64, float64 within
     atol plus its own error), decode to ATTN_TOL. Each flash case runs on
-    the route ``flash_route`` names (float32 at d = 64, 128 and 256 the
-    three-piece tensor-core route) and must be one launch there; in
-    float32 a split one piece short (``ref.TWO_PIECE_TERMS``, emulated)
-    must fail its case's rule at d = 64, 128 and 256 (TWO_PIECE_CASES).
+    the route ``flash_route`` names (float32 at every d the three-piece
+    tensor-core route) and must be one launch there, and no launch counts
+    under ``/simt``; in float32 a split one piece short
+    (``ref.TWO_PIECE_TERMS``, emulated) must fail its case's rule at every
+    d (TWO_PIECE_CASES).
     Returns the number of kernel calls, the largest readings by dtype and
     by route, and the float32 flash cases by rule; raises after every case
     has run if any was out of tolerance."""
@@ -1521,6 +1530,16 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
         (1, 4, 2, 200, 32, 0, 0.0), (1, 8, 1, 300, 32, 0, 0.0),
         (1, 4, 2, 400, 256, 0, 50.0),           # d = 256 with softcap
     ]
+    # d = 16 and 32 around the 128-row query tile and the float32 route's
+    # 128-key tile: S one off and on them, windows of 1, 50 and 130,
+    # softcaps, GQA groups of 1 to 8
+    small_d_cases = [
+        (1, 2, 1, 127, 16, 0, 0.0), (1, 4, 4, 128, 32, 0, 0.0),
+        (2, 4, 2, 129, 16, 0, 30.0), (1, 8, 2, 255, 32, 0, 0.0),
+        (1, 2, 2, 256, 16, 1, 0.0), (1, 4, 1, 257, 32, 50, 0.0),
+        (1, 8, 8, 383, 16, 130, 50.0), (2, 4, 2, 385, 32, 0, 20.0),
+        (1, 2, 1, 257, 16, 50, 0.0), (1, 8, 1, 129, 32, 1, 30.0),
+        (1, 16, 8, 2048, 16, 0, 0.0), (1, 16, 8, 2048, 32, 0, 0.0)]
     strided_case = (1, 4, 2, 300, 128, 0, 0.0)  # operands TMA cannot read
     cancel_case = (1, 4, 2, 256, 128, 0, 0.0)   # V rows in +/- pairs
     # B, H, Hkv, S, d, window, softcap: every GQA group of 1 to 16 at
@@ -1581,6 +1600,11 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
             layout = "bshd" if i % 2 == 0 else "bhsd"
             q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev, layout)
             flash(flash_cases[i], name, q, k, v, win, cap)
+        gen3 = torch.Generator(device=dev).manual_seed(37)
+        for i, (B, H, Hkv, S, d, win, cap) in enumerate(small_d_cases):
+            layout = "bshd" if i % 2 == 0 else "bhsd"
+            q, k, v = _attn_inputs(gen3, B, H, Hkv, S, d, dtype, dev, layout)
+            flash(small_d_cases[i], name, q, k, v, win, cap)
 
         B, H, Hkv, S, d, win, cap = strided_case
         _, _, v = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev, "bhsd")
@@ -1605,10 +1629,12 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
                 control_err, control, _ = f32_err(ref.mha_split_reference(
                     q, k, v, win, cap, TC32_KEY_TILE[d],
                     ref.TWO_PIECE_TERMS)[0], want, exact)
-                ctl = routes.setdefault("two-piece split (control)", {
-                    "max_abs_err": 0.0, "min_ratio": float("inf")})
-                ctl["max_abs_err"] = max(ctl["max_abs_err"], control_err)
-                ctl["min_ratio"] = min(ctl["min_ratio"], control)
+                for label in ("two-piece split (control)",
+                              f"two-piece split (control) d={d}"):
+                    ctl = routes.setdefault(label, {
+                        "max_abs_err": 0.0, "min_ratio": float("inf")})
+                    ctl["max_abs_err"] = max(ctl["max_abs_err"], control_err)
+                    ctl["min_ratio"] = min(ctl["min_ratio"], control)
                 if not control > 1.0:
                     bad.append(f"flash_attention {name} {case}: a split one "
                                f"piece short is within the check "
@@ -1671,6 +1697,9 @@ def check_attention_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
                        f"{k.stride(-1)} and an unaligned v made "
                        f"{decode_attention.copies - copies} copies, not 2")
     torch.cuda.synchronize()
+    simt = [k for k in launch_counts() if k.endswith("/simt")]
+    if simt:
+        bad.append(f"launches on a SIMT route: {simt}")
     if bad:
         raise AssertionError("; ".join(bad))
     return {"cases": calls, **worst, "routes": routes,
@@ -4899,18 +4928,21 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     ``flash_attention_bwd`` (from the forward kernel's own output and row
     lse, themselves checked) against autograd of ``mha_reference``: ragged
     S, windows on and off, softcaps on and off, GQA groups of 1, 2 and 4,
-    d 64, 128 and 256 (and 16, 32; at d = 256 also S = 1, 63, 64, 65 and
-    129 around the 64-row tiles, windows of 1 and 33 and a GQA group of
-    8), strided and contiguous layouts, element by element within
-    ``flash_bwd_bound``, each case on the route ``bwd_route`` names for it
-    (bf16 the tensor cores, float32 the three-piece tensor-core route at
-    d = 64, 128 and 256 and SIMT at 16 and 32), read off its one launch;
+    every d (at d = 16 and 32 S around the 128-key (row) and 64-row (key)
+    tiles, from a generator of their own, so that the other cases' draws
+    stay as they were; at d = 256 also S = 1, 63, 64, 65 and 129 around
+    the 64-row tiles, windows of 1 and 33 and a GQA group of 8), strided
+    and contiguous layouts, element by element within ``flash_bwd_bound``,
+    each case on the route ``bwd_route`` names for it (bf16 the tensor
+    cores, float32 the three-piece tensor-core route), read off its one
+    launch, and no launch under ``/simt``;
     the forward's float32 output under ``f32_err``'s rule (its capped cases
     scale q by c / 2, where the plain float32 version is off float64); on
     the float32 tensor-core route's capped cases a split one
     piece short (``ref.mha_split_backward_reference`` with
     ``ref.TWO_PIECE_TERMS``) must fail the bound on at least one (its
-    smallest and largest ratios are returned); each case also reads a
+    smallest and largest ratios are returned, also by d); each case also
+    reads a
     planted fault (the kernel's formulas with the softcap's factor left out, or
     Delta where there is no softcap) and, from S = 64 on with a window
     other than 1, a second one (``late_rows_wrong``), each of which must
@@ -4960,18 +4992,32 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
                     (2, 4, 2, 64, 256, 0, 0.0), (1, 4, 4, 65, 256, 33, 0.0),
                     (1, 8, 1, 129, 256, 1, 0.0),
                     (1, 16, 2, 129, 256, 33, 50.0)]
+    # d = 16 and 32: d = 64's sweep, S around the float32 route's 128-key
+    # (row) and 64-row (key) tiles
+    small_d_cases = []
+    sizes = (63, 65, 127, 129, 191, 193, 255, 257, 64, 128, 300, 97)
+    for d in (16, 32):
+        for G in (1, 2, 4):
+            for win, cap in ((0, 0.0), (48, 0.0), (0, 30.0), (100, 20.0)):
+                m = len(small_d_cases)
+                small_d_cases.append((1 + m % 2, 2 * G, 2, sizes[m % 12], d,
+                                      win, cap))
+    gen_small = torch.Generator(device=dev).manual_seed(41)
     for name in dtypes:
         dtype = getattr(torch, name)
-        for i, (B, H, Hkv, S, d, win, cap) in enumerate(flash_cases):
+        for i, (case, g) in enumerate(
+                [(c, gen) for c in flash_cases]
+                + [(c, gen_small) for c in small_d_cases]):
+            B, H, Hkv, S, d, win, cap = case
             cases += 1
             route = bwd_route(dtype, d)
             routes[f"{name} {route}"] = routes.get(f"{name} {route}", 0) + 1
-            label = f"flash_attention_bwd {name} {flash_cases[i]} {route}"
-            q, k, v = _attn_inputs(gen, B, H, Hkv, S, d, dtype, dev,
+            label = f"flash_attention_bwd {name} {case} {route}"
+            q, k, v = _attn_inputs(g, B, H, Hkv, S, d, dtype, dev,
                                    "bshd" if i % 2 == 0 else "bhsd")
             if cap > 0:     # scores ~ N(0, (c/2)^2): the cap bites, so its
                 q = q * (cap / 2)     # factor's planted fault shows
-            dout = torch.randn((B, S, H, d), generator=gen, device=dev,
+            dout = torch.randn((B, S, H, d), generator=g, device=dev,
                                dtype=dtype).transpose(1, 2)
             lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
             o = flash_attention(q, k, v, window=win, softcap=cap, lse=lse)
@@ -5016,10 +5062,12 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
                 two = bwd_err(ref.mha_split_backward_reference(
                     q, k, v, o, dout, lse, win, cap, ref.TWO_PIECE_TERMS),
                     want, bound)[1]
-                w = worst.setdefault("two-piece split (control)", {
-                    "min_ratio": float("inf"), "max_ratio": 0.0})
-                w["min_ratio"] = min(w["min_ratio"], two)
-                w["max_ratio"] = max(w["max_ratio"], two)
+                for key in ("two-piece split (control)",
+                            f"two-piece split (control) d={d}"):
+                    w = worst.setdefault(key, {"min_ratio": float("inf"),
+                                               "max_ratio": 0.0})
+                    w["min_ratio"] = min(w["min_ratio"], two)
+                    w["max_ratio"] = max(w["max_ratio"], two)
             if not ratio <= 1.0:
                 bad.append(f"{label}: max |kernel - plain| {err}, {ratio}x "
                            f"the bound")
@@ -5090,6 +5138,9 @@ def check_backward_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
     if two is not None and not two["max_ratio"] > 1.0:
         bad.append(f"flash_attention_bwd: a split one piece short is within "
                    f"the bound on every capped float32 case ({two})")
+    simt = [k for k in launch_counts() if k.endswith("/simt")]
+    if simt:
+        bad.append(f"launches on a SIMT route: {simt}")
     if bad:
         raise AssertionError("; ".join(bad))
     return {"cases": cases, "flash_routes": routes,

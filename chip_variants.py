@@ -14,6 +14,12 @@ variants of themselves, on one NVIDIA GPU.
         --parent-bf16 build/parent/src/repro_torch/csrc
                                         # the float32 routes, and the bf16
                                         # ones beside an earlier build
+    git archive <commit> src/repro_torch/csrc/flash_f32_tc.cu \
+        src/repro_torch/csrc/flash_bwd_f32_tc.cu | tar -x -C build/parent
+    python3 chip_variants.py --kernels f32 \
+        --parent-f32 build/parent/src/repro_torch/csrc
+                                        # and the float32 routes at d = 64,
+                                        # 128 and 256 beside an earlier build
     git show <commit>:src/repro_torch/csrc/decode_tc.cu \
         > build/parent/decode_tc.cu
     python3 chip_variants.py --kernels decode
@@ -112,7 +118,8 @@ O by the tensor cores, not in a fresh accumulator), each held to
 route's output to a first call's bit for bit; then timed in turns with the
 profiler's device time of ``flash32_kernel`` and of the split pre-pass.
 Before that, on capped cases of the backward check's kind (q scaled by
-c / 2, caps 20, 30 and 50; 9 draws at d = 64 and at 128, 18 at 256), the
+c / 2, caps 20, 30 and 50; 9 draws at d = 64 and at 128, 18 at 256, 18 at
+16 and at 32), the
 largest error of the routes and of the plain float32 version against
 float64, of the routes against the plain version, and of each route's
 ``chip_smoke.f32_err`` ratio (the float32 checks' rule).
@@ -123,9 +130,22 @@ of its kernels. Then gemma2-2b's d = 256 (``d256_section``): the forward
 at a global layer's prefill (B 1, H 8/4, S 32,768, softcap 50) and a
 local one's (window 4,096), the backward at B 1, S 4,096, softcap 50,
 each route beside the SIMT kernel and SDPA's float32 call (no softcap),
-in turns, with its kernels' device times; and the SIMT kernels at d = 16
-and 32 (``simt_rows``: forward at B 1, H 16/8, S 32,768, backward at B
-8, S 2,048) beside their plain versions and SDPA. With ``--parent-bf16 DIR`` (a directory holding an
+in turns, with its kernels' device times; and d = 16 and 32
+(``small_d_rows``: forward at B 1, H 16/8, S 32,768, backward at B 8, S
+2,048): the three-piece route beside the SIMT kernels, SDPA and, for the
+forward, three builds of its plan at these dims (``f32_small_bk64``:
+64-key tiles where the shipped plan takes 128; ``f32_small_six_pv``: P V
+as six wgmmas a 16-key step; ``f32_small_producer``: a producer
+warpgroup, ptxas's registers capped at 168), and the timing-only
+``F32_PHASES`` (the split of P, the ex2s, P V or five of S's six products
+cut; outputs wrong by design), with the plain versions' times, the
+kernels' device times and the floors. With
+``--parent-f32 DIR`` (a directory holding an earlier ``flash_f32_tc.cu``
+and ``flash_bwd_f32_tc.cu``) the float32 routes at d = 64, 128 and 256
+(B 1, S 4,096, windows 0 and 1,000, gemma2's softcap at d = 256) run
+beside those sources' builds, called as the wrapper calls the shipped
+libraries: output, lse and gradients bit for bit equal, then timed in
+turns. With ``--parent-bf16 DIR`` (a directory holding an
 earlier ``flash_tc.cu`` and ``flash_bwd_tc.cu``) the bf16 routes at
 qwen3-0.6b's prefill and training shapes run beside those sources' builds,
 called as the wrappers call the shipped libraries: outputs bit for bit
@@ -289,6 +309,11 @@ __device__ __forceinline__ void wgmma_ss<16>(float* d, uint64_t da,
 
 """
 
+# flash_f32_tc.cu's key tile and ring depth (Plan<D>), as shipped
+_F32_PLAN = ("  static constexpr int BK = D < 64 ? 128 : D == 64 ? 64 : 32;  "
+             "// keys a tile\n"
+             "  static constexpr int STAGES = D < 64 ? 4 : D == 64 ? 3 : D == 128 "
+             "? 2 : 1;")
 # name: (source file, [(shipped text, variant text)])
 VARIANTS = {
     # no L2 hints at all: plain stores, bulk copies without a policy
@@ -344,13 +369,54 @@ VARIANTS = {
     # the float32 forward at d = 256 on the other plan that fits its shared
     # memory: two stages of 16-key K and V tiles (S a 64 x 16 wgmma)
     "f32_bk16": ("flash_f32_tc.cu", [
-        ("  static constexpr int BK = D == 64 ? 64 : 32;    // keys a tile\n"
-         "  static constexpr int STAGES = D == 64 ? 3 : D == 128 ? 2 : 1;",
-         "  static constexpr int BK = D == 256 ? 16 : D == 128 ? 32 : 64;\n"
-         "  static constexpr int STAGES = D == 64 ? 3 : 2;"),
+        (_F32_PLAN, "  static constexpr int BK = D < 64 ? 128 : D == 64 ? 64 "
+                    ": D == 128 ? 32 : 16;\n"
+                    "  static constexpr int STAGES = D < 64 ? 4 : D == 64 ? 3 "
+                    ": 2;"),
         ("template <>\n__device__ __forceinline__ void wgmma_ss<32>(",
          _WGMMA_SS16 + "template <>\n"
          "__device__ __forceinline__ void wgmma_ss<32>(")]),
+    # the float32 forward at d = 16 and 32 with 64-key tiles (the shipped
+    # plan takes 128): half the score and split registers, twice the tiles
+    "f32_small_bk64": ("flash_f32_tc.cu", [
+        (_F32_PLAN, "  static constexpr int BK = D <= 64 ? 64 : 32;  "
+                    "// keys a tile\n"
+                    "  static constexpr int STAGES = D < 64 ? 4 : D == 64 ? 3 "
+                    ": D == 128 ? 2 : 1;")]),
+    # the float32 forward at d = 16 and 32 with P V as six wgmmas a 16-key
+    # step at N = d, as at d = 64, where the shipped plan takes three (one
+    # a piece of P over V's pieces side by side)
+    "f32_small_six_pv": ("flash_f32_tc.cu", [
+        ("  static constexpr bool MERGED_PV = D < 64;",
+         "  static constexpr bool MERGED_PV = false;")]),
+    # ... with a producer warpgroup, as at d >= 64 (three warpgroups: ptxas
+    # caps the registers at 168)
+    "f32_small_producer": ("flash_f32_tc.cu", [
+        ("  static constexpr bool PRODUCER = D >= 64;",
+         "  static constexpr bool PRODUCER = true;")]),
+    # timing only, outputs wrong by design: the float32 forward with one
+    # phase cut, to read what each costs at d = 16 and 32
+    "f32_no_split": ("flash_f32_tc.cu", [       # P as its hi piece alone
+        ("            split2(p0, p1, pp[0][kk][2 * half + r], "
+         "pp[1][kk][2 * half + r],\n                   pp[2][kk][2 * half + r]);",
+         "            pp[0][kk][2 * half + r] =\n"
+         "                bf16x2_bits(__floats2bfloat162_rn(p0, p1));\n"
+         "            pp[1][kk][2 * half + r] = pp[2][kk][2 * half + r] = 0u;")]),
+    "f32_no_exp": ("flash_f32_tc.cu", [         # no ex2
+        ("            const float p0 = ex2(fmaf(s[at], f, -m_use[r]));\n"
+         "            const float p1 = ex2(fmaf(s[at + 1], f, -m_use[r]));",
+         "            const float p0 = fmaf(s[at], f, -m_use[r]);\n"
+         "            const float p1 = fmaf(s[at + 1], f, -m_use[r]);")]),
+    "f32_no_pv": ("flash_f32_tc.cu", [          # no P V products
+        ("        for (int kk = 0; kk < BK / 16; ++kk) {\n"
+         "          const uint64_t at = vd + ((kk * 16 * SWZ) >> 4);",
+         "        for (int kk = 0; kk < 0; ++kk) {\n"
+         "          const uint64_t at = vd + ((kk * 16 * SWZ) >> 4);")]),
+    "f32_one_s": ("flash_f32_tc.cu", [          # S as one piece product
+        ("  for (int t = 0; t < 6; ++t)\n#pragma unroll\n"
+         "    for (int c = 0; c < P::NC; ++c)",
+         "  for (int t = 0; t < 1; ++t)\n#pragma unroll\n"
+         "    for (int c = 0; c < P::NC; ++c)")]),
     # the d = 256 backward with d <= 128's block order: the (head, batch)
     # pairs one after another, the longest tiles first within each
     "bwd_head_major": ("flash_bwd_tc.cu", [
@@ -385,6 +451,7 @@ VARIANTS = {
 # the timing-only builds above
 BWD_PHASES = ("bwd_no_math", "bwd_no_rs", "bwd_no_ss", "bwd_no_bar",
               "bwd_no_empty_wait")
+F32_PHASES = ("f32_no_split", "f32_no_exp", "f32_no_pv", "f32_one_s")
 SECTIONS = ("bag", "scan", "segment", "probe", "qad", "bwd", "decode",
             "f32")
 # the sections run when none is named: decode times an earlier build of
@@ -465,7 +532,10 @@ SECTION_VARIANTS = {"bag": ("bag_nohint", "bag_evictlast"),
                     "segment": ("seg_nocarry",), "probe": ("probe_old",),
                     "qad": ("qad_noexit", "qad_vote1", "qad_exact"),
                     "bwd": ("bwd_whole", "bwd_head_major", *BWD_PHASES),
-                    "decode": (), "f32": ("f32_no_fresh_pv", "f32_bk16")}
+                    "decode": (),
+                    "f32": ("f32_no_fresh_pv", "f32_bk16", "f32_small_bk64",
+                            "f32_small_six_pv", "f32_small_producer",
+                            *F32_PHASES)}
 # the parent's decode_tc.cu argument types: q, k, v, lengths, o, part,
 # tickets, strides, B, H, Hkv, S, D, chunk, window, softcap, scale, stream
 _PARENT_DECODE = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
@@ -486,6 +556,11 @@ def main(argv: list[str] | None = None) -> int:
                     help="the f32 section's directory of an earlier "
                          "flash_tc.cu and flash_bwd_tc.cu, built and timed "
                          "beside the shipped bf16 routes")
+    ap.add_argument("--parent-f32", type=Path, default=None,
+                    help="the f32 section's directory of an earlier "
+                         "flash_f32_tc.cu and flash_bwd_f32_tc.cu, built "
+                         "and held bit for bit to the shipped float32 "
+                         "routes at d = 64, 128 and 256")
     args = ap.parse_args([] if argv is None else argv)
     sections = args.kernels.split(",")
     if not set(sections) <= set(SECTIONS):
@@ -555,19 +630,24 @@ def main(argv: list[str] | None = None) -> int:
         if name in libs:
             libs[name].flash32_flash_attention.argtypes = \
                 _build.LIBRARIES["flash32"][1]["flash_attention"] + [P]
+    parents = []
     if "f32" in sections and args.parent_bf16 is not None:
-        for lib, src in (("flash", "flash_tc.cu"), ("bwd_tc", "flash_bwd_tc.cu")):
-            out = OUT / f"lib{lib}_parent.so"
-            OUT.mkdir(parents=True, exist_ok=True)
-            subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                            str(out), str(args.parent_bf16 / src)],
-                           check=True, capture_output=True)
-            handle = ctypes.CDLL(str(out))
-            kernel = "flash_attention" if lib == "flash" else \
-                "flash_attention_bwd"
-            getattr(handle, f"{lib}_{kernel}").argtypes = \
-                _build.LIBRARIES[lib][1][kernel] + [P]
-            libs[f"{lib}_parent"] = handle
+        parents += [("flash", args.parent_bf16 / "flash_tc.cu"),
+                    ("bwd_tc", args.parent_bf16 / "flash_bwd_tc.cu")]
+    if "f32" in sections and args.parent_f32 is not None:
+        parents += [("flash32", args.parent_f32 / "flash_f32_tc.cu"),
+                    ("bwd32", args.parent_f32 / "flash_bwd_f32_tc.cu")]
+    for lib, src in parents:
+        out = OUT / f"lib{lib}_parent.so"
+        OUT.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                        str(src)], check=True, capture_output=True)
+        handle = ctypes.CDLL(str(out))
+        kernel = "flash_attention_bwd" if lib.startswith("bwd") else \
+            "flash_attention"
+        getattr(handle, f"{lib}_{kernel}").argtypes = \
+            _build.LIBRARIES[lib][1][kernel] + [P]
+        libs[f"{lib}_parent"] = handle
     gpu = smoke.gpu_line()
     log(f"build {time.perf_counter() - t0:.1f} s; {gpu}")
     dev = torch.device("cuda")
@@ -1110,19 +1190,39 @@ def f32_section(libs, smoke, times, run_in_turns, stream, dev) -> None:
     from repro_torch.kernels.flash_attention import (
         ROW_PAD, flash_attention, flash_attention_bwd, split_pieces, strides)
 
-    def tc32_variant(lib, q, k, v, window=0, softcap=0.0):
-        """The float32 forward through ``lib``, a variant build of
-        ``csrc/flash_f32_tc.cu``, called as the wrapper calls it."""
+    def tc32_variant(lib, q, k, v, window=0, softcap=0.0, lse=None):
+        """The float32 forward through ``lib``, a variant or earlier build
+        of ``csrc/flash_f32_tc.cu``, called as the wrapper calls it."""
         B, H, S, d = q.shape
         out = torch.empty_like(q)
         q3, k3, v3 = split_pieces(q, k, v)
         rc = lib.flash32_flash_attention(
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
-            None, strides(out), B, H, k.shape[1], S, d, window, softcap,
-            d ** -0.5, stream())
+            None if lse is None else lse.data_ptr(), strides(out), B, H,
+            k.shape[1], S, d, window, softcap, d ** -0.5, stream())
         if rc:
             raise RuntimeError(f"flash_attention f32 variant: CUDA error {rc}")
         return out
+
+    def bwd32_variant(lib, q, k, v, o, dout, lse, window=0, softcap=0.0):
+        """(dq, dk, dv) of the float32 backward through ``lib``, an
+        earlier build of ``csrc/flash_bwd_f32_tc.cu``, called as the
+        wrapper calls it."""
+        B, H, S, d = q.shape
+        Sp = -(-S // ROW_PAD) * ROW_PAD
+        rows = torch.empty((2, B, H, Sp), dtype=torch.float32, device=dev)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        q3, k3, v3, do3 = split_pieces(q, k, v, dout)
+        rc = lib.bwd32_flash_attention_bwd(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+            o.data_ptr(), dout.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            strides(o, dout, dq, dk, dv), B, H, k.shape[1], S, Sp, d,
+            window, softcap, d ** -0.5, stream())
+        if rc:
+            raise RuntimeError(f"flash_attention_bwd f32 parent: CUDA error "
+                               f"{rc}")
+        return dq, dk, dv
 
     def bf16_flash(lib, q, k, v):
         """The bf16 forward through ``lib`` (``flash_tc.cu``'s library,
@@ -1156,7 +1256,9 @@ def f32_section(libs, smoke, times, run_in_turns, stream, dev) -> None:
 
     # The float32 forward's error on capped cases of the backward check's
     # kind (q scaled by c / 2 as check_backward_cases scales it): 9 draws
-    # at d = 64 and 128 each, 18 at d = 256. Each route's and the plain
+    # at d = 64 and 128 each, 18 at d = 256, then 18 at d = 16 and at 32
+    # (after the others, so their draws stay as they were). Each route's and
+    # the plain
     # float32 version's largest error from float64 and the routes' from the
     # plain version, in units of ATTN_TOL's 1e-5, and the largest ratio of
     # chip_smoke.f32_err (the checks' rule) of each route
@@ -1165,7 +1267,7 @@ def f32_section(libs, smoke, times, run_in_turns, stream, dev) -> None:
     n = 0
     draws = [(d, G, win, cap) for d in (64, 128) for G in (1, 2, 4)
              for win, cap in ((0, 30.0), (100, 20.0), (0, 50.0))]
-    draws += [(256, G, win, cap) for G in (1, 2, 4)
+    draws += [(d, G, win, cap) for d in (256, 16, 32) for G in (1, 2, 4)
               for win, cap in ((0, 30.0), (100, 20.0), (0, 50.0),
                                (0, 50.0), (300, 50.0), (0, 20.0))]
     for d, G, win, cap in draws:
@@ -1262,7 +1364,53 @@ def f32_section(libs, smoke, times, run_in_turns, stream, dev) -> None:
     d256_section(smoke, times, run_in_turns, gen, dev,
                  (lambda *a: tc32_variant(libs["f32_bk16"], *a))
                  if "f32_bk16" in libs else None)
-    simt_rows(smoke, times, gen, dev)
+    small_d_rows(
+        smoke, times, run_in_turns, gen, dev,
+        {name: (lambda *a, lib=libs[name]: tc32_variant(lib, *a))
+         for name in ("f32_small_bk64", "f32_small_six_pv",
+                      "f32_small_producer", *F32_PHASES) if name in libs})
+
+    if "flash32_parent" in libs:
+        # the float32 routes at d = 64, 128 and 256 against an earlier build
+        # of their sources: output, lse and gradients bit for bit, then the
+        # forward and the backward timed in turns (parent, shipped,
+        # shipped, parent)
+        for pd, ph, pkv, cap in ((64, 16, 8, 0.0), (128, 16, 8, 0.0),
+                                 (256, 8, 4, 50.0)):
+            for win in (0, 1000):
+                pb, ps = 1, 4096
+                q, k, v = smoke._attn_inputs(gen, pb, ph, pkv, ps, pd,
+                                             torch.float32, dev)
+                label = (f"flash_attention B={pb} H={ph}/{pkv} S={ps} d={pd} "
+                         f"window={win} softcap={cap:g} f32")
+                lse, lse_p = (torch.empty((pb, ph, ps), device=dev)
+                              for _ in range(2))
+                o = flash_attention(q, k, v, window=win, softcap=cap,
+                                    lse=lse)
+                o_p = tc32_variant(libs["flash32_parent"], q, k, v, win, cap,
+                                   lse_p)
+                if not (torch.equal(o, o_p) and torch.equal(lse, lse_p)):
+                    raise AssertionError(f"{label}: output or lse differs "
+                                         f"from the parent build's")
+                order = [("shipped", lambda: flash_attention(
+                              q, k, v, window=win, softcap=cap)),
+                         ("parent", lambda: tc32_variant(
+                             libs["flash32_parent"], q, k, v, win, cap))]
+                run_in_turns(label, order[::-1], o, calls=5)
+                dout = torch.randn((pb, ps, ph, pd), generator=gen,
+                                   device=dev).transpose(1, 2)
+                label = label.replace("flash_attention", "flash_attention_bwd")
+                order = [("shipped", lambda: flash_attention_bwd(
+                              q, k, v, o, dout, lse, win, cap)),
+                         ("parent", lambda: bwd32_variant(
+                             libs["bwd32_parent"], q, k, v, o, dout, lse,
+                             win, cap))]
+                run_in_turns(label, order[::-1], order[0][1](), calls=5)
+                times[f"{label} bit for bit with the parent"] = 1.0
+                log(f"{label}: output, lse and gradients bit for bit equal "
+                    f"to the parent build's")
+                del q, k, v, o, dout, lse, lse_p, o_p, order
+                torch.cuda.empty_cache()
 
     if "flash_parent" in libs:
         # the bf16 routes against an earlier build of their sources, both
@@ -1403,75 +1551,116 @@ def d256_section(smoke, times, run_in_turns, gen, dev, bk16=None) -> None:
     torch.cuda.empty_cache()
 
 
-def simt_rows(smoke, times, gen, dev) -> None:
-    """The SIMT float32 kernels at d = 16 and 32, which no zoo config
-    uses: the forward at B 1, H 16/8, S 32,768 and the backward at B 8,
-    H 16/8, S 2,048 (qwen3-0.6b's heads and shapes), each held to its
-    check, timed beside its plain version and SDPA's float32 call, with
-    the split floor and the float32 CUDA-core bound of its operations."""
+def small_d_rows(smoke, times, run_in_turns, gen, dev, variants) -> None:
+    """float32 attention at d = 16 and 32, which no zoo config uses (the f32
+    section): the forward at B 1, H 16/8, S 32,768 and the backward at B
+    8, H 16/8, S 2,048 (qwen3-0.6b's heads and shapes), the three-piece
+    route beside the SIMT kernel it replaced (``chip_smoke.simt_flash`` and
+    ``simt_bwd``), SDPA's float32 call and, for the forward, the builds of
+    ``variants`` (name: the call, as the wrapper calls the shipped
+    library), each held to its check first but the timing-only
+    ``F32_PHASES``, timed in turns, with each kernel's device time, the
+    plain version's time, the split floor, the float32 CUDA-core bound
+    and, for the forward, the exponentials' floor: one ex2 a visible score
+    at 16 a clock an SM on 132 SMs at the card's largest SM clock."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (attention_ops,
+                                                     causal_pairs,
                                                      flash_attention,
                                                      flash_attention_bwd)
+    sfu_per_s = 16 * 132 * smoke.sm_clock_hz()
     for d in (16, 32):
         B, H, Hkv, S = 1, 16, 8, 32768
-        label = f"flash_attention SIMT B={B} H={H}/{Hkv} S={S} d={d} f32"
+        label = f"flash_attention B={B} H={H}/{Hkv} S={S} d={d} f32"
         q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.float32,
                                      dev)
-        err, ratio = smoke.attn_err(flash_attention(q, k, v),
-                                    ref.mha_reference(q, k, v))
-        if not ratio <= 1.0:
-            raise AssertionError(f"{label}: {ratio}x ATTN_TOL")
+        order = [("tc32 route", lambda: flash_attention(q, k, v)),
+                 *[(name, lambda fn=fn: fn(q, k, v))
+                   for name, fn in variants.items()
+                   if name not in F32_PHASES],
+                 ("SIMT route", lambda: smoke.simt_flash(q, k, v))]
+        want = ref.mha_reference(q, k, v)
+        exact = smoke.f64_reference(q, k, v)
+        for name, fn in order:
+            err, ratio, rule = smoke.f32_err(fn(), want, exact)
+            times[f"{label} {name} tolerance ratio"] = ratio
+            log(f"{label} {name}: max abs err {err}, {ratio}x ({rule} "
+                f"rule)")
+            if not ratio <= 1.0:
+                raise AssertionError(f"{label} {name}: {ratio}x the check")
+        del want, exact
+        torch.cuda.empty_cache()
         ops = attention_ops(B, H, S, d)
-        lib = smoke._sdpa_f32(q, k, v)
-        row = {"ms": smoke.time_ms(lambda: flash_attention(q, k, v),
-                                   calls=1, reps=3),
-               "plain_ms": smoke.time_ms(lambda: ref.mha_reference(q, k, v),
+        row = {"plain_ms": smoke.time_ms(lambda: ref.mha_reference(q, k, v),
                                          calls=1, reps=1),
-               "library_ms": smoke.time_ms(lib, calls=1, reps=3)
-               if lib else None,
                "bound_ms": ops / smoke.SPLIT_OPS_PER_S * 1e3,
-               "cuda_core_bound_ms": ops / smoke.SCALAR_OPS_PER_S * 1e3,
-               "max_abs_err": err}
+               "exp_floor_ms": B * H * causal_pairs(S) / sfu_per_s * 1e3,
+               "cuda_core_bound_ms": ops / smoke.SCALAR_OPS_PER_S * 1e3}
+        lib = smoke._sdpa_f32(q, k, v)
+        if lib is not None:
+            order.append(("SDPA efficient", lib))
+        run_in_turns(label, order, order[0][1](), calls=1,
+                     exact=["tc32 route"])
+        for kernel in ("flash32_kernel", "split_kernel"):
+            row[f"{kernel} device_ms"] = smoke.kernel_device_ms(
+                order[0][1], kernel, calls=3)[0]
+        # timing only, outputs wrong by design: one phase cut each
+        phases = [order[0]] + [(name, lambda fn=fn: fn(q, k, v))
+                               for name, fn in variants.items()
+                               if name in F32_PHASES]
+        if len(phases) > 1:
+            run_in_turns(f"{label} phases", phases, None, calls=1, exact=[])
+            for name, fn in phases:
+                row[f"{name} flash32_kernel device_ms"] = \
+                    smoke.kernel_device_ms(fn, "flash32_kernel", calls=3)[0]
         for key, val in row.items():
             times[f"{label} {key}"] = val
         log(f"{label}: {json.dumps(row)}")
-        del q, k, v, lib
+        del q, k, v, order, phases, lib
         torch.cuda.empty_cache()
 
         B, S = smoke.TRAIN_BATCH, smoke.TRAIN_SEQ
-        label = (f"flash_attention_bwd SIMT B={B} H={H}/{Hkv} S={S} d={d} "
-                 f"f32")
+        label = f"flash_attention_bwd B={B} H={H}/{Hkv} S={S} d={d} f32"
         q, k, v = smoke._attn_inputs(gen, B, H, Hkv, S, d, torch.float32,
                                      dev)
         dout = torch.randn((B, S, H, d), generator=gen,
                            device=dev).transpose(1, 2)
         lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
         o = flash_attention(q, k, v, lse=lse)
+        order = [("tc32 route",
+                  lambda: flash_attention_bwd(q, k, v, o, dout, lse)),
+                 ("SIMT route",
+                  lambda: smoke.simt_bwd(q, k, v, o, dout, lse))]
         want = ref.flash_attention_backward_reference(q, k, v, dout)
-        err, ratio = smoke.bwd_err(
-            flash_attention_bwd(q, k, v, o, dout, lse), want,
-            smoke.flash_bwd_bound(q, k, v, o, dout, want))
-        if not ratio <= 1.0:
-            raise AssertionError(f"{label}: {ratio}x the bound")
-        del want
+        bound = smoke.flash_bwd_bound(q, k, v, o, dout, want)
+        for name, fn in order:
+            err, ratio = smoke.bwd_err(fn(), want, bound)
+            times[f"{label} {name} bound ratio"] = ratio
+            log(f"{label} {name}: max abs err {err}, {ratio}x "
+                f"flash_bwd_bound")
+            if not ratio <= 1.0:
+                raise AssertionError(f"{label} {name}: {ratio}x the bound")
+        del want, bound
+        torch.cuda.empty_cache()
         ops = 2.5 * attention_ops(B, H, S, d)
-        lib = smoke._sdpa_f32_backward(q, k, v, dout)
-        row = {"ms": smoke.time_ms(
-                   lambda: flash_attention_bwd(q, k, v, o, dout, lse),
-                   calls=3, reps=3),
-               "plain_ms": smoke.time_ms(
+        row = {"plain_ms": smoke.time_ms(
                    lambda: ref.flash_attention_backward_reference(
                        q, k, v, dout), calls=1, reps=1),
-               "library_ms": smoke.time_ms(lib, calls=3, reps=3),
                "bound_ms": ops / smoke.SPLIT_OPS_PER_S * 1e3,
-               "cuda_core_bound_ms": ops / smoke.SCALAR_OPS_PER_S * 1e3,
-               "max_abs_err": err}
+               "cuda_core_bound_ms": ops / smoke.SCALAR_OPS_PER_S * 1e3}
+        order.append(("SDPA efficient backward",
+                      smoke._sdpa_f32_backward(q, k, v, dout)))
+        run_in_turns(label, order, order[0][1](), calls=3,
+                     exact=["tc32 route"])
+        for kernel in ("split_kernel", "rows_kernel", "dkdv_kernel",
+                       "dq_kernel"):
+            row[f"{kernel} device_ms"] = smoke.kernel_device_ms(
+                order[0][1], kernel, calls=5)[0]
         for key, val in row.items():
             times[f"{label} {key}"] = val
         log(f"{label}: {json.dumps(row)}")
-        del q, k, v, o, dout, lse, lib
+        del q, k, v, o, dout, lse, order
         torch.cuda.empty_cache()
 
 

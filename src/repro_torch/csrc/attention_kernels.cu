@@ -1,16 +1,17 @@
 // Float32 attention kernels of the LM serving path, for Hopper (sm_90a):
-// causal prefill attention (flash) at d = 16 and 32, and one-token
-// attention against a KV cache (decode). Built by
+// one-token attention against a KV cache (decode), and the SIMT causal
+// prefill attention kernel (flash) that no route takes any more. Built by
 // repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // into its own shared library with a plain C interface, loaded with ctypes.
 // The bfloat16 routes have kernels of their own: prefill on the tensor
 // cores (flash_tc.cu), decode through a TMA ring (decode_tc.cu); and
-// float32 prefill at d = 64, 128 and 256 runs on the tensor cores as bf16
-// products of three-piece splits (flash_f32_tc.cu). chip_variants.py
-// --kernels f32 still calls this flash kernel at d = 64, 128 and 256, to time
-// the two beside each other; the port's path does not.
+// float32 prefill at every head dim runs on the tensor cores as bf16
+// products of three-piece splits (flash_f32_tc.cu). Only
+// chip_smoke.simt_flash (and chip_variants.py through it) still calls this
+// flash kernel, at every head dim d = 16 and 32 included, to time it
+// beside the route that replaced it; the port's path does not.
 //
 // Every entry point takes device pointers, the element strides of each
 // tensor (a host array of int64), and the caller's CUDA stream; it launches
@@ -29,8 +30,8 @@
 // it; this kernel runs its products on the float32 CUDA cores from shared
 // memory (16-byte reads, a 4x4 score and a 4x(d/16) output tile per
 // thread). One-pass TF32 would round float32 inputs to 10 bits, far
-// outside the float32 checks; flash_f32_tc.cu's exact split takes d = 64
-// and 128 to the tensor cores, and the other head dims are still to do.
+// outside the float32 checks; flash_f32_tc.cu's exact split takes every
+// head dim to the tensor cores.
 //
 // decode: replaces repro/kernels/decode_attention.py (decode_attention) for
 // float32 inputs. Bytes bound it: each step reads every valid K/V row once.

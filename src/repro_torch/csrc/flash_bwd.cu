@@ -1,12 +1,12 @@
 // Backward of causal prefill attention (flash_attention_bwd) for Hopper
-// (sm_90a), the float32 route at d = 16 and 32: dQ, dK and dV of the
-// forward in attention_kernels.cu, from q, k, v, the output o, its gradient
-// dO and the row log-sum-exp the forward wrote. bfloat16 runs on the tensor
-// cores (flash_bwd_tc.cu), and so does float32 at d = 64, 128 and 256 as bf16
+// (sm_90a) on the CUDA cores, on no route of the port: dQ, dK and dV of
+// the forward, from q, k, v, the output o, its gradient dO and the row
+// log-sum-exp the forward wrote. bfloat16 runs on the tensor cores
+// (flash_bwd_tc.cu), and so does float32 at every head dim as bf16
 // products of three-piece splits (flash_bwd_f32_tc.cu); the kernels here
-// take either dtype, and chip_smoke.simt_bwd and chip_variants.py call
-// them at those head dims to time them beside the routes that replaced
-// them. Built by
+// take either dtype, and only chip_smoke.simt_bwd (and chip_variants.py
+// through it) calls them, at every head dim d = 16 and 32 included, to
+// time them beside the routes that replaced them. Built by
 // repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
@@ -30,9 +30,9 @@
 // 4 x 4 (4 x 2) score tile and float4 reads along the reduction. Inputs
 // of either dtype are staged in shared memory as float32; all sums are
 // float32; dQ, dK and dV are rounded once to the inputs' dtype. What holds
-// it back: the SIMT products (flash_bwd_f32_tc.cu puts d = 64, 128 and 256
-// on the tensor cores; d = 16 and 32 are still to do), and one block an
-// SM at d = 128 (170 KB of shared memory).
+// it back: the SIMT products (flash_bwd_f32_tc.cu puts every head dim on
+// the tensor cores), and one block an SM at d = 128 (170 KB of shared
+// memory).
 //
 // Three kernels, one entry point:
 //   delta_kernel     one warp a query row: D = rowsum(dO * O);

@@ -1,10 +1,10 @@
 // Backward of causal prefill attention in float32 on Hopper's bf16 tensor
-// cores (sm_90a): the float32 route of flash_attention_bwd at d = 64, 128
-// and 256 ("tc32"). Built by repro_torch/kernels/_build.py with
+// cores (sm_90a): the float32 route of flash_attention_bwd at every head
+// dim (16, 32, 64, 128 and 256; "tc32"). Built by
+// repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
-// into its own shared library with a plain C interface, loaded with ctypes
-// (d = 16 and 32 stay the SIMT kernels of flash_bwd.cu).
+// into its own shared library with a plain C interface, loaded with ctypes.
 // cuTensorMapEncodeTiled is looked up at run time (an entry point of
 // libcuda through the runtime), so the library needs no -lcuda.
 //
@@ -48,7 +48,11 @@
 // block is one warpgroup with BN = 64 keys (rows) and the ring's tiles are
 // 32 rows (keys): 96 KB of fixed tiles and two 48 KB stages. At d = 64 a
 // block keeps flash_bwd_tc.cu's two warpgroups, BN = 128 and 64-row tiles,
-// in the same 192 KB. At d = 256 the fixed tiles alone would be 192 KB for
+// in the same 192 KB; d = 16 and 32 take that plan too (48 and 96 KB: the
+// fixed tiles and the ring shrink with d, the registers do not), with
+// 64- and 32-byte swizzled rows of d columns, one or two 16-column steps
+// a piece product in S^T and dP^T (S and dP) and N = d in the register-A
+// products. At d = 256 the fixed tiles alone would be 192 KB for
 // 64 keys (rows), with no room left for the ring, and one warpgroup could
 // not hold dK and dV (256 floats a thread). So a (key or row) tile is two
 // blocks, a cluster of two (SPLIT): each holds its half of d's columns of
@@ -94,28 +98,29 @@ __host__ __device__ constexpr int term_b(int t) {
   return t == 0 ? 1 : t == 2 ? 2 : t == 4 ? 1 : 0;
 }
 
-// Shared-memory plan for head dim D (64, 128 or 256). Both kernels hold two
+// Shared-memory plan for head dim D (16 to 256). Both kernels hold two
 // fixed tiles of BN rows (dkdv: K, V; dq: Q, dO), a ring of kStages stages
 // of two BT-row tiles (dkdv: Q, dO; dq: K, V) and the rows' lse2 and Delta
 // (dkdv: BT of each a stage; dq: BN of each, once); at d = 256 (SPLIT) a
 // block holds DH = 128 of d's columns, and the exchange's buffers. Each
-// tile is three pieces; a piece is DH / 64 chunks of [rows][64] bf16, rows
-// of 128 bytes swizzled by TMA, the canonical layout wgmma reads.
+// tile is three pieces; a piece is DH / CW chunks of [rows][CW] bf16 (CW =
+// 64, or D below 64), rows of SWZ = 2 CW bytes swizzled by TMA, the
+// canonical layout wgmma reads.
 template <int D>
 struct Plan {
   static constexpr bool SPLIT = D == 256;      // a cluster of two blocks,
                                                // each over half of d
   static constexpr int DH = SPLIT ? D / 2 : D; // d's columns a block holds
-  static constexpr int NW = D == 64 ? 2 : 1;   // warpgroups a block
+  static constexpr int NW = D <= 64 ? 2 : 1;   // warpgroups a block
   static constexpr int THREADS = 128 * NW;
   static constexpr int BN = 64 * NW;           // keys of a dkdv block, rows
                                                // of a dq one
-  static constexpr int BT = D == 64 ? 64 : 32;   // rows of a dkdv ring tile,
+  static constexpr int BT = D <= 64 ? 64 : 32;   // rows of a dkdv ring tile,
                                                  // keys of a dq one
-  static constexpr int CW = 64;
+  static constexpr int CW = D < 64 ? D : 64;
   static constexpr int NC = DH / CW;
-  static constexpr int SWZ = 128;
-  static constexpr int LAYOUT = 1;
+  static constexpr int SWZ = CW * 2;
+  static constexpr int LAYOUT = SWZ == 128 ? 1 : SWZ == 64 ? 2 : 3;
   static constexpr uint32_t FIX_PIECE = BN * DH * 2;
   static constexpr uint32_t FIX_BYTES = 3 * FIX_PIECE;
   static constexpr uint32_t TILE_PIECE = BT * DH * 2;
@@ -362,10 +367,44 @@ __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (bf16 pairs), B
+// d[64 x N] += A[64 x 16] B[16 x N]: A in registers (bf16 pairs), B
 // N-major (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t* a,
-                                           uint64_t db) {
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -411,13 +450,14 @@ __device__ __forceinline__ void issue_ss(float* acc, uint32_t a, uint32_t b) {
             (t | c | kk) != 0);
 }
 
-// acc (64 x D) += X B, not committed: X [64 x BT] as three-piece bf16
+// acc (64 x DH) += X B, not committed: X [64 x BT] as three-piece bf16
 // fragments x[piece][k-step][4], B the BT rows of a ring tile's piece 0 at
 // b (pieces TILE_PIECE apart), read N-major (its rows are X's columns); six
 // register-A wgmmas per 16 rows of B, small terms first.
 template <int D>
 __device__ __forceinline__ void issue_rs(
-    float (&acc)[Plan<D>::NC][32], const uint32_t (&x)[3][Plan<D>::BT / 16][4],
+    float (&acc)[Plan<D>::NC][Plan<D>::CW / 2],
+    const uint32_t (&x)[3][Plan<D>::BT / 16][4],
     uint32_t b) {
   using P = Plan<D>;
   const uint64_t bd = smem_desc(b, P::BT * P::SWZ, 8 * P::SWZ, P::LAYOUT);
@@ -427,7 +467,7 @@ __device__ __forceinline__ void issue_rs(
     for (int kk = 0; kk < P::BT / 16; ++kk)
 #pragma unroll
       for (int c = 0; c < P::NC; ++c)
-        wgmma_rs64(acc[c], x[term_a(t)][kk],
+        wgmma_rs<P::CW>(acc[c], x[term_a(t)][kk],
                    bd + ((term_b(t) * P::TILE_PIECE + c * P::BT * P::SWZ +
                           kk * 16 * P::SWZ) >>
                          4));
@@ -496,7 +536,8 @@ template <int D>
 __device__ __forceinline__ void store_rows(const Out& out, int b, int h,
                                            int row_a, int S, int lane,
                                            int col0,
-                                           float (&acc)[Plan<D>::NC][32],
+                                           float (&acc)[Plan<D>::NC]
+                                                       [Plan<D>::CW / 2],
                                            float mul) {
   using P = Plan<D>;
   float* base = out.p + b * out.b + h * out.h + col0 * out.d;
@@ -674,11 +715,11 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
   const uint32_t k_wg = k_s + 64 * wg * SWZ;
   const uint32_t v_wg = v_s + 64 * wg * SWZ;
 
-  float dk[NC][32], dv[NC][32];
+  float dk[NC][CW / 2], dv[NC][CW / 2];
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int x = 0; x < 32; ++x) {
+    for (int x = 0; x < CW / 2; ++x) {
       dk[c][x] = 0.f;
       dv[c][x] = 0.f;
     }
@@ -746,8 +787,8 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
     split_frags<BT>(dp, sf);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      pin<32>(dv[c]);
-      pin<32>(dk[c]);
+      pin<CW / 2>(dv[c]);
+      pin<CW / 2>(dk[c]);
     }
     wgmma_fence();
     issue_rs<D>(dv, pf, do_s(st));
@@ -756,8 +797,8 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
     wgmma_wait<0>();
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      pin<32>(dv[c]);
-      pin<32>(dk[c]);
+      pin<CW / 2>(dv[c]);
+      pin<CW / 2>(dk[c]);
     }
     pin_frags<KS>(pf);
     pin_frags<KS>(sf);
@@ -865,11 +906,11 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
   const uint32_t q_wg = q_s + 64 * wg * SWZ;
   const uint32_t do_wg = do_s + 64 * wg * SWZ;
 
-  float dq[NC][32];
+  float dq[NC][CW / 2];
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int x = 0; x < 32; ++x) dq[c][x] = 0.f;
+    for (int x = 0; x < CW / 2; ++x) dq[c][x] = 0.f;
 
   mbar_wait(fix_full, 0);
   const float* rows_sm = reinterpret_cast<const float*>(gbase + P::ROWS_OFF);
@@ -931,13 +972,13 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
     uint32_t sf[3][KS][4];
     split_frags<BT>(dp, sf);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) pin<32>(dq[c]);
+    for (int c = 0; c < NC; ++c) pin<CW / 2>(dq[c]);
     wgmma_fence();
     issue_rs<D>(dq, sf, k_s(st));
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int c = 0; c < NC; ++c) pin<32>(dq[c]);
+    for (int c = 0; c < NC; ++c) pin<CW / 2>(dq[c]);
     pin_frags<KS>(sf);
     mbar_arrive(empty(st));
   }
@@ -975,20 +1016,26 @@ EncodeTiled encode_tiled() {
 }
 
 // Pieces of a [B, heads, S, D] tensor, contiguous [3 B, heads, S, D] bf16,
-// as a 4-D map (D, S, heads, 3 B), one box of 64 columns x rows a load.
+// as a 4-D map (D, S, heads, 3 B), one box of cw columns x rows a load,
+// swizzled over its 2 cw bytes.
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
-            int heads, int S, int D, int rows) {
+            int heads, int S, int D, int rows, int cw) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(3 * B)};
   const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
   const cuuint64_t strides[3] = {row, row * S, row * S * heads};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cw),
+                             static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      cw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+               : cw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B;
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -1043,14 +1090,14 @@ int launch(const void* q3, const void* k3, const void* v3, const void* do3,
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   // dkdv: Q and dO in BT-row boxes, K and V in BN-row ones; dq the reverse
   CUtensorMap kq, kk, kv, kdo, qq, qk, qv, qdo;
-  if (!encode(fn, &kq, q3, B, H, S, D, P::BT) ||
-      !encode(fn, &kk, k3, B, Hkv, S, D, P::BN) ||
-      !encode(fn, &kv, v3, B, Hkv, S, D, P::BN) ||
-      !encode(fn, &kdo, do3, B, H, S, D, P::BT) ||
-      !encode(fn, &qq, q3, B, H, S, D, P::BN) ||
-      !encode(fn, &qk, k3, B, Hkv, S, D, P::BT) ||
-      !encode(fn, &qv, v3, B, Hkv, S, D, P::BT) ||
-      !encode(fn, &qdo, do3, B, H, S, D, P::BN))
+  if (!encode(fn, &kq, q3, B, H, S, D, P::BT, P::CW) ||
+      !encode(fn, &kk, k3, B, Hkv, S, D, P::BN, P::CW) ||
+      !encode(fn, &kv, v3, B, Hkv, S, D, P::BN, P::CW) ||
+      !encode(fn, &kdo, do3, B, H, S, D, P::BT, P::CW) ||
+      !encode(fn, &qq, q3, B, H, S, D, P::BN, P::CW) ||
+      !encode(fn, &qk, k3, B, Hkv, S, D, P::BT, P::CW) ||
+      !encode(fn, &qv, v3, B, Hkv, S, D, P::BT, P::CW) ||
+      !encode(fn, &qdo, do3, B, H, S, D, P::BN, P::CW))
     return static_cast<int>(cudaErrorInvalidValue);
 
   const int64_t half = static_cast<int64_t>(B) * H * Sp;
@@ -1084,7 +1131,7 @@ extern "C" {
 // strides of o, dout, dq, dk and dv (20 int64, host memory; any strides).
 // lse [B,H,S] float32 contiguous (natural log, from the forward); rows
 // float32 scratch of 2 B H Sp, 16-byte aligned, Sp = S rounded up to 128.
-// D 64, 128 or 256.
+// D 16, 32, 64, 128 or 256.
 int bwd32_flash_attention_bwd(const void* q3, const void* k3, const void* v3,
                               const void* do3, const void* o,
                               const void* dout, const void* lse, void* rows,
@@ -1102,6 +1149,12 @@ int bwd32_flash_attention_bwd(const void* q3, const void* k3, const void* v3,
   const float* l = static_cast<const float*>(lse);
   float* r = static_cast<float*>(rows);
   switch (D) {
+    case 16: return launch<16>(q3, k3, v3, do3, of, gf, l, r, dq, dk, dv,
+                               strides, B, H, Hkv, S, Sp, window, softcap,
+                               scale, s);
+    case 32: return launch<32>(q3, k3, v3, do3, of, gf, l, r, dq, dk, dv,
+                               strides, B, H, Hkv, S, Sp, window, softcap,
+                               scale, s);
     case 64: return launch<64>(q3, k3, v3, do3, of, gf, l, r, dq, dk, dv,
                                strides, B, H, Hkv, S, Sp, window, softcap,
                                scale, s);

@@ -4,11 +4,10 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // into its own shared library with a plain C interface, loaded with ctypes
-// (float32 runs as three-piece splits in flash_bwd_f32_tc.cu at d = 64 and
-// 128, on the SIMT kernels of flash_bwd.cu at the other head dims: one-pass
-// TF32 products would break its check). cuTensorMapEncodeTiled is looked
-// up at run time (an entry point of libcuda through the runtime), so the
-// library needs no -lcuda.
+// (float32 runs as three-piece splits in flash_bwd_f32_tc.cu at every
+// head dim: one-pass TF32 products would break its check).
+// cuTensorMapEncodeTiled is looked up at run time (an entry point of
+// libcuda through the runtime), so the library needs no -lcuda.
 //
 // It has no Pallas counterpart: the reference trains through XLA, whose
 // chunked attention (repro/models/transformer.py:223) is differentiated by

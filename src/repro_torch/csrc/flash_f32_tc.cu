@@ -1,11 +1,10 @@
 // Causal prefill attention in float32 on Hopper's bf16 tensor cores
-// (sm_90a): the float32 route of flash_attention at d = 64, 128 and 256
-// ("tc32"), and the split pre-pass that feeds it and flash_bwd_f32_tc.cu.
-// Built by repro_torch/kernels/_build.py with
+// (sm_90a): the float32 route of flash_attention at every head dim (16,
+// 32, 64, 128 and 256; "tc32"), and the split pre-pass that feeds it and
+// flash_bwd_f32_tc.cu. Built by repro_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
-// into its own shared library with a plain C interface, loaded with ctypes
-// (d = 16 and 32 stay the SIMT kernel of attention_kernels.cu).
+// into its own shared library with a plain C interface, loaded with ctypes.
 // cuTensorMapEncodeTiled is looked up at run time (an entry point of
 // libcuda through the runtime), so the library needs no -lcuda.
 //
@@ -38,7 +37,8 @@
 // flash32_kernel the design of flash_tc.cu with every operand in three
 //                pieces:
 //   - a ring of STAGES K/V tiles in shared memory, each of three pieces of
-//     BK keys (bf16, the 128-byte swizzle), filled by TMA from one producer
+//     BK keys (bf16, the 128-byte swizzle; 64- and 32-byte at d = 32 and
+//     16), filled by TMA from one producer
 //     thread, each stage with its own K-full, V-full, K-empty and V-empty
 //     mbarriers: a stage's K tile is refilled once S = Q K^T is done with
 //     it, while the softmax and P V of the same tile run;
@@ -48,7 +48,8 @@
 //   - two consumer warpgroups own 64 query rows each of a 128-row query
 //     tile (one warpgroup and 64 rows at d = 256, below). S = Q K^T is six
 //     wgmmas per 16 columns of d (both operands in
-//     shared memory, float32 accumulators). Masks only on tiles that cross
+//     shared memory, float32 accumulators; one 16-column step a piece
+//     product at d = 16, two at 32). Masks only on tiles that cross
 //     the diagonal or the window's edge; tiles no row sees are never loaded;
 //   - the online softmax in registers as in flash_tc.cu (2^x on the
 //     special-function unit, log2(e) folded into the exponent's fma, l
@@ -56,8 +57,8 @@
 //     version takes it, c tanh(s scale (1 / c)), rounded at each step;
 //   - P is split in registers into three bf16 parts as above, and P V is
 //     six register-A wgmmas per 16 keys, V's pieces read MN-major, into a
-//     fresh accumulator a 64-column chunk at a time that is then added to
-//     O (FRESH_PV);
+//     fresh accumulator a 64-column chunk at a time (N = d at d = 16 and
+//     32) that is then added to O (FRESH_PV);
 //   - the epilogue divides by max(l, 1e-30), stores float32 through the
 //     output's strides and, given an lse pointer, writes each row's
 //     log-sum-exp for flash_bwd_f32_tc.cu.
@@ -81,6 +82,27 @@
 // wait a chunk (about 1% at d = 128 and 10% at d = 64 on an H100,
 // chip_variants.py --kernels f32; four a tile at d = 256); and at d = 256
 // one consumer warpgroup a block, whose products and softmax take turns.
+// At d = 16 and 32 shared memory no longer binds (a 128-row Q tile in three
+// pieces is 12 or 24 KB) and the registers do: a 64 x BK score tile is
+// BK / 2 floats a thread and its split 3 BK / 4 registers. The plan is
+// d = 64's two consumer warpgroups of 64 rows with 128-key tiles, which
+// halve each tile's fixed cost (barrier waits, wgmma latencies, masks)
+// against 64-key tiles (variant f32_small_bk64 of chip_variants.py
+// --kernels f32), and four stages. Two things differ:
+//   - no producer warpgroup (PRODUCER): thread 0 refills the ring between
+//     tiles, the stage of tile i - 2 at the top of tile i, so the block is
+//     256 threads and ptxas may use up to 255 registers a thread; with a
+//     third warpgroup it caps them at 168 whatever setmaxnreg says, and
+//     the 128-key tiles spill (f32_small_producer);
+//   - P V as three wgmmas a 16-key step (MERGED_PV): P V's products are
+//     small at N = d, and its 48 register-A wgmmas a tile at N = d took
+//     about half of the kernel's time (the f32_no_pv build), their issue
+//     and A reads more than their products; one wgmma a piece of P over
+//     V's pieces side by side (N = 3 d, 2 d, d) does the same six terms in
+//     24 (f32_small_six_pv: the six at N = d).
+// Each score still costs the softmax, the three-way split of P and one ex2
+// on the special-function unit (16 a clock an SM): at d = 16 the
+// exponentials alone take about two thirds of the split floor's time.
 
 #include <cstdint>
 
@@ -104,28 +126,45 @@ __host__ __device__ constexpr int term_b(int t) {
   return t == 0 ? 1 : t == 2 ? 2 : t == 4 ? 1 : 0;
 }
 
-// Shared-memory plan for head dim D (64, 128 or 256). Each tile piece is
-// stored as D / 64 chunks of 64 columns; a chunk is [rows][64] bf16, rows
-// of 128 bytes swizzled by TMA, the canonical layout wgmma reads (8-row
-// atoms 1,024 bytes apart). Warpgroups 0 .. NWG - 1 consume, 64 query rows
-// each; warpgroup NWG produces.
+// Shared-memory plan for head dim D (16, 32, 64, 128 or 256). Each tile
+// piece is stored as D / CW chunks of CW columns (64, or D below 64); a
+// chunk is [rows][CW] bf16, rows of SWZ = 2 CW bytes swizzled by TMA, the
+// canonical layout wgmma reads (8-row atoms 8 SWZ bytes apart).
+// Warpgroups 0 .. NWG - 1 consume, 64 query rows each; warpgroup NWG
+// produces.
 template <int D>
 struct Plan {
   static constexpr int NWG = D == 256 ? 1 : 2;    // consumer warpgroups
-  static constexpr int THREADS = 128 * (NWG + 1);
+  // a producer warpgroup keeps the ring full (d >= 64); below, thread 0
+  // refills it between tiles, so that the block is two warpgroups and
+  // ptxas may give each thread up to 255 registers, where a third
+  // warpgroup caps it at 168 (setmaxnreg notwithstanding)
+  static constexpr bool PRODUCER = D >= 64;
+  // without a producer the stage of tile i - LAG is refilled at the top of
+  // tile i, so the other warpgroup may trail by up to LAG tiles
+  static constexpr int LAG = 2;
+  static constexpr int THREADS = 128 * (NWG + (PRODUCER ? 1 : 0));
   static constexpr int CONSUMERS = 128 * NWG;
   static constexpr int BM = 64 * NWG;             // query rows a block
-  static constexpr int BK = D == 64 ? 64 : 32;    // keys a tile
-  static constexpr int STAGES = D == 64 ? 3 : D == 128 ? 2 : 1;
-  static constexpr int CW = 64;
+  static constexpr int BK = D < 64 ? 128 : D == 64 ? 64 : 32;  // keys a tile
+  static constexpr int STAGES = D < 64 ? 4 : D == 64 ? 3 : D == 128 ? 2 : 1;
+  static constexpr int CW = D < 64 ? D : 64;
   static constexpr int NC = D / CW;
-  static constexpr int SWZ = 128;
-  static constexpr int LAYOUT = 1;                // 128-byte swizzle
+  static constexpr int SWZ = CW * 2;
+  static constexpr int LAYOUT = SWZ == 128 ? 1 : SWZ == 64 ? 2 : 3;
   // Each key tile's P V goes to a fresh accumulator, a 64-column chunk at
   // a time, added to O in registers (O alpha + PV, one rounding a tile):
   // the tensor cores' additions fall on the tile's sum, not on O's, which
   // at a tile of 32 keys they would round 12 times a tile
   static constexpr bool FRESH_PV = true;
+  // Below d = 64 (one chunk) P V is three wgmmas a 16-key step, one a
+  // piece of P over every piece of V it meets side by side (N = 3 d, 2 d
+  // and d; V's pieces are KV_PIECE apart, the descriptor's stride between
+  // N atoms), in place of six at N = d, whose issue and A-operand reads,
+  // not their products, set the time; each term lands in accumulator
+  // columns of its own, and the six are summed small first and added to
+  // O (O alpha + PV, as FRESH_PV)
+  static constexpr bool MERGED_PV = D < 64;
   static constexpr uint32_t Q_PIECE = BM * D * 2;
   static constexpr uint32_t KV_PIECE = BK * D * 2;
   static constexpr uint32_t KV_BYTES = 3 * KV_PIECE;
@@ -299,10 +338,97 @@ __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (bf16 pairs), B
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x N] (+)= A[64 x 16] B[16 x N]: A in registers (bf16 pairs), B
 // N-major (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t* a,
-                                           uint64_t db, int scale_d) {
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -319,6 +445,34 @@ __device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t* a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
@@ -447,6 +601,40 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
   const int t_first = a.window > 0 ? max(0, q0 - a.window + 1) / BK : 0;
   const int t_last = last / BK;
   const int wg = threadIdx.x / 128;
+  // the Q tile's three pieces, once
+  const auto load_q = [&]() {
+    mbar_expect_tx(q_full, 3 * P::Q_PIECE);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        tma_load(q_s + p * P::Q_PIECE + c * BM * SWZ, &tq, q_full, c * CW,
+                 q0, h, p * a.B + b);
+  };
+  // key tile t_first + i into stage i % STAGES, its K and V pieces each
+  // once the consumers have released them
+  const auto load_kv = [&](int i) {
+    const int st = i % STAGES;
+    const int t = t_first + i;
+    const uint32_t free = ((i / STAGES) & 1) ^ 1;
+    mbar_wait(k_empty(st), free);
+    mbar_expect_tx(k_full(st), P::KV_BYTES);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        tma_load(k_s(st) + p * P::KV_PIECE + c * BK * SWZ, &tk, k_full(st),
+                 c * CW, t * BK, kh, p * a.B + b);
+    mbar_wait(v_empty(st), free);
+    mbar_expect_tx(v_full(st), P::KV_BYTES);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        tma_load(v_s(st) + p * P::KV_PIECE + c * BK * SWZ, &tv, v_full(st),
+                 c * CW, t * BK, kh, p * a.B + b);
+  };
+  const int n_tiles = t_last - t_first + 1;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -457,45 +645,24 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
       mbar_init(v_empty(st), P::CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if constexpr (!P::PRODUCER) {
+      load_q();
+      for (int i = 0; i < STAGES && i < n_tiles; ++i) load_kv(i);
+    }
   }
   __syncthreads();
 
-  if (wg == P::NWG) {
+  if (P::PRODUCER && wg == P::NWG) {
     // ---- producer: one thread keeps the ring full ----
     if constexpr (P::NWG == 2)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == P::NWG * 128) {
-      mbar_expect_tx(q_full, 3 * P::Q_PIECE);
-#pragma unroll
-      for (int p = 0; p < 3; ++p)
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          tma_load(q_s + p * P::Q_PIECE + c * BM * SWZ, &tq, q_full, c * CW,
-                   q0, h, p * a.B + b);
-      for (int t = t_first, i = 0; t <= t_last; ++t, ++i) {
-        const int st = i % STAGES;
-        const uint32_t free = ((i / STAGES) & 1) ^ 1;
-        mbar_wait(k_empty(st), free);
-        mbar_expect_tx(k_full(st), P::KV_BYTES);
-#pragma unroll
-        for (int p = 0; p < 3; ++p)
-#pragma unroll
-          for (int c = 0; c < NC; ++c)
-            tma_load(k_s(st) + p * P::KV_PIECE + c * BK * SWZ, &tk,
-                     k_full(st), c * CW, t * BK, kh, p * a.B + b);
-        mbar_wait(v_empty(st), free);
-        mbar_expect_tx(v_full(st), P::KV_BYTES);
-#pragma unroll
-        for (int p = 0; p < 3; ++p)
-#pragma unroll
-          for (int c = 0; c < NC; ++c)
-            tma_load(v_s(st) + p * P::KV_PIECE + c * BK * SWZ, &tv,
-                     v_full(st), c * CW, t * BK, kh, p * a.B + b);
-      }
+      load_q();
+      for (int i = 0; i < n_tiles; ++i) load_kv(i);
     }
   } else {
     // ---- consumers: 64 query rows per warpgroup ----
-    if constexpr (P::NWG == 2)
+    if constexpr (P::PRODUCER && P::NWG == 2)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int tid = threadIdx.x & 127;
     const int lane = tid & 31;
@@ -528,6 +695,11 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
 
     if (active) mbar_wait(q_full, 0);
     for (int t = t_first, i = 0; t <= t_last; ++t, ++i) {
+      if constexpr (!P::PRODUCER) {
+        const int next = i - P::LAG + STAGES;
+        if (threadIdx.x == 0 && i >= P::LAG && next < n_tiles) load_kv(next);
+        __syncwarp();  // warp 0 whole again before its wgmma
+      }
       const int st = i % STAGES;
       const uint32_t parity = (i / STAGES) & 1;
       const int k0 = t * BK;
@@ -601,7 +773,34 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
       // first, into each chunk's fresh accumulator (FRESH_PV) or into O
       mbar_wait(v_full(st), parity);
       const uint64_t vd = smem_desc(v_s(st), BK * SWZ, 8 * SWZ, P::LAYOUT);
-      if constexpr (P::FRESH_PV) {
+      if constexpr (P::MERGED_PV) {
+        // columns of ph: hi.hi, hi.mid, hi.lo; of pm: mid.hi, mid.mid; pl:
+        // lo.hi (each CW wide)
+        float ph[3 * CW / 2], pm[CW], pl[CW / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t at = vd + ((kk * 16 * SWZ) >> 4);
+          wgmma_rs<3 * CW>(ph, pp[0][kk], at, kk != 0);
+          wgmma_rs<2 * CW>(pm, pp[1][kk], at, kk != 0);
+          wgmma_rs<CW>(pl, pp[2][kk], at, kk != 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin<3 * CW / 2>(ph);
+        pin<CW>(pm);
+        pin<CW / 2>(pl);
+#pragma unroll
+        for (int x = 0; x < CW / 2; ++x) {
+          // mid.mid, lo.hi, hi.lo, mid.hi, hi.mid, hi.hi
+          float pv = pm[CW / 2 + x] + pl[x];
+          pv += ph[CW + x];
+          pv += pm[x];
+          pv += ph[CW / 2 + x];
+          pv += ph[x];
+          o[0][x] = fmaf(o[0][x], alpha[(x >> 1) & 1], pv);
+        }
+      } else if constexpr (P::FRESH_PV) {
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
           float pv[CW / 2];
@@ -610,7 +809,7 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
           for (int tt = 0; tt < 6; ++tt)
 #pragma unroll
             for (int kk = 0; kk < BK / 16; ++kk)
-              wgmma_rs64(pv, pp[term_a(tt)][kk],
+              wgmma_rs<CW>(pv, pp[term_a(tt)][kk],
                          vd + ((term_b(tt) * P::KV_PIECE + c * BK * SWZ +
                                 kk * 16 * SWZ) >>
                                4),
@@ -636,7 +835,7 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
           for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
             for (int c = 0; c < NC; ++c)
-              wgmma_rs64(o[c], pp[term_a(tt)][kk],
+              wgmma_rs<CW>(o[c], pp[term_a(tt)][kk],
                          vd + ((term_b(tt) * P::KV_PIECE + c * BK * SWZ +
                                 kk * 16 * SWZ) >>
                                4),
@@ -731,20 +930,26 @@ EncodeTiled encode_tiled() {
 }
 
 // Pieces of a [B, heads, S, D] tensor, contiguous [3 B, heads, S, D] bf16,
-// as a 4-D map (D, S, heads, 3 B), one box of 64 columns x rows a load.
+// as a 4-D map (D, S, heads, 3 B), one box of cw columns x rows a load,
+// swizzled over its 2 cw bytes.
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int B,
-            int heads, int S, int D, int rows) {
+            int heads, int S, int D, int rows, int cw) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(3 * B)};
   const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;
   const cuuint64_t strides[3] = {row, row * S, row * S * heads};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cw),
+                             static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      cw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+               : cw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B;
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -756,9 +961,9 @@ int launch(const void* q3, const void* k3, const void* v3, void* o,
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
-  if (!encode(fn, &tq, q3, B, H, S, D, P::BM) ||
-      !encode(fn, &tk, k3, B, Hkv, S, D, P::BK) ||
-      !encode(fn, &tv, v3, B, Hkv, S, D, P::BK))
+  if (!encode(fn, &tq, q3, B, H, S, D, P::BM, P::CW) ||
+      !encode(fn, &tk, k3, B, Hkv, S, D, P::BK, P::CW) ||
+      !encode(fn, &tv, v3, B, Hkv, S, D, P::BK, P::CW))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       flash32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -807,7 +1012,7 @@ int flash32_split(const int64_t* desc, int n, void* dst, int B, int S,
 // (bf16, contiguous, from flash32_split), o [B,H,S,D] float32 with element
 // strides ostrides (4 int64, host memory; any strides). lse: null (serving),
 // or float32 [B,H,S] contiguous that receives each row's log-sum-exp in
-// natural log (the backward's input). D 64, 128 or 256.
+// natural log (the backward's input). D 16, 32, 64, 128 or 256.
 int flash32_flash_attention(const void* q3, const void* k3, const void* v3,
                             void* o, void* lse_out, const int64_t* ostrides,
                             int B, int H, int Hkv, int S, int D, int window,
@@ -818,6 +1023,10 @@ int flash32_flash_attention(const void* q3, const void* k3, const void* v3,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
   switch (D) {
+    case 16: return launch<16>(q3, k3, v3, o, lse, ostrides, B, H, Hkv, S,
+                               window, softcap, scale, s);
+    case 32: return launch<32>(q3, k3, v3, o, lse, ostrides, B, H, Hkv, S,
+                               window, softcap, scale, s);
     case 64: return launch<64>(q3, k3, v3, o, lse, ostrides, B, H, Hkv, S,
                                window, softcap, scale, s);
     case 128: return launch<128>(q3, k3, v3, o, lse, ostrides, B, H, Hkv, S,

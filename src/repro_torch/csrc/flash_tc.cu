@@ -4,8 +4,8 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // into its own shared library with a plain C interface, loaded with ctypes
-// (float32 runs as three-piece splits in flash_f32_tc.cu at d = 64, 128
-// and 256, on the SIMT kernel of attention_kernels.cu at d = 16 and 32).
+// (float32 runs as three-piece splits in flash_f32_tc.cu at every head
+// dim).
 // cuTensorMapEncodeTiled is looked up at run time (an entry point of
 // libcuda through the runtime), so the library needs no -lcuda.
 //

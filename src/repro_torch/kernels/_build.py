@@ -3,15 +3,16 @@
 Each source is compiled on first use by ``nvcc`` into its own shared
 library with a plain C interface under ``<repo>/build/`` and loaded with
 ``ctypes``: ``rdf_kernels.cu`` (the SPARQL query kernels),
-``attention_kernels.cu`` (the float32 LM attention kernels: decode,
-and prefill at d = 16 and 32), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
+``attention_kernels.cu`` (the float32 LM attention kernels: decode, and
+the SIMT prefill kernel that no route takes any more, timed by
+``chip_smoke.simt_flash``), ``flash_tc.cu`` (bfloat16 prefill attention on the tensor
 cores), ``decode_tc.cu`` (bfloat16 decode attention: a TMA ring, scores on
-the tensor cores), ``flash_bwd.cu`` (the attention backward, for
-training: float32 on the CUDA cores),
+the tensor cores), ``flash_bwd.cu`` (the SIMT attention backward,
+float32 on the CUDA cores, on no route: timed by ``chip_smoke.simt_bwd``),
 ``flash_bwd_tc.cu`` (library ``"bwd_tc"``: the bfloat16 attention
 backward at d = 16 to 256 on the tensor cores), ``flash_f32_tc.cu`` and
 ``flash_bwd_f32_tc.cu`` (libraries ``"flash32"`` and ``"bwd32"``: float32
-prefill attention and its backward at d = 64, 128 and 256 on the tensor cores,
+prefill attention and its backward at every head dim on the tensor cores,
 as bf16 products of three-piece splits, and the split pre-pass),
 ``sparse_kernels.cu``
 (the recsys and GNN kernels, and the bag's backward) and

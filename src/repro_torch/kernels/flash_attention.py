@@ -14,14 +14,17 @@ ragged last tile is masked). The route is chosen by (dtype, d)
   holding [B, S, H, d] passes ``x.transpose(1, 2)`` with no copy. An
   operand that misses one of these is copied into a new contiguous tensor
   first, and ``flash_attention.copies`` counts those copies.
-- ``"tc32"``, float32 at d = 64, 128 and 256, on the tensor cores
+- ``"tc32"``, float32 at every head dim, on the tensor cores
   (``csrc/flash_f32_tc.cu``, library ``"flash32"``): a pre-pass
   (``flash_attention/split``, :func:`split_pieces`) writes q, k and v, of
   any strides, as three bf16 pieces each (:func:`.ref.split3`, exact), and
   each product is the sum of six bf16 ``wgmma`` products of the pieces,
   within a float32 rounding of the float32 product (P split in three too).
-- ``"simt"``, float32 at d = 16 and 32, on the CUDA cores
-  (``csrc/attention_kernels.cu``), in full float32, with any strides.
+
+The SIMT kernels that float32 took before (``csrc/attention_kernels.cu``
+and ``csrc/flash_bwd.cu``, float32 on the CUDA cores) are on no route:
+``chip_smoke.simt_flash`` and ``simt_bwd`` call their libraries directly
+to time them beside the tensor-core routes.
 
 ``out`` takes any strides on every route. A tensor on the CPU takes the
 plain torch version in :mod:`.ref`; a tensor on the card launches a kernel
@@ -43,14 +46,11 @@ by (dtype, d) (:func:`bwd_route`):
   block's two warpgroups share 64 keys or rows and split the gradients'
   columns), with the TMA operand rules above for q, k, v and dout (copies
   counted in ``flash_attention_bwd.copies``);
-- ``"tc32"``, float32 at d = 64, 128 and 256, on the tensor cores
+- ``"tc32"``, float32 at every head dim, on the tensor cores
   (``csrc/flash_bwd_f32_tc.cu``, library ``"bwd32"``): q, k, v and dout
   split in three by the same pre-pass, every product six bf16 products,
   P and dS split in three; at d = 256 a key or row tile is a cluster of
-  two blocks, each over half of d, that swap their partial score tiles;
-- ``"simt"``, float32 at d = 16 and 32, on the CUDA cores
-  (``csrc/flash_bwd.cu``, library ``"bwd"``, float32 products: one-pass
-  TF32 products would break its check).
+  two blocks, each over half of d, that swap their partial score tiles.
 
 No route falls back to another: a failed build or launch raises. The
 tensor-core routes' arithmetic is emulated on the CPU by
@@ -71,11 +71,11 @@ from ._build import launch, tally
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the bfloat16 head dims whose backward runs on the tensor cores: all
-TC_BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
-# the float32 head dims that run on the tensor cores (route "tc32"), and
-# the forward's key tile at each (flash_f32_tc.cu's Plan<D>::BK)
-TC32_HEAD_DIMS = (64, 128, 256)
-TC32_KEY_TILE = {64: 64, 128: 32, 256: 32}
+TC_BWD_HEAD_DIMS = HEAD_DIMS
+# the float32 head dims that run on the tensor cores (route "tc32"): all;
+# and the forward's key tile at each (flash_f32_tc.cu's Plan<D>::BK)
+TC32_HEAD_DIMS = HEAD_DIMS
+TC32_KEY_TILE = {16: 128, 32: 128, 64: 64, 128: 32, 256: 32}
 ROW_PAD = 128   # the tensor-core backward's lse/Delta rows: S rounded up
 BWD_OPS = 5     # the backward's operations, in halves of the forward's:
                 # five products of a pair (s, dP, dV, dQ, dK) to its two
@@ -175,30 +175,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                v.data_ptr(), out.data_ptr(), lse_ptr, strides(q, k, v, out),
                B, H, Hkv, S, d, window, softcap, d ** -0.5, lib="flash",
                route=route)
-    elif route == "tc32":
+    else:
         q3, k3, v3 = split_pieces(q, k, v)
         launch("flash_attention", q.device, q3.data_ptr(), k3.data_ptr(),
                v3.data_ptr(), out.data_ptr(), lse_ptr, strides(out), B, H,
                Hkv, S, d, window, softcap, d ** -0.5, lib="flash32",
                route=route)
-    else:
-        launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), out.data_ptr(), lse_ptr, strides(q, k, v, out),
-               DTYPES[q.dtype], B, H, Hkv, S, d, window, softcap,
-               d ** -0.5, route=route)
     return out
 
 
 def flash_route(dtype: torch.dtype, d: int) -> str:
-    """The route of :func:`flash_attention` on the card, by dtype and head
-    dim: ``"tc"`` (``csrc/flash_tc.cu``) for bfloat16, ``"tc32"``
-    (``csrc/flash_f32_tc.cu``, three-piece splits on the tensor cores) for
-    float32 at d in ``TC32_HEAD_DIMS``, ``"simt"``
-    (``csrc/attention_kernels.cu``, float32 on the CUDA cores) for float32
-    at the other head dims."""
-    if dtype == torch.bfloat16:
-        return "tc"
-    return "tc32" if d in TC32_HEAD_DIMS else "simt"
+    """The route of :func:`flash_attention` on the card, by dtype (every
+    head dim of ``HEAD_DIMS`` alike): ``"tc"`` (``csrc/flash_tc.cu``) for
+    bfloat16, ``"tc32"`` (``csrc/flash_f32_tc.cu``, three-piece splits on
+    the tensor cores) for float32."""
+    return "tc" if dtype == torch.bfloat16 else "tc32"
 
 
 def split_pieces(*tensors: torch.Tensor) -> list[torch.Tensor]:
@@ -251,8 +242,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     has its input's shape, dtype and strides. The CPU takes the plain
     version (autograd through ``mha_reference``; o and lse unused); the
     card launches ``flash_attention_bwd`` on the route :func:`bwd_route`
-    names (counted as ``flash_attention_bwd/tc``, ``/tc32`` or ``/simt``)
-    or raises. The bf16 tensor-core route reads q, k, v and dout through
+    names (counted as ``flash_attention_bwd/tc`` or ``/tc32``) or raises. The bf16 tensor-core route reads q, k, v and dout through
     TMA tensor maps, so an operand without d stride 1, 16-byte strides and
     base is copied first (counted in ``flash_attention_bwd.copies``); the
     float32 one reads their split pieces (:func:`split_pieces`); o and the
@@ -277,12 +267,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not dq.numel():
         return dq, dk.zero_(), dv.zero_()
     route = bwd_route(q.dtype, d)
+    if route == "tc":
+        q, k, v, dout = (tma_operand(t, flash_attention_bwd)
+                         for t in (q, k, v, dout))
+    Sp = -(-S // ROW_PAD) * ROW_PAD
+    rows = torch.empty((2, B, H, Sp), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        return _bwd_tallied(dq, dk, dv, window)
     if route == "tc32":
-        Sp = -(-S // ROW_PAD) * ROW_PAD
-        rows = torch.empty((2, B, H, Sp), dtype=torch.float32,
-                           device=q.device)
-        if q.device.type == "meta":
-            return _bwd_tallied(dq, dk, dv, window)
         q3, k3, v3, do3 = split_pieces(q, k, v, dout)
         launch("flash_attention_bwd", q.device, q3.data_ptr(),
                k3.data_ptr(), v3.data_ptr(), do3.data_ptr(), o.data_ptr(),
@@ -290,29 +282,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                strides(o, dout, dq, dk, dv), B, H, Hkv, S, Sp, d, window,
                softcap, d ** -0.5, lib="bwd32", route=route)
-    elif route == "tc":
-        q, k, v, dout = (tma_operand(t, flash_attention_bwd)
-                         for t in (q, k, v, dout))
-        Sp = -(-S // ROW_PAD) * ROW_PAD
-        rows = torch.empty((2, B, H, Sp), dtype=torch.float32,
-                           device=q.device)
-        if q.device.type == "meta":
-            return _bwd_tallied(dq, dk, dv, window)
+    else:
         launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                rows.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                strides(q, k, v, o, dout, dq, dk, dv), B, H, Hkv, S, Sp, d,
-               window, softcap, d ** -0.5, lib="bwd_tc", route="tc")
-    else:
-        delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-        if q.device.type == "meta":
-            return _bwd_tallied(dq, dk, dv, window)
-        launch("flash_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-               delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-               dv.data_ptr(), strides(q, k, v, o, dout, dq, dk, dv),
-               DTYPES[q.dtype], B, H, Hkv, S, d, window, softcap, d ** -0.5,
-               lib="bwd", route="simt")
+               window, softcap, d ** -0.5, lib="bwd_tc", route=route)
     return dq, dk, dv
 
 
@@ -328,16 +303,12 @@ def _bwd_tallied(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
 
 
 def bwd_route(dtype: torch.dtype, d: int) -> str:
-    """The route of :func:`flash_attention_bwd` on the card, by dtype and
-    head dim: ``"tc"`` (``csrc/flash_bwd_tc.cu``, the tensor cores) for
-    bfloat16 at d in ``TC_BWD_HEAD_DIMS`` (every d of ``HEAD_DIMS``),
-    ``"tc32"`` (``csrc/flash_bwd_f32_tc.cu``, three-piece splits on the
-    tensor cores) for float32 at d in ``TC32_HEAD_DIMS``, ``"simt"``
-    (``csrc/flash_bwd.cu``, float32 products on the CUDA cores) for
-    float32 at the other head dims."""
-    if dtype == torch.bfloat16 and d in TC_BWD_HEAD_DIMS:
-        return "tc"
-    return "tc32" if d in TC32_HEAD_DIMS else "simt"
+    """The route of :func:`flash_attention_bwd` on the card, by dtype
+    (every head dim of ``HEAD_DIMS`` alike): ``"tc"``
+    (``csrc/flash_bwd_tc.cu``, the tensor cores) for bfloat16, ``"tc32"``
+    (``csrc/flash_bwd_f32_tc.cu``, three-piece splits on the tensor cores)
+    for float32."""
+    return "tc" if dtype == torch.bfloat16 else "tc32"
 
 
 class FlashAttention(torch.autograd.Function):

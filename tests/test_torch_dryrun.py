@@ -85,8 +85,8 @@ def test_flash_attention_meta_matches_cpu(dtype, window):
                                      (torch.bfloat16, 256)])
 def test_flash_attention_backward_meta_matches_cpu(dtype, d):
     """Through ``FlashAttention``: forward and the backward's dq, dk,
-    dv (the tensor-core route's workspace in bf16, at d = 16 and 256; the
-    SIMT one in float32)."""
+    dv (the tensor-core routes' workspace: bf16 at d = 16 and 256, the
+    three-piece float32 route at d = 16)."""
     def run(q, k, v):
         o = FlashAttention.apply(q, k, v, 3, 0.0)
         return (o, *torch.autograd.grad(o.float().sum(), (q, k, v)))

@@ -244,13 +244,12 @@ def test_split_passes_and_single_rounding_fails_cancellation(seed):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_backward_route_by_dtype_and_head_dim(d):
     """bf16 takes the tensor cores at every head dim, d = 256 included;
-    float32 takes the three-piece tensor-core route at d = 64, 128 and 256
-    and the SIMT kernel at d = 16 and 32 (one-pass TF32 would break its
-    bound)."""
+    float32 takes the three-piece tensor-core route at every head dim too
+    (one-pass TF32 would break its bound; the SIMT kernel is on no
+    route)."""
     assert d in TC_BWD_HEAD_DIMS
     assert bwd_route(torch.bfloat16, d) == "tc"
-    assert bwd_route(torch.float32, d) == ("tc32" if d in (64, 128, 256)
-                                           else "simt")
+    assert bwd_route(torch.float32, d) == "tc32"
 
 
 def _makespan(work, sms=132):

@@ -45,14 +45,24 @@ CASES = [(B, H, Hkv, S, d, win, cap)
          for d in TC32_HEAD_DIMS]
 # the backward's cases: three of those (GQA groups 2 and 1, a window, a
 # softcap) and a ragged S off every tile; at d = 256 (gemma2's heads) a
-# softcap of 50, a window and a ragged S off the 64-row tiles
+# softcap of 50, a window and a ragged S off the 64-row tiles; at d = 16
+# and 32 GQA groups 2 and 1, a window, softcaps and S off the 128-key
+# (row) and 64-row (key) tiles
 BWD_CASES = [(2, 4, 2, 128, 64, 0, 0.0), (1, 4, 4, 256, 128, 0, 50.0),
              (1, 2, 1, 64, 128, 32, 30.0), (1, 4, 2, 97, 64, 0, 0.0),
              (1, 4, 2, 128, 256, 0, 50.0), (1, 2, 1, 96, 256, 32, 0.0),
-             (1, 4, 2, 97, 256, 0, 0.0)]
+             (1, 4, 2, 97, 256, 0, 0.0),
+             (2, 4, 2, 128, 16, 0, 0.0), (1, 4, 4, 256, 32, 0, 30.0),
+             (1, 2, 1, 64, 32, 32, 0.0), (1, 4, 2, 97, 16, 0, 0.0),
+             (1, 4, 2, 130, 32, 48, 20.0), (1, 2, 2, 193, 16, 0, 50.0)]
 # the stated cases on which a split one piece short fails the forward check
 CONTROL_CASE = (1, 4, 2, 256, 128, 0, 0.0)
 CONTROL_CASE_256 = (1, 4, 2, 256, 256, 0, 0.0)      # gemma2's head dim
+# at d = 16 and 32 the sums of S are 4 and 2 times shorter than at d = 64,
+# and on CONTROL_CASE's 16,384 outputs the control's largest error can
+# stay inside the check at d = 16; these are the shapes of the card's
+# chip_smoke.TWO_PIECE_CASES at those head dims (qwen3's heads, S 1,024)
+CONTROL_CASES_SMALL_D = [(1, 16, 8, 1024, d, 0, 0.0) for d in (16, 32)]
 # a capped case of the backward check's kind (q scaled by c / 2), where the
 # plain float32 version is itself off float64 and the float64 rule holds
 YARDSTICK_CASE = (1, 4, 2, 256, 256, 0, 50.0)
@@ -240,6 +250,16 @@ def test_two_piece_split_fails_the_forward_check_at_d256():
     assert two > 1.0
 
 
+@pytest.mark.parametrize("case", CONTROL_CASES_SMALL_D)
+def test_two_piece_split_fails_the_forward_check_at_d16_and_d32(case):
+    """The same at d = 16 and 32 (the route's 128-key tiles) on
+    CONTROL_CASES_SMALL_D: the two-piece control out of
+    ``ATTN_TOL["float32"]``, the three-piece split well inside it."""
+    three, two = _two_piece_control(case)
+    assert three <= 0.5
+    assert two > 1.0
+
+
 def test_float64_yardstick_on_a_capped_case():
     """``chip_smoke.f32_err``'s rule on a capped case (q scaled by c / 2):
     the plain float32 version is more than half of ATTN_TOL's atol from
@@ -277,10 +297,10 @@ def test_float64_yardstick_on_a_capped_case():
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_routes_by_dtype_and_head_dim(d):
     """bf16 takes the bf16 tensor-core kernels at every head dim; float32
-    takes the three-piece tensor-core routes at d = 64, 128 and 256 and the
-    SIMT kernels at d = 16 and 32, forward and backward alike."""
+    takes the three-piece tensor-core routes at every head dim, forward and
+    backward alike (the SIMT kernels are on no route)."""
     assert flash_route(torch.bfloat16, d) == "tc"
     assert bwd_route(torch.bfloat16, d) == "tc"
-    f32 = "tc32" if d in (64, 128, 256) else "simt"
-    assert flash_route(torch.float32, d) == f32
-    assert bwd_route(torch.float32, d) == f32
+    assert d in TC32_HEAD_DIMS
+    assert flash_route(torch.float32, d) == "tc32"
+    assert bwd_route(torch.float32, d) == "tc32"
