@@ -41,6 +41,8 @@ training)
   ``csrc/flash_bwd.cu``, ``csrc/sparse_kernels.cu``,
   ``csrc/qad_kernels.cu``), the autograd Functions of the training path
   and their plain torch versions
+- ``repro_torch.spans``   : spans of the program's work (the LM prefill's
+  parts), recorded only while ``torch.profiler`` records
 - ``repro_torch.convert`` : carries a reference store + dictionary, the
   system's ``SystemParams``, a reference LM, Wide&Deep or GNN parameter
   tree, or an AdamW state, over

@@ -39,6 +39,14 @@ its combine's ``mul_``) take their out-of-place forms there, while
 serving keeps them. MoE routing is deterministic (stable sorts), so a
 layer's recompute picks the experts its forward picked.
 
+Spans (:mod:`repro_torch.spans`): while ``torch.profiler`` records, each
+:func:`lm_prefill` call records a ``prefill`` root holding ``embed``, then
+a layer's ``attn_norm``, ``qkv``, ``qk_norm_rope``, ``kv_write`` (with a
+cache), ``attention``, ``attn_out``, ``ffn_norm`` and ``ffn`` for each
+layer in turn, then ``logits``, with their device times.
+:func:`lm_forward`, :func:`lm_loss` and decode open no root and record
+nothing.
+
 Where the port differs from the reference, by design:
 
 - the KV cache is updated in place (``lm_decode_step`` writes the new
@@ -89,6 +97,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import spans
 from ..device import resolve_device
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import FlashAttention, flash_attention
@@ -552,22 +561,24 @@ def _qkv(cfg: LMConfig, lp: dict, h: torch.Tensor, rot: tuple,
     B, S, _ = h.shape
     dh = cfg.d_head
     lay = _rank_heads(cfg, rules)
-    h = _vary(h, rules)
-    wq = _fsdp(lp["wq"], rules, 0)
-    if lay.replicated:
-        wq = col.all_gather(wq, rules.mesh, rules.tp, dim=1)
-    wk = _fsdp(_vary(lp["wk"], rules), rules, 0)
-    wv = _fsdp(_vary(lp["wv"], rules), rules, 0)
-    if not all_kv:
-        cols = slice(lay.k0 * dh, (lay.k0 + lay.n_kv) * dh)
-        wk, wv = wk[:, cols], wv[:, cols]
-    q = (h @ wq).view(B, S, -1, dh)
-    k = (h @ wk).view(B, S, -1, dh)
-    v = (h @ wv).view(B, S, -1, dh)
-    if cfg.qk_norm:
-        q = rms_norm(q, _vary(lp["q_norm"], rules))
-        k = rms_norm(k, _vary(lp["k_norm"], rules))
-    return apply_rope(q, *rot), apply_rope(k, *rot), v
+    with spans.span("qkv"):
+        h = _vary(h, rules)
+        wq = _fsdp(lp["wq"], rules, 0)
+        if lay.replicated:
+            wq = col.all_gather(wq, rules.mesh, rules.tp, dim=1)
+        wk = _fsdp(_vary(lp["wk"], rules), rules, 0)
+        wv = _fsdp(_vary(lp["wv"], rules), rules, 0)
+        if not all_kv:
+            cols = slice(lay.k0 * dh, (lay.k0 + lay.n_kv) * dh)
+            wk, wv = wk[:, cols], wv[:, cols]
+        q = (h @ wq).view(B, S, -1, dh)
+        k = (h @ wk).view(B, S, -1, dh)
+        v = (h @ wv).view(B, S, -1, dh)
+    with spans.span("qk_norm_rope"):
+        if cfg.qk_norm:
+            q = rms_norm(q, _vary(lp["q_norm"], rules))
+            k = rms_norm(k, _vary(lp["k_norm"], rules))
+        return apply_rope(q, *rot), apply_rope(k, *rot), v
 
 
 def _attn_out(cfg: LMConfig, lp: dict, flat: torch.Tensor,
@@ -589,18 +600,21 @@ def _residual(cfg: LMConfig, lp: dict, x: torch.Tensor,
               ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Output projection, then the FFN half of the layer: (x, the MoE
     aux loss, None for a dense FFN)."""
-    attn = _attn_out(cfg, lp, attn.reshape(*x.shape[:2], -1), rules)
-    if cfg.sandwich_norm:
-        attn = rms_norm(attn, lp["ln_attn_post"])
-    x = x + attn
-    h = rms_norm(x, lp["ln_mlp"])
-    if cfg.moe:
-        out, aux = moe_ffn(cfg, lp, h, train, rules)
-    else:
-        out, aux = dense_ffn(cfg, lp, h, rules), None
-    if cfg.sandwich_norm:
-        out = rms_norm(out, lp["ln_mlp_post"])
-    return x + out, aux
+    with spans.span("attn_out"):
+        attn = _attn_out(cfg, lp, attn.reshape(*x.shape[:2], -1), rules)
+        if cfg.sandwich_norm:
+            attn = rms_norm(attn, lp["ln_attn_post"])
+        x = x + attn
+    with spans.span("ffn_norm"):
+        h = rms_norm(x, lp["ln_mlp"])
+    with spans.span("ffn"):
+        if cfg.moe:
+            out, aux = moe_ffn(cfg, lp, h, train, rules)
+        else:
+            out, aux = dense_ffn(cfg, lp, h, rules), None
+        if cfg.sandwich_norm:
+            out = rms_norm(out, lp["ln_mlp_post"])
+        return x + out, aux
 
 
 def _logits(cfg: LMConfig, params: dict, x: torch.Tensor,
@@ -629,27 +643,32 @@ def _layer(cfg: LMConfig, lp: dict, x: torch.Tensor, window: int,
     they meet [0, S). ``train``: attention through :class:`FlashAttention`
     and every op out of place."""
     mesh_cache = kv_out is not None and on_mesh(rules)
-    q, k, v = _qkv(cfg, lp, rms_norm(x, lp["ln_attn"]), rot, rules,
-                   all_kv=mesh_cache)
+    with spans.span("attn_norm"):
+        h = rms_norm(x, lp["ln_attn"])
+    q, k, v = _qkv(cfg, lp, h, rot, rules, all_kv=mesh_cache)
+    del h
     if train:
         attn = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2), window,
                                     cfg.attn_softcap or 0.0)
         return _residual(cfg, lp, x, attn.transpose(1, 2), True, rules)
     if kv_out is not None:
-        kc, vc, base = kv_out
-        lo, hi = max(base, 0), min(base + kc.shape[1], x.shape[1])
-        if hi > lo:
-            kc[:, lo - base:hi - base] = k[:, lo:hi]
-            vc[:, lo - base:hi - base] = v[:, lo:hi]
-    if mesh_cache:          # the rank's kv heads, from all of them
-        lay = _rank_heads(cfg, rules)
-        k = k[:, :, lay.k0:lay.k0 + lay.n_kv]
-        v = v[:, :, lay.k0:lay.k0 + lay.n_kv]
-    attn = torch.empty_like(q)                       # [B, S, H, dh]
-    flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    window=window, softcap=cfg.attn_softcap or 0.0,
-                    out=attn.transpose(1, 2))
+        with spans.span("kv_write"):
+            kc, vc, base = kv_out
+            lo, hi = max(base, 0), min(base + kc.shape[1], x.shape[1])
+            if hi > lo:
+                kc[:, lo - base:hi - base] = k[:, lo:hi]
+                vc[:, lo - base:hi - base] = v[:, lo:hi]
+    with spans.span("attention"):
+        if mesh_cache:          # the rank's kv heads, from all of them
+            lay = _rank_heads(cfg, rules)
+            k = k[:, :, lay.k0:lay.k0 + lay.n_kv]
+            v = v[:, :, lay.k0:lay.k0 + lay.n_kv]
+        attn = torch.empty_like(q)                       # [B, S, H, dh]
+        flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), window=window,
+                        softcap=cfg.attn_softcap or 0.0,
+                        out=attn.transpose(1, 2))
     return _residual(cfg, lp, x, attn, rules=rules)
 
 
@@ -672,10 +691,11 @@ def _forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
              cache: dict | None, train: bool = False, rules=None,
              seq_shard: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens, rules)
-    rot = rope_tables(torch.arange(S, device=x.device).expand(B, S),
-                      cfg.d_head, cfg.rope_theta)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    with spans.span("embed"):
+        x = _embed(cfg, params, tokens, rules)
+        rot = rope_tables(torch.arange(S, device=x.device).expand(B, S),
+                          cfg.d_head, cfg.rope_theta)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     base = 0
     if cache is not None and on_mesh(rules):
         base = cache["k"].shape[2] * col.axis_index(
@@ -691,7 +711,9 @@ def _forward(cfg: LMConfig, params: dict, tokens: torch.Tensor,
             x, aux_l = _layer(cfg, lp, x, window, rot, kv, rules=rules)
         if aux_l is not None:
             aux = aux + aux_l
-    return _logits(cfg, params, x, train, rules), aux / cfg.n_layers
+    with spans.span("logits"):
+        logits = _logits(cfg, params, x, train, rules)
+    return logits, aux / cfg.n_layers
 
 
 def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
@@ -758,8 +780,9 @@ def lm_prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor,
     if cache is not None and held < tokens.shape[1]:
         raise ValueError(f"cache holds {held} positions, "
                          f"prompt has {tokens.shape[1]}")
-    return _forward(cfg, params, tokens, cache, rules=rules,
-                    seq_shard=seq_shard)[0]
+    with spans.root("prefill", tokens.device):
+        return _forward(cfg, params, tokens, cache, rules=rules,
+                        seq_shard=seq_shard)[0]
 
 
 def init_kv_cache(cfg: LMConfig, batch: int, max_seq: int,
