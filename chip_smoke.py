@@ -35,7 +35,12 @@
    and phi3.5-moe head shapes, ragged lengths, GQA groups of 1 to 16, the
    bf16 kernels' tile and chunk edges, strided and copied operands, a
    cancellation case whose single-rounding control must fail) and timed
-   beside their bounds at the serving shapes, decode also at gemma2-2b's.
+   beside their bounds at the serving shapes, decode also at gemma2-2b's;
+   the norm kernels (``norm_rope``, ``rms_norm_rows``: a prefill launches
+   one a layer and two a layer plus one) held against their plain
+   versions within ``NORM_BAR`` on qwen3's, granite's and gemma2's shapes,
+   with planted controls, and timed beside their bounds at the
+   benchmark cells' shapes.
 6. MoE LM serving (also under ``--lm-only``), granite-moe-1b at full width
    and depth (weights from ``--seed``): float32 prefill and decode on the
    card against the CPU, whose controls (TF32; each token's K-th expert
@@ -241,6 +246,37 @@ LM_REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:112",
     "decode_attention": "src/repro/kernels/decode_attention.py:111",
 }
+# the norm kernels (kernels/norm.py): the source, and the bar against the
+# plain versions, by dtype: (least share of the elements bit-equal, most
+# units in the last place apart, the unit taken at the element's magnitude
+# or, for RoPE's outputs, at its rotated pair's: ulp_gap). The kernels
+# keep the plain versions' rounding points and take the mean-square sum in
+# another order, so r = rsqrt(mean + eps) may differ by an ulp of float32.
+# In bf16 the rounding to 8 bits absorbs nearly all of that; in float32
+# every element of such a row moves, up to 4 units (5 at a pair's scale)
+# in the CPU emulation of tests/test_torch_norm.py, so float32 is held to
+# 8 units and no share.
+NORM_BAR = {"bfloat16": (0.999, 2), "float32": (0.0, 8)}
+NORM_SOURCE = "src/repro_torch/csrc/norm_kernels.cu"
+# norm_rope's cases: (B, S, Hq, Hk, d, qk_norm, tables, scale dtype);
+# qwen3's two prefill shapes, granite's rope-only d = 64, gemma2's d =
+# 256, ragged token counts, a decode step; tables as the model makes them
+# ("model", [B, S, 1, d/2]), without the batch dim ("shared", stride 0) or
+# transposed in memory ("strided", column stride B * S)
+NORM_ROPE_CASES = (
+    (1, 32768, 16, 8, 128, True, "model", "float32"),
+    (8, 4096, 16, 8, 128, True, "model", "float32"),
+    (2, 1000, 16, 8, 64, False, "model", "float32"),
+    (2, 100, 16, 8, 64, True, "shared", "bfloat16"),
+    (1, 1001, 8, 4, 256, False, "strided", "float32"),
+    (1, 77, 12, 4, 256, True, "shared", "float32"),
+    (3, 333, 16, 8, 128, True, "strided", "bfloat16"),
+    (5, 1, 16, 8, 128, True, "model", "float32"),
+)
+# rms_norm_rows' cases: (rows, d, offset); qwen3's cells (32,768 x 1,024),
+# gemma2's width with its (1 + scale), the widest row, ragged widths
+NORM_ROW_CASES = ((32768, 1024, 0.0), (4099, 2304, 1.0), (37, 8192, 0.0),
+                  (1001, 8, 0.0), (3, 1000, 0.0), (8, 1024, 0.0))
 # dense bf16 tensor-core peak of the H100 SXM (NVIDIA data sheet), FLOP/s
 BF16_OPS_PER_S = 989e12
 # the float32 tensor-core routes' floor: each float32 operation is six bf16
@@ -2202,6 +2238,240 @@ def _attn_row(name, kern, plain, planted, lib, how, flops, nbytes, hbm,
     return row
 
 
+def ulp_gap(got, want, pairs: bool = False) -> tuple[float, float]:
+    """(share of elements bit-equal, most units in the last place of the
+    dtype apart) of two tensors of one float dtype, the unit taken at the
+    element's magnitude in ``want``, or with ``pairs`` at the magnitude of
+    its RoPE pair (elements i and i + d/2 of a row: a rotation keeps their
+    norm, where either alone may cancel to near 0)."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} "
+                             f"vs {tuple(want.shape)} {want.dtype}")
+    if not got.numel():
+        return 1.0, 0.0
+    bits = {torch.bfloat16: (torch.int16, 7),
+            torch.float32: (torch.int32, 23)}
+    view, mantissa = bits[got.dtype]
+    equal = got.contiguous().view(view) == want.contiguous().view(view)
+    g, w = got.double(), want.double()
+    mag = w.abs()
+    if pairs:
+        half = w.shape[-1] // 2
+        pair = torch.hypot(w[..., :half], w[..., half:])
+        mag = torch.cat([pair, pair], dim=-1)
+    _, exp = torch.frexp(mag.clamp_min(torch.finfo(got.dtype).tiny))
+    unit = torch.ldexp(torch.ones_like(mag), exp - 1 - mantissa)
+    return (float(equal.double().mean()),
+            float(((g - w).abs() / unit).max()))
+
+
+def norm_inputs(gen, B: int, S: int, Hq: int, Hk: int, d: int, dtype,
+                dev, tables: str = "model", scale_dtype=None,
+                theta: float = 1e6) -> tuple:
+    """q [B, S, Hq, d] and k [B, S, Hk, d] of normal draws in ``dtype``,
+    scales [d] around 1 in ``scale_dtype`` (float32 by default), and the
+    model's RoPE tables at positions 0..S-1, laid out as ``tables`` says
+    (NORM_ROPE_CASES)."""
+    import torch
+    from repro_torch.models.common import rope_tables
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    q, k = rnd(B, S, Hq, d).to(dtype), rnd(B, S, Hk, d).to(dtype)
+    sd = scale_dtype or torch.float32
+    qs, ks = (1 + 0.5 * rnd(d)).to(sd), (1 + 0.5 * rnd(d)).to(sd)
+    pos = torch.arange(S, device=dev)
+    if tables == "shared":
+        cos, sin = rope_tables(pos, d, theta)
+    else:
+        cos, sin = rope_tables(pos.expand(B, S), d, theta)
+    if tables == "strided":
+        cos, sin = (t.permute(3, 1, 0, 2).contiguous().permute(2, 1, 3, 0)
+                    for t in (cos, sin))
+    return q, k, qs, ks, cos, sin
+
+
+def norm_case_gaps(got, want) -> tuple[float, float]:
+    """The worst ``ulp_gap`` over paired RoPE outputs (q's, k's)."""
+    gaps = [ulp_gap(g, w, pairs=True) for g, w in zip(got, want)]
+    return min(g[0] for g in gaps), max(g[1] for g in gaps)
+
+
+def within_norm_bar(gap, dtype) -> bool:
+    share, units = NORM_BAR[str(dtype).removeprefix("torch.")]
+    return gap[0] >= share and gap[1] <= units
+
+
+def rounded_once_norm_rope(q, k, qs, ks, cos, sin):
+    """The planted control of ``norm_rope``'s check: qk-norm and RoPE in
+    float32 with one rounding at the end, where the plain version (and the
+    kernel) round the normalised value before rotating it."""
+    from repro_torch.kernels.norm import norm_rope_reference
+    q32, k32 = norm_rope_reference(q.float(), k.float(), qs, ks, cos, sin,
+                                   True)
+    return q32.to(q.dtype), k32.to(k.dtype)
+
+
+def short_mean_rms_norm(x, scale, eps: float = 1e-6, offset: float = 0.0):
+    """The planted control of ``rms_norm_rows``' check: the mean square
+    over all but the last 8 columns of the row (one lane's chunk)."""
+    import torch
+    xf = x.float()
+    var = torch.mean(xf[..., :-8] * xf[..., :-8], dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (scale.float() + offset)
+            ).to(x.dtype)
+
+
+def check_norm_cases(dev, dtypes=("float32", "bfloat16")) -> dict:
+    """``norm_rope`` and ``rms_norm_rows`` against their plain versions on
+    NORM_ROPE_CASES and NORM_ROW_CASES in each dtype, within NORM_BAR;
+    each launch counted, each wrapper refusing a gradient-requiring
+    input. In bf16 the planted controls (``rounded_once_norm_rope`` on
+    qwen3's 4k shape, ``short_mean_rms_norm`` at width 1,024) must fail
+    the bar, or it could not see such a fault."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.norm import (norm_rope, norm_rope_reference,
+                                          rms_norm_reference, rms_norm_rows)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    before = launch_counts()
+    worst, controls, bad = {}, {}, []
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        low = [1.0, 0]
+        for B, S, Hq, Hk, d, qk, tables, sd in NORM_ROPE_CASES:
+            args = norm_inputs(gen, B, S, Hq, Hk, d, dtype, dev, tables,
+                               getattr(torch, sd))
+            want = norm_rope_reference(*args, qk)
+            gap = norm_case_gaps(norm_rope(*args, qk), want)
+            low = [min(low[0], gap[0]), max(low[1], gap[1])]
+            if not within_norm_bar(gap, name):
+                bad.append(f"norm_rope {name} {(B, S, Hq, Hk, d, qk, tables, sd)}: "
+                           f"{gap}")
+            if name == "bfloat16" and (B, S) == (8, 4096):
+                controls["norm_rope"] = norm_case_gaps(
+                    rounded_once_norm_rope(*args), want)
+            del args, want
+        for rows, d, offset in NORM_ROW_CASES:
+            x = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+            scale = 1 + 0.5 * torch.randn(d, generator=gen, device=dev)
+            want = rms_norm_reference(x, scale, offset=offset)
+            gap = ulp_gap(rms_norm_rows(x, scale, offset=offset), want)
+            low = [min(low[0], gap[0]), max(low[1], gap[1])]
+            if not within_norm_bar(gap, name):
+                bad.append(f"rms_norm_rows {name} {(rows, d, offset)}: {gap}")
+            if name == "bfloat16" and (rows, d) == (32768, 1024):
+                controls["rms_norm_rows"] = ulp_gap(
+                    short_mean_rms_norm(x, scale), want)
+            del x, want
+        worst[name] = {"min_equal": low[0], "max_ulps": low[1]}
+    torch.cuda.synchronize()
+    for kernel, gap in controls.items():
+        if within_norm_bar(gap, "bfloat16"):
+            bad.append(f"{kernel}'s planted control is within the bar: "
+                       f"{gap}")
+    x = torch.randn((1, 4, 2, 128), device=dev, requires_grad=True)
+    tables = norm_inputs(gen, 1, 4, 2, 2, 128, torch.float32, dev)[4:]
+    for call in (lambda: rms_norm_rows(x, torch.ones(128, device=dev)),
+                 lambda: norm_rope(x, x, None, None, *tables, False)):
+        try:
+            call()
+            bad.append("a wrapper took a gradient-requiring input")
+        except ValueError:
+            pass
+    launched = _launch_delta(launch_counts(), before)
+    n_rope = len(NORM_ROPE_CASES) * len(dtypes)
+    n_rows = len(NORM_ROW_CASES) * len(dtypes)
+    if (launched.get("norm_rope", 0), launched.get("rms_norm_rows", 0)) != (
+            n_rope, n_rows):
+        bad.append(f"launches {launched}, want {n_rope} norm_rope and "
+                   f"{n_rows} rms_norm_rows")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"cases": n_rope + n_rows, **worst, "controls": controls,
+            "bar": {name: NORM_BAR[name] for name in dtypes}}
+
+
+def norm_kernel_rows(cfg, prefill: dict, decode: dict, hbm: float,
+                     dev) -> list[dict]:
+    """``norm_rope`` at both cells' shapes (qwen3's heads, B 1 x 32,768
+    and B 8 x 4,096 tokens, bf16, float32 scales and the model's tables)
+    and ``rms_norm_rows`` at their x (32,768 x 1,024), each against its
+    plain version within NORM_BAR and timed beside its bound (bytes: the
+    operands read and the outputs written once), the plain version and
+    ``torch.nn.functional.rms_norm`` (the norm alone; no torch call
+    rotates), which the port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.norm import (norm_rope, norm_rope_reference,
+                                          rms_norm_reference, rms_norm_rows)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    d, Hq, Hk = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
+    rows = []
+
+    def lib_call(fn):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            return fn
+        except (RuntimeError, TypeError) as exc:
+            log(f"F.rms_norm refused ({str(exc)[:120]}): library_ms null")
+            return None
+
+    def row(name, shape, kern, plain, lib, nbytes, gap, how):
+        r = {"name": name, "route": "cuda", "source": NORM_SOURCE,
+             "replaces": "none (XLA fuses the reference's norms and RoPE)",
+             "shape": shape, "launches": {
+                 "prefill": int(prefill["launches"].get(name, 0)),
+                 "decode": int(decode["launches"].get(name, 0))},
+             "min_equal": gap[0], "max_ulps": gap[1],
+             "ms": time_ms(kern, calls=20, reps=7),
+             "device_ms": kernel_device_ms(kern, f"{name}_kernel")[0],
+             "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes",
+             "plain_ms": time_ms(plain, calls=3, reps=3),
+             "library_ms": time_ms(lib, calls=20, reps=7) if lib else None}
+        r["bandwidth_share"] = r["bound_ms"] / r["device_ms"]
+        log(f"kernel {name} [{shape}]: kernel_ms={r['ms']} device_ms="
+            f"{r['device_ms']} bound_ms={r['bound_ms']} (bytes; "
+            f"{r['bandwidth_share']} of it) plain_ms={r['plain_ms']} "
+            f"library_ms={r['library_ms']} ({how}) launches="
+            f"{r['launches']} min_equal={gap[0]} max_ulps={gap[1]}")
+        if not within_norm_bar(gap, "bfloat16"):
+            raise AssertionError(f"{name} [{shape}]: {gap} outside "
+                                 f"{NORM_BAR['bfloat16']}")
+        return r
+
+    for B, S in ((1, 32768), (8, 4096)):
+        args = norm_inputs(gen, B, S, Hq, Hk, d, torch.bfloat16, dev,
+                           theta=cfg.rope_theta)
+        q, k, qs, ks, cos, sin = args
+        gap = norm_case_gaps(norm_rope(*args, True),
+                             norm_rope_reference(*args, True))
+        qsb, ksb = qs.to(q.dtype), ks.to(k.dtype)
+        lib = lib_call(lambda: (F.rms_norm(q, (d,), qsb, 1e-6),
+                                F.rms_norm(k, (d,), ksb, 1e-6)))
+        nbytes = (2 * (q.numel() + k.numel()) * q.element_size()
+                  + 2 * B * S * (d // 2) * 4 + 2 * d * 4)
+        rows.append(row("norm_rope", f"B={B} S={S} H={Hq}/{Hk} d={d} bf16",
+                        lambda: norm_rope(*args, True),
+                        lambda: norm_rope_reference(*args, True), lib,
+                        nbytes, gap, "F.rms_norm of q and k, bf16 scales"))
+        del args, q, k, cos, sin
+    x = torch.randn((32768, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    scale = 1 + 0.5 * torch.randn(cfg.d_model, generator=gen, device=dev)
+    gap = ulp_gap(rms_norm_rows(x, scale), rms_norm_reference(x, scale))
+    sb = scale.to(x.dtype)
+    lib = lib_call(lambda: F.rms_norm(x, (cfg.d_model,), sb, 1e-6))
+    nbytes = 2 * x.numel() * x.element_size() + cfg.d_model * 4
+    rows.append(row("rms_norm_rows", f"32768 x {cfg.d_model} bf16",
+                    lambda: rms_norm_rows(x, scale),
+                    lambda: rms_norm_reference(x, scale), lib, nbytes, gap,
+                    "F.rms_norm, bf16 scale"))
+    return rows
+
+
 def lm_phase(args, hbm: float | None, device) -> list[dict]:
     """The LM serving phase at full width, then gemma2-2b's float32 path
     (``gemma_f32_phase``); returns the attention kernels' rows (none off
@@ -2253,11 +2523,16 @@ def lm_phase(args, hbm: float | None, device) -> list[dict]:
                              f"{decode_attention.copies - copies} cache "
                              f"operands")
     torch.cuda.empty_cache()
-    want = {"flash_attention": L, "decode_attention": L * args.decode_steps}
+    want = {"flash_attention": L, "decode_attention": L * args.decode_steps,
+            "norm_rope": (L, L * args.decode_steps),
+            "rms_norm_rows": (2 * L + 1, (2 * L + 1) * args.decode_steps)}
     got = {"flash_attention": pre["launches"].get("flash_attention", 0),
-           "decode_attention": dec["launches"].get("decode_attention", 0)}
+           "decode_attention": dec["launches"].get("decode_attention", 0),
+           **{k: (pre["launches"].get(k, 0), dec["launches"].get(k, 0))
+              for k in ("norm_rope", "rms_norm_rows")}}
     if got != want:
-        raise AssertionError(f"attention launches {got}, want {want}")
+        raise AssertionError(f"attention and norm launches (prefill, "
+                             f"decode) {got}, want {want}")
     cons = lm_consistency(cfg, params, CONSISTENCY_PROMPT, args.seed, device)
     cons["limit"] = CONSISTENCY_TOL * max(1.0, cons["max_abs_logit"])
     log(f"lm decode vs prefill (bf16): {json.dumps(cons)}")
@@ -2276,6 +2551,11 @@ def lm_phase(args, hbm: float | None, device) -> list[dict]:
         f"rule: {json.dumps(cases)}")
     rows = attention_kernel_rows(cfg, pre, dec, hbm)
     rows += f32_attention_rows(cfg, pre, dec, check["launches"], hbm)
+    cases = check_norm_cases(device)
+    log(f"norm cases within NORM_BAR {NORM_BAR} of the plain versions: "
+        f"{json.dumps(cases)}")
+    rows += norm_kernel_rows(cfg, pre, dec, hbm, device)
+    torch.cuda.empty_cache()
     return rows + gemma_f32_phase(args, hbm, device)
 
 

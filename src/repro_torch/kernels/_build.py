@@ -16,7 +16,8 @@ prefill attention and its backward at every head dim on the tensor cores,
 as bf16 products of three-piece splits, and the split pre-pass),
 ``sparse_kernels.cu``
 (the recsys and GNN kernels, and the bag's backward) and
-``qad_kernels.cu`` (the R-QAD solve behind B&B).
+``qad_kernels.cu`` (the R-QAD solve behind B&B) and ``norm_kernels.cu``
+(RMSNorm, and qk-norm with RoPE, on the LM's no-grad path).
 A file name carries a hash of its source and flags, so an edited source
 is rebuilt and a stale library is never loaded. Nothing here runs when
 the module is imported: the CPU tests import every module of the
@@ -133,6 +134,16 @@ LIBRARIES = {
         # plan: route, kmax, threads, smem bytes
         "qad_solve": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _I, _I],
+    }),
+    "norm": ("norm_kernels.cu", {
+        # q, k, q_scale, k_scale, cos, sin, q_out, k_out, tokens, S, Hq,
+        # Hk, d, dtype, scale dtype, cos strides (batch, position,
+        # column), sin strides, qk_norm, eps
+        "norm_rope": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                      _I, _I, _L, _L, _L, _L, _L, _L, _I, _F],
+        # x, scale, out, rows, d, dtype, scale dtype, warps a row, eps,
+        # offset
+        "rms_norm_rows": [_P, _P, _P, _L, _I, _I, _I, _I, _F, _F],
     }),
 }
 # a kernel's default library: the first that has it (the attention kernels

@@ -21,6 +21,9 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..kernels import norm
+from ..kernels.norm import apply_rope_reference as apply_rope
+
 
 @dataclass(frozen=True)
 class AxisRules:
@@ -64,13 +67,12 @@ def on_mesh(rules) -> bool:
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
              offset: float = 0.0) -> torch.Tensor:
     """RMSNorm in float32, cast back to the input dtype. Gemma uses
-    (1 + scale)."""
-    dtype = x.dtype
-    x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    y = x * torch.rsqrt(var + eps)
-    scale = scale.float()
-    return (y * (scale + offset if offset else scale)).to(dtype)
+    (1 + scale). On the card with no gradient to carry, one launch of
+    :func:`repro_torch.kernels.norm.rms_norm_rows`; else the plain
+    version."""
+    if norm.takes_rows(x, scale):
+        return norm.rms_norm_rows(x, scale, eps, offset)
+    return norm.rms_norm_reference(x, scale, eps, offset)
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
@@ -89,15 +91,6 @@ def rope_tables(positions: torch.Tensor, d: int, theta: float = 10000.0
     angles = positions[..., :, None].float() * freqs      # [..., S, half]
     return (torch.cos(angles)[..., :, None, :],
             torch.sin(angles)[..., :, None, :])
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
-    """x: [..., S, H, D_head] rotated by the tables of :func:`rope_tables`."""
-    half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

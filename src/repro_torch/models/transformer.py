@@ -19,6 +19,11 @@ kernels: prefill through ``flash_attention``, decode through
 [B, S, H, dh] activations and the cache (no copies). The JAX module
 computes the same attention in plain jnp (query-chunked, probabilities
 cast to the value dtype before P·V); the kernels keep P in float32.
+Where no gradient is carried, on the card, a layer's qk-norm and RoPE of
+q and k are one ``norm_rope`` launch and each RMSNorm one
+``rms_norm_rows`` launch (:mod:`repro_torch.kernels.norm`), with the
+plain versions' rounding points; the training route, the CPU and the
+meta device keep the plain versions.
 
 MoE dispatch is the reference's sort-based top-k into a per-group,
 per-expert capacity buffer, in plain torch on both devices (the reference
@@ -99,11 +104,12 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import spans
 from ..device import resolve_device
+from ..kernels import norm
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import FlashAttention, flash_attention
 from ..launch import collectives as col
-from .common import (ACTIVATIONS, apply_rope, dense_init, embed_init,
-                     on_mesh, rms_norm, rope_tables)
+from .common import (ACTIVATIONS, dense_init, embed_init, on_mesh,
+                     rms_norm, rope_tables)
 
 
 # ---------------------------------------------------------------------------
@@ -575,10 +581,12 @@ def _qkv(cfg: LMConfig, lp: dict, h: torch.Tensor, rot: tuple,
         k = (h @ wk).view(B, S, -1, dh)
         v = (h @ wv).view(B, S, -1, dh)
     with spans.span("qk_norm_rope"):
+        qs = ks = None
         if cfg.qk_norm:
-            q = rms_norm(q, _vary(lp["q_norm"], rules))
-            k = rms_norm(k, _vary(lp["k_norm"], rules))
-        return apply_rope(q, *rot), apply_rope(k, *rot), v
+            qs, ks = _vary(lp["q_norm"], rules), _vary(lp["k_norm"], rules)
+        fused = (norm.norm_rope if norm.takes_norm_rope(q, k, qs, ks, *rot)
+                 else norm.norm_rope_reference)
+        return (*fused(q, k, qs, ks, *rot, cfg.qk_norm), v)
 
 
 def _attn_out(cfg: LMConfig, lp: dict, flat: torch.Tensor,

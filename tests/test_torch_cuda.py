@@ -548,3 +548,111 @@ def test_cuda_compressed_psum_on_nccl():
     out = smoke.psum_check(0, torch.device("cuda"))
     assert out["backend"] == "nccl"
     assert out["exact"] and not out["planted_equal"]
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    try:
+        return importlib.import_module("chip_smoke")
+    finally:
+        sys.path.remove(str(ROOT))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_norm_kernels_match_plain_versions(dtype):
+    """``norm_rope`` and ``rms_norm_rows`` against the plain ``rms_norm``
+    and ``apply_rope`` on ``chip_smoke.NORM_ROPE_CASES`` and
+    ``NORM_ROW_CASES`` (qwen3's heads at B 1 x 32,768 and B 8 x 4,096,
+    granite's rope-only d 64, gemma2's d 256, ragged token counts,
+    broadcast and transposed tables, bf16 scales; rows of 1,024, 2,304
+    and 8,192), within ``NORM_BAR``: in bf16 at least 99.9% of the
+    elements bit-equal and none more than 2 ulps apart (at the element's
+    or, after RoPE, its pair's magnitude), in float32 none more than 8.
+    In bf16 the planted controls fail the bar; each wrapper refuses a
+    gradient-requiring input."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    smoke = _chip_smoke()
+    cases = smoke.check_norm_cases(torch.device("cuda"), (dtype,))
+    assert cases[dtype]["min_equal"] >= smoke.NORM_BAR[dtype][0]
+    assert cases[dtype]["max_ulps"] <= smoke.NORM_BAR[dtype][1]
+    if dtype == "bfloat16":
+        assert set(cases["controls"]) == {"norm_rope", "rms_norm_rows"}
+
+
+@pytest.mark.cuda
+def test_cuda_qwen3_prefill_launches_norm_kernels(monkeypatch):
+    """One qwen3-0.6b ``lm_prefill`` (full width and depth, bf16, B 2 x
+    256) launches ``norm_rope`` once a layer (q and k together) and
+    ``rms_norm_rows`` twice a layer and once for the final norm: 28 and
+    57. Its logits agree with the plain route's (both norm kernels turned
+    away) within ``chip_smoke.CONSISTENCY_TOL``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.configs.registry import get_spec
+    from repro_torch.kernels import norm, reset_launch_counts
+    from repro_torch.models.transformer import init_lm_params, lm_prefill
+    smoke = _chip_smoke()
+    cfg = get_spec("qwen3-0.6b").config
+    dev = torch.device("cuda")
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            torch.bfloat16, dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 256), device=dev)
+    reset_launch_counts()
+    got = lm_prefill(cfg, params, tokens)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts.get("norm_rope", 0) == cfg.n_layers == 28
+    assert counts.get("rms_norm_rows", 0) == 2 * cfg.n_layers + 1 == 57
+    monkeypatch.setattr(norm, "takes_rows", lambda *a: False)
+    monkeypatch.setattr(norm, "takes_norm_rope", lambda *a: False)
+    reset_launch_counts()
+    want = lm_prefill(cfg, params, tokens)
+    torch.cuda.synchronize()
+    assert "norm_rope" not in launch_counts()
+    assert "rms_norm_rows" not in launch_counts()
+    scale = max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= \
+        smoke.CONSISTENCY_TOL * scale
+
+
+@pytest.mark.cuda
+def test_cuda_gradient_inputs_take_the_plain_norms():
+    """A gradient-requiring input under autograd keeps the plain version
+    (no launch, its gradient flows), and the wrapper refuses it; under
+    ``torch.no_grad`` the same call launches ``rms_norm_rows``. A 2-layer
+    qwen3-0.6b ``lm_loss`` with its backward launches neither kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import dataclasses
+
+    from repro_torch.configs.registry import get_spec
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.norm import rms_norm_rows
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer import init_lm_params, lm_loss
+    dev = torch.device("cuda")
+    x = torch.randn((4, 1024), device=dev, requires_grad=True)
+    scale = torch.ones(1024, device=dev, requires_grad=True)
+    reset_launch_counts()
+    rms_norm(x, scale).sum().backward()
+    assert x.grad is not None and scale.grad is not None
+    assert "rms_norm_rows" not in launch_counts()
+    with pytest.raises(ValueError, match="gradient"):
+        rms_norm_rows(x, scale)
+    with torch.no_grad():
+        rms_norm(x, scale)
+    assert launch_counts().get("rms_norm_rows", 0) == 1
+    cfg = dataclasses.replace(get_spec("qwen3-0.6b").config, n_layers=2)
+    params = init_lm_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            torch.float32, dev)
+    for leaf in [params["final_norm"], *params["layers"].values()]:
+        leaf.requires_grad_()
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=dev)
+    reset_launch_counts()
+    loss, _ = lm_loss(cfg, params, tokens)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert "norm_rope" not in launch_counts()
+    assert "rms_norm_rows" not in launch_counts()
